@@ -1,0 +1,514 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`foremast_tpu_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero:
+  1. device line (name, nvidia-smi name and power limit), kernel build;
+  2. every kernel against its plain PyTorch version on the same CUDA
+     tensors, at edge shapes (B in {1, 3, 37}, Th in {0, 5, 131, 10080},
+     Tc in {1, 30, 64}, masked and near-empty rows, every bound selector,
+     lens with 0), verdicts and flags exact, bands within tolerance;
+  3. the judge path: HealthJudge.judge on the reference demo's golden
+     traces and on a 4,096-task fleet with 7-day histories, checked
+     against the same judge on the CPU for a slice of the fleet;
+  4. the steady-state programs at full size (B=32768, Th=10080, Tc=30):
+     score (ma_judgment), score_bf16_delta (ma_judgment_bf16_delta) and
+     fit_forecast (masked_stats), each checked against the CPU, then timed
+     with CUDA events, kernel by kernel beside its bound, its plain
+     version and, where one exists, one PyTorch library call.
+Launch counts are zeroed just before phase 3 and read after phase 4's
+checked calls, so they count the main path's launches only.
+
+The last lines are the kernels line, the JSON kernel table, and
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Published H100 memory rates, bytes/s, by a substring of the device name
+# (NVIDIA data sheets); the f32 rate outside the tensor cores is 67 TFLOP/s.
+PEAK_BYTES = {"HBM3": 3.35e12, "SXM": 3.35e12, "NVL": 3.9e12, "PCIe": 2.0e12}
+PEAK_F32_FLOPS = 67e12
+
+FLEET = 4096  # one fit chunk of the JAX judge: a fleet-cold tick's batch
+FULL_B, FULL_TH, FULL_TC = 32768, 10080, 30  # bench.py's steady-state shape
+
+KERNEL_FILES = {
+    "ma_judgment": ("foremast_tpu_torch/ops/csrc/ma_judgment.cu", "foremast_tpu/ops/kernels.py:322"),
+    "ma_judgment_bf16_delta": (
+        "foremast_tpu_torch/ops/csrc/ma_judgment_bf16_delta.cu",
+        "foremast_tpu/ops/kernels.py:264",
+    ),
+    "masked_stats": ("foremast_tpu_torch/ops/csrc/masked_stats.cu", "foremast_tpu/ops/kernels.py:126"),
+}
+TOL = {"ma_judgment": 1e-4, "ma_judgment_bf16_delta": 1e-5, "masked_stats": 1e-4}
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def close_err(got, want, tol: float) -> float:
+    """Max |got - want|; fails unless |got - want| <= tol * (1 + |want|)."""
+    import torch
+
+    diff = (got.double() - want.double()).abs()
+    check(bool(torch.isfinite(got).all()), "non-finite kernel output")
+    check(bool((diff <= tol * (1.0 + want.double().abs())).all()), f"max error {diff.max().item()} over tol {tol}")
+    return float(diff.max().item()) if diff.numel() else 0.0
+
+
+def cuda_ms(fn, iters: int = 10, repeats: int = 5) -> float:
+    """Median over `repeats` of the mean device time of `iters` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions at edge shapes
+# ---------------------------------------------------------------------------
+
+
+def edge_inputs(rng, b: int, th: int, tc: int, dev):
+    import torch
+
+    hv = rng.normal(2.0, 1.5, (b, th)).astype(np.float32)
+    hm = rng.random((b, th)) > 0.2
+    lens = rng.integers(0, th + 1, b).astype(np.int32)
+    for r in range(b):
+        if r % 4 == 1:  # fully masked history
+            hm[r] = False
+            lens[r] = 0
+        elif r % 4 == 2:  # near-empty history
+            hm[r] = False
+            hm[r, : min(5, th)] = True
+            lens[r] = min(5, th)
+    delta = rng.normal(0.0, 0.5, (b, th)).astype(np.float32)
+    delta[np.arange(th)[None, :] >= lens[:, None]] = 0.0
+    anchor = rng.normal(2.0, 0.5, b).astype(np.float32)
+    cv = rng.normal(2.0, 1.5, (b, tc)).astype(np.float32)
+    cv[:, tc // 2] += np.where(np.arange(b) % 2 == 0, 40.0, -40.0)  # breaches
+    cm = rng.random((b, tc)) > 0.1
+    cm[3::5] = False  # no current data
+    thr = rng.uniform(1.0, 3.0, b).astype(np.float32)
+    bound = (np.arange(b) % 3 + 1).astype(np.int32)
+    mlb = (np.arange(b) % 2).astype(np.float32)
+    mnp = np.where(np.arange(b) % 7 == 6, 3, 10).astype(np.int32)
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    return dict(
+        hv=t(hv), hm=t(hm), anchor=t(anchor), delta=t(delta).to(torch.bfloat16),
+        lens=t(lens), cv=t(cv), cm=t(cm), thr=t(thr), bound=t(bound), mlb=t(mlb), mnp=t(mnp),
+    )
+
+
+def compare_judgment(name, got, want) -> float:
+    import torch
+
+    check(torch.equal(got[0], want[0]), f"{name}: verdicts differ")
+    check(torch.equal(got[1], want[1]), f"{name}: anomaly flags differ")
+    return max(close_err(got[2], want[2], TOL[name]), close_err(got[3], want[3], TOL[name]))
+
+
+def phase_kernels_vs_plain(dev) -> dict:
+    import torch
+
+    from foremast_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(2024)
+    worst = {name: 0.0 for name in KERNEL_FILES}
+    cases = [(b, th, tc) for b in (1, 3, 37) for th in (0, 5, 131, 10080) for tc in (1, 30, 64)]
+    for b, th, tc in cases:
+        x = edge_inputs(rng, b, th, tc, dev)
+        tail = (x["cv"], x["cm"], x["thr"], x["bound"], x["mlb"], x["mnp"])
+        worst["ma_judgment"] = max(
+            worst["ma_judgment"],
+            compare_judgment(
+                "ma_judgment",
+                K.ma_judgment(x["hv"], x["hm"], *tail),
+                K._ma_judgment_plain(x["hv"], x["hm"], *tail),
+            ),
+        )
+        worst["ma_judgment_bf16_delta"] = max(
+            worst["ma_judgment_bf16_delta"],
+            compare_judgment(
+                "ma_judgment_bf16_delta",
+                K.ma_judgment_bf16_delta(x["anchor"], x["delta"], x["lens"], *tail),
+                K._ma_judgment_bf16_delta_plain(x["anchor"], x["delta"], x["lens"], *tail),
+            ),
+        )
+        got = K.masked_stats(x["hv"], x["hm"])
+        want = K._masked_stats_plain(x["hv"], x["hm"])
+        check(torch.equal(got[0], want[0]), "masked_stats: counts differ")
+        worst["masked_stats"] = max(
+            worst["masked_stats"],
+            close_err(got[1], want[1], TOL["masked_stats"]),
+            close_err(got[2], want[2], TOL["masked_stats"]),
+        )
+    # a contiguous history whose rows are not 16-byte aligned takes the
+    # kernels' scalar path
+    x = edge_inputs(rng, 37, 10080, 30, dev)
+    hv = torch.empty(37 * 10080 + 1, device=dev)[1:].view(37, 10080)
+    hv.copy_(x["hv"])
+    tail = (x["cv"], x["cm"], x["thr"], x["bound"], x["mlb"], x["mnp"])
+    worst["ma_judgment"] = max(
+        worst["ma_judgment"],
+        compare_judgment(
+            "ma_judgment", K.ma_judgment(hv, x["hm"], *tail), K._ma_judgment_plain(hv, x["hm"], *tail)
+        ),
+    )
+    torch.cuda.synchronize()
+    print(f"phase 2: {len(cases) + 1} edge cases per kernel, all kernels equal their plain versions")
+    for name, err in worst.items():
+        print(f"phase 2: {name} worst band/moment error {err:.3e} (tolerance {TOL[name]:g})")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the judge
+# ---------------------------------------------------------------------------
+
+
+def load_trace(name: str):
+    from datetime import datetime, timezone
+
+    ts, vs = [], []
+    with open(os.path.join(ROOT, "tests", "data", name)) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                t, v = line.split(",")
+                dt = datetime.strptime(t, "%Y-%m-%d %H:%M:%S").replace(tzinfo=timezone.utc)
+                ts.append(int(dt.timestamp()))
+                vs.append(float(v))
+    return np.asarray(ts, np.int64), np.asarray(vs, np.float32)
+
+
+def fleet_tasks(n: int, seed: int = 7):
+    from foremast_tpu_torch.engine.judge import MetricTask
+
+    rng = np.random.default_rng(seed)
+    mtypes = ["error5xx", "error4xx", "latency", "cpu", "memory", None, "custom"]
+    t0 = 1_700_000_000
+    ht = t0 + 60 * np.arange(FULL_TH, dtype=np.int64)
+    ct = ht[-1] + 60 * np.arange(1, FULL_TC + 1, dtype=np.int64)
+    bt = ct - 60 * FULL_TC
+    level = rng.uniform(0.2, 5.0, n).astype(np.float32)
+    hist = level[:, None] * (1 + 0.05 * rng.standard_normal((n, FULL_TH))).astype(np.float32)
+    cur = level[:, None] * (1 + 0.05 * rng.standard_normal((n, FULL_TC))).astype(np.float32)
+    base = level[:, None] * (1 + 0.05 * rng.standard_normal((n, FULL_TC))).astype(np.float32)
+    spiked = np.arange(n) % 16 == 5
+    cur[spiked, FULL_TC // 2] += 40.0
+    tasks = []
+    for i in range(n):
+        kw = {}
+        if i % 2 == 0:  # half the fleet are canaries with a baseline
+            kw = dict(base_times=bt, base_values=base[i])
+        tasks.append(
+            MetricTask(
+                job_id=f"job{i}", alias=f"m{i % 5}", metric_type=mtypes[i % len(mtypes)],
+                hist_times=ht, hist_values=hist[i], cur_times=ct, cur_values=cur[i], **kw,
+            )
+        )
+    return tasks, spiked
+
+
+def same_verdicts(got, want, what: str) -> None:
+    check(len(got) == len(want), f"{what}: verdict counts differ")
+    for g, w in zip(got, want):
+        check(g.verdict == w.verdict, f"{what}: verdict of {g.job_id}")
+        check(g.anomaly_pairs == w.anomaly_pairs, f"{what}: anomaly pairs of {g.job_id}")
+        check(g.dist_differs == w.dist_differs, f"{what}: dist_differs of {g.job_id}")
+        check(abs(g.p_value - w.p_value) <= 1e-5 * (1 + abs(w.p_value)), f"{what}: p of {g.job_id}")
+        check(np.allclose(g.upper, w.upper, rtol=1e-4, atol=1e-4), f"{what}: upper of {g.job_id}")
+        check(np.allclose(g.lower, w.lower, rtol=1e-4, atol=1e-4), f"{what}: lower of {g.job_id}")
+
+
+def phase_judge() -> None:
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine.judge import HealthJudge, MetricTask
+    from foremast_tpu_torch.engine.scoring import HEALTHY, UNHEALTHY, UNKNOWN
+    from foremast_tpu_torch.ops import kernels as K
+
+    judge = HealthJudge(BrainConfig())  # the default device: the card
+    check(judge.device.type == "cuda", "HealthJudge() did not pick the card")
+    nt, nv = load_trace("demo_canary_normal.csv")
+    st, sv = load_trace("demo_canary_spike.csv")
+    hist = np.tile(nv, 6)  # the normal trace as a stable history
+    htimes = 1_700_000_000 + 60 * np.arange(len(hist), dtype=np.int64)
+    golden = [
+        MetricTask("g1", "error4xx", "error4xx", htimes, hist, nt, nv),
+        MetricTask("g2", "error4xx", "error4xx", htimes, hist, st, sv),
+    ]
+    before = K.LAUNCHES["ma_judgment"]
+    v_norm, v_spike = judge.judge(golden)
+    check(v_norm.verdict == HEALTHY and v_norm.anomaly_pairs == [], "golden normal trace not healthy")
+    check(v_spike.verdict == UNHEALTHY, "golden spike trace not unhealthy")
+    check(any(abs(v - 40.134) < 1e-3 for v in v_spike.anomaly_pairs[1::2]), "40.134 spike not flagged")
+    print(f"phase 3: golden traces: normal HEALTHY, spike UNHEALTHY, flagged {v_spike.anomaly_pairs[1::2]}")
+
+    tasks, spiked = fleet_tasks(FLEET)
+    walls = []
+    for _ in range(2):  # the first run also warms the allocator
+        t0 = time.perf_counter()
+        verdicts = judge.judge(tasks)
+        walls.append(time.perf_counter() - t0)
+    counts = {k: sum(v.verdict == c for v in verdicts) for k, c in
+              (("healthy", HEALTHY), ("unhealthy", UNHEALTHY), ("unknown", UNKNOWN))}
+    check(all(verdicts[i].verdict == UNHEALTHY for i in np.flatnonzero(spiked)), "a spiked task was not flagged")
+    check(counts["unknown"] == 0, "fleet tasks with full histories judged unknown")
+    check(sum(v.dist_differs for v in verdicts[1::2]) == 0, "baseline-less tasks report differing distributions")
+    n_cmp = 128
+    same_verdicts(verdicts[:n_cmp], HealthJudge(BrainConfig(), device="cpu").judge(tasks[:n_cmp]), "fleet vs CPU")
+    check(K.LAUNCHES["ma_judgment"] > before, "the judge did not launch ma_judgment")
+    print(
+        f"phase 3: fleet of {FLEET} tasks (Th={FULL_TH}, Tc={FULL_TC}, half canaries): {counts}, "
+        f"differs={sum(v.dist_differs for v in verdicts)}; first {n_cmp} equal the CPU judge"
+    )
+    print(
+        f"phase 3: judge wall clock {walls[0]:.3f} s then {walls[1]:.3f} s "
+        f"= {FLEET / walls[1]:.0f} windows/s end to end (host packing + device + decode)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# phase 4: steady state at full size
+# ---------------------------------------------------------------------------
+
+
+def cpu_rows(batch, n: int):
+    """The first n rows of a ScoreBatch, on the CPU."""
+    import dataclasses
+
+    from foremast_tpu_torch.ops.windows import MetricWindows
+
+    def cut(x):
+        return None if x is None else x[:n].cpu()
+
+    def win(w):
+        return MetricWindows(values=cut(w.values), mask=cut(w.mask), times=cut(w.times))
+
+    return dataclasses.replace(
+        batch,
+        historical=win(batch.historical), current=win(batch.current), baseline=win(batch.baseline),
+        threshold=cut(batch.threshold), bound=cut(batch.bound),
+        min_lower_bound=cut(batch.min_lower_bound), min_points=cut(batch.min_points),
+    )
+
+
+def same_result(got, want, tol: float, what: str) -> None:
+    import torch
+
+    n = want.verdict.shape[0]
+    check(torch.equal(got.verdict[:n].cpu(), want.verdict), f"{what}: verdicts differ from the CPU")
+    check(torch.equal(got.anomalies[:n].cpu(), want.anomalies), f"{what}: flags differ from the CPU")
+    check(torch.equal(got.dist_differs[:n].cpu(), want.dist_differs), f"{what}: differs bits differ")
+    close_err(got.p_value[:n].cpu(), want.p_value, 1e-5)
+    close_err(got.upper[:n].cpu(), want.upper, tol)
+    close_err(got.lower[:n].cpu(), want.lower, tol)
+
+
+def phase_steady_state(dev, peak_bytes: float) -> tuple[dict, dict, dict]:
+    import torch
+
+    from foremast_tpu_torch.config import PAIRWISE_ALL
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.ops import kernels as K
+    from foremast_tpu_torch.parallel.batch import throughput_batch
+
+    B, TH, TC = FULL_B, FULL_TH, FULL_TC
+    t0 = time.perf_counter()
+    batch = throughput_batch(B, TH, TC, device=dev)
+    slim, anchor, delta = scoring.make_bf16_delta_batch(batch)
+    torch.cuda.synchronize()
+    print(f"phase 4: batch B={B} Th={TH} Tc={TC} built in {time.perf_counter() - t0:.1f} s")
+
+    # the main path, once each, checked against the CPU on the first rows
+    n_cmp = 256
+    ref = cpu_rows(batch, n_cmp)
+    res = scoring.score(batch)
+    same_result(res, scoring.score(ref), 1e-4, "score")
+    slim_ref, anchor_ref, delta_ref = scoring.make_bf16_delta_batch(ref)
+    res16 = scoring.score_bf16_delta(slim, anchor, delta)
+    check(torch.equal(delta[:n_cmp].cpu(), delta_ref), "bf16 packing differs from the CPU")
+    same_result(res16, scoring.score_bf16_delta(slim_ref, anchor_ref, delta_ref), 1e-5, "score_bf16_delta")
+    fc = scoring.fit_forecast(batch.historical.values, batch.historical.mask)
+    fc_ref = scoring.fit_forecast(ref.historical.values, ref.historical.mask)
+    close_err(fc.level[:n_cmp].cpu(), fc_ref.level, 1e-4)
+    close_err(fc.scale[:n_cmp].cpu(), fc_ref.scale, 1e-4)
+    torch.cuda.synchronize()
+    print(
+        f"phase 4: score, score_bf16_delta and fit_forecast equal the CPU on the first {n_cmp} rows; "
+        f"verdicts {torch.bincount(res.verdict.long(), minlength=3).tolist()} (healthy/unhealthy/unknown)"
+    )
+    launches = dict(K.LAUNCHES)
+
+    # end-to-end program times
+    for name, fn in (
+        ("score", lambda: scoring.score(batch)),
+        ("score_bf16_delta", lambda: scoring.score_bf16_delta(slim, anchor, delta)),
+        ("fit_forecast", lambda: scoring.fit_forecast(batch.historical.values, batch.historical.mask)),
+    ):
+        ms = cuda_ms(fn)
+        print(f"phase 4: {name}: {ms:.3f} ms per batch = {B / (ms * 1e-3):.0f} windows/s")
+    # the parts of those programs that are not kernels
+    for name, fn in (
+        ("pairwise_decision (rank tests)", lambda: scoring.pairwise_decision(
+            batch.current, batch.baseline, PAIRWISE_ALL, 0.05, 20, 20, 5, 20)),
+        ("valid counts from the mask (score_bf16_delta)", lambda: batch.historical.mask.sum(
+            dim=-1, dtype=torch.int32)),
+    ):
+        print(f"phase 4: {name}: {cuda_ms(fn):.3f} ms per batch")
+
+    # kernel by kernel, on the operands the main path gives each
+    h, m = batch.historical.values, batch.historical.mask
+    c = batch.current
+    tail = (c.values, c.mask, batch.threshold, batch.bound, batch.min_lower_bound, batch.min_points)
+    lens = m.sum(dim=-1, dtype=torch.int32)
+    cur_bytes = B * TC * 5 + B * 16  # current values + mask, four per-row operands
+    out_bytes = B * 4 + B * TC * 9  # verdict, flags, upper, lower
+    work = {
+        "ma_judgment": (
+            lambda: K.ma_judgment(h, m, *tail),
+            lambda: K._ma_judgment_plain(h, m, *tail),
+            None,
+            B * TH * 5 + cur_bytes + out_bytes,
+            B * TH * 5,
+        ),
+        "ma_judgment_bf16_delta": (
+            lambda: K.ma_judgment_bf16_delta(anchor, delta, lens, *tail),
+            lambda: K._ma_judgment_bf16_delta_plain(anchor, delta, lens, *tail),
+            None,
+            B * TH * 2 + B * 8 + cur_bytes + out_bytes,
+            B * TH * 4,
+        ),
+        "masked_stats": (
+            lambda: K.masked_stats(h, m),
+            lambda: K._masked_stats_plain(h, m),
+            lambda: torch.var_mean(h, dim=-1, correction=0),
+            B * TH * 5 + B * 12,
+            B * TH * 5,
+        ),
+    }
+    full_err, timings = {}, {}
+    for name, (kernel, plain, library, nbytes, flops) in work.items():
+        got, want = kernel(), plain()
+        if name == "masked_stats":
+            check(torch.equal(got[0], want[0]), "masked_stats: counts differ at full size")
+            full_err[name] = max(close_err(a, b, TOL[name]) for a, b in zip(got[1:], want[1:]))
+        else:
+            full_err[name] = compare_judgment(name, got, want)
+        del got, want
+        kernel_ms = cuda_ms(kernel, iters=20)
+        plain_ms = cuda_ms(plain, iters=3, repeats=3)
+        library_ms = cuda_ms(library, iters=20) if library else None
+        bound_bytes_ms = nbytes / peak_bytes * 1e3
+        bound_ops_ms = flops / PEAK_F32_FLOPS * 1e3
+        timings[name] = dict(
+            ms=kernel_ms,
+            plain_ms=plain_ms,
+            library_ms=library_ms,
+            bound_ms=max(bound_bytes_ms, bound_ops_ms),
+            bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            bytes=nbytes,
+        )
+        print(
+            f"phase 4: {name}: kernel_ms={kernel_ms:.4f} bound_ms={timings[name]['bound_ms']:.4f} "
+            f"({nbytes / 1e9:.3f} GB at {peak_bytes / 1e12:.2f} TB/s; {timings[name]['bound_by']}) "
+            f"plain_ms={plain_ms:.4f} library_ms={'none' if library_ms is None else f'{library_ms:.4f}'} "
+            f"achieved {nbytes / (kernel_ms * 1e-3) / 1e12:.2f} TB/s, full-size error {full_err[name]:.3e}"
+        )
+    return launches, timings, full_err
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from foremast_tpu_torch.ops import _build
+    from foremast_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    peak_key = next((k for k in PEAK_BYTES if k in name), "HBM3")
+    peak_bytes = PEAK_BYTES[peak_key]
+    print(f"phase 1: device {name}; torch {torch.__version__} cuda {torch.version.cuda}")
+    print(smi)
+    print(f"phase 1: memory peak used for bounds: {peak_bytes / 1e12:.2f} TB/s ({peak_key} part)")
+    build_s = _build.build_all()
+    print(f"phase 1: kernels built in {build_s:.1f} s")
+    for kname in KERNEL_FILES:
+        for line in _build.build_log(kname).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"phase 1: {kname}: {line.strip()}")
+
+    worst = phase_kernels_vs_plain(dev)
+
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    phase_judge()
+    launches, timings, full_err = phase_steady_state(dev, peak_bytes)
+    for kname, n in launches.items():
+        check(n > 0, f"the main path never launched {kname}")
+
+    print("kernels: " + ", ".join(f"{k} launches={launches[k]} phase2=pass" for k in KERNEL_FILES))
+    table = []
+    for kname, (source, replaces) in KERNEL_FILES.items():
+        t = timings[kname]
+        table.append(
+            {
+                "name": kname,
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "launches": launches[kname],
+                "max_abs_err": max(worst[kname], full_err[kname]),
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+            }
+        )
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+"""foremast-tpu's scoring brain on PyTorch and CUDA.
+
+A port of `foremast_tpu` (the JAX reference) for NVIDIA Hopper: the same
+module names and `[B, T]` layouts, with every Pallas kernel of the
+scoring path rewritten as a hand-written CUDA kernel (`ops/csrc/`).
+The package imports torch and numpy only — never JAX and nothing of
+`foremast_tpu`. Entry points run on the CUDA device unless the caller
+passes `device="cpu"`, which runs each kernel's plain PyTorch version.
+
+Layers:
+  config.py   judgment config (env parity with the reference brain)
+  ops/        masked windows, bounds, moving_average_all, rank tests,
+              kernel wrappers + CUDA sources
+  engine/     the scoring programs and the ragged-job judge
+  parallel/   synthetic fixed-shape batches for throughput runs
+  interop.py  JAX-side state (numpy leaves) -> the port's tensors
+"""

@@ -1,0 +1,285 @@
+"""Hand-written CUDA kernels of the scoring hot path, and their plain
+PyTorch versions.
+
+The deployed default `moving_average_all` judgment reads the [B, Th]
+7-day history once for masked moments, then does a tiny [B, Tc] band
+comparison. Each kernel here fuses that whole pass into one launch, one
+thread block per row (sources in `csrc/`, built by `_build.py`):
+
+  * `masked_stats`           — count/mean/std (ddof 0) of a masked [B, T]
+                               batch, two-pass on the row.
+  * `ma_judgment`            — stats -> band (threshold * sigma, lower
+                               floored at min_lower_bound) -> bound-selector
+                               flags -> measurability gate -> verdict.
+  * `ma_judgment_bf16_delta` — the same judgment from the anchor-shifted
+                               bf16-delta history layout, one pass.
+
+A wrapper given CPU tensors runs the plain version beside it; given CUDA
+tensors it launches the kernel on the current stream or raises. Each
+launch adds one to `LAUNCHES[name]`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from foremast_tpu_torch.ops import _build
+
+# Verdict codes — must match engine/scoring.py (HEALTHY/UNHEALTHY/UNKNOWN).
+_HEALTHY, _UNHEALTHY, _UNKNOWN = 0, 1, 2
+
+LAUNCHES = {"masked_stats": 0, "ma_judgment": 0, "ma_judgment_bf16_delta": 0}
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA operands, False for CPU ones; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("kernel operands span several CUDA devices")
+        return True
+    raise ValueError(f"kernel operands must all be on cpu or all on cuda, got {kinds}")
+
+
+def _row(x, b: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """Scalar or [B] per-row operand -> contiguous [B] tensor."""
+    x = torch.as_tensor(x, device=device).to(dtype)
+    if x.ndim == 0:
+        return x.expand(b).contiguous()
+    if x.shape != (b,):
+        raise ValueError(f"per-row operand has shape {tuple(x.shape)}, want ({b},)")
+    return x.contiguous()
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(name: str, *args) -> None:
+    """Call the C entry point `fm_<name>` on the current stream; raise if
+    it returns a CUDA error."""
+    lib = _build.library(name)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, f"fm_{name}")(*args, stream)
+    if err != 0:
+        msg = lib.fm_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+    LAUNCHES[name] += 1
+
+
+def _judgment_plain_tail(n, mean, sigma, cur_values, cur_mask, thr, bnd, mlb, mnp):
+    """Band, flags, gate and verdict from per-row (n, mean, sigma)."""
+    band = thr * sigma
+    up = mean + band
+    lo = torch.maximum(mean - band, mlb)
+    use_up = (bnd == 1) | (bnd == 3)
+    use_lo = (bnd == 2) | (bnd == 3)
+    cur = cur_values
+    flags = cur_mask & (
+        ((cur > up[:, None]) & use_up[:, None]) | ((cur < lo[:, None]) & use_lo[:, None])
+    )
+    ncur = cur_mask.sum(dim=-1)
+    measurable = (n >= mnp) & (ncur > 0)
+    flags = flags & measurable[:, None]
+    any_anom = flags.any(dim=-1)
+    verdict = torch.where(
+        measurable,
+        torch.where(any_anom, _UNHEALTHY, _HEALTHY),
+        _UNKNOWN,
+    ).to(torch.int32)
+    shape = cur.shape
+    return (
+        verdict,
+        flags,
+        up[:, None].expand(shape).contiguous(),
+        lo[:, None].expand(shape).contiguous(),
+    )
+
+
+# ---------------------------------------------------------------------------
+# masked_stats
+# ---------------------------------------------------------------------------
+
+
+def _masked_stats_plain(values: torch.Tensor, mask: torch.Tensor):
+    """Two-pass masked (count, mean, std[ddof=0]) — the kernel's algebra."""
+    m = mask.to(torch.float32)
+    v = torch.where(mask, values, torch.zeros_like(values))
+    cnt = m.sum(dim=-1)
+    c = cnt.clamp_min(1.0)
+    mu = v.sum(dim=-1) / c
+    d = (v - mu[:, None]) * m
+    return cnt, mu, torch.sqrt((d * d).sum(dim=-1) / c)
+
+
+def masked_stats(
+    values: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Masked (count, mean, std[ddof=0]) over the time axis.
+
+    values [B, T] float32, mask [B, T] bool -> three [B] float32 tensors."""
+    if not _on_cuda(values, mask):
+        return _masked_stats_plain(values.float(), mask)
+    b, t = values.shape
+    _check(values, "values", torch.float32, (b, t))
+    _check(mask, "mask", torch.bool, (b, t))
+    cnt, mean, std = (torch.empty(b, dtype=torch.float32, device=values.device) for _ in range(3))
+    _launch(
+        "masked_stats",
+        values.data_ptr(), mask.data_ptr(),
+        cnt.data_ptr(), mean.data_ptr(), std.data_ptr(),
+        b, t,
+    )
+    return cnt, mean, std
+
+
+# ---------------------------------------------------------------------------
+# ma_judgment — the fused default-algorithm judgment from f32 history
+# ---------------------------------------------------------------------------
+
+
+def _ma_judgment_plain(
+    hist_values, hist_mask, cur_values, cur_mask, threshold, bound,
+    min_lower_bound, min_points,
+):
+    b = cur_values.shape[0]
+    dev = cur_values.device
+    cnt, mu, sigma = _masked_stats_plain(hist_values.float(), hist_mask)
+    return _judgment_plain_tail(
+        cnt, mu, sigma, cur_values.float(), cur_mask,
+        _row(threshold, b, torch.float32, dev),
+        _row(bound, b, torch.int32, dev),
+        _row(min_lower_bound, b, torch.float32, dev),
+        _row(min_points, b, torch.float32, dev),
+    )
+
+
+def ma_judgment(
+    hist_values: torch.Tensor,
+    hist_mask: torch.Tensor,
+    cur_values: torch.Tensor,
+    cur_mask: torch.Tensor,
+    threshold,
+    bound,
+    min_lower_bound,
+    min_points,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused moving_average_all judgment.
+
+    hist [B, Th] f32 + bool mask, cur [B, Tc] f32 + bool mask;
+    threshold/bound/min_lower_bound/min_points scalar or [B]. Returns
+    (verdict [B] int32, anomalies [B, Tc] bool, upper [B, Tc],
+    lower [B, Tc])."""
+    if not _on_cuda(hist_values, hist_mask, cur_values, cur_mask):
+        return _ma_judgment_plain(
+            hist_values, hist_mask, cur_values, cur_mask, threshold, bound,
+            min_lower_bound, min_points,
+        )
+    b, th = hist_values.shape
+    tc = cur_values.shape[1]
+    dev = cur_values.device
+    _check(hist_values, "hist_values", torch.float32, (b, th))
+    _check(hist_mask, "hist_mask", torch.bool, (b, th))
+    _check(cur_values, "cur_values", torch.float32, (b, tc))
+    _check(cur_mask, "cur_mask", torch.bool, (b, tc))
+    thr = _row(threshold, b, torch.float32, dev)
+    bnd = _row(bound, b, torch.int32, dev)
+    mlb = _row(min_lower_bound, b, torch.float32, dev)
+    mnp = _row(min_points, b, torch.float32, dev)
+    verdict = torch.empty(b, dtype=torch.int32, device=dev)
+    anom = torch.empty((b, tc), dtype=torch.bool, device=dev)
+    upper = torch.empty((b, tc), dtype=torch.float32, device=dev)
+    lower = torch.empty((b, tc), dtype=torch.float32, device=dev)
+    _launch(
+        "ma_judgment",
+        hist_values.data_ptr(), hist_mask.data_ptr(),
+        cur_values.data_ptr(), cur_mask.data_ptr(),
+        thr.data_ptr(), bnd.data_ptr(), mlb.data_ptr(), mnp.data_ptr(),
+        verdict.data_ptr(), anom.data_ptr(), upper.data_ptr(), lower.data_ptr(),
+        b, th, tc,
+    )
+    return verdict, anom, upper, lower
+
+
+# ---------------------------------------------------------------------------
+# ma_judgment_bf16_delta — the same judgment from the bf16-delta layout
+# ---------------------------------------------------------------------------
+
+
+def _ma_judgment_bf16_delta_plain(
+    anchor, delta, lens, cur_values, cur_mask, threshold, bound,
+    min_lower_bound, min_points,
+):
+    b = cur_values.shape[0]
+    dev = cur_values.device
+    d = delta.float()
+    n = lens.to(torch.float32)
+    c = n.clamp_min(1.0)
+    mean_d = d.sum(dim=-1) / c
+    s2 = (d * d).sum(dim=-1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    mean = torch.where(n > 0, anchor.float() + mean_d, zero)
+    var = torch.where(n > 0, (s2 / c - mean_d * mean_d).clamp_min(0.0), zero)
+    return _judgment_plain_tail(
+        n, mean, torch.sqrt(var), cur_values.float(), cur_mask,
+        _row(threshold, b, torch.float32, dev),
+        _row(bound, b, torch.int32, dev),
+        _row(min_lower_bound, b, torch.float32, dev),
+        _row(min_points, b, torch.float32, dev),
+    )
+
+
+def ma_judgment_bf16_delta(
+    anchor: torch.Tensor,
+    delta: torch.Tensor,
+    lens: torch.Tensor,
+    cur_values: torch.Tensor,
+    cur_mask: torch.Tensor,
+    threshold,
+    bound,
+    min_lower_bound,
+    min_points,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ma_judgment` on the bf16-delta history layout.
+
+    anchor [B] f32, delta [B, Th] bf16 (anchor-shifted, exact zeros in
+    invalid slots), lens [B] int32 valid counts: mean = anchor + E[d],
+    var = max(E[d^2] - E[d]^2, 0), accumulated in f32 off 2 B/point
+    reads. Same outputs as `ma_judgment`."""
+    if not _on_cuda(anchor, delta, lens, cur_values, cur_mask):
+        return _ma_judgment_bf16_delta_plain(
+            anchor, delta, lens, cur_values, cur_mask, threshold, bound,
+            min_lower_bound, min_points,
+        )
+    b, th = delta.shape
+    tc = cur_values.shape[1]
+    dev = cur_values.device
+    _check(anchor, "anchor", torch.float32, (b,))
+    _check(delta, "delta", torch.bfloat16, (b, th))
+    _check(lens, "lens", torch.int32, (b,))
+    _check(cur_values, "cur_values", torch.float32, (b, tc))
+    _check(cur_mask, "cur_mask", torch.bool, (b, tc))
+    thr = _row(threshold, b, torch.float32, dev)
+    bnd = _row(bound, b, torch.int32, dev)
+    mlb = _row(min_lower_bound, b, torch.float32, dev)
+    mnp = _row(min_points, b, torch.float32, dev)
+    verdict = torch.empty(b, dtype=torch.int32, device=dev)
+    anom = torch.empty((b, tc), dtype=torch.bool, device=dev)
+    upper = torch.empty((b, tc), dtype=torch.float32, device=dev)
+    lower = torch.empty((b, tc), dtype=torch.float32, device=dev)
+    _launch(
+        "ma_judgment_bf16_delta",
+        anchor.data_ptr(), delta.data_ptr(), lens.data_ptr(),
+        cur_values.data_ptr(), cur_mask.data_ptr(),
+        thr.data_ptr(), bnd.data_ptr(), mlb.data_ptr(), mnp.data_ptr(),
+        verdict.data_ptr(), anom.data_ptr(), upper.data_ptr(), lower.data_ptr(),
+        b, th, tc,
+    )
+    return verdict, anom, upper, lower
