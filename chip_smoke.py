@@ -16,9 +16,19 @@ Phases; any failure exits non-zero:
      score (ma_judgment), score_bf16_delta (ma_judgment_bf16_delta) and
      fit_forecast (masked_stats), each checked against the CPU, then timed
      with CUDA events, kernel by kernel beside its bound, its plain
-     version and, where one exists, one PyTorch library call.
-Launch counts are zeroed just before phase 3 and read after phase 4's
-checked calls, so they count the main path's launches only.
+     version and, where one exists, one PyTorch library call;
+  5. the deployed fit-cache tick on a 16,384-task fleet (band_mode
+     "last"): (a) a cold object tick (bf16-delta fits in four chunks,
+     fit cache, state arena, score_from_arena), (b) a warm object tick
+     (no fit, no scatter), (c) the worker's two columnar buckets and an
+     async dispatch waited on a second thread, (d) the f32 cold fit of
+     one chunk on a fresh judge (masked_stats); verdicts equal across
+     (a)-(d), the first rows and every arena counter equal to a CPU
+     judge run the same way; wall clock of each tick, and
+     score_from_arena timed alone at B=32768 beside its bound.
+Launch counts are zeroed just before each main path (phases 3-4, then
+phase 5) and read just after its checked calls, so they count the main
+paths' launches only.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -43,6 +53,8 @@ PEAK_BYTES = {"HBM3": 3.35e12, "SXM": 3.35e12, "NVL": 3.9e12, "PCIe": 2.0e12}
 PEAK_F32_FLOPS = 67e12
 
 FLEET = 4096  # one fit chunk of the JAX judge: a fleet-cold tick's batch
+FIT_FLEET = 16384  # phase 5: four fit chunks
+BUSY_CYCLES = 200_000_000  # ~0.1 s of the card's clock ahead of an async dispatch
 FULL_B, FULL_TH, FULL_TC = 32768, 10080, 30  # bench.py's steady-state shape
 
 KERNEL_FILES = {
@@ -413,7 +425,7 @@ def phase_steady_state(dev, peak_bytes: float) -> tuple[dict, dict, dict]:
         "masked_stats": (
             lambda: K.masked_stats(h, m),
             lambda: K._masked_stats_plain(h, m),
-            lambda: torch.var_mean(h, dim=-1, correction=0),
+            None,  # no single PyTorch call computes masked moments
             B * TH * 5 + B * 12,
             B * TH * 5,
         ),
@@ -446,7 +458,342 @@ def phase_steady_state(dev, peak_bytes: float) -> tuple[dict, dict, dict]:
             f"plain_ms={plain_ms:.4f} library_ms={'none' if library_ms is None else f'{library_ms:.4f}'} "
             f"achieved {nbytes / (kernel_ms * 1e-3) / 1e12:.2f} TB/s, full-size error {full_err[name]:.3e}"
         )
+    # for reference only: the nearest library call ignores the mask, so it
+    # is another function (4 B a point read where masked_stats reads 5)
+    print(f"phase 4: reference, not the same function: torch.var_mean of the history without its mask "
+          f"{cuda_ms(lambda: torch.var_mean(h, dim=-1, correction=0), iters=20):.4f} ms")
     return launches, timings, full_err
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the deployed fit-cache tick (cold fit -> arena -> columnar re-check)
+# ---------------------------------------------------------------------------
+
+
+def fit_cache_fleet(n: int, seed: int = 11):
+    """`n` tasks with 7-day histories, fit keys, half canaries, every 16th
+    spiked. Histories lie on a 1/64 grid within a few units of their
+    first point, so every bf16 delta and both moment sums are exact in
+    any order: the bf16 and f32 cold fits then agree to f32 rounding of
+    one division and one square root, and no flag sits on a band edge by
+    accident of summation order. One times array is shared by all."""
+    from foremast_tpu_torch.engine.judge import MetricTask
+
+    rng = np.random.default_rng(seed)
+    mtypes = ["error5xx", "error4xx", "latency", "cpu", "memory", None, "custom"]
+    t0 = 1_700_000_000
+    ht = t0 + 60 * np.arange(FULL_TH, dtype=np.int64)
+    ct = ht[-1] + 60 * np.arange(1, FULL_TC + 1, dtype=np.int64)
+    bt = ct - 60 * FULL_TC
+    level = rng.uniform(0.5, 4.0, n).astype(np.float32)
+    hist = np.empty((n, FULL_TH), np.float32)
+    for c0 in range(0, n, 4096):  # in slices: a float64 [n, Th] would be 1.3 GB
+        sl = slice(c0, c0 + 4096)
+        noise = rng.standard_normal((hist[sl].shape[0], FULL_TH), dtype=np.float32)
+        hist[sl] = np.round(64 * level[sl, None] * (1 + 0.05 * noise)) / 64
+    cur = level[:, None] * (1 + 0.05 * rng.standard_normal((n, FULL_TC))).astype(np.float32)
+    base = level[:, None] * (1 + 0.05 * rng.standard_normal((n, FULL_TC))).astype(np.float32)
+    spiked = np.arange(n) % 16 == 5
+    cur[spiked, FULL_TC // 2] += 40.0
+    tasks = []
+    for i in range(n):
+        kw = dict(base_times=bt, base_values=base[i]) if i % 2 == 0 else {}
+        tasks.append(
+            MetricTask(
+                job_id=f"job{i}", alias=f"m{i % 5}", metric_type=mtypes[i % len(mtypes)],
+                hist_times=ht, hist_values=hist[i], cur_times=ct, cur_values=cur[i],
+                fit_key=f"app{i}|m{i % 5}|{int(ht[-1])}", **kw,
+            )
+        )
+    return tasks, spiked, cur, base
+
+
+def columnar_inputs(judge, tasks, cur, base, canary: bool):
+    """One columnar bucket packed as the worker packs it: keys and entries
+    from `fit_cache.peek`, nidx = len - 1, per-row thr/bound/mlb from the
+    metric-type table; the canary bucket with its baseline pair."""
+    from foremast_tpu_torch.engine.judge import bucket_length
+
+    cfg = judge.config
+    idx = np.flatnonzero([(t.base_values is not None) == canary for t in tasks])
+    keys = [(cfg.algorithm, cfg.season_steps, tasks[i].fit_key) for i in idx]
+    entries = [judge.fit_cache.peek(k) for k in keys]
+    tc = bucket_length(FULL_TC)
+    values = np.zeros((len(idx), tc), np.float32)
+    mask = np.zeros((len(idx), tc), bool)
+    values[:, :FULL_TC] = cur[idx]
+    mask[:, :FULL_TC] = True
+    nidx = np.full(len(idx), FULL_TC - 1, np.int32)
+    thr, bnd, mlb = cfg.anomaly.gather([tasks[i].metric_type for i in idx])
+    kw = {}
+    if canary:
+        kw["base_values"] = np.zeros_like(values)
+        kw["base_values"][:, :FULL_TC] = base[idx]
+        kw["base_mask"] = mask.copy()
+    return idx, (values, mask, keys, entries, nidx, thr, bnd, mlb), kw
+
+
+def flag_cols(verdict, cur_times) -> np.ndarray:
+    """Flagged current-window positions of an object-path verdict."""
+    return np.searchsorted(cur_times, np.asarray(verdict.anomaly_pairs[0::2], np.int64))
+
+
+def same_object_ticks(got, want, n: int, tol: float, what: str) -> None:
+    for g, w in zip(got[:n], want[:n]):
+        check(g.verdict == w.verdict, f"{what}: verdict of {g.job_id} differs from the CPU judge")
+        check(g.anomaly_pairs == w.anomaly_pairs, f"{what}: anomaly pairs of {g.job_id}")
+        check(g.dist_differs == w.dist_differs, f"{what}: dist_differs of {g.job_id}")
+        check(abs(g.p_value - w.p_value) <= 1e-5 * (1 + abs(w.p_value)), f"{what}: p of {g.job_id}")
+        check(len(g.upper) == len(w.upper) == 1, f"{what}: band_mode='last' band length")
+        check(np.allclose(g.upper, w.upper, rtol=tol, atol=tol), f"{what}: upper of {g.job_id}")
+        check(np.allclose(g.lower, w.lower, rtol=tol, atol=tol), f"{what}: lower of {g.job_id}")
+
+
+def run_fit_cache_ticks(judge, tasks, cur, base, n_f32: int) -> dict:
+    """Ticks (a) cold, (b) warm object, (c) columnar (both buckets, then an
+    async dispatch waited on a second thread) on `judge`, then (d) the
+    f32 cold fit on a fresh judge over the first `n_f32` tasks. Returns
+    results, counters and host-clock seconds (after a device sync)."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.engine.judge import HealthJudge
+    from foremast_tpu_torch.models.cache import ModelCache
+
+    cuda = judge.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out = {"counters": {}, "seconds": {}}
+
+    def tick(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["counters"][name] = judge.device_state_counters()
+        return res
+
+    out["a"] = tick("a", lambda: judge.judge(tasks))
+    out["cached_a"] = len(judge.fit_cache)
+    version = judge.fit_cache.version  # every fit is put in the cache
+    warm = [dataclasses.replace(t, job_id=t.job_id + "-recheck") for t in tasks]
+    out["b"] = tick("b", lambda: judge.judge(warm))
+    out["fitted_b"] = judge.fit_cache.version != version
+    buckets = [columnar_inputs(judge, tasks, cur, base, canary) for canary in (False, True)]
+    out["c"] = tick("c", lambda: [(idx, judge.judge_columnar(*args, **kw)) for idx, args, kw in buckets])
+
+    idx, args, kw = buckets[0]
+    sync()
+    if cuda:
+        # keep the stream busy first: a hidden synchronization inside the
+        # dispatch would make it wait out the busy kernel
+        busy = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        busy[0].record()
+        torch.cuda._sleep(BUSY_CYCLES)
+        busy[1].record()
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")  # any synchronizing torch call raises
+    try:
+        pending = judge.judge_columnar_async(*args, **kw)
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+    out["dispatch_s"] = time.perf_counter() - t0
+    out["done_at_return"] = pending.dev.event.query() if cuda else True
+    box = []
+    waiter = threading.Thread(target=lambda: box.append(pending.wait()))
+    waiter.start()
+    waiter.join(timeout=120)
+    out["async_s"] = time.perf_counter() - t0
+    check(not waiter.is_alive() and len(box) == 1, "ColumnarPending.wait() on a second thread did not finish")
+    out["c_async"] = (idx, box[0])
+    out["busy_ms"] = busy[0].elapsed_time(busy[1]) if cuda else 0.0
+    out["counters"]["c_async"] = judge.device_state_counters()
+
+    scoring.set_bf16_delta(False)
+    try:
+        fresh = HealthJudge(judge.config, device=judge.device)
+        fresh.fit_cache = ModelCache(4 * n_f32)
+        fresh.band_mode = "last"
+        sync()
+        t0 = time.perf_counter()
+        out["d"] = fresh.judge(tasks[:n_f32])
+        sync()
+        out["seconds"]["d"] = time.perf_counter() - t0
+        out["counters"]["d"] = fresh.device_state_counters()
+    finally:
+        scoring.set_bf16_delta(None)
+    return out
+
+
+def phase_fit_cache(dev, peak_bytes: float) -> dict:
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.engine.judge import (
+        _FIT_CHUNK,
+        HealthJudge,
+        _fetch,
+        _pack_hist_bf16_host,
+        bucket_length,
+    )
+    from foremast_tpu_torch.models.cache import ModelCache
+    from foremast_tpu_torch.ops.windows import MetricWindows, to_device
+
+    n = FIT_FLEET
+    t0 = time.perf_counter()
+    tasks, spiked, cur, base = fit_cache_fleet(n)
+    print(f"phase 5: fleet of {n} tasks (Th={FULL_TH}, Tc={FULL_TC}, half canaries) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def new_judge(device):
+        j = HealthJudge(BrainConfig(), device=device)
+        j.fit_cache = ModelCache(4 * n)
+        j.band_mode = "last"
+        return j
+
+    judge = new_judge(dev)
+    check(judge.device == dev, "the fit-cache judge is not on the card")
+    gpu = run_fit_cache_ticks(judge, tasks, cur, base, _FIT_CHUNK)
+    cpu = run_fit_cache_ticks(new_judge("cpu"), tasks, cur, base, _FIT_CHUNK)
+
+    # (a)-(d) on the card: counts of fits and scatters, then verdicts
+    ca, cb, cc = (gpu["counters"][k] for k in ("a", "b", "c"))
+    n_pad_keys = 1 if bucket_length(n) > n else 0  # pad rows share the one "__pad__" key
+    check(gpu["cached_a"] == n + n_pad_keys, f"cold tick cached {gpu['cached_a']} fits, want {n}")
+    check(ca["misses"] == n + n_pad_keys, f"cold tick scattered {ca['misses']} rows")
+    check(not gpu["fitted_b"], "the warm object tick fitted rows")
+    check(cb["misses"] == ca["misses"], "warm object tick scattered rows")
+    check(cb["hits"] - ca["hits"] >= n, "warm object tick did not gather every row")
+    check(cc["misses"] == cb["misses"] and cc["evictions"] == 0, "columnar ticks scattered rows")
+    check(gpu["counters"]["d"]["misses"] >= _FIT_CHUNK, "the f32 cold fit scattered no rows")
+    for k in ("a", "b", "c", "c_async", "d"):
+        check(gpu["counters"][k] == cpu["counters"][k],
+              f"({k}) arena counters {gpu['counters'][k]} differ from the CPU judge's {cpu['counters'][k]}")
+
+    ct = tasks[0].cur_times
+    verdict_a = np.asarray([v.verdict for v in gpu["a"]])
+    flags_a = [flag_cols(v, ct) for v in gpu["a"]]
+    check(all(verdict_a[spiked] == scoring.UNHEALTHY), "a spiked task was not judged UNHEALTHY")
+    for name in ("b", "d"):
+        got = gpu[name]
+        check([v.verdict for v in got] == verdict_a[: len(got)].tolist(), f"({name}) verdicts differ from (a)")
+        check(all(np.array_equal(flag_cols(v, ct), f) for v, f in zip(got, flags_a)), f"({name}) flags differ")
+    for idx, (v8, anoms, ub, lb, ps, differs) in gpu["c"] + [gpu["c_async"]]:
+        check(np.array_equal(v8, verdict_a[idx]), "(c) columnar verdicts differ from (a)")
+        for row, i in zip(anoms, idx):
+            check(np.array_equal(np.flatnonzero(row), flags_a[i]), "(c) columnar flags differ from (a)")
+        check(np.allclose(ub, [gpu["a"][i].upper[-1] for i in idx], rtol=1e-6, atol=1e-6),
+              "(c) columnar bands differ from (a)")
+
+    # the first rows against the CPU judge run the same way
+    n_cmp = 128
+    for name, tol in (("a", 1e-5), ("b", 1e-5), ("d", 1e-4)):
+        same_object_ticks(gpu[name], cpu[name], n_cmp, tol, f"({name})")
+    for (idx, g), (_, w) in zip(gpu["c"], cpu["c"]):
+        check(np.array_equal(g[0][:n_cmp], w[0][:n_cmp]) and np.array_equal(g[1][:n_cmp], w[1][:n_cmp]),
+              "(c) columnar verdicts or flags differ from the CPU judge")
+        check(np.allclose(g[2][:n_cmp], w[2][:n_cmp], rtol=1e-5, atol=1e-5), "(c) bands differ from the CPU")
+    agree = sum(g.verdict == w.verdict and g.anomaly_pairs == w.anomaly_pairs for g, w in zip(gpu["a"], cpu["a"]))
+    counts = np.bincount(verdict_a, minlength=3).tolist()
+    print(f"phase 5: verdicts {counts} (healthy/unhealthy/unknown) equal across (a) cold, (b) warm, "
+          f"(c) columnar and (d) f32 cold ({_FIT_CHUNK} rows); all {int(spiked.sum())} spiked tasks UNHEALTHY; "
+          f"first {n_cmp} rows equal the CPU judge ({agree} of {n} cold rows equal it); "
+          f"arena counters equal the CPU judge's at every tick")
+
+    # wall clock of each tick on the card, and the cold tick's uploads
+    th = bucket_length(FULL_TH)
+    tc = bucket_length(FULL_TC)
+    chunks = [min(_FIT_CHUNK, n - c0) for c0 in range(0, n, _FIT_CHUNK)]
+    hist_bytes = sum(bucket_length(c) * (th * 2 + 8) for c in chunks)
+    rows_b = bucket_length(n)
+    other_bytes = rows_b * (2 * tc * 5 + 16) + rows_b * (7 * 4 + 8)  # cur+base, operands, scatter, rows
+    s = gpu["seconds"]
+    for name, what, rows in (
+        ("a", f"cold object tick (bf16 fit in {len(chunks)} chunks, scatter, judge)", n),
+        ("b", "warm object tick (0 fits, 0 scatters)", n),
+        ("c", "columnar warm ticks (baseline-less + canary buckets)", n),
+        ("d", f"f32 cold object tick ({_FIT_CHUNK} rows, masked_stats)", _FIT_CHUNK),
+    ):
+        print(f"phase 5: ({name}) {what}: {s[name]:.3f} s = {rows / s[name]:.0f} windows/s "
+              f"(CPU judge: {cpu['seconds'][name]:.3f} s)")
+    print(f"phase 5: (a) cold tick H2D {hist_bytes + other_bytes} B "
+          f"(history {hist_bytes} B as anchor + bf16 deltas at Th bucket {th} + lens)")
+    print(f"phase 5: (c) async columnar bucket of {len(gpu['c_async'][0])} rows queued behind a "
+          f"{gpu['busy_ms']:.1f} ms busy kernel: dispatch returned after {gpu['dispatch_s'] * 1e3:.3f} ms "
+          f"(device done at return: {gpu['done_at_return']}); wait() on a second thread done "
+          f"{gpu['async_s'] * 1e3:.3f} ms after dispatch began")
+    check(not gpu["done_at_return"] and gpu["dispatch_s"] * 1e3 < gpu["busy_ms"],
+          "judge_columnar_async waited for the device")
+
+    # one cold chunk stage by stage: host packing, pinned staging, the
+    # copy to the card, then the fit and its one copy back
+    ragged = [(t.hist_times, t.hist_values) for t in tasks[:_FIT_CHUNK]]
+    t0 = time.perf_counter()
+    anchor, delta, lens = _pack_hist_bf16_host(ragged, th)
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pinned = delta.pin_memory()
+    t_pin = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    delta_dev = pinned.to(dev, non_blocking=True)
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _fetch(scoring.fit_ma_from_bf16_delta(to_device(anchor, dev), delta_dev, to_device(lens, dev)))
+    t_fit = time.perf_counter() - t0
+    print(f"phase 5: one cold chunk of {_FIT_CHUNK} rows: host packing {t_pack:.4f} s, pinned staging "
+          f"{t_pin:.4f} s, H2D {t_h2d:.4f} s ({delta.numel() * 2 / t_h2d / 1e9:.1f} GB/s), "
+          f"fit + D2H {t_fit:.4f} s (host clock)")
+    arena = next(iter(judge._arenas.values()))
+    print(f"phase 5: arena {arena.counters()} device_bytes={arena.device_bytes()}")
+
+    # score_from_arena alone at the steady-state batch, against its bound
+    B = FULL_B
+    g = torch.Generator().manual_seed(5)
+    rows = torch.randint(0, arena.cap, (B,), generator=g).to(dev)
+    batch = scoring.ScoreBatch(
+        historical=MetricWindows(
+            values=torch.zeros((B, 0), device=dev), mask=torch.zeros((B, 0), dtype=torch.bool, device=dev),
+            times=None,
+        ),
+        current=MetricWindows(
+            values=(1 + 0.05 * torch.randn((B, FULL_TC), generator=g)).to(dev),
+            mask=torch.ones((B, FULL_TC), dtype=torch.bool, device=dev), times=None,
+        ),
+        baseline=MetricWindows(
+            values=torch.zeros((B, FULL_TC), device=dev),
+            mask=torch.zeros((B, FULL_TC), dtype=torch.bool, device=dev), times=None,
+        ),
+        threshold=torch.full((B,), 2.0, device=dev),
+        bound=torch.full((B,), 3, dtype=torch.int32, device=dev),
+        min_lower_bound=torch.zeros(B, device=dev),
+        min_points=torch.full((B,), 10, dtype=torch.int32, device=dev),
+    )
+    pw = dict(pairwise_algorithm=scoring.PAIRWISE_NONE, p_threshold=0.05, min_mw=20, min_wilcoxon=20,
+              min_kruskal=5, min_friedman=20)
+    res = scoring.score_from_arena(batch, *arena.state, rows, **pw)
+    ref = scoring.score_from_arena(cpu_rows(batch, 256), *(t.cpu() for t in arena.state), rows[:256].cpu(), **pw)
+    same_result(res, ref, 1e-6, "score_from_arena")
+    ms = cuda_ms(lambda: scoring.score_from_arena(batch, *arena.state, rows, **pw), iters=20)
+    # current values + mask, four per-row operands + the row index, the
+    # gathered state (24 B a row at m=1), outputs (verdict, flags, bands, p, differs)
+    nbytes = B * (FULL_TC * 5 + 16 + 8) + B * arena.row_bytes + B * (4 + FULL_TC * 9 + 4 + 1)
+    bound_ms = nbytes / peak_bytes * 1e3
+    print(f"phase 5: score_from_arena B={B} Tc={FULL_TC} (PAIRWISE_NONE, arena of {arena.cap} rows): "
+          f"{ms:.4f} ms per batch = {B / (ms * 1e-3):.0f} windows/s; bound {bound_ms:.4f} ms "
+          f"({nbytes} B at {peak_bytes / 1e12:.2f} TB/s; bytes)")
+    return {"seconds": s, "score_from_arena_ms": ms, "score_from_arena_bound_ms": bound_ms}
 
 
 def main() -> int:
@@ -479,12 +826,21 @@ def main() -> int:
 
     worst = phase_kernels_vs_plain(dev)
 
+    # each main path runs with the launch counts zeroed just before it and
+    # read just after; phase 4's timing loop runs after its reading
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     phase_judge()
-    launches, timings, full_err = phase_steady_state(dev, peak_bytes)
-    for kname, n in launches.items():
-        check(n > 0, f"the main path never launched {kname}")
+    object_path, timings, full_err = phase_steady_state(dev, peak_bytes)
+    for kname, n in object_path.items():
+        check(n > 0, f"the object path (phases 3-4) never launched {kname}")
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    phase_fit_cache(dev, peak_bytes)
+    fit_cache_path = dict(K.LAUNCHES)
+    check(fit_cache_path["masked_stats"] > 0, "the fit-cache path (phase 5) never launched masked_stats")
+    print(f"launches: object path (phases 3-4) {object_path}; fit-cache path (phase 5) {fit_cache_path}")
+    launches = {k: object_path[k] + fit_cache_path[k] for k in KERNEL_FILES}
 
     print("kernels: " + ", ".join(f"{k} launches={launches[k]} phase2=pass" for k in KERNEL_FILES))
     table = []

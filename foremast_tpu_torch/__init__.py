@@ -11,7 +11,9 @@ Layers:
   config.py   judgment config (env parity with the reference brain)
   ops/        masked windows, bounds, moving_average_all, rank tests,
               kernel wrappers + CUDA sources
-  engine/     the scoring programs and the ragged-job judge
+  engine/     the scoring programs, the ragged-job judge (object and
+              columnar paths) and the device state arena
+  models/     the fit cache (fitted terminal state kept between ticks)
   parallel/   synthetic fixed-shape batches for throughput runs
   interop.py  JAX-side state (numpy leaves) -> the port's tensors
 """

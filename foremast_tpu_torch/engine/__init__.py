@@ -1,1 +1,2 @@
-"""The batched health-judgment engine: scoring programs and the judge."""
+"""The batched health-judgment engine: scoring programs, the judge and
+the device state arena of its fit-cache path."""

@@ -13,12 +13,20 @@ the fit, band, flags, gate and verdict run as ONE kernel
 `ma_judgment_bf16_delta` from the bf16-delta layout in
 `score_bf16_delta`, and the fit alone through `masked_stats` in
 `fit_forecast`. The rank tests run as plain torch before the kernel.
+
+The fit-cache path judges from fitted terminal state instead:
+`score_from_state`, and `score_from_arena`, which gathers that state from
+the judge's device arena first. Its cold fits come from
+`fit_ma_from_bf16_delta` (the FOREMAST_BF16_DELTA gate, default on) or
+`fit_forecast`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
+import numpy as np
 import torch
 
 from foremast_tpu_torch.config import (
@@ -169,6 +177,20 @@ def pairwise_decision(
     else:
         raise ValueError(f"unknown pairwise algorithm {algorithm!r}")
     return p, differs
+
+
+def tile_season(s: np.ndarray, m: int) -> np.ndarray:
+    """Tile a host-side season buffer's last axis from length l to m.
+
+    Exact whenever l | m: tiled[i] = s[i mod l] commutes with every
+    (phase + k) mod m lookup downstream, so [..., 1] zero buffers of
+    non-seasonal fits stack next to full-season ones in one batch."""
+    ell = s.shape[-1]
+    if ell == m:
+        return s
+    if m % ell:
+        raise ValueError(f"incompatible season lengths {ell} vs {m}")
+    return np.tile(s, (1,) * (s.ndim - 1) + (m // ell,))
 
 
 def _effective_threshold(batch: ScoreBatch, differs: torch.Tensor) -> torch.Tensor:
@@ -330,6 +352,50 @@ def score_from_state(
     )
 
 
+def score_from_arena(
+    batch: ScoreBatch,
+    level: torch.Tensor,
+    trend: torch.Tensor,
+    season: torch.Tensor,
+    season_phase: torch.Tensor,
+    scale: torch.Tensor,
+    n_hist: torch.Tensor,
+    rows: torch.Tensor,
+    gap_steps: torch.Tensor | None = None,
+    pairwise_algorithm: str = PAIRWISE_ALL,
+    p_threshold: float = 0.05,
+    min_mw: int = 20,
+    min_wilcoxon: int = 20,
+    min_kruskal: int = 5,
+    min_friedman: int = 20,
+) -> ScoreResult:
+    """Judgment from ARENA-resident terminal state (`engine.arena`).
+
+    `rows` [B] int64 indexes the arena's [capacity] state tensors and
+    [capacity, m] season buffer on the device, so a warm tick ships
+    only current windows and the row indices. Exactly
+    `score_from_state` of the gathered rows."""
+    def take(a):
+        return a.index_select(0, rows)
+
+    return score_from_state(
+        batch,
+        take(level),
+        take(trend),
+        take(season),
+        take(season_phase),
+        take(scale),
+        take(n_hist),
+        gap_steps=gap_steps,
+        pairwise_algorithm=pairwise_algorithm,
+        p_threshold=p_threshold,
+        min_mw=min_mw,
+        min_wilcoxon=min_wilcoxon,
+        min_kruskal=min_kruskal,
+        min_friedman=min_friedman,
+    )
+
+
 # -- anchor-shifted bf16-delta history storage --------------------------------
 #
 # Each window is stored as (f32 anchor, bf16 deltas from the anchor): the
@@ -337,6 +403,25 @@ def score_from_state(
 # range, and the moving-average moments never reconstruct values —
 # E[v] = anchor + E[d], Var[v] = Var[d] — so a history read costs 2 B/point
 # instead of 5 (f32 value + bool mask).
+
+# Explicit override beats the env (FOREMAST_BF16_DELTA).
+_BF16_DELTA_OVERRIDE: bool | None = None
+
+
+def set_bf16_delta(enabled: bool | None) -> None:
+    """Pin the bf16-delta gate for this process (None clears the
+    override back to the env default)."""
+    global _BF16_DELTA_OVERRIDE
+    _BF16_DELTA_OVERRIDE = enabled if enabled is None else bool(enabled)
+
+
+def bf16_delta_enabled() -> bool:
+    """FOREMAST_BF16_DELTA gate (default on): the judge's cold fits ship
+    histories as anchor + bf16 deltas (`judge._fit_miss_rows`). Set
+    FOREMAST_BF16_DELTA=0 for f32 values and masks."""
+    if _BF16_DELTA_OVERRIDE is not None:
+        return _BF16_DELTA_OVERRIDE
+    return os.environ.get("FOREMAST_BF16_DELTA", "1") == "1"
 
 
 def fit_ma_from_bf16_delta(

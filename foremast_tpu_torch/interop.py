@@ -3,7 +3,8 @@
 The "weights" of this system are its batches and its fitted forecaster
 terminal state. The JAX side hands them over as numpy (`np.asarray` of
 each leaf); these functions put them on a torch device, so a batch or a
-fit-cache entry made by one engine is judged by the other.
+fit-cache entry made by one engine is judged by the other. A whole JAX
+`ModelCache.snapshot()` becomes the port's `ModelCache`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from foremast_tpu_torch.engine.scoring import ScoreBatch
+from foremast_tpu_torch.models.cache import ModelCache
 from foremast_tpu_torch.ops.windows import MetricWindows, resolve_device
 
 _WINDOWS = ("historical", "current", "baseline")
@@ -45,6 +47,35 @@ def score_batch_from_numpy(d: Mapping, device="cuda") -> ScoreBatch:
         )
     rows = {name: _tensor(d[name], dev) for name in _ROWS}
     return ScoreBatch(**wins, **rows)
+
+
+def fit_entries_from_numpy(values) -> list[tuple]:
+    """JAX fit-cache entries -> the port's: each a (level, trend, season,
+    season_phase, scale, n_hist) tuple with numpy or Python leaves,
+    returned as (float, float, f32 [m] array, int, float, int), the
+    tuple `HealthJudge._fit_miss_rows` caches."""
+    return [
+        (
+            float(level),
+            float(trend),
+            np.array(season, np.float32).reshape(-1),
+            int(phase),
+            float(scale),
+            int(n_hist),
+        )
+        for level, trend, season, phase, scale, n_hist in values
+    ]
+
+
+def model_cache_from_snapshot(snapshot: Mapping, max_size: int | None = None) -> ModelCache:
+    """A JAX `ModelCache.snapshot()` (keys -> terminal-state tuples with
+    numpy arrays) -> the port's `ModelCache` with the same keys, in the
+    same LRU order, and the same entries. A judge given it scores warm
+    exactly as the JAX judge does from the original cache."""
+    keys = list(snapshot)
+    cache = ModelCache(max_size if max_size is not None else max(len(keys), 1))
+    cache.put_many(zip(keys, fit_entries_from_numpy(snapshot[k] for k in keys)))
+    return cache
 
 
 def forecast_from_numpy(

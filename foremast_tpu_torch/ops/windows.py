@@ -27,6 +27,17 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def to_device(x: np.ndarray | torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on `dev` without
+    synchronizing the stream: staged through pinned memory and copied
+    asynchronously (a blocking copy from pageable memory waits for the
+    stream to drain first). On the CPU, a copy that does not alias `x`."""
+    t = x.contiguous() if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    if dev.type == "cpu":
+        return t.clone()
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 @dataclasses.dataclass(frozen=True)
 class MetricWindows:
     """A batch of fixed-length metric windows.
