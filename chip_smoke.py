@@ -25,10 +25,22 @@ Phases; any failure exits non-zero:
      one chunk on a fresh judge (masked_stats); verdicts equal across
      (a)-(d), the first rows and every arena counter equal to a CPU
      judge run the same way; wall clock of each tick, and
-     score_from_arena timed alone at B=32768 beside its bound.
+     score_from_arena timed alone at B=32768 beside its bound;
+  6. the worker's fleet tick: a BrainWorker on the card (warmed up first)
+     over an in-memory store of 4,096 docs x 4 aliases (16,384 windows,
+     7-day histories, half canaries; FOREMAST_SWEEP_SLICE_DOCS=0, the
+     monolithic tick): (a) cold tick through the chunked object path,
+     (b) warm tick through the two columnar buckets with 0 fits and 0
+     scatters, (c) a warm tick with every 16th doc's latency spiked,
+     which must flag exactly those docs, (d) the f32 cold tick of a fresh
+     1,024-doc worker (masked_stats); every doc's (status, code, reason,
+     anomaly_info) and the arena counters equal a CPU worker's after each
+     tick; wall clock, docs/s, windows/s and the span breakdown.
 Launch counts are zeroed just before each main path (phases 3-4, then
-phase 5) and read just after its checked calls, so they count the main
-paths' launches only.
+phase 5, then phase 6) and read just after its checked calls, so they
+count the main paths' launches only: on the worker's path (phase 6) only
+the f32 cold fit launches a kernel (masked_stats); the bf16-delta cold
+fit and the warm program (score_from_arena) are plain torch.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -796,6 +808,255 @@ def phase_fit_cache(dev, peak_bytes: float) -> dict:
     return {"seconds": s, "score_from_arena_ms": ms, "score_from_arena_bound_ms": bound_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the worker's fleet tick (claim -> fetch -> judge -> write back)
+# ---------------------------------------------------------------------------
+
+ALIASES = ("latency", "error4xx", "error5xx", "tps")
+WORKER_DOCS = 4096  # x 4 aliases = 16,384 windows, phase 5's width
+F32_DOCS = 1024  # (d): one 4,096-window cold chunk on the f32 route
+
+
+def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
+    """The shape of `benchmarks/worker_bench.py`'s fleet: one document per
+    service x 4 aliases, 7-day settled histories at a 60 s step, 30-point
+    current windows riding inside the band (so the fleet stays on the
+    re-check path, endTime an hour out), every even doc a canary with a
+    baseline URL on every alias (its window the current signal plus
+    noise). Histories lie on a 1/64 grid, as in phase 5. Returns
+    (documents as JSON, URL -> series, each doc's latency current URL)."""
+    from foremast_tpu_torch.jobs import Document
+
+    rng = np.random.default_rng(seed)
+    ht = t_now - 86_400 * 7 + 60 * np.arange(FULL_TH, dtype=np.int64)
+    ct = ht[-1] + 60 + 60 * np.arange(FULL_TC, dtype=np.int64)
+    end_time = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(t_now + 3600))
+    hist = np.empty((n_docs * len(ALIASES), FULL_TH), np.float32)
+    for r0 in range(0, len(hist), 4096):  # in slices: a float64 [n, Th] would be 1.3 GB
+        rows = hist[r0 : r0 + 4096]
+        rows[:] = np.round(64 * rng.normal(1.0, 0.1, rows.shape)) / 64
+    cv = (1.0 + 0.05 * np.sin(np.arange(FULL_TC) / 3.0)).astype(np.float32)
+    data, docs, latency = {}, [], []
+    for i in range(n_docs):
+        parts = {"current": [], "historical": [], "baseline": []}
+        for k, a in enumerate(ALIASES):
+            cur_url = f"http://prom/cur?q={a}:app{i}&end={int(ct[0]) - 60}&step=60"
+            hist_url = f"http://prom/hist?q={a}:app{i}&end={int(ht[-1]) + 60}&step=60"
+            data[cur_url] = (ct, cv)
+            if a == "latency":
+                latency.append(cur_url)
+            data[hist_url] = (ht, hist[i * len(ALIASES) + k])
+            parts["current"].append(f"{a}== {cur_url}")
+            parts["historical"].append(f"{a}== {hist_url}")
+            if i % 2 == 0:
+                base_url = f"http://prom/base?q={a}:app{i}&step=60"
+                data[base_url] = (ct - 3600, (cv + rng.normal(0, 0.01, FULL_TC)).astype(np.float32))
+                parts["baseline"].append(f"{a}== {base_url}")
+        docs.append(
+            Document(
+                id=f"job-{i}", app_name=f"app{i}", end_time=end_time,
+                current_config=" ||".join(parts["current"]),
+                historical_config=" ||".join(parts["historical"]),
+                baseline_config=" ||".join(parts["baseline"]),
+                strategy="canary" if i % 2 == 0 else "continuous",
+            ).to_json()
+        )
+    return docs, data, latency
+
+
+def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None) -> dict:
+    """On one port worker over its own store (copies of `docs`) and
+    source: (a) cold tick, (b) warm tick, (c) warm tick with the last 3
+    latency points of every 16th doc spiked; then (d) the f32 cold tick of
+    a fresh worker over the first F32_DOCS docs. After each: what the
+    store holds, the arena counters, the fit-cache size, the columnar
+    calls, the host-clock seconds (after a device sync) and the tracer's
+    stage breakdown."""
+    import gc
+
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.metrics.source import MetricSource
+
+    class ArraySource(MetricSource):
+        concurrent_fetch = False  # in-memory: no fetch threads
+
+        def __init__(self, series):
+            self.data = dict(series)
+
+        def fetch(self, url: str):
+            return self.data[url]
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def new_worker(doc_json, tr=None):
+        store = InMemoryStore()
+        for d in doc_json:
+            store.create(Document.from_json(d))
+        cfg = BrainConfig(max_cache_size=len(doc_json) * len(ALIASES) + 64)
+        worker = BrainWorker(
+            store, ArraySource(data), config=cfg, device=device,
+            claim_limit=len(doc_json), worker_id=f"smoke-{device}", tracer=tr,
+        )
+        return worker, store
+
+    def written(store):
+        return {
+            d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+            for d in store._docs.values()
+        }
+
+    worker, store = new_worker(docs, tracer)
+    if cuda:
+        worker.warmup()
+        check(len(worker._fit_cache) == 0 and not worker.judge._arenas, "warmup touched the real caches")
+    calls = []
+    orig = worker.judge.judge_columnar
+    worker.judge.judge_columnar = lambda *a, **kw: calls.append(a[0].shape[0]) or orig(*a, **kw)
+    host = {}  # seconds of the host steps that no span covers
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[name] = host.get(name, 0.0) + time.perf_counter() - t0
+
+        return run
+
+    worker._admit_fast = timed("admission walk", worker._admit_fast)
+    worker._pack_uni = timed("columnar packing", worker._pack_uni)
+    out = {}
+
+    gc_acc = [0.0, 0.0]  # collector pause seconds in the tick, last start
+
+    def gc_timer(phase, info):
+        # the collector's pauses inside a tick, which no span attributes
+        if phase == "start":
+            gc_acc[1] = time.perf_counter()
+        else:
+            gc_acc[0] += time.perf_counter() - gc_acc[1]
+
+    def tick(name, now, w=worker, st=store):
+        calls.clear()
+        host.clear()
+        versions = (w._fit_cache.version, w.judge.device_state_counters()["misses"])
+        gc_acc[0] = 0.0
+        sync()
+        gc.callbacks.append(gc_timer)
+        t0 = time.perf_counter()
+        try:
+            n = w.tick(now=now)
+            sync()
+        finally:
+            gc.callbacks.remove(gc_timer)
+        out[name] = dict(
+            seconds=time.perf_counter() - t0, docs=n, written=written(st),
+            gc_seconds=gc_acc[0], host=dict(host),
+            counters=w.judge.device_state_counters(), fits=len(w._fit_cache),
+            columnar=list(calls), refit=w._fit_cache.version != versions[0],
+            scattered=w.judge.device_state_counters()["misses"] - versions[1],
+            stages=dict(tracer.last_stage_seconds) if tracer is not None and w is worker else None,
+            fast=dict(w._fast_kinds),
+        )
+
+    tick("a", t_now + 150)
+    tick("b", t_now + 200)
+    spiked = range(5, len(docs), 16)
+    for i in spiked:
+        t, v = worker.source.data[latency[i]]
+        v = v.copy()
+        v[-3:] = 40.0
+        worker.source.data[latency[i]] = (t, v)
+    tick("c", t_now + 250)
+    out["spiked"] = [f"job-{i}" for i in spiked]
+
+    scoring.set_bf16_delta(False)
+    try:
+        fresh, fstore = new_worker(docs[:F32_DOCS])
+        tick("d", t_now + 150, w=fresh, st=fstore)
+    finally:
+        scoring.set_bf16_delta(None)
+    return out
+
+
+def phase_worker(dev, smi: str, columnar_s: float) -> dict:
+    """Phase 6: the port's BrainWorker drives a 4,096-doc fleet on the card
+    (cold, warm, spiked warm, f32 cold) and on the CPU; every tick's
+    writes and arena counters must be equal, and the fast-path invariants
+    must hold."""
+    from foremast_tpu_torch.jobs import STATUS_COMPLETED_UNHEALTH, STATUS_PREPROCESS_COMPLETED
+    from foremast_tpu_torch.observe.spans import Tracer
+
+    os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"  # the monolithic tick (no sliced sweeps yet)
+    t_now = int(time.time())
+    t0 = time.perf_counter()
+    docs, data, latency = worker_fleet(WORKER_DOCS, t_now)
+    n_win = WORKER_DOCS * len(ALIASES)
+    print(f"phase 6: fleet of {WORKER_DOCS} docs x {len(ALIASES)} aliases = {n_win} windows "
+          f"(Th={FULL_TH}, Tc={FULL_TC}, half canaries) built in {time.perf_counter() - t0:.1f} s")
+    tracer = Tracer()
+    gpu = run_worker_ticks(dev, docs, data, latency, t_now, tracer)
+    cpu = run_worker_ticks("cpu", docs, data, latency, t_now)
+
+    half = n_win // 2
+    a, b, c, d = (gpu[k] for k in "abcd")
+    check(a["docs"] == b["docs"] == c["docs"] == WORKER_DOCS and d["docs"] == F32_DOCS, "a tick lost docs")
+    check(not a["columnar"] and a["fast"] == {"univariate": 0, "baseline": 0}, "(a) cold tick took the fast path")
+    check(a["fits"] == n_win and a["scattered"] == n_win, f"(a) cold tick: {a['fits']} fits, {a['scattered']} scatters")
+    for name, t in (("b", b), ("c", c)):
+        check(sorted(t["columnar"]) == [half, half], f"({name}) columnar calls {t['columnar']}, want two of {half}")
+        check(not t["refit"] and t["scattered"] == 0, f"({name}) warm tick fitted or scattered rows")
+    check(b["fast"] == {"univariate": WORKER_DOCS // 2, "baseline": WORKER_DOCS // 2}, f"(b) buckets {b['fast']}")
+    check(d["fits"] == F32_DOCS * len(ALIASES), "(d) f32 cold tick did not fit every window")
+    unhealthy = sorted(k for k, v in c["written"].items() if json.loads(v)[0] == STATUS_COMPLETED_UNHEALTH)
+    check(unhealthy == sorted(gpu["spiked"]), f"(c) flagged {len(unhealthy)} docs, want the {len(gpu['spiked'])} spiked")
+    for doc_id in gpu["spiked"]:
+        info = json.loads(c["written"][doc_id])[3]
+        check(info["values"]["latency"][1::2][-3:] == [40.0] * 3, f"(c) {doc_id}: spike not in anomaly_info")
+    for name in "ab":
+        check({json.loads(v)[0] for v in gpu[name]["written"].values()} == {STATUS_PREPROCESS_COMPLETED},
+              f"({name}) a healthy re-check doc left the re-check loop")
+    for name in "abcd":
+        check(gpu[name]["written"] == cpu[name]["written"],
+              f"({name}) writes differ from the CPU worker's on "
+              f"{sum(gpu[name]['written'][k] != v for k, v in cpu[name]['written'].items())} docs")
+        check(gpu[name]["counters"] == cpu[name]["counters"],
+              f"({name}) arena counters {gpu[name]['counters']} differ from the CPU worker's {cpu[name]['counters']}")
+    print(f"phase 6: every tick's (status, code, reason, anomaly_info) of every doc and the arena counters equal "
+          f"the CPU worker's; (b) and (c) took two columnar calls of {half} rows with 0 fits and 0 scatters; "
+          f"(c) flagged exactly the {len(unhealthy)} spiked docs")
+
+    print(f"phase 6 on {smi}:")
+    for name, what, windows in (
+        ("a", "cold tick (object path: bf16 fits in 4 chunks, scatter, judge, write)", n_win),
+        ("b", "warm tick (columnar, both buckets)", n_win),
+        ("c", "spiked warm tick (columnar)", n_win),
+        ("d", f"f32 cold tick of {F32_DOCS} docs (masked_stats)", F32_DOCS * len(ALIASES)),
+    ):
+        t = gpu[name]
+        print(f"phase 6: ({name}) {what}: {t['seconds']:.3f} s = {t['docs'] / t['seconds']:.0f} docs/s, "
+              f"{windows / t['seconds']:.0f} windows/s (CPU worker: {cpu[name]['seconds']:.3f} s)")
+    for name in "abc":
+        t = gpu[name]
+        stages = ", ".join(f"{k} {v:.4f}" for k, v in sorted(t["stages"].items(), key=lambda kv: -kv[1]))
+        unspanned = ", ".join(f"{k} {v:.4f}" for k, v in t["host"].items())
+        print(f"phase 6: ({name}) stage seconds: {stages}; outside the stage spans "
+              f"{t['seconds'] - sum(t['stages'].values()):.4f}: {unspanned}, gc pauses {t['gc_seconds']:.4f}")
+    print(f"phase 6: (b) warm worker tick {b['seconds']:.3f} s against phase 5 (c)'s columnar judge calls "
+          f"{columnar_s:.3f} s: {b['seconds'] / columnar_s:.1f}x, the worker's share above the judge "
+          f"{1 - columnar_s / b['seconds']:.1%}")
+    return {k: gpu[k]["seconds"] for k in "abcd"}
+
+
 def main() -> int:
     import torch
 
@@ -836,11 +1097,17 @@ def main() -> int:
         check(n > 0, f"the object path (phases 3-4) never launched {kname}")
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
-    phase_fit_cache(dev, peak_bytes)
+    fit_cache = phase_fit_cache(dev, peak_bytes)
     fit_cache_path = dict(K.LAUNCHES)
     check(fit_cache_path["masked_stats"] > 0, "the fit-cache path (phase 5) never launched masked_stats")
-    print(f"launches: object path (phases 3-4) {object_path}; fit-cache path (phase 5) {fit_cache_path}")
-    launches = {k: object_path[k] + fit_cache_path[k] for k in KERNEL_FILES}
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    phase_worker(dev, smi, fit_cache["seconds"]["c"])
+    worker_path = dict(K.LAUNCHES)
+    check(worker_path["masked_stats"] > 0, "the worker's f32 cold tick (phase 6) never launched masked_stats")
+    print(f"launches: object path (phases 3-4) {object_path}; fit-cache path (phase 5) {fit_cache_path}; "
+          f"worker fleet tick (phase 6) {worker_path}")
+    launches = {k: object_path[k] + fit_cache_path[k] + worker_path[k] for k in KERNEL_FILES}
 
     print("kernels: " + ", ".join(f"{k} launches={launches[k]} phase2=pass" for k in KERNEL_FILES))
     table = []

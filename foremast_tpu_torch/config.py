@@ -1,9 +1,10 @@
 """Typed judgment configuration with the reference brain's env-var surface.
 
 The port's own copy of the fields of `foremast_tpu/config.py` that the
-scoring path reads: the bound selectors, the pairwise selectors, the
-per-metric-type threshold matrix (`foremast-brain.yaml:26-73`) and the
-engine knobs. `from_env()` reads the same variable names as the JAX
+scoring path and the worker read: the bound selectors, the pairwise
+selectors, the per-metric-type threshold matrix
+(`foremast-brain.yaml:26-73`), the engine knobs, the stuck-claim window
+and the fit-cache size. `from_env()` reads the same variable names as the JAX
 package, so one deployment's environment configures either engine.
 `AnomalyConfig.gather` turns the per-metric-type table into dense `[B]`
 operand vectors on the host, once per bucket.
@@ -139,6 +140,15 @@ class BrainConfig:
     # the 60 s step of the 7-day history
     season_steps: int = 1440
     min_historical_points: int = 10  # MIN_HISTORICAL_DATA_POINT_TO_MEASURE
+    max_stuck_seconds: float = 90.0  # MAX_STUCK_IN_SECONDS, yaml:80-81
+    max_cache_size: int = 1000  # MAX_CACHE_SIZE model cache, README:30
+
+    def fingerprint(self) -> str:
+        """Stable short hash of the effective judgment config, so two
+        workers' configs can be compared at a glance (`debug_state`)."""
+        import hashlib
+
+        return hashlib.sha256(repr(dataclasses.asdict(self)).encode()).hexdigest()[:12]
 
     @staticmethod
     def from_env(env: Mapping[str, str] | None = None) -> "BrainConfig":
@@ -200,4 +210,6 @@ class BrainConfig:
             pairwise=pairwise,
             season_steps=get("ML_SEASON_STEPS", 1440),
             min_historical_points=get("MIN_HISTORICAL_DATA_POINT_TO_MEASURE", 10),
+            max_stuck_seconds=get("MAX_STUCK_IN_SECONDS", 90.0),
+            max_cache_size=get("MAX_CACHE_SIZE", 1000),
         )

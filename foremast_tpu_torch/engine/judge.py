@@ -19,6 +19,8 @@ Two paths, as in the JAX package's `engine/judge.py`:
     `ColumnarPending.wait()` half synchronizes one event and unpacks.
 
 Every device-to-host transfer of a result is ONE copy (`_HostCopy`).
+The stages — fit, arena_assemble, score, decode — are `observe.spans`
+spans, as in the JAX judge, so a worker tick's breakdown attributes them.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from foremast_tpu_torch.config import BrainConfig
 from foremast_tpu_torch.engine import scoring
 from foremast_tpu_torch.engine.arena import StateArena, _arena_bytes
+from foremast_tpu_torch.observe.spans import span
 from foremast_tpu_torch.ops.windows import MetricWindows, resolve_device, to_device
 
 log = logging.getLogger("foremast_tpu_torch.judge")
@@ -473,7 +476,10 @@ class HealthJudge:
             for i, e in zip(need, fetched):
                 entries[i] = e
         miss = [i for i, e in enumerate(entries) if e is None]
-        self._fit_miss_rows(miss, tasks, keys, entries, th)
+        # the fit stage spans the whole miss-refit loop; near-zero samples
+        # on warm ticks show the fit cache doing its job
+        with span("judge.fit", stage="fit", rows=len(tasks), misses=len(miss), device=True):
+            self._fit_miss_rows(miss, tasks, keys, entries, th)
         gap = (
             to_device(_gap_steps(tasks), self.device)
             if cfg.algorithm in GAP_SENSITIVE_FITS
@@ -566,24 +572,26 @@ class HealthJudge:
         if arena is None:
             arena = self._arena_for(max(len(e[2]) for e in entries))
         if arena is not None:
-            assigned = arena.assign(keys, force, n_real)
-            if assigned is not None and assigned[1]:
-                m_scat = max(len(entries[i][2]) for i in assigned[1])
-                if m_scat > arena.m:
-                    # wider season than the arena was built for: rebuild
-                    # (empty) at the new width and re-assign everything
-                    arena = self._arena_for(m_scat)
-                    assigned = arena.assign(keys, force, n_real)
+            with span("judge.arena_assemble", stage="arena_assemble", rows=len(keys), device=True):
+                assigned = arena.assign(keys, force, n_real)
                 if assigned is not None and assigned[1]:
-                    arena.scatter(assigned[0], assigned[1], entries)
+                    m_scat = max(len(entries[i][2]) for i in assigned[1])
+                    if m_scat > arena.m:
+                        # wider season than the arena was built for:
+                        # rebuild (empty) at the new width, re-assign all
+                        arena = self._arena_for(m_scat)
+                        assigned = arena.assign(keys, force, n_real)
+                    if assigned is not None and assigned[1]:
+                        arena.scatter(assigned[0], assigned[1], entries)
             if assigned is not None:
-                return scoring.score_from_arena(
-                    batch,
-                    *arena.state,
-                    to_device(assigned[0], self.device),
-                    gap_steps=gap,
-                    **pw,
-                )
+                with span("judge.score", stage="score", rows=len(keys), device=True):
+                    return scoring.score_from_arena(
+                        batch,
+                        *arena.state,
+                        to_device(assigned[0], self.device),
+                        gap_steps=gap,
+                        **pw,
+                    )
             # a fleet living on this path re-pays its whole state upload
             # every tick, which must never be silent
             self._counters_base["fallbacks"] += 1
@@ -595,7 +603,8 @@ class HealthJudge:
                 arena.hard_rows,
                 arena.m,
             )
-        return self._stacked_score(batch, entries, gap, pw)
+        with span("judge.score", stage="score", rows=len(keys), device=True):
+            return self._stacked_score(batch, entries, gap, pw)
 
     def _stacked_score(self, batch, entries, gap, pw):
         """One-off host stack + upload of terminal state (the no-arena
@@ -768,7 +777,8 @@ class HealthJudge:
         then unpack on the host. Touches no judge state."""
         b0, tc = pending.b0, pending.tc
         ps = differs = None
-        got = pending.dev.wait()
+        with span("judge.decode", stage="decode", rows=pending.rows, device=True):
+            got = pending.dev.wait()
         if pending.with_bands and pending.pairwise:
             v8, packed, ub, lb, ps, differs = got
             ub, lb = ub[:b0], lb[:b0]
@@ -844,18 +854,22 @@ class HealthJudge:
         if use_cache:
             res = self._score_with_fit_cache(batch, tasks, th)
         else:
-            res = scoring.score(
-                batch,
-                gap_steps=(
-                    torch.from_numpy(_gap_steps(tasks)).to(dev)
-                    if cfg.algorithm in GAP_SENSITIVE_FITS
-                    else None
-                ),
-                algorithm=cfg.algorithm,
-                season_length=cfg.season_steps,
-                **self._pairwise_kwargs(cfg.pairwise.algorithm),
-            )
-        return self._decode_bucket(tasks, res, tc)
+            with span("judge.score", stage="score", rows=len(tasks), device=True):
+                res = scoring.score(
+                    batch,
+                    gap_steps=(
+                        torch.from_numpy(_gap_steps(tasks)).to(dev)
+                        if cfg.algorithm in GAP_SENSITIVE_FITS
+                        else None
+                    ),
+                    algorithm=cfg.algorithm,
+                    season_length=cfg.season_steps,
+                    **self._pairwise_kwargs(cfg.pairwise.algorithm),
+                )
+        # the decode waits for the device (the score spans time the
+        # queueing only), so the device time lands in the decode stage
+        with span("judge.decode", stage="decode", rows=len(tasks), device=True):
+            return self._decode_bucket(tasks, res, tc)
 
     def _decode_bucket(
         self, tasks: list[MetricTask], res: scoring.ScoreResult, tc: int
