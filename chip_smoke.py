@@ -36,11 +36,37 @@ Phases; any failure exits non-zero:
      1,024-doc worker (masked_stats); every doc's (status, code, reason,
      anomaly_info) and the arena counters equal a CPU worker's after each
      tick; wall clock, docs/s, windows/s and the span breakdown.
-Launch counts are zeroed just before each main path (phases 3-4, then
-phase 5, then phase 6) and read just after its checked calls, so they
-count the main paths' launches only: on the worker's path (phase 6) only
-the f32 cold fit launches a kernel (masked_stats); the bf16-delta cold
-fit and the warm program (score_from_arena) are plain torch.
+  7. the univariate forecaster family at the default daily season
+     (m=1440; Th=10,080 in its 16,384 bucket, Tc=30):
+     (a) holt_winters_scan (grid G=8, per-series with predictions) and
+     holt_scan against their plain versions at edge shapes (m in 1, 24,
+     60, 1440; T in 0, 1, m-1, 2m-1, 2m, 2m+1, odd; all-masked,
+     single-point, gapped and late rows), grid-choice differences
+     printed with their SSE gaps; (b) one 4,096-row cold-fit chunk of
+     every univariate algorithm through fit_forecast and
+     fit_forecast_bf16_delta, timed, the first 256 rows against the CPU
+     (state, then verdicts and flags through score_from_state); (c) phase
+     5's 16,384-task fleet with quality-generator histories under
+     auto_univariate and holt_winters: cold, warm object and columnar
+     ticks, the first 1,024 tasks against a CPU judge; (d) the worker's
+     fleet tick over seasonal docs (auto_univariate at m=1440 on 1,024
+     docs, holt_winters at m=24, the JAX package's season-blocked regime,
+     on 256; x 4 aliases), cold then spiked warm, every doc
+     against a CPU worker; then both scan kernels timed at the main
+     path's shapes beside their bounds. A flag may differ from the CPU
+     only where a current point lies within 1e-5 of a band edge (counted
+     and printed), and a Holt-Winters grid choice only at an SSE near
+     tie (gap under 1e-5, printed).
+Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
+7b, 7c, 7d) and read just after its checked calls, so they count the
+main paths' launches only: on the default worker path (phase 6) only the
+f32 cold fit launches a kernel (masked_stats); the seasonal fits launch
+holt_winters_scan (Holt-Winters, and auto_univariate at m <= 64),
+holt_scan (double exponential smoothing) and masked_stats (every mean
+model and identifiability guard).
+
+`python3 chip_smoke.py --kernels-only` builds the kernels, runs phase 2
+and 7(a) and stops: the short first call after a kernel change.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -76,7 +102,14 @@ KERNEL_FILES = {
         "foremast_tpu/ops/kernels.py:264",
     ),
     "masked_stats": ("foremast_tpu_torch/ops/csrc/masked_stats.cu", "foremast_tpu/ops/kernels.py:126"),
+    # no Pallas kernel: these replace the JAX package's lax.scan recurrences
+    "holt_winters_scan": (
+        "foremast_tpu_torch/ops/csrc/holt_winters_scan.cu",
+        "foremast_tpu/ops/forecasters.py:349",
+    ),
+    "holt_scan": ("foremast_tpu_torch/ops/csrc/holt_scan.cu", "foremast_tpu/ops/forecasters.py:195"),
 }
+MA_KERNELS = ("ma_judgment", "ma_judgment_bf16_delta", "masked_stats")
 TOL = {"ma_judgment": 1e-4, "ma_judgment_bf16_delta": 1e-5, "masked_stats": 1e-4}
 
 
@@ -90,6 +123,8 @@ def close_err(got, want, tol: float) -> float:
     import torch
 
     diff = (got.double() - want.double()).abs()
+    if diff.numel() == 0:
+        return 0.0
     check(bool(torch.isfinite(got).all()), "non-finite kernel output")
     check(bool((diff <= tol * (1.0 + want.double().abs())).all()), f"max error {diff.max().item()} over tol {tol}")
     return float(diff.max().item()) if diff.numel() else 0.0
@@ -168,7 +203,7 @@ def phase_kernels_vs_plain(dev) -> dict:
     from foremast_tpu_torch.ops import kernels as K
 
     rng = np.random.default_rng(2024)
-    worst = {name: 0.0 for name in KERNEL_FILES}
+    worst = {name: 0.0 for name in MA_KERNELS}
     cases = [(b, th, tc) for b in (1, 3, 37) for th in (0, 5, 131, 10080) for tc in (1, 30, 64)]
     for b, th, tc in cases:
         x = edge_inputs(rng, b, th, tc, dev)
@@ -524,7 +559,7 @@ def columnar_inputs(judge, tasks, cur, base, canary: bool):
     """One columnar bucket packed as the worker packs it: keys and entries
     from `fit_cache.peek`, nidx = len - 1, per-row thr/bound/mlb from the
     metric-type table; the canary bucket with its baseline pair."""
-    from foremast_tpu_torch.engine.judge import bucket_length
+    from foremast_tpu_torch.engine.judge import GAP_SENSITIVE_FITS, _gap_steps, bucket_length
 
     cfg = judge.config
     idx = np.flatnonzero([(t.base_values is not None) == canary for t in tasks])
@@ -542,6 +577,8 @@ def columnar_inputs(judge, tasks, cur, base, canary: bool):
         kw["base_values"] = np.zeros_like(values)
         kw["base_values"][:, :FULL_TC] = base[idx]
         kw["base_mask"] = mask.copy()
+    if cfg.algorithm in GAP_SENSITIVE_FITS:
+        kw["gap_steps"] = _gap_steps([tasks[i] for i in idx])
     return idx, (values, mask, keys, entries, nidx, thr, bnd, mlb), kw
 
 
@@ -1057,6 +1094,646 @@ def phase_worker(dev, smi: str, columnar_s: float) -> dict:
     return {k: gpu[k]["seconds"] for k in "abcd"}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the univariate forecaster family at the default daily season
+# ---------------------------------------------------------------------------
+
+SEASON = 1440  # ML_SEASON_STEPS default: a daily cycle at the 60 s step
+TH_BUCKET = 16384  # bucket_length(10080): the judge's padded history length
+UNIVARIATE = (
+    "moving_average_all", "moving_average", "ewma", "exponential_smoothing",
+    "double_exponential_smoothing", "holtwinters", "holt_winters", "phase_means",
+    "auto_univariate", "seasonal", "prophet", "seasonal_hourly",
+)
+HW_ALGOS = ("holtwinters", "holt_winters")
+KINDS = ("flat", "seasonal", "sharp-seasonal", "trend", "shift")
+# state tolerance of each fit, card against CPU: the recurrences agree to
+# f32 rounding of their initial state, the others sum in other orders
+FIT_TOL = {
+    "moving_average_all": 1e-4, "moving_average": 1e-4, "ewma": 1e-4, "exponential_smoothing": 1e-4,
+    "double_exponential_smoothing": 2e-4, "holtwinters": 2e-4, "holt_winters": 2e-4,
+    "phase_means": 1e-3, "auto_univariate": 1e-3, "seasonal": 1e-3, "prophet": 1e-3, "seasonal_hourly": 1e-3,
+}
+SCAN_TOL = 1e-5  # a scan kernel against its plain version on the same tensors
+EDGE = 1e-5  # a flag may differ from the CPU only this close (relative) to a band edge
+CMP_TASKS = 1024  # 7(c): tasks held to a CPU judge
+SEASONAL_DOCS = 1024  # 7(d): x 4 aliases = 4,096 windows, auto_univariate at m = 1440
+HW_DOCS = 256  # 7(d): x 4 aliases = 1,024 windows, holt_winters at m = 24
+HW_SEASON = 24  # the JAX package's season-blocked regime (m <= 64)
+SEASONAL_ALIASES = {"latency": "seasonal", "error4xx": "flat", "error5xx": "trend", "tps": "sharp-seasonal"}
+
+
+def quality_signal(kind: str, t, period: int, th: int):
+    """`benchmarks/quality.py`'s `gen` signals, copied (that module imports
+    JAX): flat, seasonal, sharp-seasonal (a 10-step daily burst), trend
+    and shift (a mid-history level step on the seasonal signal)."""
+    if kind == "flat":
+        return 1.0 + 0.0 * t
+    if kind == "seasonal":
+        return 1.0 + 0.5 * np.sin(2 * np.pi * t / period)
+    if kind == "sharp-seasonal":
+        return 1.0 + 0.5 * ((t % period) < max(10, period // 144)).astype(float)
+    if kind == "trend":
+        return 1.0 + 0.002 * t
+    if kind == "shift":
+        return 1.0 + 0.5 * np.sin(2 * np.pi * t / period) + 0.5 * (t >= 0.55 * th)
+    raise ValueError(kind)
+
+
+def quality_fleet(n: int, seed: int):
+    """n rows of the five kinds in even shares at period SEASON: 7-day
+    histories and 30-point currents continuing the signal, N(0, 0.05)
+    noise on both, every 16th current spiked by +40."""
+    rng = np.random.default_rng(seed)
+    hist = np.empty((n, FULL_TH), np.float32)
+    cur = np.empty((n, FULL_TC), np.float32)
+    t_hist, t_cur = np.arange(FULL_TH), FULL_TH + np.arange(FULL_TC)
+    for k, kind in enumerate(KINDS):
+        idx = np.arange(k, n, len(KINDS))
+        for c0 in range(0, len(idx), 1024):  # in slices: float64 noise of [n, Th] is large
+            rows = idx[c0 : c0 + 1024]
+            noise = 0.05 * rng.standard_normal((len(rows), FULL_TH), dtype=np.float32)
+            hist[rows] = quality_signal(kind, t_hist, SEASON, FULL_TH)[None, :] + noise
+        cur[idx] = quality_signal(kind, t_cur, SEASON, FULL_TH)[None, :] + 0.05 * rng.standard_normal((len(idx), FULL_TC))
+    spiked = np.arange(n) % 16 == 5
+    cur[spiked, FULL_TC // 2] += 40.0
+    return hist, cur, spiked
+
+
+def near_edge(cur, upper, lower) -> np.ndarray:
+    """[B] rows with a current point within EDGE of a band edge."""
+    out = np.zeros(cur.shape[0], bool)
+    for edge in (upper, lower):
+        out |= (np.abs(cur - edge) <= EDGE * (1 + np.abs(edge))).any(axis=1)
+    return out
+
+
+def same_judgment_or_edge(got, want, cur, what: str, skip) -> int:
+    """ScoreResults of the card and the CPU (first rows): verdicts and flags
+    equal except on rows with a point within EDGE of the CPU's band edge
+    (and `skip` rows); p within 1e-5. Returns the count of edge rows that
+    differ."""
+    import torch
+
+    n = want.verdict.shape[0]
+    gv, wv = got.verdict[:n].cpu().numpy(), want.verdict.numpy()
+    ga, wa = got.anomalies[:n].cpu().numpy(), want.anomalies.numpy()
+    differ = ((gv != wv) | (ga != wa).any(axis=1)) & ~skip
+    edge = near_edge(cur[:n], want.upper.numpy(), want.lower.numpy())
+    check(not (differ & ~edge).any(), f"{what}: verdicts or flags of rows {np.flatnonzero(differ & ~edge)[:8]} "
+          "differ from the CPU away from any band edge")
+    check(torch.equal(got.dist_differs[:n].cpu(), want.dist_differs), f"{what}: differs bits differ")
+    close_err(got.p_value[:n].cpu(), want.p_value, 1e-5)
+    return int(differ.sum())
+
+
+def hw_flips(values, mask, values_cpu, mask_cpu, what: str) -> np.ndarray:
+    """Rows whose Holt-Winters grid choice on the card differs from the
+    CPU's; each must be a near tie (SSE gap under 1e-5 relative), printed
+    with its gap. Returns the [n] bool mask of those rows."""
+    from foremast_tpu_torch.ops import forecasters as F
+    from foremast_tpu_torch.ops import kernels as K
+
+    n = values_cpu.shape[0]
+    counted = dict(K.LAUNCHES)  # a comparison: its launches do not count
+    g = F.hw_grid_sse(values[:n], mask[:n], SEASON).cpu().numpy()
+    K.LAUNCHES.update(counted)
+    c = F.hw_grid_sse(values_cpu, mask_cpu, SEASON).numpy()
+    flips = g.argmin(axis=0) != c.argmin(axis=0)
+    for r in np.flatnonzero(flips):
+        gap = abs(c[g[:, r].argmin(), r] - c[:, r].min()) / max(c[:, r].min(), 1e-30)
+        print(f"phase 7: {what}: row {r} grid choice {g[:, r].argmin()} on the card, {c[:, r].argmin()} on the "
+              f"CPU, SSE gap {gap:.3e}")
+        check(gap < 1e-5, f"{what}: a grid choice differs from the CPU with an SSE gap of {gap:.3e}")
+    return flips
+
+
+def phase_scan_kernels_vs_plain(dev) -> dict:
+    """7(a): holt_winters_scan (grid G=8 and per-series with predictions)
+    and holt_scan against their plain versions on the same CUDA tensors,
+    at edge shapes."""
+    import torch
+
+    from foremast_tpu_torch.ops import forecasters as F
+    from foremast_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(77)
+    worst = {"holt_winters_scan": 0.0, "holt_scan": 0.0}
+    grid = torch.tensor(F._HW_GRID, dtype=torch.float32, device=dev)
+    flips = cases = 0
+    for m in (1, 24, 60, SEASON):
+        for t_len in sorted({0, 1, max(m - 1, 0), 2 * m - 1, 2 * m, 2 * m + 1, 2 * m + 37}):
+            b = 37
+            v = 2.0 + np.sin(2 * np.pi * np.arange(t_len) / max(m, 2))[None, :] + rng.normal(0, 0.1, (b, t_len))
+            mk = np.ones((b, t_len), bool)
+            mk[0::5] = False  # all masked
+            mk[1::5] = False
+            mk[1::5, t_len // 2 : t_len // 2 + 1] = True  # a single valid point
+            mk[2::5, t_len // 4 : t_len // 2] = False  # an interior gap
+            mk[3::5, : t_len // 3] = False  # leading masked steps
+            values = torch.from_numpy(v.astype(np.float32)).to(dev)
+            mask = torch.from_numpy(mk).to(dev)
+            il, isn = F._hw_init(values, mask, m)
+            got = K.holt_winters_scan(values, mask, il, isn, grid)
+            want = K._holt_winters_scan_plain(values, mask, il, isn, grid, False, False)
+            for a, w in zip(got[:3], want[:3]):
+                worst["holt_winters_scan"] = max(worst["holt_winters_scan"], close_err(a, w, SCAN_TOL))
+            close_err(got[3], want[3], 1e-9)
+            kb, pb = got[3].argmin(dim=0), want[3].argmin(dim=0)
+            for r in torch.nonzero(kb != pb).flatten().tolist():
+                s = want[3][:, r]
+                gap = float(abs(s[kb[r]] - s[pb[r]]) / max(float(s.min()), 1e-30))
+                print(f"phase 7: (a) m={m} T={t_len} row {r}: kernel grid choice {int(kb[r])}, plain {int(pb[r])}, "
+                      f"SSE gap {gap:.3e}")
+                check(gap < 1e-5, "holt_winters_scan: a grid choice differs from its plain version")
+                flips += 1
+            params = grid[kb].contiguous()
+            got = K.holt_winters_scan(values, mask, il, isn, params, per_series=True, want_pred=True)
+            want = K._holt_winters_scan_plain(values, mask, il, isn, params, True, True)
+            for a, w in zip(got[:3] + got[4:], want[:3] + want[4:]):
+                worst["holt_winters_scan"] = max(worst["holt_winters_scan"], close_err(a, w, SCAN_TOL))
+            close_err(got[3], want[3], 1e-9)
+            cases += 1
+    n_holt = 0
+    for b in (1, 37):
+        for t_len in (0, 1, 5, 131, FULL_TH):
+            v = (rng.normal(0, 1, (b, t_len)).cumsum(axis=1) * 0.1 + 3.0).astype(np.float32)
+            mk = rng.random((b, t_len)) > 0.2
+            mk[::4] = False
+            mk[1::4, : t_len // 2] = False
+            values = torch.from_numpy(v).to(dev)
+            mask = torch.from_numpy(mk).to(dev)
+            per_series = tuple(torch.from_numpy(rng.uniform(lo, hi, b).astype(np.float32)).to(dev)
+                               for lo, hi in ((0.05, 0.9), (0.01, 0.5)))
+            for alpha, beta in ((0.3, 0.1), per_series):
+                got = K.holt_scan(values, mask, alpha, beta)
+                want = K._holt_scan_plain(values, mask, K._row(alpha, b, torch.float32, dev),
+                                          K._row(beta, b, torch.float32, dev))
+                for x, w in zip(got, want):
+                    worst["holt_scan"] = max(worst["holt_scan"], close_err(x, w, SCAN_TOL))
+                n_holt += 1
+    torch.cuda.synchronize()
+    print(f"phase 7: (a) holt_winters_scan equals its plain version at {cases} (m, T) cases (m in 1, 24, 60, "
+          f"{SEASON}; T in 0, 1, m-1, 2m-1, 2m, 2m+1, 2m+37; grid G=8, then per-series with predictions; 37 rows: "
+          f"all-masked, single-point, gapped, late-starting, full): worst state/pred error "
+          f"{worst['holt_winters_scan']:.3e} (tolerance {SCAN_TOL:g}), {flips} grid-choice differences")
+    print(f"phase 7: (a) holt_scan equals its plain version at {n_holt} cases (B in 1, 37; T in 0, 1, 5, 131, "
+          f"{FULL_TH}; scalar and per-series parameters): worst error {worst['holt_scan']:.3e}")
+    return worst
+
+
+def phase_cold_fits(dev) -> dict:
+    """7(b): one cold-fit chunk (4,096 rows, Th=10,080 in its 16,384 bucket,
+    m=1440) of every univariate algorithm through `fit_forecast` and
+    `fit_forecast_bf16_delta`, timed with CUDA events; the first 256 rows
+    against the CPU: state to tolerance, equal verdicts and flags after
+    `score_from_state`."""
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.engine.judge import _pack_hist_bf16_host
+    from foremast_tpu_torch.ops import kernels as K
+    from foremast_tpu_torch.ops.windows import MetricWindows
+
+    n, n_cmp = FLEET, min(256, FLEET)
+    t0 = time.perf_counter()
+    hist, cur, _ = quality_fleet(n, seed=71)
+    lens = np.full(n, FULL_TH, np.int32)
+    lens[7::50] = 2 * SEASON - 1  # under two cycles of real points: the mean model
+    lens[11::50] = FULL_TH - 3 * SEASON
+    values = np.zeros((n, TH_BUCKET), np.float32)
+    mask = np.arange(TH_BUCKET)[None, :] < lens[:, None]
+    values[:, :FULL_TH] = hist
+    mask[13::50, 3000:3400] = False  # interior gaps (the bf16 route left-packs them)
+    values[~mask] = 0.0
+    anchor, delta, plens = _pack_hist_bf16_host([(None, values[i][mask[i]]) for i in range(n)], TH_BUCKET)
+    thr, bnd, mlb = BrainConfig().anomaly.gather(["latency"] * n)
+    dv, dm = torch.from_numpy(values).to(dev), torch.from_numpy(mask).to(dev)
+    d16 = (torch.from_numpy(anchor).to(dev), delta.to(dev), torch.from_numpy(plens).to(dev))
+    c16 = (torch.from_numpy(anchor[:n_cmp]), delta[:n_cmp], torch.from_numpy(plens[:n_cmp]))
+    cv, cm = torch.from_numpy(values[:n_cmp]), torch.from_numpy(mask[:n_cmp])
+    n_hist = torch.from_numpy(mask.sum(axis=1).astype(np.int32))
+
+    def batch(rows, device):
+        def win(v, m):
+            return MetricWindows(values=torch.from_numpy(v).to(device), mask=torch.from_numpy(m).to(device), times=None)
+
+        return scoring.ScoreBatch(
+            historical=win(np.zeros((rows, 0), np.float32), np.zeros((rows, 0), bool)),
+            current=win(cur[:rows], np.ones((rows, FULL_TC), bool)),
+            baseline=win(np.zeros((rows, FULL_TC), np.float32), np.zeros((rows, FULL_TC), bool)),
+            threshold=torch.from_numpy(thr[:rows]).to(device), bound=torch.from_numpy(bnd[:rows]).to(device),
+            min_lower_bound=torch.from_numpy(mlb[:rows]).to(device),
+            min_points=torch.full((rows,), 10, dtype=torch.int32, device=device),
+        )
+
+    gb, cb = batch(n, dev), batch(n_cmp, "cpu")
+    pw = dict(pairwise_algorithm=scoring.PAIRWISE_NONE)
+    torch.cuda.synchronize()
+    print(f"phase 7: (b) chunk of {n} rows (Th={FULL_TH} in a {TH_BUCKET} bucket, m={SEASON}, the five quality "
+          f"kinds; short, late-ending and gapped rows) built in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for algo in UNIVARIATE:
+        kw = dict(algorithm=algo, season_length=SEASON)
+        row = {}
+        for route, fit, gpu_in, cpu_in in (
+            ("f32", scoring.fit_forecast, (dv, dm), (cv, cm)),
+            ("bf16", scoring.fit_forecast_bf16_delta, d16, c16),
+        ):
+            counted = dict(K.LAUNCHES)  # a warm-up for the timing: its launches do not count
+            fit(*gpu_in, **kw)  # first call: library handles (cuBLAS, cuSOLVER), allocator
+            torch.cuda.synchronize()
+            K.LAUNCHES.update(counted)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fc = fit(*gpu_in, **kw)
+            end.record()
+            end.synchronize()
+            row[route] = start.elapsed_time(end)
+            ref = fit(*cpu_in, **kw)
+            skip = np.zeros(n_cmp, bool)
+            if algo in HW_ALGOS:
+                g_vm = gpu_in if route == "f32" else scoring.bf16_delta_values(*gpu_in)
+                c_vm = cpu_in if route == "f32" else scoring.bf16_delta_values(*cpu_in)
+                skip = hw_flips(*g_vm, *c_vm, f"(b) {algo} {route}")
+            keep = torch.from_numpy(~skip)
+            err = 0.0
+            for name in ("level", "trend", "season", "scale"):
+                got_s = getattr(fc, name)[:n_cmp].cpu()[keep]
+                err = max(err, close_err(got_s, getattr(ref, name)[keep], FIT_TOL[algo]))
+            check(torch.equal(fc.season_phase[:n_cmp].cpu(), ref.season_phase), f"(b) {algo} {route}: phases differ")
+            nh = n_hist if route == "f32" else torch.from_numpy(plens)
+            got = scoring.score_from_state(gb, fc.level, fc.trend, fc.season, fc.season_phase, fc.scale,
+                                           nh.to(dev), **pw)
+            want = scoring.score_from_state(cb, ref.level, ref.trend, ref.season, ref.season_phase, ref.scale,
+                                            nh[:n_cmp], **pw)
+            row[route + "_edge"] = same_judgment_or_edge(got, want, cur, f"(b) {algo} {route}", skip)
+            row[route + "_err"] = err
+            row[route + "_unhealthy"] = int((got.verdict == scoring.UNHEALTHY).sum())
+            del fc, ref, got, want
+        out[algo] = row
+        print(f"phase 7: (b) {algo}: fit_forecast {row['f32']:.2f} ms, fit_forecast_bf16_delta {row['bf16']:.2f} ms "
+              f"per {n}-row chunk; first {n_cmp} rows vs CPU: state error {row['f32_err']:.2e} / "
+              f"{row['bf16_err']:.2e} (tolerance {FIT_TOL[algo]:g}), verdicts and flags equal "
+              f"({row['f32_edge']} / {row['bf16_edge']} rows differ at a band edge); unhealthy "
+              f"{row['f32_unhealthy']} / {row['bf16_unhealthy']} of {n}")
+    return out
+
+
+def seasonal_fit_cache_fleet(n: int, seed: int):
+    """7(c)'s fleet: phase 5's shape (fit keys, half canaries, every 16th
+    current spiked) with quality-generator histories at the daily season."""
+    from foremast_tpu_torch.engine.judge import MetricTask
+
+    hist, cur, spiked = quality_fleet(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    base = (cur - 0.03 + 0.05 * rng.standard_normal(cur.shape)).astype(np.float32)
+    mtypes = ["error5xx", "error4xx", "latency", "cpu", "memory", None, "custom"]
+    ht = 1_700_000_000 + 60 * np.arange(FULL_TH, dtype=np.int64)
+    ct = ht[-1] + 60 * np.arange(1, FULL_TC + 1, dtype=np.int64)
+    bt = ct - 60 * FULL_TC
+    tasks = []
+    for i in range(n):
+        kw = dict(base_times=bt, base_values=base[i]) if i % 2 == 0 else {}
+        tasks.append(MetricTask(
+            job_id=f"job{i}", alias=f"m{i % 5}", metric_type=mtypes[i % len(mtypes)],
+            hist_times=ht, hist_values=hist[i], cur_times=ct, cur_values=cur[i],
+            fit_key=f"app{i}|m{i % 5}|{int(ht[-1])}", **kw,
+        ))
+    return tasks, spiked, cur, base
+
+
+def same_verdicts_or_edge(got, want, tasks, tol: float, what: str) -> int:
+    """MetricVerdicts (band_mode "full") of the card and a CPU judge:
+    verdicts and anomaly pairs equal except where a current point lies
+    within EDGE of the CPU's band edge; differs exact, p within 1e-5,
+    bands within `tol`. Returns the count of edge rows that differ."""
+    edge_rows = 0
+    for g, w, t in zip(got, want, tasks):
+        if g.verdict != w.verdict or g.anomaly_pairs != w.anomaly_pairs:
+            cur = np.asarray(t.cur_values, np.float32)[None]
+            check(near_edge(cur, w.upper[None], w.lower[None])[0],
+                  f"{what}: {g.job_id} differs from the CPU judge away from any band edge")
+            edge_rows += 1
+            continue
+        check(g.dist_differs == w.dist_differs, f"{what}: dist_differs of {g.job_id}")
+        check(abs(g.p_value - w.p_value) <= 1e-5 * (1 + abs(w.p_value)), f"{what}: p of {g.job_id}")
+        check(np.allclose(g.upper, w.upper, rtol=tol, atol=tol), f"{what}: upper of {g.job_id}")
+        check(np.allclose(g.lower, w.lower, rtol=tol, atol=tol), f"{what}: lower of {g.job_id}")
+    return edge_rows
+
+
+def run_seasonal_ticks(cfg, device, tasks, cur, base) -> dict:
+    """Cold, warm object and columnar (both buckets) ticks of one judge
+    (band_mode "full", fit cache) over `tasks`; host-clock seconds after a
+    device sync."""
+    import dataclasses
+
+    import torch
+
+    from foremast_tpu_torch.engine.judge import HealthJudge
+    from foremast_tpu_torch.models.cache import ModelCache
+
+    judge = HealthJudge(cfg, device=device)
+    judge.fit_cache = ModelCache(4 * len(tasks))
+    judge.band_mode = "full"
+    cuda = judge.device.type == "cuda"
+    out = {"seconds": {}}
+
+    def tick(name, fn):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+
+    tick("a", lambda: judge.judge(tasks))
+    version = judge.fit_cache.version
+    warm = [dataclasses.replace(t, job_id=t.job_id + "-recheck") for t in tasks]
+    tick("b", lambda: judge.judge(warm))
+    out["refit"] = judge.fit_cache.version != version
+    buckets = [columnar_inputs(judge, tasks, cur, base, canary) for canary in (False, True)]
+    tick("c", lambda: [(idx, judge.judge_columnar(*args, **kw)) for idx, args, kw in buckets])
+    out["counters"] = judge.device_state_counters()
+    out["m"] = max(a.m for a in judge._arenas.values())
+    return out
+
+
+def phase_seasonal_fit_cache(dev) -> dict:
+    """7(c): the fit-cache fleet at the daily season with ML_ALGORITHM =
+    auto_univariate, then holt_winters, bf16 gate on: cold, warm object
+    and columnar ticks on the card; the first CMP_TASKS tasks on a CPU
+    judge, tick for tick."""
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+
+    n = FIT_FLEET
+    t0 = time.perf_counter()
+    tasks, spiked, cur, base = seasonal_fit_cache_fleet(n, seed=73)
+    print(f"phase 7: (c) fleet of {n} tasks (quality kinds at m={SEASON}, Th={FULL_TH}, Tc={FULL_TC}, half "
+          f"canaries, every 16th spiked) built in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    scoring.set_bf16_delta(True)
+    try:
+        for algo, tol in (("auto_univariate", 1e-3), ("holt_winters", 2e-4)):
+            cfg = BrainConfig(algorithm=algo, season_steps=SEASON)
+            gpu = run_seasonal_ticks(cfg, dev, tasks, cur, base)
+            cpu = run_seasonal_ticks(cfg, "cpu", tasks[:CMP_TASKS], cur[:CMP_TASKS], base[:CMP_TASKS])
+            check(not gpu["refit"], f"(c) {algo}: the warm object tick fitted rows")
+            check(gpu["m"] == SEASON, f"(c) {algo}: arena season width {gpu['m']}, want {SEASON}")
+            verdict_a = np.asarray([v.verdict for v in gpu["a"]])
+            check(all(verdict_a[spiked] == scoring.UNHEALTHY), f"(c) {algo}: a spiked task was not UNHEALTHY")
+            check([v.verdict for v in gpu["b"]] == verdict_a.tolist(), f"(c) {algo}: warm verdicts differ from cold")
+            edges = [same_verdicts_or_edge(gpu[k][:CMP_TASKS], cpu[k], tasks, tol, f"(c) {algo} ({k})") for k in "ab"]
+            n_col = 0
+            for (idx, g), (_, w) in zip(gpu["c"], cpu["c"]):
+                check(np.array_equal(g[0], verdict_a[idx]), f"(c) {algo}: columnar verdicts differ from the cold tick")
+                k = len(w[0])
+                differ = (g[0][:k] != w[0]) | (g[1][:k] != w[1]).any(axis=1)
+                rows = idx[:k][differ]
+                check(near_edge(cur[rows], w[2][differ][:, :FULL_TC], w[3][differ][:, :FULL_TC]).all(),
+                      f"(c) {algo}: columnar verdicts differ from the CPU judge away from any band edge")
+                n_col += int(differ.sum())
+                check(np.allclose(g[2][:k][~differ], w[2][~differ], rtol=tol, atol=tol), f"(c) {algo}: columnar bands")
+            s, cs = gpu["seconds"], cpu["seconds"]
+            print(f"phase 7: (c) {algo}: (a) cold {s['a']:.3f} s = {n / s['a']:.0f} windows/s, (b) warm object "
+                  f"{s['b']:.3f} s, (c) columnar, both buckets, {s['c']:.3f} s (CPU judge over {CMP_TASKS} tasks: "
+                  f"{cs['a']:.3f} / {cs['b']:.3f} / {cs['c']:.3f} s); verdicts "
+                  f"{np.bincount(verdict_a, minlength=3).tolist()} (healthy/unhealthy/unknown); first {CMP_TASKS} "
+                  f"equal the CPU judge at every tick ({edges[0]} / {edges[1]} / {n_col} differ at a band edge); "
+                  f"arena m={gpu['m']}, counters {gpu['counters']}")
+            out[algo] = s
+    finally:
+        scoring.set_bf16_delta(None)
+    return out
+
+
+def seasonal_worker_fleet(n_docs: int, t_now: int, seed: int, period: int):
+    """Phase 6's fleet shape (docs x 4 aliases, half canaries, 7-day
+    histories, endTime an hour out) with a cycle of `period` steps: each
+    alias carries one quality kind (`SEASONAL_ALIASES`; the trend at a
+    twentieth of the generator's slope) plus N(0, 0.05) noise, its current
+    window continues the clean signal at its true time with a 0.01
+    wiggle, and a canary's baseline is its current plus small noise."""
+    from foremast_tpu_torch.jobs import Document
+
+    rng = np.random.default_rng(seed)
+    ht = t_now - 86_400 * 7 + 60 * np.arange(FULL_TH, dtype=np.int64)
+    ct = ht[-1] + 60 + 60 * np.arange(FULL_TC, dtype=np.int64)
+    end_time = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(t_now + 3600))
+
+    def signal(kind, t):
+        s = quality_signal(kind, t, period, FULL_TH)
+        return 1.0 + (s - 1.0) / 20 if kind == "trend" else s
+
+    clean = {a: signal(k, np.arange(FULL_TH)).astype(np.float32) for a, k in SEASONAL_ALIASES.items()}
+    currents = {
+        a: (signal(k, FULL_TH + np.arange(FULL_TC)) + 0.01 * np.sin(np.arange(FULL_TC) / 3.0)).astype(np.float32)
+        for a, k in SEASONAL_ALIASES.items()
+    }
+    data, docs, latency = {}, [], []
+    for i in range(n_docs):
+        parts = {"current": [], "historical": [], "baseline": []}
+        for a in SEASONAL_ALIASES:
+            cur_url = f"http://prom/cur?q={a}:app{i}&end={int(ct[0]) - 60}&step=60"
+            hist_url = f"http://prom/hist?q={a}:app{i}&end={int(ht[-1]) + 60}&step=60"
+            data[cur_url] = (ct, currents[a])
+            data[hist_url] = (ht, clean[a] + 0.05 * rng.standard_normal(FULL_TH, dtype=np.float32))
+            if a == "latency":
+                latency.append(cur_url)
+            parts["current"].append(f"{a}== {cur_url}")
+            parts["historical"].append(f"{a}== {hist_url}")
+            if i % 2 == 0:
+                base_url = f"http://prom/base?q={a}:app{i}&step=60"
+                data[base_url] = (ct - 3600, (currents[a] + rng.normal(0, 0.01, FULL_TC)).astype(np.float32))
+                parts["baseline"].append(f"{a}== {base_url}")
+        docs.append(Document(
+            id=f"job-{i}", app_name=f"app{i}", end_time=end_time,
+            current_config=" ||".join(parts["current"]), historical_config=" ||".join(parts["historical"]),
+            baseline_config=" ||".join(parts["baseline"]), strategy="canary" if i % 2 == 0 else "continuous",
+        ).to_json())
+    return docs, data, latency
+
+
+def run_seasonal_worker(device, cfg, docs, data, latency, t_now: int) -> dict:
+    """A port worker over its own store and source: (a) cold tick, (b) warm
+    tick with every 16th doc's last 3 latency points spiked. What the
+    store holds, the arena counters, fits and columnar calls after each,
+    host-clock seconds after a device sync."""
+    import torch
+
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.metrics.source import MetricSource
+
+    class ArraySource(MetricSource):
+        concurrent_fetch = False
+
+        def __init__(self, series):
+            self.data = dict(series)
+
+        def fetch(self, url: str):
+            return self.data[url]
+
+    store = InMemoryStore()
+    for d in docs:
+        store.create(Document.from_json(d))
+    worker = BrainWorker(store, ArraySource(data), config=cfg, device=device, claim_limit=len(docs),
+                         worker_id=f"smoke7-{device}")
+    calls = []
+    orig = worker.judge.judge_columnar
+    worker.judge.judge_columnar = lambda *a, **kw: calls.append(a[0].shape[0]) or orig(*a, **kw)
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for name, now in (("a", t_now + 150), ("b", t_now + 200)):
+        if name == "b":
+            for i in range(5, len(docs), 16):
+                t, v = worker.source.data[latency[i]]
+                v = v.copy()
+                v[-3:] = 40.0
+                worker.source.data[latency[i]] = (t, v)
+        calls.clear()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = worker.tick(now=now)
+        if cuda:
+            torch.cuda.synchronize()
+        out[name] = dict(
+            seconds=time.perf_counter() - t0, docs=n, columnar=list(calls), fits=len(worker._fit_cache),
+            counters=worker.judge.device_state_counters(),
+            written={d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+                     for d in store._docs.values()},
+        )
+    out["m"] = max(a.m for a in worker.judge._arenas.values())
+    return out
+
+
+def phase_seasonal_worker(dev) -> dict:
+    """7(d): the worker's fleet tick over seasonal histories:
+    ML_ALGORITHM=auto_univariate at the daily season over SEASONAL_DOCS
+    docs, then holt_winters at m = HW_SEASON over HW_DOCS docs, cold and
+    spiked-warm ticks; every doc's (status, code, reason, anomaly_info)
+    and the arena counters equal a CPU worker's."""
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs import STATUS_COMPLETED_UNHEALTH, STATUS_PREPROCESS_COMPLETED
+
+    os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"  # the monolithic tick (no sliced sweeps yet)
+    t_now = int(time.time())
+    out = {}
+    for algo, n_docs, m in (("auto_univariate", SEASONAL_DOCS, SEASON), ("holt_winters", HW_DOCS, HW_SEASON)):
+        t0 = time.perf_counter()
+        docs, data, latency = seasonal_worker_fleet(n_docs, t_now, seed=79, period=m)
+        n_win = n_docs * len(SEASONAL_ALIASES)
+        cfg = BrainConfig(algorithm=algo, season_steps=m, max_cache_size=n_win + 64)
+        print(f"phase 7: (d) {algo}: fleet of {n_docs} docs x {len(SEASONAL_ALIASES)} aliases = {n_win} windows "
+              f"(cycle m={m}, Th={FULL_TH}, half canaries) built in {time.perf_counter() - t0:.1f} s")
+        gpu = run_seasonal_worker(dev, cfg, docs, data, latency, t_now)
+        cpu = run_seasonal_worker("cpu", cfg, docs, data, latency, t_now)
+        a, b = gpu["a"], gpu["b"]
+        check(a["docs"] == n_docs and a["fits"] >= n_win and not a["columnar"],
+              f"(d) {algo}: cold tick: {a['docs']} docs, {a['fits']} fits, columnar {a['columnar']}")
+        check(gpu["m"] == m, f"(d) {algo}: arena season width {gpu['m']}, want {m}")
+        healthy_a = sum(json.loads(v)[0] == STATUS_PREPROCESS_COMPLETED for v in a["written"].values())
+        check(b["columnar"] and sum(b["columnar"]) == len(ALIASES) * healthy_a,
+              f"(d) {algo}: warm columnar calls {b['columnar']} for {healthy_a} re-checked docs")
+        spiked = {f"job-{i}" for i in range(5, n_docs, 16)}
+        unhealthy = {k for k, v in b["written"].items() if json.loads(v)[0] == STATUS_COMPLETED_UNHEALTH}
+        check(spiked <= unhealthy, f"(d) {algo}: a spiked doc was not flagged")
+        for name in "ab":
+            differ = sum(gpu[name]["written"][k] != v for k, v in cpu[name]["written"].items())
+            check(differ == 0, f"(d) {algo} ({name}): writes differ from the CPU worker's on {differ} docs")
+            check(gpu[name]["counters"] == cpu[name]["counters"], f"(d) {algo} ({name}): arena counters differ")
+        print(f"phase 7: (d) {algo}: every doc's (status, code, reason, anomaly_info) and the arena counters equal "
+              f"the CPU worker's on both ticks; {healthy_a} of {n_docs} docs stayed in the re-check loop after the "
+              f"cold tick; the warm tick took columnar calls of {b['columnar']} rows and flagged all {len(spiked)} "
+              f"spiked docs ({len(unhealthy)} unhealthy in all); (a) cold {a['seconds']:.3f} s = "
+              f"{n_docs / a['seconds']:.0f} docs/s, {n_win / a['seconds']:.0f} windows/s, (b) warm "
+              f"{b['seconds']:.3f} s = {n_win / b['seconds']:.0f} windows/s (CPU worker: {cpu['a']['seconds']:.3f} / "
+              f"{cpu['b']['seconds']:.3f} s)")
+        out[algo] = {k: gpu[k]["seconds"] for k in "ab"}
+    return out
+
+
+def time_scan_kernels(dev, peak_bytes: float, sm_clock_hz: float) -> dict:
+    """The two scan kernels at the main path's shapes (one 4,096-row cold
+    chunk, T=16,384, m=1440; holt_winters_scan's grid launch of G=8, and
+    the per-series launch that writes predictions), each beside its bound
+    (the larger of bytes over the memory rate and f32 operations over the
+    f32 peak), the dependent-chain figure, and its plain version."""
+    import torch
+
+    from foremast_tpu_torch.ops import forecasters as F
+    from foremast_tpu_torch.ops import kernels as K
+
+    b, t_len, m, g = FLEET, TH_BUCKET, SEASON, len(F._HW_GRID)
+    hist, _, _ = quality_fleet(b, seed=83)
+    values = torch.zeros((b, t_len), device=dev)
+    values[:, :FULL_TH] = torch.from_numpy(hist).to(dev)
+    mask = torch.zeros((b, t_len), dtype=torch.bool, device=dev)
+    mask[:, :FULL_TH] = True
+    il, isn = F._hw_init(values, mask, m)
+    grid = torch.tensor(F._HW_GRID, dtype=torch.float32, device=dev)
+    params = grid[torch.arange(b, device=dev) % g].contiguous()
+    n_grid = b * g
+    # a lane-step: ~16 f32 operations (3 adds/subs of the forecast, 3 x
+    # (sub, 2 mul, add) of level, trend and season, the residual square)
+    # and one f64 add; the chain: ~7 dependent f32 operations a step at
+    # ~4 cycles each (trend -> level + trend -> products -> sums -> trend)
+    work = {
+        "holt_winters_scan": (
+            lambda: K.holt_winters_scan(values, mask, il, isn, grid),
+            lambda: K._holt_winters_scan_plain(values, mask, il, isn, grid, False, False),
+            b * t_len * 5 + b * 4 + b * m * 4 + g * 12 + n_grid * (4 + 4 + 8) + n_grid * m * 4,
+            n_grid * t_len * 16,
+            t_len * 7 * 4,
+        ),
+        "holt_winters_scan (per-series, with predictions)": (
+            lambda: K.holt_winters_scan(values, mask, il, isn, params, per_series=True, want_pred=True),
+            None,
+            b * t_len * 5 + b * 4 + b * m * 4 + b * 12 + b * (4 + 4 + 8) + b * m * 4 + b * t_len * 4,
+            b * t_len * 16,
+            t_len * 7 * 4,
+        ),
+        "holt_scan": (
+            lambda: K.holt_scan(values, mask, 0.3, 0.1),
+            lambda: K._holt_scan_plain(values, mask, K._row(0.3, b, torch.float32, dev),
+                                       K._row(0.1, b, torch.float32, dev)),
+            b * t_len * 5 + b * 8 + b * 8 + b * t_len * 4,
+            b * t_len * 10,
+            t_len * 6 * 4,
+        ),
+    }
+    timings = {}
+    for name, (kernel, plain, nbytes, flops, chain_cycles) in work.items():
+        err = None
+        if plain:
+            got, want = kernel(), plain()
+            err = max(close_err(a, w, SCAN_TOL if a.dtype != torch.float64 else 1e-9)
+                      for a, w in zip(got, want) if a is not None)
+            del got, want
+        kernel_ms = cuda_ms(kernel, iters=3, repeats=3)
+        plain_ms = cuda_ms(plain, iters=1, repeats=1) if plain else None
+        bytes_ms = nbytes / peak_bytes * 1e3
+        ops_ms = flops / PEAK_F32_FLOPS * 1e3
+        chain_ms = chain_cycles / sm_clock_hz * 1e3
+        timings[name] = dict(
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations", chain_ms=chain_ms, full_err=err,
+        )
+        print(f"phase 7: {name} B={b} T={t_len} m={m}: kernel_ms={kernel_ms:.4f} bound_ms={max(bytes_ms, ops_ms):.4f} "
+              f"({nbytes / 1e9:.3f} GB at {peak_bytes / 1e12:.2f} TB/s = {bytes_ms:.4f} ms; {flops / 1e9:.2f} GFLOP at "
+              f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms) dependent chain {chain_ms:.4f} ms "
+              f"({chain_cycles} cycles at {sm_clock_hz / 1e9:.2f} GHz) plain_ms="
+              f"{'not timed' if plain_ms is None else f'{plain_ms:.1f}'} library_ms=none"
+              f"{'' if err is None else f', full-size error against the plain version {err:.3e}'}")
+    fit_ms = cuda_ms(lambda: F.fit_holt_winters(values, mask, m), iters=1, repeats=3)
+    print(f"phase 7: fit_holt_winters (both launches, init, guard, scale) on that chunk: {fit_ms:.3f} ms")
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -1067,17 +1744,28 @@ def main() -> int:
     from foremast_tpu_torch.ops import _build
     from foremast_tpu_torch.ops import kernels as K
 
+    kernels_only = "--kernels-only" in sys.argv[1:]
+    # the seasonal model's f32 products must not round through TF32 (its
+    # normal equations run in float64, which never does)
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    sm_clock_hz = float(clock) * 1e6
     peak_key = next((k for k in PEAK_BYTES if k in name), "HBM3")
     peak_bytes = PEAK_BYTES[peak_key]
     print(f"phase 1: device {name}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
-    print(f"phase 1: memory peak used for bounds: {peak_bytes / 1e12:.2f} TB/s ({peak_key} part)")
+    print(f"phase 1: memory peak used for bounds: {peak_bytes / 1e12:.2f} TB/s ({peak_key} part); max SM clock "
+          f"{sm_clock_hz / 1e9:.3f} GHz; torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     build_s = _build.build_all()
     print(f"phase 1: kernels built in {build_s:.1f} s")
     for kname in KERNEL_FILES:
@@ -1086,28 +1774,55 @@ def main() -> int:
                 print(f"phase 1: {kname}: {line.strip()}")
 
     worst = phase_kernels_vs_plain(dev)
+    worst.update(phase_scan_kernels_vs_plain(dev))
+    if kernels_only:
+        print("chip_smoke: --kernels-only: every kernel built and equals its plain version")
+        return 0
 
     # each main path runs with the launch counts zeroed just before it and
-    # read just after; phase 4's timing loop runs after its reading
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
-    phase_judge()
-    object_path, timings, full_err = phase_steady_state(dev, peak_bytes)
-    for kname, n in object_path.items():
-        check(n > 0, f"the object path (phases 3-4) never launched {kname}")
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
-    fit_cache = phase_fit_cache(dev, peak_bytes)
-    fit_cache_path = dict(K.LAUNCHES)
-    check(fit_cache_path["masked_stats"] > 0, "the fit-cache path (phase 5) never launched masked_stats")
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
-    phase_worker(dev, smi, fit_cache["seconds"]["c"])
-    worker_path = dict(K.LAUNCHES)
-    check(worker_path["masked_stats"] > 0, "the worker's f32 cold tick (phase 6) never launched masked_stats")
-    print(f"launches: object path (phases 3-4) {object_path}; fit-cache path (phase 5) {fit_cache_path}; "
-          f"worker fleet tick (phase 6) {worker_path}")
-    launches = {k: object_path[k] + fit_cache_path[k] + worker_path[k] for k in KERNEL_FILES}
+    # read just after; the timing loops run after the readings
+    def path(fn, *args):
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        result = fn(*args)
+        return result, dict(K.LAUNCHES)
+
+    def object_path():
+        phase_judge()
+        return phase_steady_state(dev, peak_bytes)
+
+    # phase 4 reads its counts itself, before its timing loops
+    (launched_object, timings, full_err), _ = path(object_path)
+    for kname in MA_KERNELS:
+        check(launched_object[kname] > 0, f"the object path (phases 3-4) never launched {kname}")
+    fit_cache, launched_fit_cache = path(phase_fit_cache, dev, peak_bytes)
+    check(launched_fit_cache["masked_stats"] > 0, "the fit-cache path (phase 5) never launched masked_stats")
+    _, launched_worker = path(phase_worker, dev, smi, fit_cache["seconds"]["c"])
+    check(launched_worker["masked_stats"] > 0, "the worker's f32 cold tick (phase 6) never launched masked_stats")
+    _, launched_fits = path(phase_cold_fits, dev)
+    for kname in ("masked_stats", "holt_winters_scan", "holt_scan"):
+        check(launched_fits[kname] > 0, f"the cold fits of every algorithm (phase 7b) never launched {kname}")
+    _, launched_seasonal = path(phase_seasonal_fit_cache, dev)
+    _, launched_seasonal_worker = path(phase_seasonal_worker, dev)
+    for label, got in (("fit-cache fleet (phase 7c)", launched_seasonal),
+                       ("worker fleet tick (phase 7d)", launched_seasonal_worker)):
+        for kname in ("masked_stats", "holt_winters_scan"):
+            check(got[kname] > 0, f"the seasonal {label} never launched {kname}")
+    paths = {
+        "object path (phases 3-4)": launched_object,
+        "fit-cache path (phase 5)": launched_fit_cache,
+        "worker fleet tick (phase 6)": launched_worker,
+        "cold fits of every algorithm (phase 7b)": launched_fits,
+        "seasonal fit-cache fleet (phase 7c)": launched_seasonal,
+        "seasonal worker fleet tick (phase 7d)": launched_seasonal_worker,
+    }
+    print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
+    launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}
+
+    scan = time_scan_kernels(dev, peak_bytes, sm_clock_hz)
+    for kname in ("holt_winters_scan", "holt_scan"):
+        timings[kname] = scan[kname]
+        full_err[kname] = scan[kname]["full_err"]
 
     print("kernels: " + ", ".join(f"{k} launches={launches[k]} phase2=pass" for k in KERNEL_FILES))
     table = []

@@ -493,21 +493,18 @@ class HealthJudge:
         filling `entries` in place and populating the fit cache.
 
         A chunk is padded to a power-of-two row count by repeating a real
-        row. The deployed default (bf16 gate on, moving_average_all)
-        ships anchor + bf16 deltas + lengths (2 B/point) and fits the
-        moments with `scoring.fit_ma_from_bf16_delta`; with the gate off
-        it ships f32 values + masks to `scoring.fit_forecast`, whose
-        moments come from the `masked_stats` kernel on the card. Each
-        chunk's state comes back in ONE device-to-host copy."""
+        row. With the bf16 gate on (the default) a chunk ships anchor +
+        bf16 deltas + lengths (2 B/point): the deployed default
+        `moving_average_all` fits its moments from the deltas
+        (`scoring.fit_ma_from_bf16_delta`), every other algorithm
+        reconstructs f32 values on the device (`fit_forecast_bf16_delta`).
+        With the gate off it ships f32 values + masks to
+        `scoring.fit_forecast`. Each chunk's state comes back in ONE
+        device-to-host copy."""
         cfg = self.config
         dev = self.device
         bf16_fit = scoring.bf16_delta_enabled()
-        if bf16_fit and cfg.algorithm != "moving_average_all":
-            raise NotImplementedError(
-                f"the bf16-delta fit of {cfg.algorithm!r} "
-                "(fit_forecast_bf16_delta) is not ported to torch yet: "
-                "ROADMAP.md Queue 1, 'the other forecasters'"
-            )
+        ma_fit = cfg.algorithm == "moving_average_all"
         zero_season = np.zeros(1, np.float32)
         for c0 in range(0, len(miss), _FIT_CHUNK):
             chunk = miss[c0 : c0 + _FIT_CHUNK]
@@ -515,7 +512,7 @@ class HealthJudge:
             pad = [chunk[0]] * (rows - len(chunk))  # repeat a real row
             ragged = [(tasks[i].hist_times, tasks[i].hist_values) for i in chunk + pad]
             puts = []
-            if bf16_fit:
+            if bf16_fit and ma_fit:
                 anchor, delta, lens = _pack_hist_bf16_host(ragged, th)
                 level, scale, nh = _fetch(
                     scoring.fit_ma_from_bf16_delta(
@@ -528,22 +525,27 @@ class HealthJudge:
                     if keys[i] is not None:
                         puts.append((keys[i], entry))
             else:
-                hist = MetricWindows.from_ragged(ragged, th, dev, device_times=False)
-                fc = scoring.fit_forecast(
-                    hist.values,
-                    hist.mask,
-                    algorithm=cfg.algorithm,
-                    season_length=cfg.season_steps,
-                )
-                level, trend, season, phase, scale, nh = _fetch(
-                    (
-                        fc.level,
-                        fc.trend,
-                        fc.season,
-                        fc.season_phase,
-                        fc.scale,
-                        hist.count().to(torch.int32),
+                if bf16_fit:
+                    anchor, delta, lens = _pack_hist_bf16_host(ragged, th)
+                    n_hist = to_device(lens, dev)
+                    fc = scoring.fit_forecast_bf16_delta(
+                        to_device(anchor, dev),
+                        to_device(delta, dev),
+                        n_hist,
+                        algorithm=cfg.algorithm,
+                        season_length=cfg.season_steps,
                     )
+                else:
+                    hist = MetricWindows.from_ragged(ragged, th, dev, device_times=False)
+                    fc = scoring.fit_forecast(
+                        hist.values,
+                        hist.mask,
+                        algorithm=cfg.algorithm,
+                        season_length=cfg.season_steps,
+                    )
+                    n_hist = hist.count().to(torch.int32)
+                level, trend, season, phase, scale, nh = _fetch(
+                    (fc.level, fc.trend, fc.season, fc.season_phase, fc.scale, n_hist)
                 )
                 for j, i in enumerate(chunk):
                     entry = (

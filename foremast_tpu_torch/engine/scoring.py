@@ -12,13 +12,17 @@ the fit, band, flags, gate and verdict run as ONE kernel
 (`ops/kernels.py`): `ma_judgment` from f32 history in `score`,
 `ma_judgment_bf16_delta` from the bf16-delta layout in
 `score_bf16_delta`, and the fit alone through `masked_stats` in
-`fit_forecast`. The rank tests run as plain torch before the kernel.
+`fit_forecast`. Every other algorithm of the `AI_MODEL` registry (and the
+seasonal models that `models/` registers) goes through its fit, the
+hist->cur gap advance, `horizon` and the shared judgment tail; the
+Holt-Winters and Holt recurrences inside those fits are kernels too. The
+rank tests run as plain torch.
 
 The fit-cache path judges from fitted terminal state instead:
 `score_from_state`, and `score_from_arena`, which gathers that state from
 the judge's device arena first. Its cold fits come from
-`fit_ma_from_bf16_delta` (the FOREMAST_BF16_DELTA gate, default on) or
-`fit_forecast`.
+`fit_ma_from_bf16_delta` / `fit_forecast_bf16_delta` (the
+FOREMAST_BF16_DELTA gate, default on) or `fit_forecast`.
 """
 
 from __future__ import annotations
@@ -39,7 +43,17 @@ from foremast_tpu_torch.config import (
 )
 from foremast_tpu_torch.ops import kernels
 from foremast_tpu_torch.ops.anomaly import compute_bounds, detect_anomalies
-from foremast_tpu_torch.ops.forecasters import Forecast, horizon, moving_average_all
+from foremast_tpu_torch.ops.forecasters import (
+    Forecast,
+    double_exponential,
+    ewma,
+    fit_auto_univariate,
+    fit_holt_winters,
+    fit_phase_means,
+    horizon,
+    moving_average,
+    moving_average_all,
+)
 from foremast_tpu_torch.ops.ranks import (
     friedman_chi_square,
     kruskal_wallis,
@@ -67,15 +81,48 @@ DIFF_THRESHOLD_FACTOR = 0.5
 # steps, so a stale fit cannot run a trend off to infinity.
 GAP_TREND_CAP_STEPS = 1440
 
-_PORTED_ALGORITHMS = ("moving_average_all",)
+# The model registry (the reference brain's AI_MODEL table); deployed
+# default `moving_average_all`. Each entry: (values, mask) -> Forecast.
+AI_MODEL = {
+    "moving_average_all": moving_average_all,
+    "moving_average": moving_average,
+    "ewma": ewma,
+    "exponential_smoothing": ewma,
+    "double_exponential_smoothing": double_exponential,
+    "holtwinters": fit_holt_winters,
+    "holt_winters": fit_holt_winters,
+    "phase_means": fit_phase_means,
+    "auto_univariate": fit_auto_univariate,
+}
 
 
-def _require_ported(algorithm: str) -> None:
-    if algorithm not in _PORTED_ALGORITHMS:
-        raise NotImplementedError(
-            f"algorithm {algorithm!r} is not ported to torch yet: ROADMAP.md "
-            "Queue 1, 'the other forecasters' (only moving_average_all is)"
-        )
+def register_model(name: str, fit_fn) -> None:
+    """Extend the registry (`models/` registers the seasonal models)."""
+    AI_MODEL[name] = fit_fn
+
+
+# Registry entries that take a season/period dimension, with the keyword
+# each expects: the configured ML_SEASON_STEPS is threaded through all.
+_SEASON_KWARG = {
+    "holtwinters": "season_length",
+    "holt_winters": "season_length",
+    "phase_means": "season_length",
+    "auto_univariate": "season_length",
+    "seasonal": "period",
+    "prophet": "period",
+}
+
+
+def _fit_model(algorithm: str, values, mask, season_length: int) -> Forecast:
+    fit = AI_MODEL.get(algorithm)
+    if fit is None:
+        # models/ registers the seasonal models on import; resolve lazily
+        # so the registry works without callers importing it
+        import foremast_tpu_torch.models  # noqa: F401
+
+        fit = AI_MODEL[algorithm]
+    kw = _SEASON_KWARG.get(algorithm)
+    return fit(values, mask, **({kw: season_length} if kw else {}))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,13 +307,19 @@ def score(
     min_kruskal: int = 5,
     min_friedman: int = 20,
 ) -> ScoreResult:
-    """Judge a whole batch: pairwise -> threshold lowering -> the fused
-    `ma_judgment` kernel (its plain version for CPU tensors).
-
-    moving_average_all's forecast is the global mean — trendless and
-    seasonless — so `gap_steps` and `season_length` do not change it."""
-    _require_ported(algorithm)
-    del gap_steps, season_length
+    """Judge a whole batch. `moving_average_all`: pairwise -> threshold
+    lowering -> the fused `ma_judgment` kernel (its plain version for CPU
+    tensors); its forecast is the global mean, trendless and seasonless,
+    so `gap_steps` and `season_length` do not change it. Every other
+    algorithm: fit -> gap advance -> `horizon` -> the judgment tail."""
+    if algorithm != "moving_average_all":
+        hist = batch.historical
+        fc = _fit_model(algorithm, hist.values, hist.mask, season_length)
+        fc = _advance_gap(fc, gap_steps)
+        return _judgment_tail(
+            batch, horizon(fc, batch.current.length), fc.scale, hist.count(),
+            pairwise_algorithm, p_threshold, min_mw, min_wilcoxon, min_kruskal, min_friedman,
+        )
     cur = batch.current
     p, differs = pairwise_decision(
         cur, batch.baseline, pairwise_algorithm, p_threshold,
@@ -295,11 +348,35 @@ def fit_forecast(
     season_length: int = 24,
 ) -> Forecast:
     """Fit the historical model alone (no judgment): the fit half of the
-    fit-cache path, replayed later through `score_from_state`. On CUDA
-    tensors the moments come from the `masked_stats` kernel."""
-    _require_ported(algorithm)
-    del season_length
-    return moving_average_all(values, mask)
+    fit-cache path, replayed later through `score_from_state`."""
+    return _fit_model(algorithm, values, mask, season_length)
+
+
+def bf16_delta_values(
+    anchor: torch.Tensor, delta: torch.Tensor, lens: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, mask) [B, T] of a bf16-delta upload: f32(anchor + delta)
+    over each row's valid prefix (`lens`, left-packed rows), exact zeros
+    elsewhere. The reconstruction is a select, not a product with the
+    mask, so a masked slot of a negative anchor is +0.0 as in the JAX
+    program."""
+    t = delta.shape[1]
+    mask = torch.arange(t, dtype=torch.int32, device=delta.device)[None, :] < lens[:, None]
+    full = anchor[:, None] + delta.to(torch.float32)
+    return torch.where(mask, full, torch.zeros_like(full)), mask
+
+
+def fit_forecast_bf16_delta(
+    anchor: torch.Tensor,
+    delta: torch.Tensor,
+    lens: torch.Tensor,
+    algorithm: str = "moving_average_all",
+    season_length: int = 24,
+) -> Forecast:
+    """`fit_forecast` from a bf16-delta upload (any algorithm), values
+    rebuilt on the device by `bf16_delta_values`."""
+    values, mask = bf16_delta_values(anchor, delta, lens)
+    return _fit_model(algorithm, values, mask, season_length)
 
 
 def _advance_gap(fc: Forecast, gap_steps: torch.Tensor | None) -> Forecast:

@@ -17,7 +17,9 @@ columnar fast tick (baseline-less and canary buckets through
 `judge_columnar`) for warm re-checks, and the chunked slow path (cold
 fits through `HealthJudge.judge` with the fit cache) for everything
 else, with the same write-behind, release and tick-budget contracts.
-Univariate algorithms only. Not here yet, each waiting for its own
+Every univariate `ML_ALGORITHM` of the engine's registry judges here
+(the seasonal and trended ones with the hist->cur gap advance); the
+joint models raise. Not here yet, each waiting for its own
 slice: sliced sweeps and micro-ticks (so `FOREMAST_SWEEP_SLICE_DOCS`
 must not slice this worker's claims), joint models, ring-first cold
 reads and refinement, fit journals, tenancy, the worker mesh and the

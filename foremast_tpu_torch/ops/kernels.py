@@ -3,8 +3,8 @@ PyTorch versions.
 
 The deployed default `moving_average_all` judgment reads the [B, Th]
 7-day history once for masked moments, then does a tiny [B, Tc] band
-comparison. Each kernel here fuses that whole pass into one launch, one
-thread block per row (sources in `csrc/`, built by `_build.py`):
+comparison. Each of its kernels fuses that whole pass into one launch,
+one thread block per row (sources in `csrc/`, built by `_build.py`):
 
   * `masked_stats`           — count/mean/std (ddof 0) of a masked [B, T]
                                batch, two-pass on the row.
@@ -13,6 +13,14 @@ thread block per row (sources in `csrc/`, built by `_build.py`):
                                flags -> measurability gate -> verdict.
   * `ma_judgment_bf16_delta` — the same judgment from the anchor-shifted
                                bf16-delta history layout, one pass.
+
+The trended and seasonal forecasters are sequential recurrences over
+time, one chain per series (the JAX package runs them as `lax.scan`):
+
+  * `holt_winters_scan`      — additive Holt-Winters for G parameter
+                               triples (the fit's grid) or one triple per
+                               series, any season length m.
+  * `holt_scan`              — Holt's level + trend recurrence.
 
 A wrapper given CPU tensors runs the plain version beside it; given CUDA
 tensors it launches the kernel on the current stream or raises. Each
@@ -28,7 +36,13 @@ from foremast_tpu_torch.ops import _build
 # Verdict codes — must match engine/scoring.py (HEALTHY/UNHEALTHY/UNKNOWN).
 _HEALTHY, _UNHEALTHY, _UNKNOWN = 0, 1, 2
 
-LAUNCHES = {"masked_stats": 0, "ma_judgment": 0, "ma_judgment_bf16_delta": 0}
+LAUNCHES = {
+    "masked_stats": 0,
+    "ma_judgment": 0,
+    "ma_judgment_bf16_delta": 0,
+    "holt_winters_scan": 0,
+    "holt_scan": 0,
+}
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -283,3 +297,166 @@ def ma_judgment_bf16_delta(
         b, th, tc,
     )
     return verdict, anom, upper, lower
+
+
+# ---------------------------------------------------------------------------
+# holt_winters_scan — additive Holt-Winters, G parameter sets or per series
+# ---------------------------------------------------------------------------
+
+
+def _holt_winters_scan_plain(values, mask, init_level, init_season, params, per_series, want_pred):
+    """The kernel's recurrence as a loop over time on [G, B] tensors: the
+    same f32 operations in the same order (each rounded on its own, no
+    fused multiply-add), the SSE summed in f64 in time order."""
+    b, t_len = values.shape
+    m = init_season.shape[1]
+    if per_series:
+        alpha, beta, gamma = params[:, 0], params[:, 1], params[:, 2]  # [B]
+        g = 1
+    else:
+        alpha, beta, gamma = params[:, 0:1], params[:, 1:2], params[:, 2:3]  # [G, 1]
+        g = params.shape[0]
+    oma, omb, omg = 1.0 - alpha, 1.0 - beta, 1.0 - gamma
+    level = init_level.expand(g, b).clone()
+    trend = torch.zeros((g, b), dtype=torch.float32, device=values.device)
+    season = init_season.t()[:, None, :].expand(m, g, b).clone()  # [m, G, B]
+    sse = torch.zeros((g, b), dtype=torch.float64, device=values.device)
+    inited = torch.zeros(b, dtype=torch.bool, device=values.device)
+    xs, ms = values.t(), mask.t()
+    preds = []
+    for t in range(t_len):
+        x, msk = xs[t], ms[t]
+        p = t % m
+        s = season[p].clone()
+        lt = level + trend
+        forecast = lt + s
+        new_level = alpha * (x - s) + oma * lt
+        new_trend = beta * (new_level - level) + omb * trend
+        new_s = gamma * (x - new_level) + omg * s
+        upd = msk & inited
+        season[p] = torch.where(upd, new_s, s)
+        level = torch.where(upd, new_level, level)
+        trend = torch.where(upd, new_trend, trend)
+        out = torch.where(inited, forecast, x)
+        r = x - out
+        sse = sse + torch.where(msk, r * r, torch.zeros_like(r)).double()
+        if want_pred:
+            preds.append(out[0])
+        inited = inited | msk
+    pred = None
+    if want_pred:
+        pred = torch.stack(preds, dim=1) if preds else values.new_zeros((b, 0))
+    return level, trend, season.permute(1, 2, 0), sse, pred
+
+
+def holt_winters_scan(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    init_level: torch.Tensor,
+    init_season: torch.Tensor,
+    params: torch.Tensor,
+    per_series: bool = False,
+    want_pred: bool = False,
+):
+    """Additive Holt-Winters recurrence (`_hw_rolled`'s step) over [B, T].
+
+    values [B, T] f32, mask [B, T] bool, init_level [B] f32, init_season
+    [B, m] f32; params [G, 3] f32 rows (alpha, beta, gamma) applied to
+    every series, or with `per_series` [B, 3], one row per series (G = 1).
+    Returns (level [G, B], trend [G, B], season [G, B, m], sse [G, B] f64,
+    pred [B, T] or None): terminal state per (parameter set, series), the
+    masked in-sample SSE sum((x - pred)^2 over valid points) and, when
+    `want_pred` (per-series only), the one-step-ahead predictions. The
+    season index is the absolute step mod m; masked steps carry the
+    state; before the first valid point pred = x. The returned season and
+    per-lane tensors are views (not contiguous)."""
+    b, t_len = values.shape
+    m = init_season.shape[1]
+    g = 1 if per_series else params.shape[0]
+    if want_pred and not per_series:
+        raise ValueError("pred is written only for per-series parameters (G = 1)")
+    if m < 1:
+        raise ValueError("season length must be at least 1")
+    if not _on_cuda(values, mask, init_level, init_season, params):
+        return _holt_winters_scan_plain(
+            values.float(), mask, init_level.float(), init_season.float(), params.float(),
+            per_series, want_pred,
+        )
+    dev = values.device
+    _check(values, "values", torch.float32, (b, t_len))
+    _check(mask, "mask", torch.bool, (b, t_len))
+    _check(init_level, "init_level", torch.float32, (b,))
+    _check(init_season, "init_season", torch.float32, (b, m))
+    _check(params, "params", torch.float32, (b if per_series else g, 3))
+    n = b * g
+    level = torch.empty(n, dtype=torch.float32, device=dev)
+    trend = torch.empty(n, dtype=torch.float32, device=dev)
+    season = torch.empty((m, n), dtype=torch.float32, device=dev)
+    sse = torch.empty(n, dtype=torch.float64, device=dev)
+    pred = torch.empty((b, t_len), dtype=torch.float32, device=dev) if want_pred else None
+    _launch(
+        "holt_winters_scan",
+        values.data_ptr(), mask.data_ptr(), init_level.data_ptr(), init_season.data_ptr(),
+        params.data_ptr(), level.data_ptr(), trend.data_ptr(), season.data_ptr(),
+        sse.data_ptr(), None if pred is None else pred.data_ptr(),
+        int(per_series), b, t_len, m, g,
+    )
+
+    def lanes(x):  # [B * G] in lane order b * G + g -> [G, B]
+        return x.view(b, g).t()
+
+    return lanes(level), lanes(trend), season.view(m, b, g).permute(2, 1, 0), lanes(sse), pred
+
+
+# ---------------------------------------------------------------------------
+# holt_scan — Holt's linear trend (double exponential smoothing)
+# ---------------------------------------------------------------------------
+
+
+def _holt_scan_plain(values, mask, alpha, beta):
+    """The kernel's recurrence as a loop over time on [B] tensors."""
+    b, t_len = values.shape
+    oma, omb = 1.0 - alpha, 1.0 - beta
+    level = torch.zeros(b, dtype=torch.float32, device=values.device)
+    trend = torch.zeros_like(level)
+    inited = torch.zeros(b, dtype=torch.bool, device=values.device)
+    xs, ms = values.t(), mask.t()
+    preds = []
+    for t in range(t_len):
+        x, msk = xs[t], ms[t]
+        lt = level + trend
+        new_level = alpha * x + oma * lt
+        new_trend = beta * (new_level - level) + omb * trend
+        first = msk & ~inited
+        upd = msk & inited
+        level = torch.where(first, x, torch.where(upd, new_level, level))
+        trend = torch.where(first, torch.zeros_like(trend), torch.where(upd, new_trend, trend))
+        preds.append(torch.where(inited, lt, x))
+        inited = inited | msk
+    pred = torch.stack(preds, dim=1) if preds else values.new_zeros((b, 0))
+    return level, trend, pred
+
+
+def holt_scan(values: torch.Tensor, mask: torch.Tensor, alpha, beta):
+    """Holt's level + trend recurrence (`double_exponential`'s scan).
+
+    values [B, T] f32, mask [B, T] bool; alpha, beta scalar or [B].
+    Level starts at each series' first valid point with trend 0; masked
+    steps carry the state. Returns (level [B], trend [B], pred [B, T])."""
+    b, t_len = values.shape
+    dev = values.device
+    a = _row(alpha, b, torch.float32, dev)
+    bt = _row(beta, b, torch.float32, dev)
+    if not _on_cuda(values, mask):
+        return _holt_scan_plain(values.float(), mask, a, bt)
+    _check(values, "values", torch.float32, (b, t_len))
+    _check(mask, "mask", torch.bool, (b, t_len))
+    level = torch.empty(b, dtype=torch.float32, device=dev)
+    trend = torch.empty(b, dtype=torch.float32, device=dev)
+    pred = torch.empty((b, t_len), dtype=torch.float32, device=dev)
+    _launch(
+        "holt_scan",
+        values.data_ptr(), mask.data_ptr(), a.data_ptr(), bt.data_ptr(),
+        level.data_ptr(), trend.data_ptr(), pred.data_ptr(), b, t_len,
+    )
+    return level, trend, pred

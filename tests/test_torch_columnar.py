@@ -15,46 +15,22 @@ import pytest
 import torch
 
 from foremast_tpu.engine import judge as jj
+from foremast_tpu_torch import interop
 from foremast_tpu_torch.engine import judge as tj
 from tests.torch_fleet import (
     BAND_TOL,
+    assert_far_from_band_edges,
     assert_same_device_state,
     assert_same_verdicts,
+    bf16_gate,
+    columnar_inputs,
     fleet_kwargs,
     judges,
     run_both,
+    seasonal_kwargs,
 )
 
 TCS = [1, 7, 8, 30, 33]
-
-
-def _columnar_inputs(judge, kws, canary: bool):
-    """The columnar call's arguments, packed as the worker packs a warm
-    bucket: keys and entries from `fit_cache.peek`, nidx = len - 1,
-    per-row thr/bound/mlb from the metric-type table; the canary bucket
-    with its baseline buffer pair."""
-    cfg = judge.config
-    rows = [k for k in kws if ("base_values" in k) == canary]
-    keys = [(cfg.algorithm, cfg.season_steps, k["fit_key"]) for k in rows]
-    entries = [judge.fit_cache.peek(key) for key in keys]
-    lens = np.asarray([len(k["cur_values"]) for k in rows])
-    n_max = max(lens.max(), max((len(k["base_values"]) for k in rows), default=1) if canary else 1)
-    tc = jj.bucket_length(int(n_max))
-    values = np.zeros((len(rows), tc), np.float32)
-    mask = np.zeros((len(rows), tc), bool)
-    for i, k in enumerate(rows):
-        values[i, : lens[i]] = k["cur_values"]
-        mask[i, : lens[i]] = True
-    thr, bnd, mlb = cfg.anomaly.gather([k["metric_type"] for k in rows])
-    kw = {}
-    if canary:
-        kw["base_values"] = np.zeros_like(values)
-        kw["base_mask"] = np.zeros_like(mask)
-        for i, k in enumerate(rows):
-            kw["base_values"][i, : len(k["base_values"])] = k["base_values"]
-            kw["base_mask"][i, : len(k["base_values"])] = True
-    nidx = np.maximum(lens - 1, 0).astype(np.int32)
-    return (values, mask, keys, entries, nidx, thr, bnd, mlb), kw
 
 
 def _warm_pair(band_mode: str, n: int = 45):
@@ -65,7 +41,7 @@ def _warm_pair(band_mode: str, n: int = 45):
     return kws, jax_judge, port
 
 
-def _assert_same_columnar(got, want, tc: int) -> None:
+def _assert_same_columnar(got, want, tc: int, tol: float = 1e-5) -> None:
     v8, anoms, ub, lb, ps, differs = got
     w8, wanoms, wub, wlb, wps, wdiffers = want
     assert v8.dtype == np.int8
@@ -76,7 +52,7 @@ def _assert_same_columnar(got, want, tc: int) -> None:
         assert (g is None) == (w is None)
         if g is not None:
             assert g.shape == np.asarray(w).shape
-            np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(g, np.asarray(w), rtol=tol, atol=tol)
     assert (differs is None) == (wdiffers is None)
     if differs is not None:
         np.testing.assert_array_equal(differs, np.asarray(wdiffers))
@@ -91,8 +67,8 @@ def test_judge_columnar_matches_jax(canary, band_mode, with_bands):
     scatters; twice, so the pad key's row is reused too."""
     kws, jax_judge, port = _warm_pair(band_mode)
     for _ in range(2):
-        args_j, kw_j = _columnar_inputs(jax_judge, kws, canary)
-        args_t, kw_t = _columnar_inputs(port, kws, canary)
+        args_j, kw_j = columnar_inputs(jax_judge, kws, canary)
+        args_t, kw_t = columnar_inputs(port, kws, canary)
         misses = port.device_state_counters()["misses"]
         want = jax_judge.judge_columnar(*args_j, with_bands=with_bands, **kw_j)
         got = port.judge_columnar(*args_t, with_bands=with_bands, **kw_t)
@@ -113,7 +89,7 @@ def test_columnar_equals_the_object_path():
     kws, _, port = _warm_pair("last")
     objects = {v.job_id: v for v in port.judge([tj.MetricTask(**k) for k in kws])}
     for canary in (False, True):
-        args, kw = _columnar_inputs(port, kws, canary)
+        args, kw = columnar_inputs(port, kws, canary)
         v8, anoms, ub, lb, ps, differs = port.judge_columnar(*args, **kw)
         rows = [k for k in kws if ("base_values" in k) == canary]
         for i, k in enumerate(rows):
@@ -130,7 +106,7 @@ def test_async_wait_on_another_thread():
     """The dispatch half returns a pending result; `wait()` on a second
     thread gives what the blocking call gives."""
     kws, _, port = _warm_pair("last")
-    args, kw = _columnar_inputs(port, kws, True)
+    args, kw = columnar_inputs(port, kws, True)
     pending = port.judge_columnar_async(*args, **kw)
     assert isinstance(pending, tj.ColumnarPending)
     box = []
@@ -139,6 +115,74 @@ def test_async_wait_on_another_thread():
     t.join(timeout=60)
     assert not t.is_alive() and len(box) == 1
     _assert_same_columnar(box[0], port.judge_columnar(*args, **kw), args[0].shape[1])
+
+
+@pytest.mark.parametrize(
+    "algorithm,m,th,n,tol",
+    [("holt_winters", 24, 512, 11, 2e-4), ("auto_univariate", 1440, 10080, 5, 1e-3)],
+    ids=["holt_winters-24", "auto_univariate-1440"],
+)
+def test_seasonal_cold_warm_columnar_match_jax(algorithm, m, th, n, tol):
+    """A seasonal algorithm through the fit-cache path: the cold tick
+    (bf16-delta cold fit of the seasonal model, [m]-wide entries, arena
+    scatter), the warm object tick and both columnar buckets, with
+    histories whose current window starts 7 steps late on every third
+    task (the phase advances over the gap), and two 30-point histories
+    whose bucket is under two cycles: their mean-model entries carry a
+    [1] season that the arena tiles to m. Verdicts, flags and differs
+    equal the JAX judge's; bands within the model's tolerance (2e-4 for
+    the Holt-Winters recurrence, 1e-3 for auto's seasonal candidates)."""
+    short = seasonal_kwargs(2, m, 30, seed=50, key_prefix="short")
+    for k in short:
+        k["job_id"] = "short-" + k["job_id"]
+    kws = seasonal_kwargs(n, m, th) + short
+    jax_judge, port = judges("full", algorithm=algorithm, season_steps=m)
+    with bf16_gate(True):
+        for tick in range(2):
+            if tick:
+                for k in kws:
+                    k["job_id"] += "-recheck"
+            got, want = run_both(jax_judge, port, kws)
+            assert_far_from_band_edges(want, kws)
+            assert_same_verdicts(got, want, tol)
+            assert_same_device_state(jax_judge, port)
+    gaps = tj._gap_steps([tj.MetricTask(**k) for k in kws])
+    assert set(gaps.tolist()) == {0, 7}
+    entries = [port.fit_cache.peek((algorithm, m, k["fit_key"])) for k in kws]
+    assert {len(e[2]) for e in entries} == {1, m}  # full-season and tiled mean-model entries
+    assert any(e[1] != 0.0 for e in entries)  # trended fits
+    for canary in (False, True):
+        args_j, kw_j = columnar_inputs(jax_judge, kws, canary)
+        args_t, kw_t = columnar_inputs(port, kws, canary)
+        assert kw_t["gap_steps"].any()
+        want = jax_judge.judge_columnar(*args_j, **kw_j)
+        got = port.judge_columnar(*args_t, **kw_t)
+        _assert_same_columnar(got, want, args_t[0].shape[1], tol)
+        assert_same_device_state(jax_judge, port)
+    assert set(got[0].tolist()) >= {1}
+
+
+def test_jax_seasonal_snapshot_judged_warm():
+    """A JAX fit cache of Holt-Winters state ([m] seasons, trends,
+    phases), carried across with `interop.model_cache_from_snapshot`,
+    judges warm in the port with no fit and the JAX judge's verdicts; the
+    columnar bucket advances the same gaps."""
+    kws = seasonal_kwargs(10, 24, 512, seed=3)
+    jax_judge, port = judges("full", algorithm="holt_winters", season_steps=24)
+    jax_judge.judge([jj.MetricTask(**k) for k in kws])
+    snap = jax_judge.fit_cache.snapshot()
+    port.fit_cache = interop.model_cache_from_snapshot(snap)
+    calls = []
+    fit = port._fit_miss_rows
+    port._fit_miss_rows = lambda miss, *a: calls.append(len(miss)) or fit(miss, *a)
+    got = port.judge([tj.MetricTask(**k) for k in kws])
+    want = jax_judge.judge([jj.MetricTask(**k) for k in kws])
+    assert calls and set(calls) == {0}
+    assert_same_verdicts(got, want, 1e-6)
+    args_j, kw_j = columnar_inputs(jax_judge, kws, False)
+    args_t, kw_t = columnar_inputs(port, kws, False)
+    _assert_same_columnar(port.judge_columnar(*args_t, **kw_t), jax_judge.judge_columnar(*args_j, **kw_j),
+                          args_t[0].shape[1], 1e-6)
 
 
 @pytest.mark.parametrize("tc", TCS)

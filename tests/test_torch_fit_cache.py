@@ -18,7 +18,6 @@ from foremast_tpu.engine.arena import StateArena as JaxArena
 from foremast_tpu.engine.arena import _row_bytes
 from foremast_tpu.models import cache as jcache
 from foremast_tpu_torch import interop
-from foremast_tpu_torch.config import BrainConfig
 from foremast_tpu_torch.engine import judge as tj
 from foremast_tpu_torch.engine import scoring as ts
 from foremast_tpu_torch.engine.arena import StateArena
@@ -26,12 +25,14 @@ from foremast_tpu_torch.models import cache as tcache
 from tests.torch_fleet import (
     BAND_TOL,
     arena_budget,
+    assert_far_from_band_edges,
     assert_same_device_state,
     assert_same_verdicts,
     bf16_gate,
     fleet_kwargs,
     judges,
     run_both,
+    seasonal_kwargs,
 )
 
 
@@ -256,11 +257,24 @@ def test_jax_fitted_cache_carried_across():
 
 
 def test_non_ma_bf16_cold_fit_is_not_ported():
-    kws = fleet_kwargs(3)
-    port = tj.HealthJudge(BrainConfig(algorithm="holt_winters"), device="cpu")
-    port.fit_cache = tcache.ModelCache(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.judge([tj.MetricTask(**k) for k in kws])
+    """The bf16-delta cold fit of the other algorithms is ported now
+    (`fit_forecast_bf16_delta`): a Holt-Winters fleet's cold tick through
+    it, and through the f32 route with the gate off, caches the JAX
+    judge's entries and writes its verdicts."""
+    kws = seasonal_kwargs(9, 24, 400, seed=4)
+    for bf16 in (True, False):
+        jax_judge, port = judges(algorithm="holt_winters", season_steps=24)
+        with bf16_gate(bf16):
+            got, want = run_both(jax_judge, port, kws)
+        assert_far_from_band_edges(want, kws)
+        assert_same_verdicts(got, want, 2e-4)
+        assert_same_device_state(jax_judge, port)
+        want_cache = jax_judge.fit_cache.snapshot()
+        for key, g in port.fit_cache.snapshot().items():
+            w = want_cache[key]
+            assert (g[3], g[5]) == (int(w[3]), int(w[5]))
+            np.testing.assert_allclose([g[0], g[1], g[4]], [w[0], w[1], w[4]], rtol=2e-4, atol=2e-4)
+            np.testing.assert_allclose(g[2], np.asarray(w[2]), rtol=2e-4, atol=2e-4)
 
 
 def test_device_state_counters_monotone_across_clear():

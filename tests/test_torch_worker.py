@@ -22,11 +22,13 @@ from foremast_tpu_torch.jobs import (
 from tests.torch_fleet import BAND_TOL, bf16_gate
 from tests.torch_workers import (
     CUR_LEN,
+    HIST_LEN,
     NOW,
     assert_same_hook_records,
     count_columnar,
     force_slow,
     hook_recorder,
+    seasonal_series,
     spike,
     statuses,
     worker_pair,
@@ -243,3 +245,58 @@ def test_f32_cold_fit_bands_within_tolerance():
         jw.tick(now=NOW + 150)
         pw.tick(now=NOW + 150)
     assert_same_hook_records(prec, jrec, tol=BAND_TOL[False])
+
+
+# Every univariate algorithm at a 24-step season over 512-point
+# histories, and the daily season over 7-day histories for auto.
+_ALGORITHM_CASES = [
+    (a, 24, HIST_LEN)
+    for a in (
+        "moving_average", "ewma", "exponential_smoothing", "double_exponential_smoothing",
+        "holtwinters", "holt_winters", "phase_means", "auto_univariate", "seasonal",
+        "prophet", "seasonal_hourly",
+    )
+] + [("auto_univariate", 1440, 10_080)]
+
+
+# the models that carry any period-m cycle shape, bursts included: the
+# seasonal fleet stays healthy under them (the Fourier seasonal model
+# flags the `tps` alias's two-step bursts, as on the JAX worker)
+_CYCLE_MODELS = {"holtwinters", "holt_winters", "phase_means", "auto_univariate"}
+
+
+@pytest.mark.parametrize(
+    "algorithm,m,hist_len", _ALGORITHM_CASES, ids=[f"{a}-{m}" for a, m, _ in _ALGORITHM_CASES]
+)
+def test_univariate_algorithm_ticks_match_jax(algorithm, m, hist_len):
+    """A fleet with seasonal, flat, trended and bursty aliases, judged by
+    `algorithm` on both workers: the cold tick (bf16-delta fits of the
+    model, [m]-wide entries) and a warm tick with one doc's latency
+    spiked write the same statuses, codes, reasons and anomaly_info, with
+    equal arena counters. The models that fit the cycle keep the fleet
+    healthy until the spike; the others may flag the cycle itself, as
+    the JAX worker does."""
+    services = 3
+    (jw, jstore, jsrc), (pw, pstore, psrc) = worker_pair(
+        services, hist_len=hist_len, baseline_frac=0.5, algorithm=algorithm, season_steps=m
+    )
+    seasonal_series((jsrc, psrc), m)
+    pcalls = count_columnar(pw)
+    with bf16_gate(True):
+        assert jw.tick(now=NOW + 150) == pw.tick(now=NOW + 150) == services
+        cold = statuses(pstore)
+        assert cold == statuses(jstore)
+        _same_state(jw, pw)
+        spike((jsrc, psrc), "http://prom/cur", "latency:app1&")
+        assert jw.tick(now=NOW + 200) == pw.tick(now=NOW + 200)
+    got = statuses(pstore)
+    assert got == statuses(jstore)
+    assert got["job-1"][0] == STATUS_COMPLETED_UNHEALTH
+    _same_state(jw, pw)
+    widths = {len(e[2]) for e in pw._fit_cache._d.values()}
+    assert widths <= {1, m, 60}
+    if algorithm in _CYCLE_MODELS:
+        assert {s[0] for s in cold.values()} == {STATUS_PREPROCESS_COMPLETED}
+        assert got["job-0"][0] == got["job-2"][0] == STATUS_PREPROCESS_COMPLETED
+        assert pcalls, "the warm tick should take the columnar buckets"
+        assert m in widths

@@ -68,12 +68,89 @@ def fleet_kwargs(n: int, seed: int = 0, th: int = 400, tc: int = 30, key_prefix:
     return out
 
 
-def judges(band_mode: str = "full", cache_size: int = 256):
-    """(JAX judge, port judge on the CPU), each with an empty fit cache."""
-    jax_judge = jj.HealthJudge(JaxConfig())
+def seasonal_kwargs(n: int, m: int, th: int, tc: int = 30, seed: int = 0, key_prefix: str = "s"):
+    """MetricTask keyword dicts for `n` tasks whose histories are the
+    quality generator's kinds at period `m` (flat, seasonal,
+    sharp-seasonal, trend, shift, in turn) and whose current windows
+    continue each signal with its two 8-sigma spikes. Every third task's
+    current window starts 7 steps late (a history-to-current gap the
+    seasonal phase must advance over, values at their true time); even
+    tasks are canaries with a baseline a fixed shift below; each has a
+    fit key."""
+    from benchmarks.quality import gen
+
+    kinds = ("flat", "seasonal", "sharp-seasonal", "trend", "shift")
+    out = []
+    for i in range(n):
+        gap = 7 if i % 3 == 1 else 0
+        hist, cur, _ = gen(kinds[i % len(kinds)], 1, th + gap, tc, seed=seed + i, period=m)
+        hv, cv = hist[0, :th], cur[0]
+        ht = T0 + 60 * np.arange(th, dtype=np.int64)
+        ct = ht[-1] + 60 * (gap + 1) + 60 * np.arange(tc, dtype=np.int64)
+        kw = dict(
+            job_id=f"job{i}", alias=f"m{i % 3}", metric_type=MTYPES[i % len(MTYPES)],
+            hist_times=ht, hist_values=hv, cur_times=ct, cur_values=cv,
+            fit_key=f"{key_prefix}{i}",
+        )
+        if i % 2 == 0:
+            kw["base_times"] = ct - 60 * tc
+            kw["base_values"] = (cv - 0.12).astype(np.float32)
+        out.append(kw)
+    return out
+
+
+def assert_far_from_band_edges(verdicts, kws, margin: float = 1e-4) -> None:
+    """Every judged current point lies `margin` (relative) away from the
+    reference judge's band edges ("full" bands), so f32 differences in a
+    fit cannot move a flag: a failure means other data are needed."""
+    for v, k in zip(verdicts, kws):
+        if v.verdict == js.UNKNOWN:
+            continue
+        cur = np.asarray(k["cur_values"], np.float32)
+        for edge in (np.asarray(v.upper), np.asarray(v.lower)):
+            gap = np.abs(cur - edge) / (1 + np.abs(edge))
+            assert gap.min() > margin, f"{k['job_id']}: a point sits {gap.min():.2e} from a band edge"
+
+
+def columnar_inputs(judge, kws, canary: bool):
+    """The columnar call's arguments, packed as the worker packs a warm
+    bucket: keys and entries from `fit_cache.peek`, nidx = len - 1,
+    per-row thr/bound/mlb from the metric-type table; the canary bucket
+    with its baseline buffer pair; the hist->cur gaps for the algorithms
+    whose horizon depends on them."""
+    cfg = judge.config
+    rows = [k for k in kws if ("base_values" in k) == canary]
+    keys = [(cfg.algorithm, cfg.season_steps, k["fit_key"]) for k in rows]
+    entries = [judge.fit_cache.peek(key) for key in keys]
+    lens = np.asarray([len(k["cur_values"]) for k in rows])
+    n_max = max(lens.max(), max((len(k["base_values"]) for k in rows), default=1) if canary else 1)
+    tc = jj.bucket_length(int(n_max))
+    values = np.zeros((len(rows), tc), np.float32)
+    mask = np.zeros((len(rows), tc), bool)
+    for i, k in enumerate(rows):
+        values[i, : lens[i]] = k["cur_values"]
+        mask[i, : lens[i]] = True
+    thr, bnd, mlb = cfg.anomaly.gather([k["metric_type"] for k in rows])
+    kw = {}
+    if canary:
+        kw["base_values"] = np.zeros_like(values)
+        kw["base_mask"] = np.zeros_like(mask)
+        for i, k in enumerate(rows):
+            kw["base_values"][i, : len(k["base_values"])] = k["base_values"]
+            kw["base_mask"][i, : len(k["base_values"])] = True
+    nidx = np.maximum(lens - 1, 0).astype(np.int32)
+    if cfg.algorithm in tj.GAP_SENSITIVE_FITS:
+        kw["gap_steps"] = tj._gap_steps([tj.MetricTask(**k) for k in rows])
+    return (values, mask, keys, entries, nidx, thr, bnd, mlb), kw
+
+
+def judges(band_mode: str = "full", cache_size: int = 256, **config):
+    """(JAX judge, port judge on the CPU), each with an empty fit cache;
+    `config` (algorithm, season_steps, ...) goes to both configs."""
+    jax_judge = jj.HealthJudge(JaxConfig(**config))
     jax_judge.fit_cache = JaxCache(cache_size)
     jax_judge.band_mode = band_mode
-    port = tj.HealthJudge(BrainConfig(), device="cpu")
+    port = tj.HealthJudge(BrainConfig(**config), device="cpu")
     port.fit_cache = ModelCache(cache_size)
     port.band_mode = band_mode
     return jax_judge, port

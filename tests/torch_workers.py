@@ -44,6 +44,50 @@ def port_store(jax_store) -> InMemoryStore:
     return store
 
 
+# the shapes a seasonal fleet's aliases carry (`seasonal_series`)
+ALIAS_SHAPES = {"latency": "seasonal", "error4xx": "flat", "error5xx": "trend", "tps": "sharp"}
+
+
+def seasonal_series(sources, m: int) -> None:
+    """Give every alias of the fleet a structured signal of period `m`, in
+    every source (the same arrays): histories are the alias's shape
+    (`ALIAS_SHAPES`) plus noise, and current windows continue that signal
+    at their true time with a small deterministic wiggle, so they sit
+    well inside any fitted band and the fleet stays healthy; a canary's
+    baseline is its current window plus small noise (same distribution:
+    the rank tests hold)."""
+    rng = np.random.default_rng(m)
+
+    def signal(shape, t):
+        if shape == "seasonal":
+            return 1.0 + 0.5 * np.sin(2 * np.pi * t / m)
+        if shape == "trend":
+            return 1.0 + 0.0001 * t
+        if shape == "sharp":
+            return 1.0 + 0.5 * ((t % m) < max(2, m // 144))
+        return 1.0 + 0.0 * t
+
+    src0 = sources[0]
+    for url in sorted(u for u in src0.data if u.startswith("http://prom/hist")):
+        alias = url.split("?q=")[1].split(":")[0]
+        ht, _ = src0.data[url]
+        query = url.split("&end")[0].split("?")[1] + "&"  # q=<alias>:app<i>&
+        cur_url = next(u for u in src0.data if u.startswith("http://prom/cur") and query in u)
+        base_url = next((u for u in src0.data if u.startswith("http://prom/base") and query in u), None)
+        ct, _ = src0.data[cur_url]
+        hv = (signal(ALIAS_SHAPES[alias], np.arange(len(ht))) + rng.normal(0, 0.05, len(ht))).astype(np.float32)
+        t_cur = len(ht) + (ct - ct[0]) // 60 + (int(ct[0]) - int(ht[-1])) // 60 - 1
+        cv = (signal(ALIAS_SHAPES[alias], t_cur) + 0.01 * np.sin(np.arange(len(ct)) / 3.0)).astype(np.float32)
+        for src in sources:
+            src.data[url] = (ht.copy(), hv.copy())
+            src.data[cur_url] = (ct.copy(), cv.copy())
+        if base_url is not None:
+            bt, _ = src0.data[base_url]
+            bv = (cv + rng.normal(0, 0.01, len(cv))).astype(np.float32)
+            for src in sources:
+                src.data[base_url] = (bt.copy(), bv.copy())
+
+
 def worker_pair(
     services: int,
     hist_len: int = HIST_LEN,
@@ -52,19 +96,23 @@ def worker_pair(
     hooks=(None, None),
     baseline_frac: float = 0.0,
     seed: int = 0,
+    algorithm: str = "moving_average_all",
+    season_steps: int = 24,
     **worker_kw,
 ):
     """((JAX worker, store, source), (port worker, store, source)) over
-    the same fleet: `services` docs × 4 aliases, re-check steady state."""
+    the same fleet: `services` docs × 4 aliases, re-check steady state,
+    both judging with `algorithm` at `season_steps`."""
     store, source, _ = build_mixed_fleet(
         services, hist_len, cur_len, NOW, seed=seed, baseline_frac=baseline_frac
     )
     pstore, psource = port_store(store), PortArraySource(source.data)
     kw = dict(claim_limit=2 * services, worker_id="parity-w", band_mode=band_mode, **worker_kw)
+    cfg = dict(algorithm=algorithm, season_steps=season_steps, max_cache_size=4 * services + 64)
     jax_worker = JaxWorker(
         store,
         source,
-        config=JaxConfig(season_steps=24, max_cache_size=4 * services + 64),
+        config=JaxConfig(**cfg),
         on_verdict=hooks[0],
         device_mesh=None,
         **kw,
@@ -72,7 +120,7 @@ def worker_pair(
     port = BrainWorker(
         pstore,
         psource,
-        config=BrainConfig(season_steps=24, max_cache_size=4 * services + 64),
+        config=BrainConfig(**cfg),
         device="cpu",
         on_verdict=hooks[1],
         **kw,
