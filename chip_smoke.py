@@ -39,10 +39,13 @@ Phases; any failure exits non-zero:
   7. the univariate forecaster family at the default daily season
      (m=1440; Th=10,080 in its 16,384 bucket, Tc=30):
      (a) holt_winters_scan (grid G=8, per-series with predictions) and
-     holt_scan against their plain versions at edge shapes (m in 1, 24,
-     60, 1440; T in 0, 1, m-1, 2m-1, 2m, 2m+1, odd; all-masked,
-     single-point, gapped and late rows), grid-choice differences
-     printed with their SSE gaps; (b) one 4,096-row cold-fit chunk of
+     holt_scan bit for bit equal to their plain versions at edge shapes
+     (m in 1, 16, 17, 24, 60, 160, 161, 1440: the season ring's depth and
+     one above, the shared-memory season's limit and one above; T in 0,
+     1, m-1, 2m-1, 2m, 2m+1, odd, and one tile -1/0/+1; B in 33, 37,
+     129; all-masked, single-point, gapped, late-starting and early-ending
+     rows in one block; a grid of more parameter sets than a launch
+     takes); (b) one 4,096-row cold-fit chunk of
      every univariate algorithm through fit_forecast and
      fit_forecast_bf16_delta, timed, the first 256 rows against the CPU
      (state, then verdicts and flags through score_from_state); (c) phase
@@ -53,7 +56,12 @@ Phases; any failure exits non-zero:
      docs, holt_winters at m=24, the JAX package's season-blocked regime,
      on 256; x 4 aliases), cold then spiked warm, every doc
      against a CPU worker; then both scan kernels timed at the main
-     path's shapes beside their bounds. A flag may differ from the CPU
+     path's shapes (m=1440 and m=24) beside their bounds, the dependent
+     chain's floor and the season's device-memory stream, and again with
+     every row empty (no chain runs: what is left is the fill of `pred`
+     past it and the state's set-up) and on 128 rows (no two blocks on
+     one SM), held bit for bit to their plain versions there. A flag may
+     differ from the CPU
      only where a current point lies within 1e-5 of a band edge (counted
      and printed), and a Holt-Winters grid choice only at an SSE near
      tie (gap under 1e-5, printed).
@@ -66,7 +74,8 @@ holt_scan (double exponential smoothing) and masked_stats (every mean
 model and identifiability guard).
 
 `python3 chip_smoke.py --kernels-only` builds the kernels, runs phase 2
-and 7(a) and stops: the short first call after a kernel change.
+and 7(a), times the two scan kernels at full size and stops: the short
+first call after a kernel change.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -89,6 +98,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (NVIDIA data sheets); the f32 rate outside the tensor cores is 67 TFLOP/s.
 PEAK_BYTES = {"HBM3": 3.35e12, "SXM": 3.35e12, "NVL": 3.9e12, "PCIe": 2.0e12}
 PEAK_F32_FLOPS = 67e12
+L2_BYTES = 50e6  # H100 L2 cache
 
 FLEET = 4096  # one fit chunk of the JAX judge: a fleet-cold tick's batch
 FIT_FLEET = 16384  # phase 5: four fit chunks
@@ -1114,7 +1124,6 @@ FIT_TOL = {
     "double_exponential_smoothing": 2e-4, "holtwinters": 2e-4, "holt_winters": 2e-4,
     "phase_means": 1e-3, "auto_univariate": 1e-3, "seasonal": 1e-3, "prophet": 1e-3, "seasonal_hourly": 1e-3,
 }
-SCAN_TOL = 1e-5  # a scan kernel against its plain version on the same tensors
 EDGE = 1e-5  # a flag may differ from the CPU only this close (relative) to a band edge
 CMP_TASKS = 1024  # 7(c): tasks held to a CPU judge
 SEASONAL_DOCS = 1024  # 7(d): x 4 aliases = 4,096 windows, auto_univariate at m = 1440
@@ -1208,10 +1217,60 @@ def hw_flips(values, mask, values_cpu, mask_cpu, what: str) -> np.ndarray:
     return flips
 
 
+def same_bits(got, want, what: str) -> float:
+    """Fails unless `got` and `want` hold the same bits (dtype, shape and
+    every value, zero signs included); returns the worst |got - want|
+    over the finite values (0 when they pass)."""
+    import torch
+
+    worst = 0.0
+    for name, a, w in zip(("level", "trend", "season", "sse", "pred"), got, want):
+        if a is None and w is None:
+            continue
+        check(a is not None and w is not None and a.dtype == w.dtype and a.shape == w.shape,
+              f"{what}: {name} has another dtype or shape than the plain version")
+        ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+        same = torch.equal(a.contiguous().view(ints), w.contiguous().view(ints))
+        check(same, f"{what}: {name} differs from the plain version")
+        diff = (a.double() - w.double()).abs()
+        diff = diff[torch.isfinite(diff)]
+        if diff.numel():
+            worst = max(worst, float(diff.max()))
+    return worst
+
+
+def scan_mask(b: int, t_len: int) -> np.ndarray:
+    """7(a)'s masks: rows cycle through all-masked, one valid point, an
+    interior gap, leading masked steps, trailing padding and a full row;
+    every second block of 32 rows ends by T/3 but for its last row, which
+    starts at T/2, after every other row of its block has ended."""
+    r = np.arange(b)
+    k = r % 6
+    mk = np.ones((b, t_len), bool)
+    mk[k == 0] = False
+    mk[k == 1] = False
+    if t_len:
+        mk[k == 1, t_len // 2] = True
+    mk[k == 2, t_len // 4 : t_len // 2] = False
+    mk[k == 3, : t_len // 3] = False
+    mk[k == 4, (2 * t_len) // 3 :] = False
+    early = (r // 32) % 2 == 1
+    mk[early, t_len // 3 :] = False
+    late = early & (r % 32 == 31)
+    mk[late] = False
+    mk[late, t_len // 2 :] = True
+    return mk
+
+
 def phase_scan_kernels_vs_plain(dev) -> dict:
     """7(a): holt_winters_scan (grid G=8 and per-series with predictions)
     and holt_scan against their plain versions on the same CUDA tensors,
-    at edge shapes."""
+    bit for bit, at edge shapes of the kernels' layout: the season ring's
+    depth D and D+1, the shared-memory season's last m and the first in
+    device memory, T around one tile, B around a block of rows, rows of
+    one block that end at different steps, and more parameter sets than
+    one launch takes (the wrapper splits them). The layout is read from
+    the built kernel."""
     import torch
 
     from foremast_tpu_torch.ops import forecasters as F
@@ -1220,65 +1279,64 @@ def phase_scan_kernels_vs_plain(dev) -> dict:
     rng = np.random.default_rng(77)
     worst = {"holt_winters_scan": 0.0, "holt_scan": 0.0}
     grid = torch.tensor(F._HW_GRID, dtype=torch.float32, device=dev)
-    flips = cases = 0
-    for m in (1, 24, 60, SEASON):
-        for t_len in sorted({0, 1, max(m - 1, 0), 2 * m - 1, 2 * m, 2 * m + 1, 2 * m + 37}):
-            b = 37
-            v = 2.0 + np.sin(2 * np.pi * np.arange(t_len) / max(m, 2))[None, :] + rng.normal(0, 0.1, (b, t_len))
-            mk = np.ones((b, t_len), bool)
-            mk[0::5] = False  # all masked
-            mk[1::5] = False
-            mk[1::5, t_len // 2 : t_len // 2 + 1] = True  # a single valid point
-            mk[2::5, t_len // 4 : t_len // 2] = False  # an interior gap
-            mk[3::5, : t_len // 3] = False  # leading masked steps
-            values = torch.from_numpy(v.astype(np.float32)).to(dev)
-            mask = torch.from_numpy(mk).to(dev)
-            il, isn = F._hw_init(values, mask, m)
-            got = K.holt_winters_scan(values, mask, il, isn, grid)
-            want = K._holt_winters_scan_plain(values, mask, il, isn, grid, False, False)
-            for a, w in zip(got[:3], want[:3]):
-                worst["holt_winters_scan"] = max(worst["holt_winters_scan"], close_err(a, w, SCAN_TOL))
-            close_err(got[3], want[3], 1e-9)
-            kb, pb = got[3].argmin(dim=0), want[3].argmin(dim=0)
-            for r in torch.nonzero(kb != pb).flatten().tolist():
-                s = want[3][:, r]
-                gap = float(abs(s[kb[r]] - s[pb[r]]) / max(float(s.min()), 1e-30))
-                print(f"phase 7: (a) m={m} T={t_len} row {r}: kernel grid choice {int(kb[r])}, plain {int(pb[r])}, "
-                      f"SSE gap {gap:.3e}")
-                check(gap < 1e-5, "holt_winters_scan: a grid choice differs from its plain version")
-                flips += 1
-            params = grid[kb].contiguous()
-            got = K.holt_winters_scan(values, mask, il, isn, params, per_series=True, want_pred=True)
-            want = K._holt_winters_scan_plain(values, mask, il, isn, params, True, True)
-            for a, w in zip(got[:3] + got[4:], want[:3] + want[4:]):
-                worst["holt_winters_scan"] = max(worst["holt_winters_scan"], close_err(a, w, SCAN_TOL))
-            close_err(got[3], want[3], 1e-9)
-            cases += 1
-    n_holt = 0
-    for b in (1, 37):
-        for t_len in (0, 1, 5, 131, FULL_TH):
-            v = (rng.normal(0, 1, (b, t_len)).cumsum(axis=1) * 0.1 + 3.0).astype(np.float32)
-            mk = rng.random((b, t_len)) > 0.2
-            mk[::4] = False
-            mk[1::4, : t_len // 2] = False
-            values = torch.from_numpy(v).to(dev)
-            mask = torch.from_numpy(mk).to(dev)
-            per_series = tuple(torch.from_numpy(rng.uniform(lo, hi, b).astype(np.float32)).to(dev)
-                               for lo, hi in ((0.05, 0.9), (0.01, 0.5)))
-            for alpha, beta in ((0.3, 0.1), per_series):
-                got = K.holt_scan(values, mask, alpha, beta)
-                want = K._holt_scan_plain(values, mask, K._row(alpha, b, torch.float32, dev),
-                                          K._row(beta, b, torch.float32, dev))
-                for x, w in zip(got, want):
-                    worst["holt_scan"] = max(worst["holt_scan"], close_err(x, w, SCAN_TOL))
-                n_holt += 1
+    layout = K.scan_layout()
+    tile, ring = layout["tile"], layout["ring"]
+    m_smem = layout["smem_m"]  # the last m whose season stays on chip
+    check(K._MAX_G == layout["max_g"], f"kernels._MAX_G is {K._MAX_G}, the entry point takes {layout['max_g']}")
+    hw_cases = [(37, m, t_len)
+                for m in sorted({1, ring, ring + 1, 24, 60, m_smem, m_smem + 1, SEASON})
+                for t_len in sorted({0, 1, max(m - 1, 0), 2 * m - 1, 2 * m, 2 * m + 1, 2 * m + 37})]
+    hw_cases += [(b, m, t_len) for b in (33, 129) for m in (1, 24, m_smem + 1)
+                 for t_len in (tile - 1, tile, tile + 1, 3 * tile + 5)]
+    for b, m, t_len in hw_cases:
+        v = 2.0 + np.sin(2 * np.pi * np.arange(t_len) / max(m, 2))[None, :] + rng.normal(0, 0.1, (b, t_len))
+        values = torch.from_numpy(v.astype(np.float32)).to(dev)
+        mask = torch.from_numpy(scan_mask(b, t_len)).to(dev)
+        il, isn = F._hw_init(values, mask, m)
+        what = f"holt_winters_scan B={b} m={m} T={t_len}"
+        got = K.holt_winters_scan(values, mask, il, isn, grid)
+        want = K._holt_winters_scan_plain(values, mask, il, isn, grid, False, False)
+        worst["holt_winters_scan"] = max(worst["holt_winters_scan"], same_bits(got, want, what + " grid"))
+        params = grid[got[3].argmin(dim=0)].contiguous()
+        got = K.holt_winters_scan(values, mask, il, isn, params, per_series=True, want_pred=True)
+        want = K._holt_winters_scan_plain(values, mask, il, isn, params, True, True)
+        worst["holt_winters_scan"] = max(worst["holt_winters_scan"], same_bits(got, want, what + " per-series"))
+    # more parameter sets than a launch takes: two launches, one result
+    b, m, t_len = 37, 24, 85
+    g_split = layout["max_g"] + 44
+    values = torch.from_numpy(rng.normal(2.0, 0.3, (b, t_len)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(scan_mask(b, t_len)).to(dev)
+    il, isn = F._hw_init(values, mask, m)
+    params = torch.from_numpy(rng.uniform(0.02, 0.9, (g_split, 3)).astype(np.float32)).to(dev)
+    before = K.LAUNCHES["holt_winters_scan"]
+    got = K.holt_winters_scan(values, mask, il, isn, params)
+    split = K.LAUNCHES["holt_winters_scan"] - before
+    check(split == 2, f"holt_winters_scan at G={g_split} ran {split} launches, not 2")
+    want = K._holt_winters_scan_plain(values, mask, il, isn, params, False, False)
+    worst["holt_winters_scan"] = max(worst["holt_winters_scan"],
+                                     same_bits(got, want, f"holt_winters_scan G={g_split} B={b} m={m} T={t_len}"))
+    holt_cases = [(b, t_len) for b in (1, 33, 37, 129)
+                  for t_len in (0, 1, 5, tile - 1, tile, tile + 1, 131, FULL_TH)]
+    for b, t_len in holt_cases:
+        v = (rng.normal(0, 1, (b, t_len)).cumsum(axis=1) * 0.1 + 3.0).astype(np.float32)
+        mk = scan_mask(b, t_len) & (rng.random((b, t_len)) > 0.2)
+        values = torch.from_numpy(v).to(dev)
+        mask = torch.from_numpy(mk).to(dev)
+        per_series = tuple(torch.from_numpy(rng.uniform(lo, hi, b).astype(np.float32)).to(dev)
+                           for lo, hi in ((0.05, 0.9), (0.01, 0.5)))
+        for alpha, beta in ((0.3, 0.1), per_series):
+            got = K.holt_scan(values, mask, alpha, beta)
+            want = K._holt_scan_plain(values, mask, K._row(alpha, b, torch.float32, dev),
+                                      K._row(beta, b, torch.float32, dev))
+            worst["holt_scan"] = max(worst["holt_scan"], same_bits(got, want, f"holt_scan B={b} T={t_len}"))
     torch.cuda.synchronize()
-    print(f"phase 7: (a) holt_winters_scan equals its plain version at {cases} (m, T) cases (m in 1, 24, 60, "
-          f"{SEASON}; T in 0, 1, m-1, 2m-1, 2m, 2m+1, 2m+37; grid G=8, then per-series with predictions; 37 rows: "
-          f"all-masked, single-point, gapped, late-starting, full): worst state/pred error "
-          f"{worst['holt_winters_scan']:.3e} (tolerance {SCAN_TOL:g}), {flips} grid-choice differences")
-    print(f"phase 7: (a) holt_scan equals its plain version at {n_holt} cases (B in 1, 37; T in 0, 1, 5, 131, "
-          f"{FULL_TH}; scalar and per-series parameters): worst error {worst['holt_scan']:.3e}")
+    print(f"phase 7: (a) holt_winters_scan bit for bit equal to its plain version (level, trend, season, SSE; "
+          f"then pred) at {len(hw_cases)} (B, m, T) cases, grid G=8 then per-series with predictions "
+          f"(m in 1, {ring}, {ring + 1}, 24, 60, {m_smem}, {m_smem + 1}, {SEASON}; T in 0, 1, m-1, 2m-1, 2m, 2m+1, "
+          f"2m+37 at B=37; T in {tile - 1}, {tile}, {tile + 1}, {3 * tile + 5} at B in 33, 129), so 0 grid-choice "
+          f"differences; and a grid of G={g_split} in two launches")
+    print(f"phase 7: (a) holt_scan bit for bit equal to its plain version at {2 * len(holt_cases)} cases (B in 1, 33, "
+          f"37, 129; T in 0, 1, 5, {tile - 1}, {tile}, {tile + 1}, 131, {FULL_TH}; scalar and per-series parameters)")
     return worst
 
 
@@ -1658,79 +1716,116 @@ def phase_seasonal_worker(dev) -> dict:
 
 
 def time_scan_kernels(dev, peak_bytes: float, sm_clock_hz: float) -> dict:
-    """The two scan kernels at the main path's shapes (one 4,096-row cold
-    chunk, T=16,384, m=1440; holt_winters_scan's grid launch of G=8, and
-    the per-series launch that writes predictions), each beside its bound
-    (the larger of bytes over the memory rate and f32 operations over the
-    f32 peak), the dependent-chain figure, and its plain version."""
+    """The two scan kernels at the main path's shapes: one 4,096-row cold
+    chunk, T=16,384 with every row valid to Th=10,080; holt_winters_scan's
+    grid launch of G=8 and its per-series launch that writes predictions,
+    at m=1440 and m=24; holt_scan. Each is called as the product calls it:
+    holt_winters_scan with the `last_valid` that fit_holt_winters computes
+    once for its two launches (timed apart), holt_scan computing its own.
+    Each is held bit for bit to its plain version (one call of it, timed),
+    then timed beside its bound (the larger of bytes over the memory rate
+    and f32 operations over the f32 peak, operations counted over the
+    steps the data need), the dependent chain's floor and the floor of the
+    season's device-memory stream; and timed again with every row empty
+    (no chain runs: the fill of `pred` and the set-up alone) and on the
+    first 128 rows only (at most 8 blocks, none sharing an SM: the chain
+    without contention)."""
     import torch
 
     from foremast_tpu_torch.ops import forecasters as F
     from foremast_tpu_torch.ops import kernels as K
 
-    b, t_len, m, g = FLEET, TH_BUCKET, SEASON, len(F._HW_GRID)
+    b, t_len, g = FLEET, TH_BUCKET, len(F._HW_GRID)
+    steps = FULL_TH  # every row's last valid step + 1: what the chain must run
     hist, _, _ = quality_fleet(b, seed=83)
     values = torch.zeros((b, t_len), device=dev)
     values[:, :FULL_TH] = torch.from_numpy(hist).to(dev)
     mask = torch.zeros((b, t_len), dtype=torch.bool, device=dev)
     mask[:, :FULL_TH] = True
-    il, isn = F._hw_init(values, mask, m)
     grid = torch.tensor(F._HW_GRID, dtype=torch.float32, device=dev)
     params = grid[torch.arange(b, device=dev) % g].contiguous()
-    n_grid = b * g
+    lv = K.last_valid_index(mask)  # passed in, as fit_holt_winters does; timed apart below
+    no_mask = torch.zeros_like(mask)  # every row empty: no chain runs
+    no_rows = torch.full_like(lv, -1)
+    few = 128
     # a lane-step: ~16 f32 operations (3 adds/subs of the forecast, 3 x
     # (sub, 2 mul, add) of level, trend and season, the residual square)
-    # and one f64 add; the chain: ~7 dependent f32 operations a step at
-    # ~4 cycles each (trend -> level + trend -> products -> sums -> trend)
-    work = {
-        "holt_winters_scan": (
-            lambda: K.holt_winters_scan(values, mask, il, isn, grid),
-            lambda: K._holt_winters_scan_plain(values, mask, il, isn, grid, False, False),
-            b * t_len * 5 + b * 4 + b * m * 4 + g * 12 + n_grid * (4 + 4 + 8) + n_grid * m * 4,
-            n_grid * t_len * 16,
-            t_len * 7 * 4,
-        ),
-        "holt_winters_scan (per-series, with predictions)": (
-            lambda: K.holt_winters_scan(values, mask, il, isn, params, per_series=True, want_pred=True),
-            None,
-            b * t_len * 5 + b * 4 + b * m * 4 + b * 12 + b * (4 + 4 + 8) + b * m * 4 + b * t_len * 4,
-            b * t_len * 16,
-            t_len * 7 * 4,
-        ),
-        "holt_scan": (
-            lambda: K.holt_scan(values, mask, 0.3, 0.1),
-            lambda: K._holt_scan_plain(values, mask, K._row(0.3, b, torch.float32, dev),
-                                       K._row(0.1, b, torch.float32, dev)),
-            b * t_len * 5 + b * 8 + b * 8 + b * t_len * 4,
-            b * t_len * 10,
-            t_len * 6 * 4,
-        ),
-    }
+    # and one f64 add. The chain: level/trend -> level + trend -> product
+    # -> new level -> difference -> product -> new trend, ~7 dependent
+    # f32 operations a step at ~4 cycles (6 for Holt). A season larger
+    # than L2 streams from device memory: 4 B read and 4 B written a
+    # lane-step. Bytes: the history up to the last valid step (what the
+    # results depend on; every row here has a valid point), the state,
+    # and all T columns of `pred` where it is written; holt_scan, which
+    # finds each row's last valid step itself, reads the whole mask.
+    work = []
+    for m in (SEASON, HW_SEASON):
+        il, isn = F._hw_init(values, mask, m)
+        for label, lanes, p, per_series in (("grid G=8", b * g, grid, False), ("per-series, with predictions", b, params, True)):
+            season_bytes = lanes * m * 4
+
+            def hw(n, empty, il=il, isn=isn, p=p, ps=per_series):
+                return K.holt_winters_scan(values[:n], (no_mask if empty else mask)[:n], il[:n], isn[:n],
+                                           p[:n] if ps else p, ps, ps, (no_rows if empty else lv)[:n])
+
+            work.append((
+                f"holt_winters_scan {label} m={m}",
+                hw,
+                lambda il=il, isn=isn, p=p, ps=per_series: K._holt_winters_scan_plain(values, mask, il, isn, p, ps, ps),
+                b * steps * 5 + b * 4 + b * m * 4 + p.numel() * 4 + lanes * (4 + 4 + 8) + season_bytes
+                + (b * t_len * 4 if per_series else 0),
+                lanes * steps * 16, 7 * 4,
+                lanes * steps * 8 if season_bytes > L2_BYTES else 0, season_bytes,
+            ))
+    work.append((
+        "holt_scan",
+        lambda n, empty: K.holt_scan(values[:n], (no_mask if empty else mask)[:n], 0.3, 0.1),
+        lambda: K._holt_scan_plain(values, mask, K._row(0.3, b, torch.float32, dev), K._row(0.1, b, torch.float32, dev)),
+        b * steps * 4 + b * t_len + b * 8 + b * 8 + b * t_len * 4, b * steps * 10, 6 * 4, 0, 0,
+    ))
     timings = {}
-    for name, (kernel, plain, nbytes, flops, chain_cycles) in work.items():
-        err = None
-        if plain:
-            got, want = kernel(), plain()
-            err = max(close_err(a, w, SCAN_TOL if a.dtype != torch.float64 else 1e-9)
-                      for a, w in zip(got, want) if a is not None)
-            del got, want
-        kernel_ms = cuda_ms(kernel, iters=3, repeats=3)
-        plain_ms = cuda_ms(plain, iters=1, repeats=1) if plain else None
+    for name, kernel, plain, nbytes, flops, chain_cycles, stream_bytes, season_bytes in work:
+        got = kernel(b, False)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain()
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        full_err = same_bits(got, want, f"{name} at full size")
+        del got, want
+        kernel_ms = cuda_ms(lambda: kernel(b, False), iters=3, repeats=3)
+        empty_ms = cuda_ms(lambda: kernel(b, True), iters=3, repeats=3)
+        few_ms = cuda_ms(lambda: kernel(few, False), iters=3, repeats=3)
         bytes_ms = nbytes / peak_bytes * 1e3
         ops_ms = flops / PEAK_F32_FLOPS * 1e3
-        chain_ms = chain_cycles / sm_clock_hz * 1e3
+        chain_ms = steps * chain_cycles / sm_clock_hz * 1e3
+        stream_ms = stream_bytes / peak_bytes * 1e3
         timings[name] = dict(
             ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations", chain_ms=chain_ms, full_err=err,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations", chain_ms=chain_ms, stream_ms=stream_ms,
+            full_err=full_err, empty_ms=empty_ms, few_ms=few_ms,
         )
-        print(f"phase 7: {name} B={b} T={t_len} m={m}: kernel_ms={kernel_ms:.4f} bound_ms={max(bytes_ms, ops_ms):.4f} "
-              f"({nbytes / 1e9:.3f} GB at {peak_bytes / 1e12:.2f} TB/s = {bytes_ms:.4f} ms; {flops / 1e9:.2f} GFLOP at "
-              f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms) dependent chain {chain_ms:.4f} ms "
-              f"({chain_cycles} cycles at {sm_clock_hz / 1e9:.2f} GHz) plain_ms="
-              f"{'not timed' if plain_ms is None else f'{plain_ms:.1f}'} library_ms=none"
-              f"{'' if err is None else f', full-size error against the plain version {err:.3e}'}")
-    fit_ms = cuda_ms(lambda: F.fit_holt_winters(values, mask, m), iters=1, repeats=3)
-    print(f"phase 7: fit_holt_winters (both launches, init, guard, scale) on that chunk: {fit_ms:.3f} ms")
+        season = (f"season stream {stream_ms:.4f} ms ({stream_bytes / 1e9:.3f} GB: the {season_bytes / 1e6:.1f} MB "
+                  f"season exceeds L2)" if stream_bytes else
+                  f"season stream 0 (season {season_bytes / 1e6:.1f} MB, within L2)" if season_bytes else "no season")
+        print(f"phase 7: {name} B={b} T={t_len} steps={steps}: kernel_ms={kernel_ms:.4f} "
+              f"({kernel_ms * 1e-3 * sm_clock_hz / steps:.1f} cycles of the launch a chain step; with every row "
+              f"empty, no chain, {empty_ms:.4f} ms; on the first {few} rows {few_ms:.4f} ms) "
+              f"bound_ms={max(bytes_ms, ops_ms):.4f} ({nbytes / 1e9:.3f} GB at {peak_bytes / 1e12:.2f} TB/s = "
+              f"{bytes_ms:.4f} ms; {flops / 1e9:.2f} GFLOP at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms); "
+              f"chain floor {chain_ms:.4f} ms ({chain_cycles} cycles a step at {sm_clock_hz / 1e9:.2f} GHz); {season}; "
+              f"plain_ms={plain_ms:.1f} (one call, bit for bit equal); library_ms=none")
+    lv_ms = cuda_ms(lambda: K.last_valid_index(mask), iters=3, repeats=3)
+    print(f"phase 7: last_valid_index on that chunk: {lv_ms:.4f} ms (once a fit_holt_winters, outside the "
+          "holt_winters_scan rows above; inside the holt_scan row)")
+    for m in (SEASON, HW_SEASON):
+        fit_ms = cuda_ms(lambda: F.fit_holt_winters(values, mask, m), iters=1, repeats=3)
+        print(f"phase 7: fit_holt_winters m={m} (both launches, init, guard, scale) on that chunk: {fit_ms:.3f} ms")
+    timings["holt_winters_scan"] = dict(
+        timings[f"holt_winters_scan grid G=8 m={SEASON}"],
+        full_err=max(t["full_err"] for k, t in timings.items() if k.startswith("holt_winters_scan")),
+    )
     return timings
 
 
@@ -1776,7 +1871,8 @@ def main() -> int:
     worst = phase_kernels_vs_plain(dev)
     worst.update(phase_scan_kernels_vs_plain(dev))
     if kernels_only:
-        print("chip_smoke: --kernels-only: every kernel built and equals its plain version")
+        time_scan_kernels(dev, peak_bytes, sm_clock_hz)
+        print("chip_smoke: --kernels-only: every kernel built and equals its plain version; the scans were timed")
         return 0
 
     # each main path runs with the launch counts zeroed just before it and

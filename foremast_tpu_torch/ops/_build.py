@@ -37,8 +37,8 @@ _ARGTYPES = {
     "masked_stats": [_P] * 5 + [_I] * 2,
     "ma_judgment": [_P] * 12 + [_I] * 3,
     "ma_judgment_bf16_delta": [_P] * 13 + [_I] * 3,
-    "holt_winters_scan": [_P] * 10 + [_I] * 5,
-    "holt_scan": [_P] * 7 + [_I] * 2,
+    "holt_winters_scan": [_P] * 11 + [_I] * 5,
+    "holt_scan": [_P] * 8 + [_I] * 2,
 }
 
 _lock = threading.Lock()

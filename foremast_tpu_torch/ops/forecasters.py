@@ -76,10 +76,7 @@ def _select(flag: torch.Tensor, a: Forecast, b: Forecast) -> Forecast:
     return Forecast(**{f.name: sel(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)})
 
 
-def _last_valid(mask: torch.Tensor) -> torch.Tensor:
-    """Last valid absolute index per row, -1 for an empty row, [B] int64."""
-    idx = torch.arange(mask.shape[1], device=mask.device)
-    return torch.where(mask, idx[None, :], -1).amax(dim=-1)
+_last_valid = kernels.last_valid_index  # [B] int64, -1 for an empty row
 
 
 def horizon(fc: Forecast, h: int) -> torch.Tensor:
@@ -234,16 +231,19 @@ def _hw_init(values: torch.Tensor, mask: torch.Tensor, m_len: int):
     return init_level.contiguous(), init_season.contiguous()
 
 
-def _hw_forecast(values, mask, m_len, params) -> Forecast:
+def _hw_forecast(values, mask, m_len, params, init=None, last_valid=None) -> Forecast:
     """Holt-Winters with per-series params [B, 3] through the
-    `holt_winters_scan` kernel, predictions written. The horizon continues
-    right after each series' LAST VALID point: phase (last_valid + 1) mod
-    m, not the bucket-padded length."""
-    init_level, init_season = _hw_init(values, mask, m_len)
+    `holt_winters_scan` kernel, predictions written. `init` (`_hw_init`'s
+    level and season) and `last_valid` are computed here unless given.
+    The horizon continues right after each series' LAST VALID point:
+    phase (last_valid + 1) mod m, not the bucket-padded length."""
+    init_level, init_season = _hw_init(values, mask, m_len) if init is None else init
+    lv = _last_valid(mask) if last_valid is None else last_valid
     level, trend, season, _, pred = kernels.holt_winters_scan(
-        values, mask, init_level, init_season, params, per_series=True, want_pred=True
+        values, mask, init_level, init_season, params, per_series=True, want_pred=True,
+        last_valid=lv,
     )
-    phase_next = ((_last_valid(mask) + 1) % m_len).to(torch.int32)
+    phase_next = ((lv + 1) % m_len).to(torch.int32)
     return _finalize(
         pred, values, mask, level=level[0], trend=trend[0],
         season=season[0].contiguous(), season_phase=phase_next,
@@ -296,16 +296,20 @@ _HW_GRID = (
 )
 
 
-def hw_grid_sse(values: torch.Tensor, mask: torch.Tensor, season_length: int) -> torch.Tensor:
+def hw_grid_sse(
+    values: torch.Tensor, mask: torch.Tensor, season_length: int, init=None, last_valid=None
+) -> torch.Tensor:
     """Masked in-sample SSE of Holt-Winters at every `_HW_GRID` point,
     [G, B] f64: one `holt_winters_scan` launch over the whole grid, no
-    predictions written."""
+    predictions written. `init` and `last_valid` as for `_hw_forecast`."""
     m_len = int(season_length)
     values = values.float().contiguous()
     mask = mask.contiguous()
     grid = torch.tensor(_HW_GRID, dtype=torch.float32, device=values.device)
-    init_level, init_season = _hw_init(values, mask, m_len)
-    return kernels.holt_winters_scan(values, mask, init_level, init_season, grid)[3]
+    init_level, init_season = _hw_init(values, mask, m_len) if init is None else init
+    return kernels.holt_winters_scan(
+        values, mask, init_level, init_season, grid, last_valid=last_valid
+    )[3]
 
 
 def fit_holt_winters(values: torch.Tensor, mask: torch.Tensor, season_length: int = 24) -> Forecast:
@@ -324,8 +328,10 @@ def fit_holt_winters(values: torch.Tensor, mask: torch.Tensor, season_length: in
     values = values.float().contiguous()
     mask = mask.contiguous()
     grid = torch.tensor(_HW_GRID, dtype=torch.float32, device=values.device)
-    best = torch.argmin(hw_grid_sse(values, mask, m_len), dim=0)  # [B]
-    fc = _hw_forecast(values, mask, m_len, grid[best].contiguous())
+    init = _hw_init(values, mask, m_len)  # one pass over the history for both launches
+    lv = _last_valid(mask)
+    best = torch.argmin(hw_grid_sse(values, mask, m_len, init, lv), dim=0)  # [B]
+    fc = _hw_forecast(values, mask, m_len, grid[best].contiguous(), init, lv)
     return _guard_unidentifiable(fc, values, mask, m_len)
 
 

@@ -22,6 +22,13 @@ time, one chain per series (the JAX package runs them as `lax.scan`):
                                series, any season length m.
   * `holt_scan`              — Holt's level + trend recurrence.
 
+Both run a chain only to the last valid step of the rows a block owns
+(`last_valid`, computed on the device; masked steps change nothing) and
+fill the rest of `pred` from the frozen state. The history reaches the
+chain as tiles in shared memory, staged by a loader warp, and `pred`
+leaves through a storer warp (`csrc/scan_tiles.cuh`). They round every
+operation as their plain versions do and equal them bit for bit.
+
 A wrapper given CPU tensors runs the plain version beside it; given CUDA
 tensors it launches the kernel on the current stream or raises. Each
 launch adds one to `LAUNCHES[name]`.
@@ -29,12 +36,22 @@ launch adds one to `LAUNCHES[name]`.
 
 from __future__ import annotations
 
+import ctypes
+import numbers
+
 import torch
 
 from foremast_tpu_torch.ops import _build
 
 # Verdict codes — must match engine/scoring.py (HEALTHY/UNHEALTHY/UNKNOWN).
 _HEALTHY, _UNHEALTHY, _UNKNOWN = 0, 1, 2
+
+# The scan entry point's limits: at most 256 parameter sets a launch
+# (`kMaxG` of `csrc/scan_tiles.cuh`) and a season of fewer than 2^31
+# entries (32-bit offsets). `holt_winters_scan` splits a larger call into
+# launches within them.
+_MAX_G = 256
+_SEASON_ENTRIES = 1 << 31
 
 LAUNCHES = {
     "masked_stats": 0,
@@ -58,7 +75,10 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def _row(x, b: int, dtype: torch.dtype, device) -> torch.Tensor:
-    """Scalar or [B] per-row operand -> contiguous [B] tensor."""
+    """Scalar or [B] per-row operand -> contiguous [B] tensor. A Python or
+    numpy number is filled on the device: no blocking host-to-device copy."""
+    if isinstance(x, numbers.Number):
+        return torch.full((b,), x, dtype=dtype, device=device)
     x = torch.as_tensor(x, device=device).to(dtype)
     if x.ndim == 0:
         return x.expand(b).contiguous()
@@ -304,10 +324,49 @@ def ma_judgment_bf16_delta(
 # ---------------------------------------------------------------------------
 
 
-def _holt_winters_scan_plain(values, mask, init_level, init_season, params, per_series, want_pred):
+def last_valid_index(mask: torch.Tensor) -> torch.Tensor:
+    """Last valid absolute index per row, -1 for an empty row, [B] int64,
+    computed where the mask lies (no host sync)."""
+    b, t_len = mask.shape
+    if t_len == 0:
+        return torch.full((b,), -1, dtype=torch.int64, device=mask.device)
+    # the first valid point of the reversed row, over bytes: no [B, T]
+    # index tensor is built; argmax is 0 on an empty row, whose byte there
+    # is 0
+    rev = mask.flip(-1).view(torch.uint8)
+    first = rev.argmax(dim=-1)
+    seen = rev.gather(-1, first[:, None])[:, 0] != 0
+    return torch.where(seen, (t_len - 1) - first, -1)
+
+
+def scan_layout() -> dict[str, int]:
+    """The scan kernels' layout, read from the built `holt_winters_scan`
+    library (needs nvcc and a card): time steps a staged tile (`tile`),
+    steps the shared-memory season is read ahead (`ring`, for m above it),
+    the longest season kept in shared memory (`smem_m`) and the most
+    parameter sets a launch takes (`max_g`)."""
+    fn = _build.library("holt_winters_scan").fm_holt_winters_scan_layout
+    fn.restype = None
+    out = (ctypes.c_longlong * 4)()
+    fn(out)
+    return dict(zip(("tile", "ring", "smem_m", "max_g"), out))
+
+
+def _steps(last_valid: torch.Tensor) -> int:
+    """Steps a scan must run: the batch's last valid step, plus one."""
+    return int(last_valid.max()) + 1 if last_valid.numel() else 0
+
+
+def _holt_winters_scan_plain(
+    values, mask, init_level, init_season, params, per_series, want_pred, last_valid=None
+):
     """The kernel's recurrence as a loop over time on [G, B] tensors: the
     same f32 operations in the same order (each rounded on its own, no
-    fused multiply-add), the SSE summed in f64 in time order."""
+    fused multiply-add), the SSE summed in f64 in time order. Like the
+    kernel, it stops after the last valid step (masked steps change no
+    state and add nothing to the SSE) and fills the rest of `pred` from
+    the frozen state: (level + trend) + season[t mod m], or x on a row
+    that never saw a valid point."""
     b, t_len = values.shape
     m = init_season.shape[1]
     if per_series:
@@ -323,8 +382,9 @@ def _holt_winters_scan_plain(values, mask, init_level, init_season, params, per_
     sse = torch.zeros((g, b), dtype=torch.float64, device=values.device)
     inited = torch.zeros(b, dtype=torch.bool, device=values.device)
     xs, ms = values.t(), mask.t()
+    n_steps = _steps(last_valid_index(mask) if last_valid is None else last_valid)
     preds = []
-    for t in range(t_len):
+    for t in range(n_steps):
         x, msk = xs[t], ms[t]
         p = t % m
         s = season[p].clone()
@@ -345,7 +405,10 @@ def _holt_winters_scan_plain(values, mask, init_level, init_season, params, per_
         inited = inited | msk
     pred = None
     if want_pred:
-        pred = torch.stack(preds, dim=1) if preds else values.new_zeros((b, 0))
+        phases = torch.arange(n_steps, t_len, device=values.device) % m
+        frozen = (level + trend)[0][:, None] + season[phases, 0, :].t()
+        tail = torch.where(inited[:, None], frozen, values[:, n_steps:])
+        pred = torch.cat([torch.stack(preds, dim=1) if preds else values.new_zeros((b, 0)), tail], dim=1)
     return level, trend, season.permute(1, 2, 0), sse, pred
 
 
@@ -357,6 +420,7 @@ def holt_winters_scan(
     params: torch.Tensor,
     per_series: bool = False,
     want_pred: bool = False,
+    last_valid: torch.Tensor | None = None,
 ):
     """Additive Holt-Winters recurrence (`_hw_rolled`'s step) over [B, T].
 
@@ -368,8 +432,12 @@ def holt_winters_scan(
     masked in-sample SSE sum((x - pred)^2 over valid points) and, when
     `want_pred` (per-series only), the one-step-ahead predictions. The
     season index is the absolute step mod m; masked steps carry the
-    state; before the first valid point pred = x. The returned season and
-    per-lane tensors are views (not contiguous)."""
+    state; before the first valid point pred = x. `last_valid` [B] is each
+    row's last valid index (-1 for none), `last_valid_index(mask)` when
+    not given (`fit_holt_winters` shares one between its two launches):
+    the recurrence runs no further. The returned tensors may be views (not
+    contiguous). More than 256 parameter sets, or a season of 2^31 entries
+    or more, run as several launches."""
     b, t_len = values.shape
     m = init_season.shape[1]
     g = 1 if per_series else params.shape[0]
@@ -377,12 +445,33 @@ def holt_winters_scan(
         raise ValueError("pred is written only for per-series parameters (G = 1)")
     if m < 1:
         raise ValueError("season length must be at least 1")
-    if not _on_cuda(values, mask, init_level, init_season, params):
+    lv = last_valid_index(mask) if last_valid is None else last_valid
+    if g > _MAX_G:
+        parts = [
+            holt_winters_scan(values, mask, init_level, init_season, params[i : i + _MAX_G], last_valid=lv)
+            for i in range(0, g, _MAX_G)
+        ]
+        return (*(torch.cat(x) for x in zip(*(p[:4] for p in parts))), None)
+    rows = max(1, (_SEASON_ENTRIES - 1) // (m * g))
+    if b > rows:
+        parts = [
+            holt_winters_scan(
+                values[i : i + rows], mask[i : i + rows], init_level[i : i + rows],
+                init_season[i : i + rows], params[i : i + rows] if per_series else params,
+                per_series, want_pred, lv[i : i + rows],
+            )
+            for i in range(0, b, rows)
+        ]
+        level, trend, season, sse = (torch.cat(x, dim=1) for x in zip(*(p[:4] for p in parts)))
+        return level, trend, season, sse, torch.cat([p[4] for p in parts]) if want_pred else None
+    if not _on_cuda(values, mask, init_level, init_season, params, lv):
         return _holt_winters_scan_plain(
             values.float(), mask, init_level.float(), init_season.float(), params.float(),
-            per_series, want_pred,
+            per_series, want_pred, lv,
         )
     dev = values.device
+    lv = lv.to(torch.int32).contiguous()
+    _check(lv, "last_valid", torch.int32, (b,))
     _check(values, "values", torch.float32, (b, t_len))
     _check(mask, "mask", torch.bool, (b, t_len))
     _check(init_level, "init_level", torch.float32, (b,))
@@ -396,8 +485,8 @@ def holt_winters_scan(
     pred = torch.empty((b, t_len), dtype=torch.float32, device=dev) if want_pred else None
     _launch(
         "holt_winters_scan",
-        values.data_ptr(), mask.data_ptr(), init_level.data_ptr(), init_season.data_ptr(),
-        params.data_ptr(), level.data_ptr(), trend.data_ptr(), season.data_ptr(),
+        values.data_ptr(), mask.data_ptr(), lv.data_ptr(), init_level.data_ptr(),
+        init_season.data_ptr(), params.data_ptr(), level.data_ptr(), trend.data_ptr(), season.data_ptr(),
         sse.data_ptr(), None if pred is None else pred.data_ptr(),
         int(per_series), b, t_len, m, g,
     )
@@ -414,15 +503,18 @@ def holt_winters_scan(
 
 
 def _holt_scan_plain(values, mask, alpha, beta):
-    """The kernel's recurrence as a loop over time on [B] tensors."""
+    """The kernel's recurrence as a loop over time on [B] tensors, stopped
+    after the last valid step like the kernel; the rest of `pred` is the
+    frozen level + trend, or x on a row that never saw a valid point."""
     b, t_len = values.shape
     oma, omb = 1.0 - alpha, 1.0 - beta
     level = torch.zeros(b, dtype=torch.float32, device=values.device)
     trend = torch.zeros_like(level)
     inited = torch.zeros(b, dtype=torch.bool, device=values.device)
     xs, ms = values.t(), mask.t()
+    n_steps = _steps(last_valid_index(mask))
     preds = []
-    for t in range(t_len):
+    for t in range(n_steps):
         x, msk = xs[t], ms[t]
         lt = level + trend
         new_level = alpha * x + oma * lt
@@ -433,7 +525,8 @@ def _holt_scan_plain(values, mask, alpha, beta):
         trend = torch.where(first, torch.zeros_like(trend), torch.where(upd, new_trend, trend))
         preds.append(torch.where(inited, lt, x))
         inited = inited | msk
-    pred = torch.stack(preds, dim=1) if preds else values.new_zeros((b, 0))
+    tail = torch.where(inited[:, None], (level + trend)[:, None], values[:, n_steps:])
+    pred = torch.cat([torch.stack(preds, dim=1) if preds else values.new_zeros((b, 0)), tail], dim=1)
     return level, trend, pred
 
 
@@ -442,7 +535,8 @@ def holt_scan(values: torch.Tensor, mask: torch.Tensor, alpha, beta):
 
     values [B, T] f32, mask [B, T] bool; alpha, beta scalar or [B].
     Level starts at each series' first valid point with trend 0; masked
-    steps carry the state. Returns (level [B], trend [B], pred [B, T])."""
+    steps carry the state; the recurrence stops at each row's last valid
+    step (`last_valid_index`). Returns (level [B], trend [B], pred [B, T])."""
     b, t_len = values.shape
     dev = values.device
     a = _row(alpha, b, torch.float32, dev)
@@ -451,12 +545,13 @@ def holt_scan(values: torch.Tensor, mask: torch.Tensor, alpha, beta):
         return _holt_scan_plain(values.float(), mask, a, bt)
     _check(values, "values", torch.float32, (b, t_len))
     _check(mask, "mask", torch.bool, (b, t_len))
+    lv = last_valid_index(mask).to(torch.int32)
     level = torch.empty(b, dtype=torch.float32, device=dev)
     trend = torch.empty(b, dtype=torch.float32, device=dev)
     pred = torch.empty((b, t_len), dtype=torch.float32, device=dev)
     _launch(
         "holt_scan",
-        values.data_ptr(), mask.data_ptr(), a.data_ptr(), bt.data_ptr(),
+        values.data_ptr(), mask.data_ptr(), lv.data_ptr(), a.data_ptr(), bt.data_ptr(),
         level.data_ptr(), trend.data_ptr(), pred.data_ptr(), b, t_len,
     )
     return level, trend, pred
