@@ -65,17 +65,37 @@ Phases; any failure exits non-zero:
      only where a current point lies within 1e-5 of a band edge (counted
      and printed), and a Holt-Winters grid choice only at an SSE near
      tie (gap under 1e-5, printed).
+  8. the joint detectors (bivariate normal, LSTM autoencoder + residual
+     MVN, `auto`): (a) lstm_ae_forward and lstm_ae_backward against
+     their plain versions at S in {1, 3, 37}, W in {1, 8}, T in {8, 32,
+     64}, F in {2, 3, 4}, with all-masked, single-step and ragged windows
+     and a rows gather with repeated rows (err within 1e-5 relative,
+     gradients within 1e-4 of float64 autograd of the plain loop); (b)
+     one cold LSTM group at the joint fleet's width (512 jobs, W=8, T=32,
+     F=4, H=32, 60 steps) through MultivariateJudge.judge, held to a CPU
+     judge given the trained entries; then fit_many's loss curve and
+     both kernels timed beside their bounds, their plain versions and
+     cuDNN's unmasked nn.LSTM (another function); (c) the joint quality
+     gates of tests/test_benchmarks.py at 256 jobs a scenario; (d) the
+     worker's joint fleet tick, 1,024 docs under `auto` at Th=10,080 and
+     m=1440: cold, warm (joint columnar, 0 trainings, 0 MVN fits),
+     spiked warm (exactly the spiked docs flag) and (e) the warm joint
+     dispatch again under set_sync_debug_mode("error") behind a busy
+     kernel; the first 64 docs against a CPU worker given the card's
+     trained entries.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
-7b, 7c, 7d) and read just after its checked calls, so they count the
-main paths' launches only: on the default worker path (phase 6) only the
-f32 cold fit launches a kernel (masked_stats); the seasonal fits launch
-holt_winters_scan (Holt-Winters, and auto_univariate at m <= 64),
-holt_scan (double exponential smoothing) and masked_stats (every mean
-model and identifiability guard).
+7b, 7c, 7d, 8b, 8c, 8d) and read just after its checked calls, so they
+count the main paths' launches only: on the default worker path (phase
+6) only the f32 cold fit launches a kernel (masked_stats); the seasonal
+fits launch holt_winters_scan (Holt-Winters, and auto_univariate at m <=
+64), holt_scan (double exponential smoothing) and masked_stats (every
+mean model and identifiability guard); the joint paths launch
+lstm_ae_forward (training, moments, every scoring), lstm_ae_backward
+(training) and holt_winters_scan (the residual MVN's per-series fit).
 
-`python3 chip_smoke.py --kernels-only` builds the kernels, runs phase 2
-and 7(a), times the two scan kernels at full size and stops: the short
-first call after a kernel change.
+`python3 chip_smoke.py --kernels-only` builds the kernels, runs phase 2,
+7(a) and 8(a), times the two scan kernels at full size and stops: the
+short first call after a kernel change.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -118,6 +138,10 @@ KERNEL_FILES = {
         "foremast_tpu/ops/forecasters.py:349",
     ),
     "holt_scan": ("foremast_tpu_torch/ops/csrc/holt_scan.cu", "foremast_tpu/ops/forecasters.py:195"),
+    # no Pallas kernel: these replace the LSTM autoencoder's lax.scan cell
+    # and its jax.grad, inside the JAX package's vmapped training program
+    "lstm_ae_forward": ("foremast_tpu_torch/ops/csrc/lstm_ae_forward.cu", "foremast_tpu/models/lstm_ae.py:82"),
+    "lstm_ae_backward": ("foremast_tpu_torch/ops/csrc/lstm_ae_backward.cu", "foremast_tpu/models/lstm_ae.py:128"),
 }
 MA_KERNELS = ("ma_judgment", "ma_judgment_bf16_delta", "masked_stats")
 TOL = {"ma_judgment": 1e-4, "ma_judgment_bf16_delta": 1e-5, "masked_stats": 1e-4}
@@ -963,10 +987,10 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None) -> di
     worker, store = new_worker(docs, tracer)
     if cuda:
         worker.warmup()
-        check(len(worker._fit_cache) == 0 and not worker.judge._arenas, "warmup touched the real caches")
+        check(len(worker._fit_cache) == 0 and not worker._uni._arenas, "warmup touched the real caches")
     calls = []
-    orig = worker.judge.judge_columnar
-    worker.judge.judge_columnar = lambda *a, **kw: calls.append(a[0].shape[0]) or orig(*a, **kw)
+    orig = worker._uni.judge_columnar
+    worker._uni.judge_columnar = lambda *a, **kw: calls.append(a[0].shape[0]) or orig(*a, **kw)
     host = {}  # seconds of the host steps that no span covers
 
     def timed(name, fn):
@@ -995,7 +1019,7 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None) -> di
     def tick(name, now, w=worker, st=store):
         calls.clear()
         host.clear()
-        versions = (w._fit_cache.version, w.judge.device_state_counters()["misses"])
+        versions = (w._fit_cache.version, w._uni.device_state_counters()["misses"])
         gc_acc[0] = 0.0
         sync()
         gc.callbacks.append(gc_timer)
@@ -1008,9 +1032,9 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None) -> di
         out[name] = dict(
             seconds=time.perf_counter() - t0, docs=n, written=written(st),
             gc_seconds=gc_acc[0], host=dict(host),
-            counters=w.judge.device_state_counters(), fits=len(w._fit_cache),
+            counters=w._uni.device_state_counters(), fits=len(w._fit_cache),
             columnar=list(calls), refit=w._fit_cache.version != versions[0],
-            scattered=w.judge.device_state_counters()["misses"] - versions[1],
+            scattered=w._uni.device_state_counters()["misses"] - versions[1],
             stages=dict(tracer.last_stage_seconds) if tracer is not None and w is worker else None,
             fast=dict(w._fast_kinds),
         )
@@ -1057,12 +1081,13 @@ def phase_worker(dev, smi: str, columnar_s: float) -> dict:
     half = n_win // 2
     a, b, c, d = (gpu[k] for k in "abcd")
     check(a["docs"] == b["docs"] == c["docs"] == WORKER_DOCS and d["docs"] == F32_DOCS, "a tick lost docs")
-    check(not a["columnar"] and a["fast"] == {"univariate": 0, "baseline": 0}, "(a) cold tick took the fast path")
+    check(not a["columnar"] and not any(a["fast"].values()), "(a) cold tick took the fast path")
     check(a["fits"] == n_win and a["scattered"] == n_win, f"(a) cold tick: {a['fits']} fits, {a['scattered']} scatters")
     for name, t in (("b", b), ("c", c)):
         check(sorted(t["columnar"]) == [half, half], f"({name}) columnar calls {t['columnar']}, want two of {half}")
         check(not t["refit"] and t["scattered"] == 0, f"({name}) warm tick fitted or scattered rows")
-    check(b["fast"] == {"univariate": WORKER_DOCS // 2, "baseline": WORKER_DOCS // 2}, f"(b) buckets {b['fast']}")
+    check(b["fast"] == {"univariate": WORKER_DOCS // 2, "bivariate": 0, "lstm": 0, "baseline": WORKER_DOCS // 2},
+          f"(b) buckets {b['fast']}")
     check(d["fits"] == F32_DOCS * len(ALIASES), "(d) f32 cold tick did not fit every window")
     unhealthy = sorted(k for k, v in c["written"].items() if json.loads(v)[0] == STATUS_COMPLETED_UNHEALTH)
     check(unhealthy == sorted(gpu["spiked"]), f"(c) flagged {len(unhealthy)} docs, want the {len(gpu['spiked'])} spiked")
@@ -1641,8 +1666,8 @@ def run_seasonal_worker(device, cfg, docs, data, latency, t_now: int) -> dict:
     worker = BrainWorker(store, ArraySource(data), config=cfg, device=device, claim_limit=len(docs),
                          worker_id=f"smoke7-{device}")
     calls = []
-    orig = worker.judge.judge_columnar
-    worker.judge.judge_columnar = lambda *a, **kw: calls.append(a[0].shape[0]) or orig(*a, **kw)
+    orig = worker._uni.judge_columnar
+    worker._uni.judge_columnar = lambda *a, **kw: calls.append(a[0].shape[0]) or orig(*a, **kw)
     cuda = torch.device(device).type == "cuda"
     out = {}
     for name, now in (("a", t_now + 150), ("b", t_now + 200)):
@@ -1661,11 +1686,11 @@ def run_seasonal_worker(device, cfg, docs, data, latency, t_now: int) -> dict:
             torch.cuda.synchronize()
         out[name] = dict(
             seconds=time.perf_counter() - t0, docs=n, columnar=list(calls), fits=len(worker._fit_cache),
-            counters=worker.judge.device_state_counters(),
+            counters=worker._uni.device_state_counters(),
             written={d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
                      for d in store._docs.values()},
         )
-    out["m"] = max(a.m for a in worker.judge._arenas.values())
+    out["m"] = max(a.m for a in worker._uni._arenas.values())
     return out
 
 
@@ -1829,6 +1854,687 @@ def time_scan_kernels(dev, peak_bytes: float, sm_clock_hz: float) -> dict:
     return timings
 
 
+
+# ---------------------------------------------------------------------------
+# phase 8: the joint detectors (bivariate, LSTM-AE + residual-MVN hybrid)
+# ---------------------------------------------------------------------------
+
+AE_TOL = 1e-5  # forward err: |kernel - plain| <= AE_TOL * |plain| + 1e-7
+AE_GRAD_TOL = 1e-4  # gradients: |kernel - f64 plain| <= AE_GRAD_TOL * max |f64 plain| of the leaf
+AE_LEAF_NAMES = ("enc_w_x", "enc_w_h", "enc_b", "dec_w_x", "dec_w_h", "dec_b", "w_out", "b_out")
+
+
+def ae_edge_inputs(rng, s: int, w: int, t_len: int, f: int, dev, cap: int | None = None):
+    """Random stacked AE params (glorot-scaled, biases and output layer
+    perturbed) for `cap` models (default s), windows x [s, w, T, F] and a
+    mask mixing full, all-masked, single-step, ragged-tail and random
+    windows."""
+    import torch
+
+    cap = s if cap is None else cap
+    g = 128
+
+    def u(*shape, scale):
+        return torch.from_numpy(rng.uniform(-scale, scale, shape).astype(np.float32)).to(dev)
+
+    leaves = [
+        u(cap, f, g, scale=(6 / (f + g)) ** 0.5), u(cap, 32, g, scale=(6 / (32 + g)) ** 0.5), u(cap, g, scale=0.5),
+        u(cap, f, g, scale=(6 / (f + g)) ** 0.5), u(cap, 32, g, scale=(6 / (32 + g)) ** 0.5), u(cap, g, scale=0.5),
+        u(cap, 32, f, scale=(6 / (32 + f)) ** 0.5), u(cap, f, scale=0.5),
+    ]
+    x = torch.from_numpy(rng.normal(0.5, 0.5, (s, w, t_len, f)).astype(np.float32)).to(dev)
+    mask = np.zeros((s, w, t_len), bool)
+    for i in range(s):
+        for j in range(w):
+            kind = (i * w + j) % 5
+            if kind == 0:
+                mask[i, j] = True
+            elif kind == 2:
+                mask[i, j, rng.integers(t_len)] = True
+            elif kind == 3:
+                mask[i, j, : rng.integers(1, t_len + 1)] = True
+            elif kind == 4:
+                mask[i, j] = rng.random(t_len) < 0.7
+    return leaves, x, torch.from_numpy(mask).to(dev)
+
+
+def ae_close(got, want, what: str) -> float:
+    import torch
+
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite kernel output")
+    diff = (got.double() - want.double()).abs()
+    ok = diff <= AE_TOL * want.double().abs() + 1e-7
+    check(bool(ok.all()), f"{what}: max error {diff.max().item():.3e} over {AE_TOL} relative")
+    return float(diff.max().item()) if diff.numel() else 0.0
+
+
+def ae_grads_close(got, want, what: str) -> float:
+    """Each leaf within AE_GRAD_TOL of the leaf's largest f64 gradient."""
+    import torch
+
+    worst = 0.0
+    for name, g, w64 in zip(AE_LEAF_NAMES, got, want):
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name} gradient")
+        scale = float(w64.abs().max()) if w64.numel() else 0.0
+        err = float((g.double() - w64).abs().max()) if g.numel() else 0.0
+        check(err <= AE_GRAD_TOL * scale + 1e-12, f"{what}: {name} gradient off by {err:.3e} (leaf max {scale:.3e})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_lstm_kernels_vs_plain(dev) -> dict:
+    """8(a): lstm_ae_forward and lstm_ae_backward against their plain
+    versions on the same CUDA tensors: S in {1, 3, 37}, W in {1, 8}, T in
+    {8, 32, 64}, F in {2, 3, 4}; full, all-masked, single-step,
+    ragged-tail and random windows; the forward also through a `rows`
+    gather with repeated rows from a larger stack. The forward err within
+    1e-5 relative of the f32 plain loop; gradients (upstream 1/n_s, the
+    loss's) within 1e-4 of each leaf's largest gradient from float64
+    autograd of the plain loop."""
+    import torch
+
+    from foremast_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(81)
+    worst_f = worst_b = 0.0
+    cases = 0
+    for s in (1, 3, 37):
+        for w in (1, 8):
+            for t_len in (8, 32, 64):
+                for f in (2, 3, 4):
+                    what = f"lstm_ae S={s} W={w} T={t_len} F={f}"
+                    leaves, x, mask = ae_edge_inputs(rng, s, w, t_len, f, dev)
+                    err, act = K.lstm_ae_forward(leaves, x, mask, save_act=True)
+                    worst_f = max(worst_f, ae_close(err, K._lstm_ae_forward_plain(leaves, x, mask), what))
+                    # the arena gather: a larger stack, repeated rows
+                    cap = s + 5
+                    stack, _, _ = ae_edge_inputs(rng, s, w, t_len, f, dev, cap=cap)
+                    rows = torch.from_numpy(rng.integers(0, cap, s)).to(dev)
+                    if s > 1:
+                        rows[1] = rows[0]
+                    got_r, _ = K.lstm_ae_forward(stack, x, mask, rows=rows)
+                    worst_f = max(worst_f, ae_close(got_r, K._lstm_ae_forward_plain(stack, x, mask, rows), what + " rows"))
+                    n = mask.sum(dim=(1, 2)).float().clamp_min(1.0)
+                    grad_err = (1.0 / n)[:, None, None].expand(s, w, t_len).contiguous()
+                    got_g = K.lstm_ae_backward(leaves, x, mask, act, grad_err)
+                    want_g = K._lstm_ae_backward_plain(
+                        [leaf.double() for leaf in leaves], x.double(), mask, grad_err.double()
+                    )
+                    worst_b = max(worst_b, ae_grads_close(got_g, want_g, what))
+                    cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 8: (a) lstm_ae_forward / lstm_ae_backward equal their plain versions at {cases} shapes "
+          f"(with rows gathers): forward max |err| diff {worst_f:.3e}, gradients max diff {worst_b:.3e}")
+    return {"lstm_ae_forward": worst_f, "lstm_ae_backward": worst_b}
+
+
+JOINT_PERIOD = 24  # the quality scenarios' synthetic cycle (benchmarks/quality.py PERIOD)
+JOINT_TH = 1008  # quality.main's full-size history: 42 cycles
+JOINT_GROUP = 512  # 8(b): one cold LSTM group, the joint fleet's LSTM half
+JOINT_QUALITY_B = 256  # 8(c): jobs per scenario
+JOINT_DOCS = 1024  # 8(d): alternating 2-alias bivariate and 4-alias LSTM docs
+JOINT_CPU_DOCS = 64  # 8(d): docs held to a CPU worker
+LSTM_STEPS = 60  # FOREMAST_LSTM_STEPS' default
+
+
+def draw_comoving(rng, b: int, f: int, n: int, t_start: int, period: int = JOINT_PERIOD):
+    """[B, F, n] co-moving seasonal metrics: a shared latent (sine + noise)
+    plus per-metric offset and idiosyncratic noise (a copy of
+    benchmarks/quality.py's generator)."""
+    t = (t_start + np.arange(n))[None, :]
+    latent = 0.3 * np.sin(2 * np.pi * t / period) + rng.normal(0, 0.05, (b, n))
+    return np.stack(
+        [1.0 + 0.5 * j + latent + rng.normal(0, 0.05, (b, n)) for j in range(f)], axis=1
+    ).astype(np.float32)
+
+
+def gen_correlated_pair(b: int, th: int, tc: int, seed: int = 0):
+    """2 tightly-correlated metrics; anomalies are off-ridge points whose
+    marginals stay in range (a copy of benchmarks/quality.py's)."""
+    rng = np.random.default_rng(seed)
+    rho = 0.95
+
+    def draw(n):
+        x = rng.normal(0, 1, (b, n))
+        y = rho * x + np.sqrt(1 - rho * rho) * rng.normal(0, 1, (b, n))
+        return 1.0 + 0.2 * x, 2.0 + 0.3 * y
+
+    hx, hy = draw(th)
+    cx, cy = draw(tc)
+    truth = np.zeros((b, tc), bool)
+    for i in range(b):
+        idx = rng.choice(tc, size=2, replace=False)
+        cx[i, idx] += 2.5 * 0.2
+        cy[i, idx] -= 2.5 * 0.3
+        truth[i, idx] = True
+    return np.stack([hx, hy], axis=1).astype(np.float32), np.stack([cx, cy], axis=1).astype(np.float32), truth
+
+
+def gen_joint_lstm(b: int, f: int, th: int, tc: int, seed: int = 0, kind="all"):
+    """f co-moving seasonal metrics; "all": simultaneous all-metric spikes
+    (+0.6) at random points, troughs included; "break": one metric off
+    the pack by +/-0.6 (a copy of benchmarks/quality.py's)."""
+    rng = np.random.default_rng(seed)
+    hist = draw_comoving(rng, b, f, th, 0)
+    cur = draw_comoving(rng, b, f, tc, th)
+    truth = np.zeros((b, tc), bool)
+    for i in range(b):
+        idx = rng.choice(tc, size=2, replace=False)
+        if kind == "all":
+            cur[i, :, idx] += 0.6
+        else:
+            for pos in idx:
+                j = rng.integers(0, f)
+                cur[i, j, pos] += rng.choice([-1.0, 1.0]) * 0.6
+        truth[i, idx] = True
+    return hist.astype(np.float32), cur.astype(np.float32), truth
+
+
+def joint_tasks(hist, cur, prefix: str, t0: int = 1_700_000_000):
+    """[B, F, Th] histories + [B, F, Tc] windows -> the port's MetricTasks
+    (aliases m0..m{F-1}, one app per job, 60 s steps)."""
+    from foremast_tpu_torch.engine.judge import MetricTask
+
+    b, f, th = hist.shape
+    tc = cur.shape[-1]
+    ht = t0 + 60 * np.arange(th, dtype=np.int64)
+    ct = t0 + 60 * (th + np.arange(tc, dtype=np.int64))
+    return [
+        MetricTask(job_id=f"{prefix}{i}", alias=f"m{j}", metric_type=None, hist_times=ht, hist_values=hist[i, j],
+                   cur_times=ct, cur_values=cur[i, j], app=f"{prefix}{i}")
+        for i in range(b) for j in range(f)
+    ], ct
+
+
+def joint_cfg(algorithm: str, season: int = JOINT_PERIOD, **kw):
+    """The joint detectors at the quality scenarios' calibration: base
+    threshold 4.0, no per-type rules."""
+    import dataclasses
+
+    from foremast_tpu_torch.config import BrainConfig
+
+    cfg = BrainConfig(algorithm=algorithm, season_steps=season, **kw)
+    return dataclasses.replace(cfg, anomaly=dataclasses.replace(cfg.anomaly, threshold=4.0, rules=()))
+
+
+def lstm_windows(hist, tc: int, n_win: int = 8):
+    """The judge's training windows: each job's newest n_win tc-length
+    history windows, newest first -> x [S, n_win, tc, F]."""
+    b, f, th = hist.shape
+    usable = (th // tc) * tc
+    chunks = hist[:, :, th - usable:].reshape(b, f, -1, tc)
+    return np.ascontiguousarray(chunks[:, :, ::-1][:, :, :n_win].transpose(0, 2, 3, 1))
+
+
+def near_cutoff(judge, tasks, tc: int) -> np.ndarray:
+    """[jobs, tc] points of one LSTM group whose AE error or robust d^2
+    lies within EDGE (relative) of a cutoff, from `judge`'s own evidence
+    (`_lstm_scores`) over its cached entries."""
+    from foremast_tpu_torch.engine.judge import infer_step
+
+    by_job: dict = {}
+    for t in tasks:
+        by_job.setdefault(t.job_id, []).append(t)
+    joints = [judge._joint(v) for v in by_job.values()]
+    ordered = [judge.cache.peek(judge._key(j, tc)) for j in joints]
+    steps = [infer_step(j.hist_t) for j in joints]
+    thr = np.full(len(joints), judge.config.anomaly.rule_for(None).threshold, np.float32)
+    f = joints[0].hist_v.shape[0]
+    sc = judge._lstm_scores(joints, ordered, steps, f, tc, thr)
+
+    def near(a, c):
+        return np.abs(a - c) <= EDGE * np.abs(c)
+
+    return sc["valid"] & (near(sc["err"], sc["cut"][:, None]) | near(sc["d2"], sc["cutoff"][:, None])
+                          | near(sc["d2"], sc["hi_cutoff"][:, None]))
+
+
+def verdict_map(verdicts) -> dict:
+    return {(v.job_id, v.alias): (v.verdict, tuple(v.anomaly_pairs)) for v in verdicts}
+
+
+def phase_lstm_group(dev) -> dict:
+    """8(b), the main path: one cold LSTM group at the joint fleet's full
+    width through MultivariateJudge.judge on the card — 512 jobs of 4
+    co-moving metrics (all-metric spikes in their windows), 1,008-point
+    histories, Tc=30 (bucket 32): 512 models of H=32 trained 60 steps on
+    8 windows each (lstm_ae_forward / lstm_ae_backward), the residual
+    MVN fitted (holt_winters_scan per series), every job scored. The
+    trained entries carried to a CPU MultivariateJudge give the same
+    verdicts and anomaly pairs; a job may differ only where a point lies
+    within EDGE of a cutoff (counted)."""
+    import torch
+
+    from foremast_tpu_torch.engine.multivariate import MultivariateJudge
+
+    hist, cur, _ = gen_joint_lstm(JOINT_GROUP, 4, JOINT_TH, FULL_TC, seed=21)
+    tasks, _ = joint_tasks(hist, cur, "g")
+    cfg = joint_cfg("lstm_autoencoder", max_cache_size=2 * JOINT_GROUP)
+    judge = MultivariateJudge(cfg, device=dev)
+    check(judge.lstm_steps == LSTM_STEPS, f"FOREMAST_LSTM_STEPS is set ({judge.lstm_steps} steps)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = judge.judge(tasks)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    cpu = MultivariateJudge(cfg, device="cpu")
+
+    def no_training(*_):
+        check(False, "8(b) the CPU judge missed a carried entry and would train")
+
+    cpu._train = no_training
+    for key, entry in judge.cache.snapshot().items():
+        cpu.cache.put(key, entry)
+    t0 = time.perf_counter()
+    want = cpu.judge(tasks)
+    cpu_s = time.perf_counter() - t0
+    g, w = verdict_map(got), verdict_map(want)
+    check(g.keys() == w.keys(), "8(b) the card and the CPU judged different windows")
+    near = near_cutoff(cpu, tasks, bucket_of(FULL_TC))
+    near_jobs = {f"g{i}" for i in np.nonzero(near.any(axis=1))[0]}
+    differ = {k[0] for k in g if g[k] != w[k]}
+    check(differ <= near_jobs, f"8(b) {len(differ - near_jobs)} jobs differ from the CPU judge away from any cutoff")
+    unhealthy = sum(v[0] == 1 for v in g.values()) // 4
+    print(f"phase 8: (b) one cold LSTM group, {JOINT_GROUP} jobs x 4 metrics (Th={JOINT_TH}, Tc={FULL_TC}): "
+          f"{cold_s:.3f} s on the card (train {LSTM_STEPS} steps, MVN fit, score); the carried entries on a CPU "
+          f"judge ({cpu_s:.3f} s) give the same verdicts and pairs on {JOINT_GROUP - len(differ)} of {JOINT_GROUP} "
+          f"jobs; {int(near.sum())} points lie within {EDGE} of a cutoff, {len(differ)} jobs differ there; "
+          f"{unhealthy} jobs unhealthy (every window carries spikes)")
+    return {"hist": hist, "cold_s": cold_s}
+
+
+def bucket_of(n: int) -> int:
+    from foremast_tpu_torch.engine.judge import bucket_length
+
+    return bucket_length(n)
+
+
+def time_lstm_kernels(dev, hist, peak_bytes: float, sm_clock_hz: float) -> dict:
+    """8(b), timed: fit_many at the group's shape (S=512, W=8, T=32, F=4,
+    H=32, 60 steps) with its loss curve, which must fall at each of its
+    first 10 steps (the mean over models); then the two kernels on the
+    trained parameters — the training forward (activations saved), its
+    backward, and the warm path's scoring forward (W=1, a rows gather) —
+    each held to its plain version at full size and timed beside its
+    bound (bytes over the memory rate, f32 operations over the f32 peak)
+    and the floor of its dependent chain (2T steps of FMA latency);
+    cuDNN's unmasked nn.LSTM encoder + decoder forward of the same shapes
+    is timed as another function (one weight set for every window, no
+    masked steps)."""
+    import torch
+
+    from foremast_tpu_torch.models import lstm_ae as ae
+    from foremast_tpu_torch.ops import kernels as K
+
+    s_n, w_n, t_len, f, h = JOINT_GROUP, 8, bucket_of(FULL_TC), 4, 32
+    x = torch.from_numpy(lstm_windows(hist, t_len, w_n)).to(dev)
+    mask = torch.ones((s_n, w_n, t_len), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _, _, losses = ae.fit_many(torch.Generator().manual_seed(0), x, mask, ae.LSTMAEConfig(features=f),
+                                       steps=LSTM_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    curve = losses.mean(dim=1).cpu().numpy()
+    print("phase 8: (b) fit_many loss, mean over the 512 models, steps 0-10: "
+          + " ".join(f"{v:.5f}" for v in curve[:11]) + "; steps 20, 40, 59: "
+          + " ".join(f"{curve[k]:.5f}" for k in (20, 40, LSTM_STEPS - 1)))
+    check(bool((np.diff(curve[:11]) < 0).all()), "8(b) the loss did not fall at each of its first 10 steps")
+    leaves = ae.leaves(params)
+    n = mask.sum(dim=(1, 2)).float().clamp_min(1.0)
+    grad_err = (1.0 / n)[:, None, None].expand(s_n, w_n, t_len).contiguous()
+    err, act = K.lstm_ae_forward(leaves, x, mask, save_act=True)
+    rows = torch.arange(s_n, device=dev).flip(0)
+    xs, ms = x[:, :1].contiguous(), mask[:, :1].contiguous()
+
+    def events(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    want_f, plain_f = events(lambda: K._lstm_ae_forward_plain(leaves, x, mask))
+    err_f = ae_close(err, want_f, "8(b) training forward at full size")
+    want_b, plain_b = events(lambda: K._lstm_ae_backward_plain(leaves, x, mask, grad_err))
+    err_b = ae_grads_close(K.lstm_ae_backward(leaves, x, mask, act, grad_err), want_b, "8(b) backward at full size")
+    want_s, plain_s = events(lambda: K._lstm_ae_forward_plain(leaves, xs, ms, rows))
+    err_s = ae_close(K.lstm_ae_forward(leaves, xs, ms, rows=rows)[0], want_s, "8(b) scoring forward at full size")
+    del want_f, want_b, want_s
+    fwd_ms = cuda_ms(lambda: K.lstm_ae_forward(leaves, x, mask, save_act=True), iters=5, repeats=5)
+    bwd_ms = cuda_ms(lambda: K.lstm_ae_backward(leaves, x, mask, act, grad_err), iters=5, repeats=5)
+    score_ms = cuda_ms(lambda: K.lstm_ae_forward(leaves, xs, ms, rows=rows), iters=10, repeats=5)
+    step_ms = cuda_ms(lambda: ae.train_step_many(params, ae.adam_init(params), x, mask,
+                                                 ae.LSTMAEConfig(features=f)), iters=3, repeats=3)
+    torch.backends.cudnn.allow_tf32 = False  # the reference in f32, as the kernels compute
+    enc = torch.nn.LSTM(f, h, batch_first=True).to(dev)
+    dec = torch.nn.LSTM(f, h, batch_first=True).to(dev)
+    out_layer = torch.nn.Linear(h, f).to(dev)
+    xf = x.reshape(s_n * w_n, t_len, f)
+    zeros = torch.zeros_like(xf)
+
+    def cudnn():
+        with torch.no_grad():
+            _, state = enc(xf)
+            y, _ = dec(zeros, state)
+            return out_layer(y)
+
+    cudnn_ms = cuda_ms(cudnn, iters=5, repeats=5)
+    g = 4 * h
+    param_bytes = s_n * 4 * (f * g + h * g + g + h * g + g + h * f + f)
+    win_steps = s_n * w_n * t_len
+    fwd_flops = win_steps * (2 * g * (f + h) + 2 * g * h + 2 * h * f)
+    act_bytes = s_n * w_n * 2 * t_len * 6 * h * 4
+    rows_out = {
+        "lstm_ae_forward": (fwd_ms, plain_f, param_bytes + win_steps * (4 * f + 1 + 4) + act_bytes, fwd_flops,
+                            2 * t_len * 4 * (h + f), err_f),
+        "lstm_ae_backward": (bwd_ms, plain_b, param_bytes // 2 + win_steps * (4 * f + 1 + 4) + act_bytes
+                             + param_bytes, 2 * fwd_flops, 2 * t_len * 4 * g, err_b),
+        "lstm_ae_forward scoring (W=1, rows)": (score_ms, plain_s, param_bytes + s_n * t_len * (4 * f + 1 + 4),
+                                                fwd_flops // w_n, 2 * t_len * 4 * (h + f), err_s),
+    }
+    timings = {}
+    for name, (ms, plain_ms, nbytes, flops, chain_cycles, full_err) in rows_out.items():
+        bytes_ms = nbytes / peak_bytes * 1e3
+        ops_ms = flops / PEAK_F32_FLOPS * 1e3
+        chain_ms = chain_cycles / sm_clock_hz * 1e3
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms), library_ms=None,
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations", chain_ms=chain_ms,
+                             full_err=full_err)
+        print(f"phase 8: {name} S={s_n} W={w_n if 'scoring' not in name else 1} T={t_len} F={f} H={h}: "
+              f"kernel_ms={ms:.4f} bound_ms={max(bytes_ms, ops_ms):.4f} ({nbytes / 1e6:.1f} MB at "
+              f"{peak_bytes / 1e12:.2f} TB/s = {bytes_ms:.4f} ms; {flops / 1e9:.3f} GFLOP at "
+              f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms); chain floor {chain_ms:.4f} ms "
+              f"({chain_cycles} cycles at {sm_clock_hz / 1e9:.2f} GHz); plain_ms={plain_ms:.2f} (one call, "
+              f"within tolerance); library_ms=none")
+    print(f"phase 8: (b) fit_many ({LSTM_STEPS} steps, S={s_n}): {fit_s:.3f} s = {fit_s / LSTM_STEPS * 1e3:.2f} ms "
+          f"a step; one train_step_many (forward + backward kernels, Adam on 8 leaves) {step_ms:.3f} ms; "
+          f"another function: cuDNN nn.LSTM encoder + decoder forward, unmasked, one weight set, same shapes "
+          f"{cudnn_ms:.4f} ms (torch.backends.cudnn.allow_tf32 = False)")
+    timings["lstm_ae_forward"]["score"] = timings["lstm_ae_forward scoring (W=1, rows)"]
+    return timings
+
+
+def quality_prf(judge, hist, cur, truth, prefix: str):
+    """Point-level (precision, recall, F1) of one scenario through the
+    judge, as benchmarks/quality.py's score_joint counts them."""
+    tasks, ct = joint_tasks(hist, cur, prefix)
+    flagged: dict = {}
+    for v in judge.judge(tasks):
+        flagged.setdefault(v.job_id, set()).update(v.anomaly_pairs[0::2])
+    tp = fp = fn = 0
+    for i in range(hist.shape[0]):
+        got = flagged.get(f"{prefix}{i}", set())
+        want = {float(t) for t, a in zip(ct, truth[i]) if a}
+        tp += len(got & want)
+        fp += len(got - want)
+        fn += len(want - got)
+    p = tp / (tp + fp) if tp + fp else 1.0
+    r = tp / (tp + fn) if tp + fn else 1.0
+    return p, r, (2 * p * r / (p + r) if p + r else 0.0)
+
+
+def phase_joint_quality(dev) -> None:
+    """8(c): tests/test_benchmarks.py's joint gates on the card, the port's
+    own training, 256 jobs a scenario (th=1,008, Tc=30, period 24,
+    threshold 4.0): bivariate F1 >= 0.9; the LSTM hybrid's precision >=
+    0.95 and recall >= 0.98 on all-metric spikes and correlation breaks;
+    no clean job flagged."""
+    from foremast_tpu_torch.engine.multivariate import MultivariateJudge
+
+    b = JOINT_QUALITY_B
+    t0 = time.perf_counter()
+    hist, cur, truth = gen_correlated_pair(b, JOINT_TH, FULL_TC)
+    p, r, f1 = quality_prf(MultivariateJudge(joint_cfg("bivariate_normal"), device=dev), hist, cur, truth, "bi")
+    check(f1 >= 0.9, f"8(c) joint-bivariate F1 {f1:.3f} < 0.9")
+    line = [f"bivariate P/R/F1 {p:.3f}/{r:.3f}/{f1:.3f}"]
+    for kind in ("all", "break"):
+        hist, cur, truth = gen_joint_lstm(b, 4, JOINT_TH, FULL_TC, kind=kind)
+        p, r, f1 = quality_prf(MultivariateJudge(joint_cfg("lstm_autoencoder"), device=dev), hist, cur, truth, kind)
+        check(p >= 0.95 and r >= 0.98, f"8(c) joint-lstm-{kind}: precision {p:.3f}, recall {r:.3f}")
+        line.append(f"lstm-{kind} {p:.3f}/{r:.3f}/{f1:.3f}")
+    rng = np.random.default_rng(7)
+    hist, cur = draw_comoving(rng, b, 4, JOINT_TH, 0), draw_comoving(rng, b, 4, FULL_TC, JOINT_TH)
+    tasks, _ = joint_tasks(hist, cur, "clean")
+    bad = {v.job_id for v in MultivariateJudge(joint_cfg("lstm_autoencoder"), device=dev).judge(tasks) if v.verdict == 1}
+    check(not bad, f"8(c) {len(bad)} clean joint jobs flagged")
+    print(f"phase 8: (c) quality gates on the card, {b} jobs a scenario: " + "; ".join(line)
+          + f"; clean windows: 0 of {b} jobs flagged ({time.perf_counter() - t0:.1f} s)")
+
+
+def joint_worker_fleet(n_docs: int, t_now: int, seed: int = 17):
+    """benchmarks/worker_bench.py's joint fleet (`_add_joint_service`):
+    alternating 2-alias bivariate and 4-alias LSTM docs of co-moving
+    metrics (period 24), 7-day settled histories (Th=10,080), 30-point
+    clean windows continuing the latent, endTime an hour out. Returns
+    (documents as JSON, URL -> series)."""
+    from foremast_tpu_torch.jobs import Document
+
+    rng = np.random.default_rng(seed)
+    ht = t_now - 86_400 * 7 + 60 * np.arange(FULL_TH, dtype=np.int64)
+    ct = ht[-1] + 60 + 60 * np.arange(FULL_TC, dtype=np.int64)
+    end_time = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(t_now + 3600))
+    data, docs = {}, []
+    for i in range(n_docs):
+        f = 2 if i % 2 == 0 else 4
+        r = np.random.default_rng(int(rng.integers(0, 2**31)))
+        hist = draw_comoving(r, 1, f, FULL_TH, 0)[0]
+        cur = draw_comoving(r, 1, f, FULL_TC, FULL_TH)[0]
+        cur_parts, hist_parts = [], []
+        for m in range(f):
+            cur_url = f"http://prom/cur?q=m{m}:app{i}&step=60"
+            hist_url = f"http://prom/hist?q=m{m}:app{i}&end={int(ht[-1]) + 60}&step=60"
+            data[cur_url] = (ct, cur[m])
+            data[hist_url] = (ht, hist[m])
+            cur_parts.append(f"m{m}== {cur_url}")
+            hist_parts.append(f"m{m}== {hist_url}")
+        docs.append(Document(id=f"job-{i}", app_name=f"app{i}", end_time=end_time,
+                             current_config=" ||".join(cur_parts), historical_config=" ||".join(hist_parts),
+                             strategy="continuous").to_json())
+    return docs, data
+
+
+def phase_joint_worker(dev, smi: str) -> dict:
+    """8(d): the worker's joint fleet tick on the card — 1,024 docs under
+    `auto` (512 bivariate, 512 LSTM-hybrid of 4 metrics), Th=10,080,
+    Tc=30, the default daily season m=1440 (the residual MVN fits at
+    m=1440), threshold 4.0: (a) cold tick (512 models trained, MVN and
+    bivariate fits), (b) warm tick (every doc on the joint columnar path,
+    0 trainings, 0 MVN fits), (c) warm tick with the last 3 points of
+    every 16th doc of each kind spiked (LSTM docs: every metric +0.6;
+    bivariate docs off-ridge, +/-0.6), which must flag exactly those docs
+    (a clean doc the cold tick flagged — a false alarm of the detectors
+    at threshold 4 — has completed and is counted), (e) the joint
+    columnar dispatch of (b) again, under
+    torch.cuda.set_sync_debug_mode("error") behind a busy kernel. A CPU
+    worker over the first 64 docs and every doc flagged cold, with the
+    card's trained LSTM entries carried into its cache, writes the same
+    (status, code, reason, anomaly_info) after each tick, and both
+    arenas count the same per doc."""
+    import dataclasses
+
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.metrics.source import MetricSource
+    from foremast_tpu_torch.observe.spans import Tracer
+    from foremast_tpu_torch.ops import kernels as K
+
+    class ArraySource(MetricSource):
+        concurrent_fetch = False
+
+        def __init__(self, series):
+            self.data = dict(series)
+
+        def fetch(self, url: str):
+            return self.data[url]
+
+    os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
+    t_now = int(time.time())
+    t0 = time.perf_counter()
+    docs, data = joint_worker_fleet(JOINT_DOCS, t_now)
+    n_win = (JOINT_DOCS // 2) * (2 + 4)
+    print(f"phase 8: (d) joint fleet of {JOINT_DOCS} docs ({JOINT_DOCS // 2} bivariate, {JOINT_DOCS // 2} LSTM x 4 "
+          f"metrics = {n_win} windows, Th={FULL_TH}, Tc={FULL_TC}, m={SEASON}) built in {time.perf_counter() - t0:.1f} s")
+
+    def new_worker(doc_json, device, tracer=None):
+        store = InMemoryStore()
+        for d in doc_json:
+            store.create(Document.from_json(d))
+        cfg = BrainConfig(algorithm="auto", max_cache_size=4 * len(doc_json) + 64)
+        cfg = dataclasses.replace(cfg, anomaly=dataclasses.replace(cfg.anomaly, threshold=4.0))
+        return BrainWorker(store, ArraySource(data), config=cfg, device=device, claim_limit=len(doc_json),
+                           worker_id=f"joint-{device}", tracer=tracer), store
+
+    def written(store):
+        return {d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+                for d in store._docs.values()}
+
+    tracer = Tracer()
+    gw, gstore = new_worker(docs, dev, tracer)
+    gw.warmup()
+    cpu = {}  # the CPU worker, built after the card's cold tick
+    calls = []
+    orig = gw._mvj.joint_columnar
+    gw._mvj.joint_columnar = lambda *a: calls.append(a) or orig(*a)
+    out = {}
+
+    def tick(name, now):
+        calls.clear()
+        launches = dict(K.LAUNCHES)
+        versions = (gw._mvj.cache.version, gw._mvj.joint_meta.version)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = gw.tick(now=now)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        if name == "a":
+            # the CPU worker: the first 64 docs and every doc the card
+            # flagged cold, scoring the card's trained models
+            flagged = [i for i in range(JOINT_DOCS) if i >= JOINT_CPU_DOCS
+                       and json.loads(written(gstore)[f"job-{i}"])[0] == "completed_unhealth"]
+            cpu["ids"] = list(range(JOINT_CPU_DOCS)) + flagged
+            cpu["worker"], cpu["store"] = new_worker([docs[i] for i in cpu["ids"]], "cpu")
+            apps = {f"app{i}" for i in cpu["ids"]}
+            for key, entry in gw._mvj.cache.snapshot().items():
+                if key[0] == "lstm" and key[1] in apps:
+                    cpu["worker"]._mvj.cache.put(key, entry)
+        cw, cstore = cpu["worker"], cpu["store"]
+        t1 = time.perf_counter()
+        cn = cw.tick(now=now)
+        out[name] = dict(
+            seconds=seconds, cpu_seconds=time.perf_counter() - t1, docs=n, cpu_docs=cn, written=written(gstore),
+            cpu_written=written(cstore), counters=gw._mvj.joint_state_counters(),
+            cpu_counters=cw._mvj.joint_state_counters(), fast=dict(gw._fast_kinds),
+            launched={k: K.LAUNCHES[k] - v for k, v in launches.items()},
+            refit=(gw._mvj.cache.version, gw._mvj.joint_meta.version) != versions,
+            stages=dict(tracer.last_stage_seconds), calls=list(calls),
+        )
+
+    tick("a", t_now + 150)
+    tick("b", t_now + 200)
+    spiked = sorted([i for i in range(JOINT_DOCS) if i % 16 in (5, 12)])
+    for w in (gw, cpu["worker"]):
+        for i in spiked:
+            f = 4 if i % 2 else 2
+            for m in range(f):
+                url = f"http://prom/cur?q=m{m}:app{i}&step=60"
+                ct, cv = w.source.data[url]
+                v = cv.copy()
+                v[-3:] += 0.6 if (f == 4 or m == 0) else -0.6
+                w.source.data[url] = (ct, v)
+    tick("c", t_now + 250)
+
+    a, b, c = out["a"], out["b"], out["c"]
+    def unhealthy(t):
+        return {int(k[4:]) for k, v in t["written"].items() if json.loads(v)[0] == "completed_unhealth"}
+
+    # clean windows at threshold 4 can still cross it: the cold tick's
+    # flags are false alarms of the detectors (the bivariate Gaussian's
+    # tail is e^-8 a point); those docs complete and leave the re-check
+    # loop, and the CPU worker judges each of them too
+    alarms = unhealthy(a)
+    open_docs = JOINT_DOCS - len(alarms)
+    n_cpu = len(cpu["ids"])
+    check(a["docs"] == JOINT_DOCS and b["docs"] == c["docs"] == open_docs, "8(d) a tick lost docs")
+    check(a["cpu_docs"] == n_cpu and b["cpu_docs"] == c["cpu_docs"] == n_cpu - len(alarms),
+          "8(d) a CPU tick lost docs")
+    check(not any(a["fast"].values()), "8(d) (a) the cold tick took a fast path")
+    check(a["launched"]["lstm_ae_backward"] > 0 and a["launched"]["holt_winters_scan"] > 0,
+          f"8(d) (a) the cold tick launched {a['launched']}")
+    half = JOINT_DOCS // 2
+    open_bi = half - sum(i % 2 == 0 for i in alarms)
+    kinds = {"univariate": 0, "bivariate": open_bi, "lstm": open_docs - open_bi, "baseline": 0}
+    check(b["fast"] == kinds, f"8(d) (b) kinds {b['fast']}, want {kinds}")
+    for name, t in (("b", b), ("c", c)):
+        check(not t["refit"] and t["launched"]["lstm_ae_backward"] == 0 and t["launched"]["holt_winters_scan"] == 0,
+              f"8(d) ({name}) the warm tick trained or fitted")
+        check(t["launched"]["lstm_ae_forward"] > 0, f"8(d) ({name}) the warm tick never launched lstm_ae_forward")
+        check(sorted(len(call[1]) for call in t["calls"]) == sorted([open_bi, open_docs - open_bi]),
+              f"8(d) ({name}) columnar calls")
+    check(b["counters"]["misses"] == open_docs and b["cpu_counters"]["misses"] == n_cpu - len(alarms),
+          f"8(d) (b) arena misses {b['counters']} / CPU {b['cpu_counters']}")
+    check(c["counters"]["hits"] == open_docs and c["cpu_counters"]["hits"] == n_cpu - len(alarms),
+          f"8(d) (c) arena counters {c['counters']} / CPU {c['cpu_counters']}")
+    check(unhealthy(b) == alarms, f"8(d) (b) the warm tick flagged {sorted(unhealthy(b) - alarms)} anew")
+    want = alarms | set(spiked)
+    check(unhealthy(c) == want, f"8(d) (c) flagged {sorted(unhealthy(c) - alarms)}, want the spiked "
+          f"{sorted(set(spiked) - alarms)}")
+    for name in "abc":
+        t = out[name]
+        diff = [k for k, v in t["cpu_written"].items() if t["written"][k] != v]
+        check(not diff, f"8(d) ({name}) {len(diff)} of the CPU worker's {n_cpu} docs differ: {diff[:4]}")
+
+    # (e) the warm joint dispatch again, on a busy stream, with any
+    # synchronizing call raising
+    judge = gw._mvj
+    dispatch = []
+    for call in b["calls"]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        judge.joint_columnar_async(*call)
+        idle_s = time.perf_counter() - t1  # the dispatch's host time on an idle stream
+        torch.cuda.synchronize()
+        busy = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        busy[0].record()
+        torch.cuda._sleep(BUSY_CYCLES)
+        busy[1].record()
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = judge.joint_columnar_async(*call)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        dispatch_s = time.perf_counter() - t1
+        done = pending.dev.event.query()
+        flags = pending.wait()
+        busy_ms = busy[0].elapsed_time(busy[1])
+        check(not done and dispatch_s * 1e3 < busy_ms,
+              f"8(e) the {call[0]} dispatch waited for the device: returned after {dispatch_s * 1e3:.3f} ms "
+              f"behind a {busy_ms:.1f} ms busy kernel (on an idle stream {idle_s * 1e3:.3f} ms), results done {done}")
+        check(np.array_equal(flags, orig(*call)), f"8(e) the {call[0]} async dispatch changed the flags")
+        dispatch.append(f"{call[0]} ({len(call[1])} docs) returned after {dispatch_s * 1e3:.3f} ms behind a "
+                        f"{busy_ms:.1f} ms busy kernel (on an idle stream {idle_s * 1e3:.3f} ms)")
+    print(f"phase 8: (d) the cold tick flagged {len(alarms)} clean docs (false alarms of the detectors at "
+          f"threshold 4: {sorted(alarms)}); every tick's (status, code, reason, anomaly_info) of the first "
+          f"{JOINT_CPU_DOCS} docs and of those equals the CPU worker's (the card's trained entries carried); (b) "
+          f"and (c) ran one joint columnar call per kind with 0 trainings and 0 MVN fits; (c) flagged exactly "
+          f"the {len(set(spiked) - alarms)} spiked open docs; arena misses/hits per doc equal on both; (e) "
+          + "; ".join(dispatch)
+          + " (set_sync_debug_mode('error'): no synchronizing call)")
+    print(f"phase 8 on {smi}:")
+    for name, what in (("a", f"cold tick (train {half} models, MVN at m={SEASON}, bivariate fits, score)"),
+                       ("b", "warm tick (joint columnar)"), ("c", "spiked warm tick (joint columnar)")):
+        t = out[name]
+        stages = ", ".join(f"{k} {v:.4f}" for k, v in sorted(t["stages"].items(), key=lambda kv: -kv[1]))
+        print(f"phase 8: (d) ({name}) {what}: {t['seconds']:.3f} s = {t['docs'] / t['seconds']:.0f} docs/s, "
+              f"{n_win / t['seconds']:.0f} windows/s (CPU worker, {JOINT_CPU_DOCS} docs: {t['cpu_seconds']:.3f} s); "
+              f"stage seconds: {stages}; outside the stage spans {t['seconds'] - sum(t['stages'].values()):.4f}; "
+              f"launches {t['launched']}")
+    return {k: out[k]["seconds"] for k in "abc"}
+
 def main() -> int:
     import torch
 
@@ -1870,6 +2576,7 @@ def main() -> int:
 
     worst = phase_kernels_vs_plain(dev)
     worst.update(phase_scan_kernels_vs_plain(dev))
+    worst.update(phase_lstm_kernels_vs_plain(dev))
     if kernels_only:
         time_scan_kernels(dev, peak_bytes, sm_clock_hz)
         print("chip_smoke: --kernels-only: every kernel built and equals its plain version; the scans were timed")
@@ -1904,6 +2611,14 @@ def main() -> int:
                        ("worker fleet tick (phase 7d)", launched_seasonal_worker)):
         for kname in ("masked_stats", "holt_winters_scan"):
             check(got[kname] > 0, f"the seasonal {label} never launched {kname}")
+    group, launched_group = path(phase_lstm_group, dev)
+    _, launched_quality = path(phase_joint_quality, dev)
+    _, launched_joint_worker = path(phase_joint_worker, dev, smi)
+    for label, got in (("cold LSTM group (phase 8b)", launched_group),
+                       ("joint quality gates (phase 8c)", launched_quality),
+                       ("joint worker fleet tick (phase 8d)", launched_joint_worker)):
+        for kname in ("lstm_ae_forward", "lstm_ae_backward", "holt_winters_scan"):
+            check(got[kname] > 0, f"the {label} never launched {kname}")
     paths = {
         "object path (phases 3-4)": launched_object,
         "fit-cache path (phase 5)": launched_fit_cache,
@@ -1911,6 +2626,9 @@ def main() -> int:
         "cold fits of every algorithm (phase 7b)": launched_fits,
         "seasonal fit-cache fleet (phase 7c)": launched_seasonal,
         "seasonal worker fleet tick (phase 7d)": launched_seasonal_worker,
+        "cold LSTM group (phase 8b)": launched_group,
+        "joint quality gates (phase 8c)": launched_quality,
+        "joint worker fleet tick (phase 8d)": launched_joint_worker,
     }
     print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}
@@ -1919,6 +2637,10 @@ def main() -> int:
     for kname in ("holt_winters_scan", "holt_scan"):
         timings[kname] = scan[kname]
         full_err[kname] = scan[kname]["full_err"]
+    lstm = time_lstm_kernels(dev, group["hist"], peak_bytes, sm_clock_hz)
+    for kname in ("lstm_ae_forward", "lstm_ae_backward"):
+        timings[kname] = lstm[kname]
+        full_err[kname] = lstm[kname]["full_err"]
 
     print("kernels: " + ", ".join(f"{k} launches={launches[k]} phase2=pass" for k in KERNEL_FILES))
     table = []

@@ -2,8 +2,9 @@
 
 A port of `foremast_tpu` (the JAX reference) for NVIDIA Hopper: the same
 module names and `[B, T]` layouts, with every Pallas kernel of the
-scoring path, and the Holt-Winters and Holt recurrences, rewritten as
-hand-written CUDA kernels (`ops/csrc/`). The package imports torch and
+scoring path, the Holt-Winters and Holt recurrences, and the LSTM
+autoencoder's forward and backward passes rewritten as hand-written CUDA
+kernels (`ops/csrc/`). The package imports torch and
 numpy only — never JAX, scipy or anything of `foremast_tpu`. Entry
 points run on the CUDA device unless the caller passes `device="cpu"`,
 which runs each kernel's plain PyTorch version.
@@ -13,9 +14,10 @@ Layers:
   ops/        masked windows, bounds, the univariate forecasters, rank
               tests, kernel wrappers + CUDA sources
   engine/     the scoring programs, the ragged-job judge (object and
-              columnar paths) and the device state arena
+              columnar paths), the multivariate judge (bivariate and
+              LSTM-AE joint detectors) and the device state arenas
   models/     the fit cache (fitted terminal state kept between ticks),
-              the seasonal (Prophet-substitute) model
+              the seasonal (Prophet-substitute) model, the joint models
   parallel/   synthetic fixed-shape batches for throughput runs
   interop.py  JAX-side state (numpy leaves) -> the port's tensors
 """

@@ -19,6 +19,9 @@ The host fit cache (`models.cache.ModelCache`) stays authoritative; the
 arena is a device-side acceleration of it. Every fit-cache miss is refit
 and force-scattered, so a stale row never outlives its host entry.
 
+`TreeArena` holds the joint detectors' rows (a fixed-shape state tree a
+row) on the same bookkeeping.
+
 Single device only: `shards > 1` (the data-axis-sharded arena) and the
 tenant-budget hook are not ported (ROADMAP.md Queue 1 items 6 and 7).
 """
@@ -114,6 +117,10 @@ class RowArena:
         self.state = None  # layout owned by the subclass
         self.rows: dict = {}  # fit key -> row index
         self.row_key: list = []  # row index -> fit key | None
+        # fit key -> the host entry OBJECT its row was scattered from
+        # (kept by TreeArena's callers, which detect a refreshed entry by
+        # identity); evictions prune it
+        self.row_entry: dict = {}
         self.free: list[int] = []  # unassigned row indices
         self._transients: list[int] = []  # last call's unkeyed rows
         self.stamp = np.zeros(0, np.int64)  # per-row last-use tick
@@ -180,6 +187,7 @@ class RowArena:
         self.cap = 0
         self.state = None
         self.rows.clear()
+        self.row_entry.clear()
         self.row_key = []
         self.stamp = np.zeros(0, np.int64)
         self.free = []
@@ -293,6 +301,7 @@ class RowArena:
                     old = self.row_key[r]
                     if old is not None:
                         del self.rows[old]
+                        self.row_entry.pop(old, None)
                         self.evictions += 1
                         if _is_pad_key(old):
                             self.pad_live -= 1
@@ -402,3 +411,85 @@ class StateArena(RowArena):
         out["season_len"] = self.m
         return out
 
+
+
+class TreeArena(RowArena):
+    """Device rows of an arbitrary fixed-shape state tree — the joint
+    detectors' counterpart of `StateArena`.
+
+    One row holds everything a joint model needs to score warm: the
+    bivariate fit (mean [2], cov [2, 2]), or the LSTM-AE hybrid's
+    parameter leaves plus its residual-MVN state. `template` maps each
+    leaf name to its per-row (shape, dtype); nested dicts and
+    NamedTuples of such pairs are trees too. Every leaf is a [capacity,
+    ...] tensor on `device`, and a warm batch is gathered on the device
+    inside the joint programs (`index_select` with a [B] row index).
+    Budget, pow2 growth, LRU and counters are `RowArena`'s."""
+
+    def __init__(self, template, max_bytes: int | None = None, shards: int = 1, device="cuda"):
+        self.template = template
+        self.device = resolve_device(device)
+        row_bytes = sum(
+            int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
+            for shape, dtype in _tree_leaves(template)
+        )
+        super().__init__(row_bytes or 1, max_bytes=max_bytes, shards=shards)
+
+    def _min_rows(self) -> int:
+        # joint rows are fat (an F=4 LSTM-AE row is ~60 KB): a small floor
+        return 64
+
+    def _alloc(self, cap: int):
+        dev = self.device
+        return tree_map_leaves(lambda leaf: torch.zeros((cap, *leaf[0]), dtype=leaf[1], device=dev), self.template)
+
+    def _grow(self, pad: int):
+        return tree_map_leaves(
+            lambda s, leaf: torch.cat([s, torch.zeros((pad, *leaf[0]), dtype=leaf[1], device=s.device)]),
+            self.state,
+            self.template,
+        )
+
+    def scatter(self, rows: np.ndarray, positions: list[int], entries) -> None:
+        """Upload (re)fitted row trees into their rows: entries[i] is a
+        tree of host numpy leaves shaped as the template's rows (callers
+        tile season buffers beforehand). One host-to-device copy and one
+        indexed in-place copy per leaf."""
+        if not positions:
+            return
+        dev = self.device
+        idx = to_device(np.asarray(rows, np.int64)[positions], dev)
+        picked = [entries[i] for i in positions]
+
+        def put(state, *leaves):
+            host = np.stack([np.asarray(x) for x in leaves])
+            state.index_copy_(0, idx, to_device(host, dev).to(state.dtype))
+            return state
+
+        tree_map_leaves(put, self.state, *picked)
+
+
+def _is_pair(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[1], torch.dtype)
+
+
+def _tree_leaves(tree) -> list:
+    """Leaves of a template tree ((shape, dtype) pairs) in order."""
+    if _is_pair(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in _tree_leaves(tree[k])]
+    return [leaf for v in tree for leaf in _tree_leaves(v)]
+
+
+def tree_map_leaves(fn, tree, *rest):
+    """`fn` over matching leaves of a state tree and any trees shaped like
+    it (dicts by key, tuples and NamedTuples by position); the first
+    tree's structure is kept. A template's (shape, dtype) pair is a leaf,
+    and so is anything that is not a dict or a tuple."""
+    if isinstance(tree, dict):
+        return {k: tree_map_leaves(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, tuple) and not _is_pair(tree):
+        out = [tree_map_leaves(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree, *rest)

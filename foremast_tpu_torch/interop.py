@@ -4,7 +4,9 @@ The "weights" of this system are its batches and its fitted forecaster
 terminal state. The JAX side hands them over as numpy (`np.asarray` of
 each leaf); these functions put them on a torch device, so a batch or a
 fit-cache entry made by one engine is judged by the other. A whole JAX
-`ModelCache.snapshot()` becomes the port's `ModelCache`.
+`ModelCache.snapshot()` becomes the port's `ModelCache`. The joint
+detectors' trained LSTM-AE weights and joint cache entries carry over
+too, so both engines score with the same trained model.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from foremast_tpu_torch.engine.scoring import ScoreBatch
 from foremast_tpu_torch.models.cache import ModelCache
+from foremast_tpu_torch.models.lstm_ae import AEParams, params_from_tree
 from foremast_tpu_torch.ops.windows import MetricWindows, resolve_device
 
 _WINDOWS = ("historical", "current", "baseline")
@@ -94,3 +97,38 @@ def forecast_from_numpy(
         _tensor(np.asarray(scale, np.float32), dev, f32),
         _tensor(np.asarray(n_hist), dev, i32),
     )
+
+
+def ae_params_from_numpy(tree, device="cuda") -> AEParams:
+    """A JAX `AEParams` tree as numpy (stacked [S, ...] or one model's,
+    or the dict/list form a checkpoint restores) -> the port's `AEParams`
+    of f32 tensors on `device`, leaf for leaf."""
+    dev = resolve_device(device)
+    return params_from_tree(tree, lambda a: _tensor(np.asarray(a, np.float32), dev, torch.float32))
+
+
+def joint_entry_from_numpy(entry) -> tuple:
+    """A JAX joint fit-cache entry with numpy leaves -> the port's.
+
+    Bivariate: (mean [2], cov [2, 2]) -> the same two f32 arrays. LSTM:
+    (AEParams, err_mean, err_std, mvn) -> (AEParams of f32 numpy leaves,
+    float, float, the 9-tuple (level [F], trend [F], season [F, m],
+    phase [F] int32, resid_mu [F], cov [F, F], valid bool, hist_last_ts
+    int, hist_len int) or None) — the tuple `MultivariateJudge` caches."""
+    if len(entry) == 2:
+        return np.array(entry[0], np.float32), np.array(entry[1], np.float32)
+    params, mu, sd = entry[0], entry[1], entry[2]
+    mvn = entry[3] if len(entry) > 3 else None
+    if mvn is not None:
+        mvn = (
+            np.array(mvn[0], np.float32),
+            np.array(mvn[1], np.float32),
+            np.array(mvn[2], np.float32),
+            np.array(mvn[3], np.int32),
+            np.array(mvn[4], np.float32),
+            np.array(mvn[5], np.float32),
+            bool(np.asarray(mvn[6])),
+            int(np.asarray(mvn[7])),
+            int(np.asarray(mvn[8])),
+        )
+    return (params_from_tree(params, lambda a: np.array(a, np.float32)), float(mu), float(sd), mvn)

@@ -18,12 +18,14 @@ columnar fast tick (baseline-less and canary buckets through
 fits through `HealthJudge.judge` with the fit cache) for everything
 else, with the same write-behind, release and tick-budget contracts.
 Every univariate `ML_ALGORITHM` of the engine's registry judges here
-(the seasonal and trended ones with the hist->cur gap advance); the
-joint models raise. Not here yet, each waiting for its own
-slice: sliced sweeps and micro-ticks (so `FOREMAST_SWEEP_SLICE_DOCS`
-must not slice this worker's claims), joint models, ring-first cold
-reads and refinement, fit journals, tenancy, the worker mesh and the
-worker's Prometheus gauges.
+(the seasonal and trended ones with the hist->cur gap advance), and the
+joint selectors (`bivariate_normal`, `lstm_autoencoder`, `auto`) through
+the default `MultivariateJudge`: multi-alias docs fit on the slow path
+and, once their joint fit is cached, re-check on the joint columnar path
+(`_judge_joint_fast`). Not here yet, each waiting for its own slice:
+sliced sweeps and micro-ticks (so `FOREMAST_SWEEP_SLICE_DOCS` must not
+slice this worker's claims), ring-first cold reads and refinement, fit
+journals, tenancy, the worker mesh and the worker's Prometheus gauges.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 
 from foremast_tpu_torch.chaos.degrade import (
     REASON_DEADLINE,
+    REASON_DEMOTED,
     REASON_FETCH,
     REASON_REPLAYED,
     Degradation,
@@ -56,6 +59,12 @@ from foremast_tpu_torch.engine.judge import (
     bucket_length,
     combine_verdicts,
     infer_step,
+)
+from foremast_tpu_torch.engine.multivariate import (
+    MULTIVARIATE_ALGOS,
+    MultivariateJudge,
+    align_series,
+    select_mode,
 )
 from foremast_tpu_torch.engine.scoring import HEALTHY, UNHEALTHY, UNKNOWN
 from foremast_tpu_torch.jobs.models import (
@@ -85,10 +94,6 @@ log = logging.getLogger("foremast_tpu_torch.worker")
 # ingestion latency with margin, metricsquery.go:53-55).
 HIST_CACHE_ENTRIES = 256
 HIST_SETTLED_SECONDS = 120.0
-
-# The joint-model selectors of the JAX package (`engine/multivariate.py`),
-# whose models the port does not have yet.
-MULTIVARIATE_ALGOS = frozenset({"bivariate_normal", "lstm_autoencoder", "auto"})
 
 # The JAX worker slices a sweep whose claim can exceed this many docs
 # (`FOREMAST_SWEEP_SLICE_DOCS`, 0 = monolithic); sliced results equal the
@@ -218,12 +223,6 @@ class BrainWorker:
         self.store = store
         self.source = source
         self.config = config or BrainConfig()
-        if self.config.algorithm in MULTIVARIATE_ALGOS:
-            raise NotImplementedError(
-                f"ML_ALGORITHM={self.config.algorithm!r} selects joint "
-                "models, which the port does not have yet: ROADMAP.md "
-                "Queue 1, 'joint models'"
-            )
         self.claim_limit = claim_limit
         # Sliced sweeps are a later slice of the port: a claim that the
         # JAX worker would slice must not silently run another path here
@@ -236,8 +235,12 @@ class BrainWorker:
                 "(ROADMAP.md Queue 1); set FOREMAST_SWEEP_SLICE_DOCS=0 for "
                 "the monolithic tick"
             )
-        self.judge = HealthJudge(self.config, device=device)
-        self.judge.band_mode = band_mode
+        # MultivariateJudge dispatches by metric count (1 -> univariate,
+        # 2 -> bivariate normal, 3+ -> LSTM-AE hybrid, per the selector)
+        # and delegates univariate jobs to its HealthJudge, `_uni`
+        self.judge = MultivariateJudge(self.config, device=device)
+        self._uni = self.judge.univariate
+        self._uni.band_mode = band_mode
         self.worker_id = worker_id or f"brain-{uuid.uuid4().hex[:8]}"
         self.on_verdict = on_verdict
         # Fitted-forecast cache (the reference's MAX_CACHE_SIZE model
@@ -246,9 +249,24 @@ class BrainWorker:
         # tick on an unchanged history skips the 7-day scan and re-runs
         # only the judgment tail.
         self._fit_cache = ModelCache(self.config.max_cache_size)
-        self.judge.fit_cache = self._fit_cache
-        self._eff_algo = self.config.algorithm
-        self._eff_season = self.config.season_steps
+        self._uni.fit_cache = self._fit_cache
+        # the algorithm and season the univariate judge fits and caches
+        # under (a multivariate selector rewrites the algorithm to its
+        # univariate fallback)
+        self._eff_cfg = self._uni.config
+        self._eff_algo = self._eff_cfg.algorithm
+        self._eff_season = self._eff_cfg.season_steps
+        # multivariate selectors route multi-alias docs to joint models;
+        # once their fits are cached those docs re-check on the joint
+        # columnar path (FOREMAST_JOINT_COLUMNAR=0 keeps them on the
+        # object path)
+        self._mv = self.config.algorithm in MULTIVARIATE_ALGOS
+        self._mvj = self.judge
+        self._joint_fast = self._mv and os.environ.get("FOREMAST_JOINT_COLUMNAR", "1") == "1"
+        # joint-doc admission cache: doc.id -> [end_epoch, jinfo, token];
+        # token is the (joint cache, joint meta) version pair,
+        # revalidated per entry by identity on a version bump
+        self._jadmit: dict = {}
         # fast-path admission cache: doc.id -> [end_epoch, rowsinfo,
         # ops, token, has_base]; token is the (fit, gap) cache-version
         # pair at last validation. A token match trusts the entry
@@ -264,9 +282,9 @@ class BrainWorker:
         self._canary_fast = (
             os.environ.get("FOREMAST_CANARY_COLUMNAR", "1") == "1"
         )
-        # cumulative columnar-path doc counts per bucket ("baseline" is
-        # the canary bucket)
-        self._fast_kinds = {"univariate": 0, "baseline": 0}
+        # cumulative columnar-path doc counts per model kind ("baseline"
+        # is the canary bucket)
+        self._fast_kinds = {"univariate": 0, "bivariate": 0, "lstm": 0, "baseline": 0}
         # per-document decoded config/endTime metadata (immutable per doc
         # id — see _doc_meta) and per-fit-key gap anchors (step, last
         # hist timestamp) for the history-free warm path
@@ -353,8 +371,8 @@ class BrainWorker:
         ops = np.empty((3, len(cur)), np.float32)
         for i, (alias, cur_url) in enumerate(cur.items()):
             hist_url = hist.get(alias)
-            mtype = infer_metric_type(alias, self.config)
-            rule = self.config.anomaly.rule_for(mtype)
+            mtype = infer_metric_type(alias, self._eff_cfg)
+            rule = self._eff_cfg.anomaly.rule_for(mtype)
             ops[0, i] = rule.threshold
             ops[1, i] = rule.bound
             ops[2, i] = rule.min_lower_bound
@@ -386,6 +404,10 @@ class BrainWorker:
         if not aliases:
             return None
         tasks = []
+        # the history-free warm shortcut serves only the univariate judge:
+        # joint models align histories across metrics and fit their own
+        # state, so an empty-history task would collapse the joint fit
+        may_skip_hist = not self._mv or len(aliases) == 1
         try:
             for (
                 alias,
@@ -407,7 +429,7 @@ class BrainWorker:
                     )
                     if settled:
                         fit_key = key
-                        entry = self._fit_cache.get(fullkey)
+                        entry = self._fit_cache.get(fullkey) if may_skip_hist else None
                         gap = (
                             self._gap_meta.get(key)
                             if self._gap_sensitive
@@ -564,9 +586,9 @@ class BrainWorker:
             from foremast_tpu_torch.ops import _build
 
             _build.build_all()
-        trial = HealthJudge(self.config, device=self.judge.device)
+        trial = HealthJudge(self._eff_cfg, device=self.judge.device)
         trial.fit_cache = ModelCache(4 * _MIN_BUCKET)
-        trial.band_mode = self.judge.band_mode
+        trial.band_mode = self._uni.band_mode
         rng = np.random.default_rng(0)
         t0 = int(time.time()) - 86_400 * 8
         ht = t0 + 60 * np.arange(hist_len, dtype=np.int64)
@@ -803,6 +825,214 @@ class BrainWorker:
         for kind, n in kind_counts.items():
             self._fast_kinds[kind] += n
 
+    # -- joint (multi-alias) columnar path --------------------------------
+
+    def _admit_joint(self, doc, aliases, end_epoch, now: float, jtoken):
+        """Joint-doc admission: (doc, end_epoch, jinfo) when this
+        multi-alias doc's joint fit and warm metadata are cached and every
+        alias clears the univariate path's gates (no baseline, settled
+        history); None routes it to the slow path.
+
+        jinfo: (mode, alias names, cur urls, cache_key, entry, meta_key,
+        meta) — the entry/meta OBJECTS, so revalidation after a version
+        bump is one identity compare each."""
+        if not self._joint_fast:
+            return None
+        cached = self._jadmit.get(doc.id)
+        if cached is not None and (cached[2] == jtoken or self._revalidate_joint(cached, jtoken)):
+            return (doc, cached[0], cached[1])
+        mode = select_mode(self.config.algorithm, len(aliases))
+        if mode == "univariate":
+            # metric-count misfit (e.g. 3 aliases under bivariate_normal):
+            # the object path scores these per alias
+            return None
+        names, urls, hkeys = [], [], []
+        for alias, cur_url, _mtype, base_url, hist_url, key, hist_end, _fullkey in aliases:
+            if (
+                base_url is not None
+                or hist_url is None
+                or key is None
+                or hist_end is None
+                or hist_end > now - HIST_SETTLED_SECONDS
+            ):
+                return None
+            names.append(alias)
+            urls.append(cur_url)
+            hkeys.append(key)
+        peek = self._mvj.columnar_joint_peek(mode, doc.app_name, tuple(names), tuple(hkeys))
+        if peek is None:
+            return None
+        jinfo = (mode, tuple(names), tuple(urls)) + peek
+        self._jadmit[doc.id] = [end_epoch, jinfo, jtoken]
+        return (doc, end_epoch, jinfo)
+
+    def _revalidate_joint(self, cached, token) -> bool:
+        """The cached jinfo still holds the entry/meta objects the judge's
+        caches hold: restamp it with the new token."""
+        jinfo = cached[1]
+        if self._mvj.cache.peek(jinfo[3]) is not jinfo[4]:
+            return False
+        if self._mvj.joint_meta.peek(jinfo[5]) is not jinfo[6]:
+            return False
+        cached[2] = token
+        return True
+
+    def _demote_to_slow(self, slow: list, demoted: list, why: str) -> None:
+        """Route fast-tick demotions (an admitted doc the columnar program
+        can no longer score) back onto the slow path, counted on the
+        degraded-docs counter."""
+        if not demoted:
+            return
+        slow.extend(demoted)
+        self._degrade.stats.count_docs(REASON_DEMOTED, len(demoted))
+        log.info("fast path demoted %d doc(s) to the slow path (%s)", len(demoted), why)
+
+    def _judge_joint_fast(self, ok_joint, now: float):
+        """Columnar warm judgment of admitted joint docs.
+
+        Aligns each doc's current windows (strictly increasing, identical
+        stamps short-circuit the intersect), groups by (model kind,
+        feature count), and runs ONE arena-gathered program per group
+        (`MultivariateJudge.joint_columnar`). Statuses and anomaly pairs
+        replicate the object path's `_emit`; an LSTM doc whose window
+        bucket drifted from the fitted one is DEMOTED to the slow path
+        (refit). Returns (updated_docs, demoted_docs, per-kind counts)."""
+        hook = self.on_verdict
+        judge = self._mvj
+        thr = float(np.float32(judge.config.anomaly.rule_for(None).threshold))
+        updated: list = []
+        demoted: list = []
+        counts = {"univariate": 0, "bivariate": 0, "lstm": 0}
+        groups: dict = {}
+        for (doc, end_epoch, jinfo), series in ok_joint:
+            mode = jinfo[0]
+            times = [s[0] for s in series]
+            vals = [s[1] for s in series]
+            t0 = np.asarray(times[0], np.int64)
+            # the shortcut needs STRICTLY increasing stamps: align_series
+            # dedups repeats and sorts, and both paths must agree
+            if (
+                len(t0) > 0
+                and bool(np.all(np.diff(t0) > 0))
+                and all(len(t) == len(t0) and np.array_equal(t, t0) for t in times[1:])
+            ):
+                ct = t0
+                cv = np.stack([np.asarray(v, np.float32) for v in vals])
+            else:
+                ct, cv = align_series(times, vals)
+            n = len(ct)
+            if n == 0:
+                # no joint observation: UNKNOWN, as the object path's
+                # `_unknown` (baseline-less pairwise is (1.0, False))
+                self._decide_status(doc, UNKNOWN, {}, now, end_epoch)
+                self._log_judged(doc)
+                updated.append(doc)
+                counts[mode] += 1
+                if hook:
+                    vs = [
+                        MetricVerdict(
+                            job_id=doc.id,
+                            alias=alias,
+                            verdict=UNKNOWN,
+                            anomaly_pairs=[],
+                            upper=np.zeros(len(vals[f_i]), np.float32),
+                            lower=np.zeros(len(vals[f_i]), np.float32),
+                            p_value=1.0,
+                            dist_differs=False,
+                        )
+                        for f_i, alias in enumerate(jinfo[1])
+                    ]
+                    try:
+                        hook(doc, vs)
+                    except Exception:
+                        log.exception("on_verdict hook failed for %s", doc.id)
+                continue
+            if mode == "lstm" and bucket_length(n) != jinfo[6][0]:
+                # the window bucket drifted from the one the AE was fitted
+                # at: refit on the slow path rather than mis-score
+                demoted.append(doc)
+                continue
+            groups.setdefault((mode, len(jinfo[1])), []).append((doc, end_epoch, jinfo, ct, cv, n))
+
+        for (mode, f), items in groups.items():
+            # ONE dispatch per group, padded to its widest window bucket
+            # (lstm: the fitted buckets). Exact: the AE carries state
+            # through masked steps and the decoder's step-t output never
+            # depends on later steps, and the MVN d^2 is causal, so
+            # suffix padding changes no real point's flag.
+            if mode == "lstm":
+                tcb = max(it[2][6][0] for it in items)
+            else:
+                tcb = bucket_length(max(it[5] for it in items))
+            s = len(items)
+            cur = np.zeros((s, f, tcb), np.float32)
+            mask = np.zeros((s, tcb), bool)
+            gaps = np.zeros(s, np.int32) if mode == "lstm" else None
+            keys, entries, metas = [], [], []
+            for i, (doc, end_epoch, jinfo, ct, cv, n) in enumerate(items):
+                cur[i, :, :n] = cv[:, :n]
+                mask[i, :n] = True
+                keys.append(jinfo[3])
+                entries.append(jinfo[4])
+                metas.append(jinfo[6])
+                if mode == "lstm":
+                    meta = jinfo[6]
+                    k = int(round((float(ct[0]) - meta[4]) / max(meta[3], 1.0)))
+                    gaps[i] = max(k - 1, 0)
+            flags = judge.joint_columnar(mode, keys, entries, metas, cur, mask, gaps)
+            with span("worker.decide", stage="decide", docs=s):
+                for i, (doc, end_epoch, jinfo, ct, cv, n) in enumerate(items):
+                    fl = flags[i, :n]
+                    jv = UNHEALTHY if fl.any() else HEALTHY
+                    values_map = {}
+                    if jv == UNHEALTHY:
+                        ft = ct[fl]
+                        for f_i, alias in enumerate(jinfo[1]):
+                            pairs = np.empty(2 * len(ft), np.float64)
+                            pairs[0::2] = ft
+                            pairs[1::2] = cv[f_i][fl]
+                            values_map[alias] = pairs.tolist()
+                    self._decide_status(doc, jv, values_map, now, end_epoch)
+                    self._log_judged(doc)
+                    updated.append(doc)
+                    counts[mode] += 1
+                    if hook:
+                        try:
+                            hook(doc, self._joint_verdicts(doc, jinfo, ct, cv, n, fl, jv, thr))
+                        except Exception:
+                            log.exception("on_verdict hook failed for %s", doc.id)
+        return updated, demoted, counts
+
+    def _joint_verdicts(self, doc, jinfo, ct, cv, n, fl, jv, thr):
+        """Hook verdicts as the object path's `_emit` gives them: per-alias
+        marginal bands from the cached meta moments, the doc-wide joint
+        verdict, each alias's own values at the flagged timestamps;
+        pairwise (1.0, False), baseline-less by admission."""
+        meta = jinfo[6]
+        mu, sd = meta[1], meta[2]
+        width = max(n, 1)
+        up = np.repeat((mu + thr * sd)[:, None], width, axis=1).astype(np.float32)
+        lo = np.repeat(np.maximum(mu - thr * sd, 0.0)[:, None], width, axis=1).astype(np.float32)
+        flagged_times = ct[fl]
+        out = []
+        for f_i, alias in enumerate(jinfo[1]):
+            pairs: list[float] = []
+            for ts, v in zip(flagged_times, cv[f_i][fl]):
+                pairs.extend([float(ts), float(v)])
+            out.append(
+                MetricVerdict(
+                    job_id=doc.id,
+                    alias=alias,
+                    verdict=jv,
+                    anomaly_pairs=pairs,
+                    upper=up[f_i],
+                    lower=lo[f_i],
+                    p_value=1.0,
+                    dist_differs=False,
+                )
+            )
+        return out
+
     def _fast_tick(self, docs, now: float):
         """Columnar processing of the all-warm re-check subset.
 
@@ -818,46 +1048,62 @@ class BrainWorker:
         Docs that don't qualify (unsettled or absent histories, cold
         fits, canary docs under FOREMAST_CANARY_COLUMNAR=0) are returned
         for the slow path. Returns (n_processed, slow_docs)."""
-        fast, fastc, slow = self._admit_fast(docs, now)
-        if not fast and not fastc:
+        fast, fastc, fastj, slow = self._admit_fast(docs, now)
+        if not fast and not fastc and not fastj:
             return 0, slow
-        ok_items, ok_citems, failed, released = self._fetch_fast(fast, fastc)
+        ok_items, ok_citems, ok_joint, failed, released = self._fetch_fast(fast, fastc, fastj)
         for doc in failed:
             self._store_update(doc)
         self._release_docs(released, REASON_FETCH)
-        if not ok_items and not ok_citems:
+        if not ok_items and not ok_citems and not ok_joint:
             return len(failed) + len(released), slow
         updated_all: list = []
+        n_joint = 0
+        kind_counts = {"univariate": 0, "bivariate": 0, "lstm": 0, "baseline": 0}
+        if ok_joint:
+            j_updated, demoted, j_counts = self._judge_joint_fast(ok_joint, now)
+            updated_all.extend(j_updated)
+            n_joint = len(j_updated)
+            self._demote_to_slow(slow, demoted, "joint window bucket drift")
+            for kind, n in j_counts.items():
+                kind_counts[kind] += n
         if ok_items:
             updated_all.extend(self._judge_uni_fast(ok_items, now))
+            kind_counts["univariate"] += len(ok_items)
         if ok_citems:
             updated_all.extend(
                 self._judge_uni_fast(ok_citems, now, canary=True)
             )
-        self._account_fast_kinds(
-            {"univariate": len(ok_items), "baseline": len(ok_citems)}
-        )
+            kind_counts["baseline"] += len(ok_citems)
+        self._account_fast_kinds(kind_counts)
         with span(
             "worker.write_back", stage="write_back", docs=len(updated_all)
         ):
             self._store_update_many(updated_all)
         return (
-            len(ok_items) + len(ok_citems) + len(failed) + len(released),
+            len(ok_items) + len(ok_citems) + n_joint + len(failed) + len(released),
             slow,
         )
 
     def _admit_fast(self, docs, now: float):
-        """The fast-tick admission walk. Returns (fast, fastc, slow) —
-        the baseline-less, canary and object-path doc groups; an
-        admitted item is (doc, end_epoch, rowsinfo, ops)."""
+        """The fast-tick admission walk. Returns (fast, fastc, fastj,
+        slow) — the baseline-less, canary, joint and object-path doc
+        groups; an admitted univariate item is (doc, end_epoch, rowsinfo,
+        ops), a joint one (doc, end_epoch, jinfo)."""
         fit_cache = self._fit_cache
         gap_sensitive = self._gap_sensitive
         token = (fit_cache.version, self._gap_meta.version)
         admit = self._admit
         if len(admit) > 8 * max(self.claim_limit, 512):
             admit.clear()  # crude bound; repopulates from caches
+        jtoken = None
+        if self._joint_fast:
+            jtoken = (self._mvj.cache.version, self._mvj.joint_meta.version)
+            if len(self._jadmit) > 8 * max(self.claim_limit, 512):
+                self._jadmit.clear()
         fast = []
         fastc = []
+        fastj = []
         slow = []
         for doc in docs:
             cached = admit.get(doc.id)
@@ -871,6 +1117,13 @@ class BrainWorker:
             aliases, end_epoch, ops = self._doc_meta(doc)
             if not aliases:
                 slow.append(doc)
+                continue
+            if self._mv and len(aliases) != 1:
+                item = self._admit_joint(doc, aliases, end_epoch, now, jtoken)
+                if item is None:
+                    slow.append(doc)
+                else:
+                    fastj.append(item)
                 continue
             rowsinfo = []
             has_base = False
@@ -920,17 +1173,19 @@ class BrainWorker:
                 (fastc if has_base else fast).append(
                     (doc, end_epoch, rowsinfo, ops)
                 )
-        return fast, fastc, slow
+        return fast, fastc, fastj, slow
 
-    def _fetch_fast(self, fast, fastc):
+    def _fetch_fast(self, fast, fastc, fastj):
         """Fetch current windows for the admitted groups (thread pool
-        only for blocking sources). Canary docs append their per-row
-        baseline URLs after the current URLs (None for a baseline-less
-        alias inside a canary doc: it fetches as an empty window, whose
+        only for blocking sources): univariate, canary and joint docs
+        share one fan-out. Canary docs append their per-row baseline
+        URLs after the current URLs (None for a baseline-less alias
+        inside a canary doc: it fetches as an empty window, whose
         all-False mask gates every rank test off — the object path's
         exact semantics for that alias). Returns (ok_items, ok_citems,
-        failed, released); failed docs carry their terminal marks but
-        are NOT persisted here — the caller owns store writes."""
+        ok_joint, failed, released); failed docs carry their terminal
+        marks but are NOT persisted here — the caller owns store
+        writes."""
         fetch_items = [
             ("uni", item, [r[1] for r in item[2]]) for item in fast
         ]
@@ -942,6 +1197,7 @@ class BrainWorker:
             )
             for item in fastc
         ]
+        fetch_items += [("joint", item, list(item[2][2])) for item in fastj]
 
         def fetch_doc(entry):
             _kind, item, urls = entry
@@ -982,6 +1238,7 @@ class BrainWorker:
         released = []
         ok_items = []
         ok_citems = []
+        ok_joint = []
         for (kind, item, _urls), s in zip(fetch_items, series):
             if s is None:
                 doc = item[0]
@@ -993,9 +1250,11 @@ class BrainWorker:
                 released.append(item[0])
             elif kind == "uni":
                 ok_items.append((item, s))
-            else:
+            elif kind == "canary":
                 ok_citems.append((item, s))
-        return ok_items, ok_citems, failed, released
+            else:
+                ok_joint.append((item, s))
+        return ok_items, ok_citems, ok_joint, failed, released
 
     def _judge_uni_fast(self, ok_items, now: float, canary: bool = False) -> list:
         """Columnar warm judgment of admitted univariate rows: one
@@ -1007,7 +1266,7 @@ class BrainWorker:
         verdicts then carry the REAL device (p, differs). Returns the
         decided docs; the caller persists."""
         packed = self._pack_uni(ok_items, canary)
-        res = self.judge.judge_columnar(
+        res = self._uni.judge_columnar(
             packed.values,
             packed.mask,
             packed.keys,
@@ -1466,12 +1725,14 @@ class BrainWorker:
             store_ok = True
         except Exception:  # noqa: BLE001 - varz must not depend on store health
             queue_depth, store_ok = None, False
-        arena = self.judge.device_state_counters()
+        arena = self._uni.device_state_counters()
         looked = arena.get("hits", 0) + arena.get("misses", 0)
         arena["hit_rate"] = (
             round(arena.get("hits", 0) / looked, 4) if looked else None
         )
-        rows, pads = self.judge.batch_rows_total, self.judge.pad_rows_total
+        # padding across the univariate AND joint columnar dispatches
+        rows = self._uni.batch_rows_total + self._mvj.batch_rows_total
+        pads = self._uni.pad_rows_total + self._mvj.pad_rows_total
         with self._cold_lock:
             hist_reads = dict(self._cold_counts)
         state = {
@@ -1486,12 +1747,16 @@ class BrainWorker:
                 "fit_capacity": self.config.max_cache_size,
                 "hist_entries": len(self._hist_cache),
                 "admission_entries": len(self._admit),
+                "joint_entries": len(self._mvj.cache),
+                "joint_admission_entries": len(self._jadmit),
             },
             "cold_start": {
                 "hist_cache_cap": self._hist_cache.max_size,
                 "hist_reads": hist_reads,
             },
             "arena": arena,
+            # the joint models' device arena (TreeArena rows)
+            "joint_arena": self._mvj.joint_state_counters(),
             "fast_path_docs": dict(self._fast_kinds),
             "columnar_pad": (
                 {

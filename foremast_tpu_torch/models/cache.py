@@ -212,7 +212,9 @@ class ModelCache:
     def save(self, path: str) -> None:
         """Checkpoint the contents as the tree `{"keys": [str], "values":
         [...]}` with `torch.save`. numpy leaves are stored as tensors so
-        `load` reads the file with `weights_only=True`."""
+        `load` reads the file with `weights_only=True`; NamedTuples (the
+        joint entries' AE parameter trees) come back as plain tuples,
+        which `MultivariateJudge` coerces on first use."""
         with self._lock:
             items = dict(self._d)
         keys = sorted(items, key=str)

@@ -463,3 +463,95 @@ def fit_phase_means(values: torch.Tensor, mask: torch.Tensor, season_length: int
         season_phase=((last_valid + 1) % m_len).to(torch.int32),
     )
     return _guard_unidentifiable(fc, values, mask, m_len)
+
+
+def hw_continue(
+    fc: Forecast,
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    season_length: int = 24,
+    alpha: float = 0.3,
+    beta: float = 0.05,
+    gamma: float = 0.1,
+) -> tuple[torch.Tensor, Forecast]:
+    """Continue a fitted Holt-Winters recurrence over new points, causally.
+
+    pred[:, t] is the one-step-ahead forecast from state updated through
+    values[:, :t], so it never sees the point it scores. Starts from
+    `fc`'s terminal (level, trend, season, phase); masked steps carry
+    the state through but still advance the phase. A state whose season
+    is not `season_length` wide (a non-seasonal fit) continues against
+    zero offsets. Returns (pred [B, T], updated Forecast).
+
+    T is a current window (tens of points): a per-step loop of plain
+    tensor ops over [B], with the JAX package's arithmetic operation for
+    operation. When the season is at least T long no slot is read twice,
+    so every step's offset is gathered up front and the slots' updates
+    are written after the loop: the loop then carries only level and
+    trend (9 launches a step instead of ~20; a warm joint dispatch runs
+    it twice per window)."""
+    m_len = int(season_length)
+    b, t_len = values.shape
+    dtype = values.dtype
+    dev = values.device
+    # f32 parameters and their complements rounded in f32, as JAX does;
+    # filled on the device (a host scalar copy would synchronize)
+    alpha, beta, gamma = (torch.full((), p, dtype=dtype, device=dev) for p in (alpha, beta, gamma))
+    oma, omb, omg = 1.0 - alpha, 1.0 - beta, 1.0 - gamma
+    if fc.season.shape[-1] != m_len:
+        season = torch.zeros((b, m_len), dtype=dtype, device=dev)
+    else:
+        season = fc.season.clone()
+    level, trend = fc.level, fc.trend
+    phase0 = fc.season_phase.long()
+    if t_len == 0 or m_len < t_len:
+        pred, level, trend = _hw_continue_steps(values, mask, season, level, trend, phase0, m_len,
+                                                (alpha, beta, gamma, oma, omb, omg))
+    else:
+        phases = (phase0[:, None] + torch.arange(t_len, device=dev)) % m_len  # distinct in a row
+        s_all = season.gather(1, phases)
+        a_xs = alpha * (values - s_all)
+        lts, new_levels = [], []
+        for t in range(t_len):
+            m = mask[:, t]
+            lt = level + trend
+            new_level = a_xs[:, t] + oma * lt
+            new_trend = beta * (new_level - level) + omb * trend
+            lts.append(lt)
+            new_levels.append(new_level)
+            level = torch.where(m, new_level, level)
+            trend = torch.where(m, new_trend, trend)
+        pred = torch.stack(lts, dim=1) + s_all
+        new_s = gamma * (values - torch.stack(new_levels, dim=1)) + omg * s_all
+        season.scatter_(1, phases, torch.where(mask, new_s, s_all))
+    out = Forecast(
+        pred=pred,
+        scale=fc.scale,
+        level=level,
+        trend=trend,
+        season=season,
+        season_phase=((phase0 + t_len) % m_len).to(torch.int32),
+    )
+    return pred, out
+
+
+def _hw_continue_steps(values, mask, season, level, trend, phase, m_len: int, params):
+    """`hw_continue`'s general loop (a season shorter than the window,
+    whose slots are revisited): one gathered and one scattered season
+    entry a step, `season` updated in place. Returns (pred, level, trend)."""
+    alpha, beta, gamma, oma, omb, omg = params
+    preds = []
+    for t in range(values.shape[1]):
+        x, m = values[:, t], mask[:, t]
+        s_t = season.gather(1, phase[:, None])[:, 0]
+        lt = level + trend
+        preds.append(lt + s_t)
+        new_level = alpha * (x - s_t) + oma * lt
+        new_trend = beta * (new_level - level) + omb * trend
+        new_s = gamma * (x - new_level) + omg * s_t
+        season.scatter_(1, phase[:, None], torch.where(m, new_s, s_t)[:, None])
+        level = torch.where(m, new_level, level)
+        trend = torch.where(m, new_trend, trend)
+        phase = (phase + 1) % m_len
+    pred = torch.stack(preds, dim=1) if preds else values.new_zeros((values.shape[0], 0))
+    return pred, level, trend

@@ -29,6 +29,15 @@ chain as tiles in shared memory, staged by a loader warp, and `pred`
 leaves through a storer warp (`csrc/scan_tiles.cuh`). They round every
 operation as their plain versions do and equal them bit for bit.
 
+The joint detector's LSTM autoencoder (`models/lstm_ae.py`) trains and
+scores through two more:
+
+  * `lstm_ae_forward`        — per-step reconstruction error of S masked
+                               encoder-decoder LSTMs over W windows each
+                               (and the activations the backward needs).
+  * `lstm_ae_backward`       — backpropagation through time: per-model
+                               gradients of every parameter leaf.
+
 A wrapper given CPU tensors runs the plain version beside it; given CUDA
 tensors it launches the kernel on the current stream or raises. Each
 launch adds one to `LAUNCHES[name]`.
@@ -59,6 +68,8 @@ LAUNCHES = {
     "ma_judgment_bf16_delta": 0,
     "holt_winters_scan": 0,
     "holt_scan": 0,
+    "lstm_ae_forward": 0,
+    "lstm_ae_backward": 0,
 }
 
 
@@ -555,3 +566,182 @@ def holt_scan(values: torch.Tensor, mask: torch.Tensor, alpha, beta):
         level.data_ptr(), trend.data_ptr(), pred.data_ptr(), b, t_len,
     )
     return level, trend, pred
+
+
+# ---------------------------------------------------------------------------
+# lstm_ae_forward / lstm_ae_backward — the masked LSTM autoencoder
+# ---------------------------------------------------------------------------
+
+# The parameter leaves, in the JAX package's pytree order (`AEParams`:
+# enc (w_x, w_h, b), dec (w_x, w_h, b), w_out, b_out); each stacked
+# [S, ...] (or [capacity, ...] with `rows`).
+AE_LEAVES = ("enc_w_x", "enc_w_h", "enc_b", "dec_w_x", "dec_w_h", "dec_b", "w_out", "b_out")
+_AE_HIDDEN = 32  # the one width the kernels take: a warp is a hidden state
+_AE_MAX_F = 8
+_AE_MAX_W_FWD = 32  # a block of 32 warps
+_AE_MAX_W_BWD = 8  # 8 warps' 16 KB dW_h partials in shared memory
+
+
+def _lstm_cell_plain(w_x, w_h, b, h, c, x, keep):
+    """One masked LSTM step of S models at once: h, c [S, W, H], x [S, W,
+    F_in] or None (the decoder's zero input, whose product is exactly 0),
+    keep [S, W] bool or None (every step updates)."""
+    hid = w_h.shape[1]
+    gates = torch.bmm(h, w_h)
+    if x is not None:
+        gates = torch.bmm(x, w_x) + gates
+    gates = gates + b[:, None, :]
+    i, f, g, o = (gates[..., k * hid : (k + 1) * hid] for k in range(4))
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    if keep is None:
+        return h_new, c_new
+    k = keep[..., None]
+    return torch.where(k, h_new, h), torch.where(k, c_new, c)
+
+
+def _lstm_ae_reconstruct_plain(leaves, x, mask):
+    """Decoder outputs [S, W, T, F] of stacked models on x [S, W, T, F]."""
+    ewx, ewh, eb, _dwx, dwh, db, wout, bout = leaves
+    s, w, t_len, _ = x.shape
+    h = x.new_zeros((s, w, ewh.shape[1]))
+    c = torch.zeros_like(h)
+    for t in range(t_len):
+        h, c = _lstm_cell_plain(ewx, ewh, eb, h, c, x[:, :, t], mask[:, :, t])
+    ys = []
+    for _ in range(t_len):
+        h, c = _lstm_cell_plain(None, dwh, db, h, c, None, None)
+        ys.append(torch.bmm(h, wout) + bout[:, None, :])
+    return torch.stack(ys, dim=2) if ys else torch.zeros_like(x)
+
+
+def _lstm_ae_forward_plain(leaves, x, mask, rows=None):
+    """The per-step loop of `_cell_step` (encoder, then the zero-input
+    decoder) and the masked error mean_f (y - x)^2, err [S, W, T]."""
+    if rows is not None:
+        leaves = [leaf.index_select(0, rows) for leaf in leaves]
+    r = _lstm_ae_reconstruct_plain(leaves, x, mask)
+    e = ((r - x) ** 2).mean(dim=-1)
+    return torch.where(mask, e, torch.zeros_like(e))
+
+
+def _lstm_ae_backward_plain(leaves, x, mask, grad_err):
+    """Gradients of sum(err * grad_err) with respect to every leaf:
+    torch autograd of `_lstm_ae_forward_plain` (the decoder's w_x gets
+    exact zeros: its input is zero)."""
+    with torch.enable_grad():
+        ls = [leaf.detach().requires_grad_() for leaf in leaves]
+        err = _lstm_ae_forward_plain(ls, x, mask)
+        grads = torch.autograd.grad(err, ls, grad_err, allow_unused=True)
+    return tuple(torch.zeros_like(leaf) if g is None else g for leaf, g in zip(leaves, grads))
+
+
+def _check_ae(leaves, x, mask, max_w: int) -> tuple[int, int, int, int, int]:
+    """Shapes the kernels take; returns (capacity, S, W, T, F)."""
+    if len(leaves) != len(AE_LEAVES):
+        raise ValueError(f"want the {len(AE_LEAVES)} AE leaves {AE_LEAVES}")
+    s, w, t_len, f = x.shape
+    cap, hid = leaves[1].shape[0], leaves[1].shape[1]
+    if hid != _AE_HIDDEN:
+        raise ValueError(f"the LSTM-AE kernels take hidden={_AE_HIDDEN}, got {hid}")
+    if not 1 <= f <= _AE_MAX_F:
+        raise ValueError(f"the LSTM-AE kernels take 1..{_AE_MAX_F} features, got {f}")
+    if not 1 <= w <= max_w:
+        raise ValueError(f"this LSTM-AE kernel takes 1..{max_w} windows a model, got {w}")
+    g = 4 * hid
+    shapes = ((cap, f, g), (cap, hid, g), (cap, g), (cap, f, g), (cap, hid, g), (cap, g), (cap, hid, f), (cap, f))
+    for name, leaf, shape in zip(AE_LEAVES, leaves, shapes):
+        _check(leaf, name, torch.float32, shape)
+    _check(x, "x", torch.float32, (s, w, t_len, f))
+    _check(mask, "mask", torch.bool, (s, w, t_len))
+    return cap, s, w, t_len, f
+
+
+def lstm_ae_forward(leaves, x: torch.Tensor, mask: torch.Tensor, rows=None, save_act: bool = False):
+    """Per-step reconstruction error of S LSTM autoencoders.
+
+    leaves: the 8 `AE_LEAVES` tensors stacked [S, ...], or [capacity,
+    ...] with `rows` [S] int64 choosing each model's row; x [S, W, T, F]
+    f32 windows, mask [S, W, T] bool. Returns (err [S, W, T] f32, act):
+    err = mean_f (y - x)^2 where valid, else 0; with `save_act` (and no
+    `rows`) act is [S, W, 2T, 6H] f32, each step's (i, f, g, o, c, h) for
+    `lstm_ae_backward` (None on the CPU and without `save_act`). On the
+    card the kernel takes hidden=32, 1..8 features, 1..32 windows."""
+    if not _on_cuda(x, mask, *leaves, *(() if rows is None else (rows,))):
+        return _lstm_ae_forward_plain(leaves, x.float(), mask, rows), None
+    _, s, w, t_len, f = _check_ae(leaves, x, mask, _AE_MAX_W_FWD)
+    if rows is not None:
+        if save_act:
+            raise ValueError("activations are saved for training, which gathers no rows")
+        _check(rows, "rows", torch.int64, (s,))
+    dev = x.device
+    err = torch.empty((s, w, t_len), dtype=torch.float32, device=dev)
+    act = torch.empty((s, w, 2 * t_len, 6 * _AE_HIDDEN), dtype=torch.float32, device=dev) if save_act else None
+    ewx, ewh, eb, _dwx, dwh, db, wout, bout = leaves
+    _launch(
+        "lstm_ae_forward",
+        ewx.data_ptr(), ewh.data_ptr(), eb.data_ptr(), dwh.data_ptr(), db.data_ptr(),
+        wout.data_ptr(), bout.data_ptr(), None if rows is None else rows.data_ptr(),
+        x.data_ptr(), mask.data_ptr(), err.data_ptr(), None if act is None else act.data_ptr(),
+        s, w, t_len, f,
+    )
+    return err, act
+
+
+def lstm_ae_backward(leaves, x: torch.Tensor, mask: torch.Tensor, act, grad_err: torch.Tensor):
+    """Gradients of sum(err * grad_err) for every leaf of S stacked models
+    (tuple in `AE_LEAVES` order, each the leaf's shape): backpropagation
+    through time from `lstm_ae_forward`'s saved `act`. grad_err [S, W, T]
+    counts only at valid steps. On the CPU, autograd of the plain loop
+    (`act` unused). On the card: 1..8 windows a model."""
+    if not _on_cuda(x, mask, grad_err, *leaves):
+        return _lstm_ae_backward_plain(leaves, x.float(), mask, grad_err)
+    _, s, w, t_len, f = _check_ae(leaves, x, mask, _AE_MAX_W_BWD)
+    _check(act, "act", torch.float32, (s, w, 2 * t_len, 6 * _AE_HIDDEN))
+    _check(grad_err, "grad_err", torch.float32, (s, w, t_len))
+    ewx, ewh, eb, dwx, dwh, db, wout, bout = leaves
+    g_ewx, g_ewh, g_eb, g_dwh, g_db, g_wout, g_bout = (
+        torch.empty_like(leaf) for leaf in (ewx, ewh, eb, dwh, db, wout, bout)
+    )
+    _launch(
+        "lstm_ae_backward",
+        ewh.data_ptr(), dwh.data_ptr(), wout.data_ptr(), bout.data_ptr(),
+        x.data_ptr(), mask.data_ptr(), act.data_ptr(), grad_err.data_ptr(),
+        g_ewx.data_ptr(), g_ewh.data_ptr(), g_eb.data_ptr(), g_dwh.data_ptr(),
+        g_db.data_ptr(), g_wout.data_ptr(), g_bout.data_ptr(),
+        s, w, t_len, f,
+    )
+    # the decoder's input is zero, so its w_x gradient is exactly zero
+    return g_ewx, g_ewh, g_eb, torch.zeros_like(dwx), g_dwh, g_db, g_wout, g_bout
+
+
+class LSTMAEError(torch.autograd.Function):
+    """err [S, W, T] = `lstm_ae_forward` of (x, mask, *leaves), with
+    `lstm_ae_backward` as its gradient: training's autograd node. On the
+    CPU both halves are torch autograd over the plain cell (the forward
+    keeps its graph for the backward)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, *leaves):
+        if _on_cuda(x, mask, *leaves):
+            err, act = lstm_ae_forward(leaves, x, mask, save_act=True)
+            ctx.save_for_backward(x, mask, act, *leaves)
+            ctx.graph = None
+            return err
+        with torch.enable_grad():
+            ls = [leaf.detach().requires_grad_() for leaf in leaves]
+            err = _lstm_ae_forward_plain(ls, x, mask)
+        ctx.graph = (err, ls)
+        return err.detach()
+
+    @staticmethod
+    def backward(ctx, grad_err):
+        if ctx.graph is None:
+            x, mask, act, *leaves = ctx.saved_tensors
+            grads = lstm_ae_backward(leaves, x, mask, act, grad_err.contiguous())
+        else:
+            err, ls = ctx.graph
+            ctx.graph = None
+            grads = torch.autograd.grad(err, ls, grad_err, allow_unused=True)
+            grads = tuple(torch.zeros_like(leaf) if g is None else g for leaf, g in zip(ls, grads))
+        return (None, None, *grads)

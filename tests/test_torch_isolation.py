@@ -1,6 +1,8 @@
 """The port stands alone: no module of `foremast_tpu_torch` and no line of
-`chip_smoke.py` imports JAX, the JAX package or scipy (the one host
-constant the JAX package takes from scipy is `torch.special.ndtri` here),
+`chip_smoke.py` imports JAX, the JAX package, scipy, optax or ml_dtypes
+(the host quantiles the JAX package takes from scipy are
+`torch.special.ndtri` and `ops/quantiles.py` here, Adam is written out,
+bf16 goes through torch),
 and no module of the port imports `requests` or `prometheus_client` when
 it is imported (the card's machine has neither).
 
@@ -24,7 +26,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "foremast_tpu", "scipy", "requests", "prometheus_client")
+    if m.split(".")[0] in ("jax", "jaxlib", "foremast_tpu", "scipy", "optax", "ml_dtypes", "requests",
+                           "prometheus_client")
 )
 print(len(names), bad)
 """
@@ -59,5 +62,5 @@ def test_no_source_of_the_port_imports_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 34
     for path in files:
-        bad = _imported_roots(path) & {"jax", "jaxlib", "foremast_tpu", "scipy"}
+        bad = _imported_roots(path) & {"jax", "jaxlib", "foremast_tpu", "scipy", "optax", "ml_dtypes"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

@@ -346,8 +346,15 @@ def test_hist_end_epoch_matches_jax(url):
 
 @pytest.mark.parametrize("algorithm", ["bivariate_normal", "lstm_autoencoder", "auto"])
 def test_multivariate_algorithms_raise(algorithm):
-    with pytest.raises(NotImplementedError, match="joint models"):
-        BrainWorker(InMemoryStore(), ReplaySource(), BrainConfig(algorithm=algorithm), device="cpu")
+    """The joint selectors no longer raise: each builds a worker on the
+    MultivariateJudge (univariate jobs go to its HealthJudge) that ticks;
+    tests/test_torch_joint_worker.py ticks them over joint fleets."""
+    from foremast_tpu_torch.engine.multivariate import MultivariateJudge
+
+    worker = BrainWorker(InMemoryStore(), ReplaySource(), BrainConfig(algorithm=algorithm), device="cpu")
+    assert isinstance(worker.judge, MultivariateJudge)
+    assert worker._uni.config.algorithm == ("auto_univariate" if algorithm == "auto" else "moving_average_all")
+    assert worker.tick(now=1_700_000_000.0) == 0
 
 
 def test_a_claim_that_would_slice_raises(monkeypatch):
@@ -383,8 +390,8 @@ def test_warmup_leaves_caches_untouched_and_ticks_after():
     worker = BrainWorker(store, src, BrainConfig(season_steps=24), device="cpu", claim_limit=20)
     worker.warmup(hist_len=256, cur_len=10)  # CPU-sized shapes
     assert len(worker._fit_cache) == 0
-    assert worker.judge._arenas == {}
-    assert worker.judge.device_state_counters()["misses"] == 0
+    assert worker._uni._arenas == {}
+    assert worker._uni.device_state_counters()["misses"] == 0
     assert store.list_open() == []
     nt = 1_700_000_000 + 60 * np.arange(64, dtype=np.int64)
     nv = np.ones(64, np.float32)
@@ -475,7 +482,7 @@ def test_debug_state_sections():
     assert state["queue_depth"] == 2 and state["store_ok"]
     assert state["model_cache"]["fit_entries"] == 8
     assert state["cold_start"]["hist_reads"] == {"http": 8, "cache": 0}
-    assert state["fast_path_docs"] == {"univariate": 2, "baseline": 0}
+    assert state["fast_path_docs"] == {"univariate": 2, "bivariate": 0, "lstm": 0, "baseline": 0}
     assert state["arena"]["hit_rate"] is not None
     assert state["last_tick"]["docs"] == 2 and state["last_tick"]["fast"] == 2
     assert state["sweep"] == {"slice_docs": 0, "sliced": False}

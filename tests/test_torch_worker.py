@@ -43,7 +43,7 @@ def _monolithic(monkeypatch):
 
 
 def _same_state(jax_worker, port) -> None:
-    assert port.judge.device_state_counters() == jax_worker._uni.device_state_counters()
+    assert port._uni.device_state_counters() == jax_worker._uni.device_state_counters()
     for kind in ("univariate", "baseline"):
         assert port._fast_kinds[kind] == jax_worker._fast_kinds[kind]
 

@@ -119,7 +119,7 @@ def test_pipelined_equals_serial_and_jax_on_mixed_warm_cold_claims():
     assert va == vb
     keys = sorted(map(str, a._fit_cache._d))
     assert keys and keys == sorted(map(str, b._fit_cache._d))
-    assert a.judge.device_state_counters() == jw._uni.device_state_counters()
+    assert a._uni.device_state_counters() == jw._uni.device_state_counters()
     for w in (jw, a, b):
         w.close()
 
