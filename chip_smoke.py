@@ -70,19 +70,24 @@ Phases; any failure exits non-zero:
      their plain versions at S in {1, 3, 37}, W in {1, 8}, T in {8, 32,
      64}, F in {2, 3, 4}, with all-masked, single-step and ragged windows
      and a rows gather with repeated rows (err within 1e-5 relative,
-     gradients within 1e-4 of float64 autograd of the plain loop); (b)
+     gradients within 1e-4 of float64 autograd of the plain loop; two
+     backward calls bit-identical); (b)
      one cold LSTM group at the joint fleet's width (512 jobs, W=8, T=32,
      F=4, H=32, 60 steps) through MultivariateJudge.judge, held to a CPU
      judge given the trained entries; then fit_many's loss curve and
      both kernels timed beside their bounds, their plain versions and
-     cuDNN's unmasked nn.LSTM (another function); (c) the joint quality
+     cuDNN's unmasked nn.LSTM (another function); the backward's chain
+     and product launches timed apart, beside torch.bmm of its dW_h
+     products, with their ptxas registers and spill; (c) the joint quality
      gates of tests/test_benchmarks.py at 256 jobs a scenario; (d) the
      worker's joint fleet tick, 1,024 docs under `auto` at Th=10,080 and
      m=1440: cold, warm (joint columnar, 0 trainings, 0 MVN fits),
      spiked warm (exactly the spiked docs flag) and (e) the warm joint
      dispatch again under set_sync_debug_mode("error") behind a busy
      kernel; the first 64 docs against a CPU worker given the card's
-     trained entries.
+     trained entries; after the timings, the cold tick again under
+     cProfile on a fresh worker over a quarter of the fleet (top 10
+     functions by cumulative and by own time).
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
 7b, 7c, 7d, 8b, 8c, 8d) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phase
@@ -105,6 +110,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1930,7 +1936,7 @@ def phase_lstm_kernels_vs_plain(dev) -> dict:
     gather with repeated rows from a larger stack. The forward err within
     1e-5 relative of the f32 plain loop; gradients (upstream 1/n_s, the
     loss's) within 1e-4 of each leaf's largest gradient from float64
-    autograd of the plain loop."""
+    autograd of the plain loop; two backward calls give the same bits."""
     import torch
 
     from foremast_tpu_torch.ops import kernels as K
@@ -1957,6 +1963,10 @@ def phase_lstm_kernels_vs_plain(dev) -> dict:
                     n = mask.sum(dim=(1, 2)).float().clamp_min(1.0)
                     grad_err = (1.0 / n)[:, None, None].expand(s, w, t_len).contiguous()
                     got_g = K.lstm_ae_backward(leaves, x, mask, act, grad_err)
+                    again = K.lstm_ae_backward(leaves, x, mask, act, grad_err)
+                    for name, a, b in zip(AE_LEAF_NAMES, got_g, again):
+                        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                              f"{what}: two backward calls gave different {name} bits")
                     want_g = K._lstm_ae_backward_plain(
                         [leaf.double() for leaf in leaves], x.double(), mask, grad_err.double()
                     )
@@ -1964,7 +1974,8 @@ def phase_lstm_kernels_vs_plain(dev) -> dict:
                     cases += 1
     torch.cuda.synchronize()
     print(f"phase 8: (a) lstm_ae_forward / lstm_ae_backward equal their plain versions at {cases} shapes "
-          f"(with rows gathers): forward max |err| diff {worst_f:.3e}, gradients max diff {worst_b:.3e}")
+          f"(with rows gathers): forward max |err| diff {worst_f:.3e}, gradients max diff {worst_b:.3e}; "
+          f"two backward calls give the same bits at every shape")
     return {"lstm_ae_forward": worst_f, "lstm_ae_backward": worst_b}
 
 
@@ -2205,6 +2216,7 @@ def time_lstm_kernels(dev, hist, peak_bytes: float, sm_clock_hz: float) -> dict:
     fwd_ms = cuda_ms(lambda: K.lstm_ae_forward(leaves, x, mask, save_act=True), iters=5, repeats=5)
     bwd_ms = cuda_ms(lambda: K.lstm_ae_backward(leaves, x, mask, act, grad_err), iters=5, repeats=5)
     score_ms = cuda_ms(lambda: K.lstm_ae_forward(leaves, xs, ms, rows=rows), iters=10, repeats=5)
+    split = time_backward_parts(leaves, x, mask, act, grad_err, bwd_ms, peak_bytes)
     step_ms = cuda_ms(lambda: ae.train_step_many(params, ae.adam_init(params), x, mask,
                                                  ae.LSTMAEConfig(features=f)), iters=3, repeats=3)
     torch.backends.cudnn.allow_tf32 = False  # the reference in f32, as the kernels compute
@@ -2253,7 +2265,75 @@ def time_lstm_kernels(dev, hist, peak_bytes: float, sm_clock_hz: float) -> dict:
           f"another function: cuDNN nn.LSTM encoder + decoder forward, unmasked, one weight set, same shapes "
           f"{cudnn_ms:.4f} ms (torch.backends.cudnn.allow_tf32 = False)")
     timings["lstm_ae_forward"]["score"] = timings["lstm_ae_forward scoring (W=1, rows)"]
+    timings["lstm_ae_backward"].update(split)
     return timings
+
+
+def ptxas_report(kname: str) -> list[str]:
+    """Each entry function of kernel library `kname` with its ptxas
+    registers, shared memory and spill, from the build's log."""
+    from foremast_tpu_torch.ops import _build
+
+    out, fn = [], None
+    for line in _build.build_log(kname).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            short = re.search(r"[A-Za-z_]+_kernel", fn)  # the name inside the mangled one
+            fn = short.group(0) if short else fn
+        elif fn and ("spill" in line or "registers" in line):
+            out.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def time_backward_parts(leaves, x, mask, act, grad_err, total_ms: float, peak_bytes: float) -> dict:
+    """8(b): lstm_ae_backward's two launches timed apart at the group's
+    shape (the chain, then the products on the chain's scratch), each
+    beside the bytes and f32 operations it needs; cuBLAS's torch.bmm of
+    the same dW_h products h_prev^T dA ([2S, H, W*T] x [2S, W*T, 4H],
+    TF32 off) timed as the product half's yardstick and held to the
+    kernel's dW_h; both kernels' ptxas registers and spill."""
+    import torch
+
+    from foremast_tpu_torch.ops import kernels as K
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "8(b) the bmm yardstick must run in full f32")
+    grads, scratch = K._lstm_ae_backward_cuda(leaves, x, mask, act, grad_err)
+    chain_ms = cuda_ms(lambda: K._lstm_ae_backward_cuda(leaves, x, mask, act, grad_err, scratch, parts=1),
+                       iters=5, repeats=5)
+    prod_ms = cuda_ms(lambda: K._lstm_ae_backward_cuda(leaves, x, mask, act, grad_err, scratch, parts=2),
+                      iters=5, repeats=5)
+    s_n, w_n, t_len, f = x.shape
+    h = 32
+    hs = act[..., 5 * h:]  # [S, W, 2T, H]
+    h_prev = torch.cat([torch.zeros_like(hs[:, :, :1]), hs[:, :, :-1]], dim=2)  # row u's state before it
+    a = h_prev.reshape(s_n, w_n, 2, t_len, h).permute(0, 2, 4, 1, 3).reshape(2 * s_n, h, w_n * t_len).contiguous()
+    d_gates = scratch[0].reshape(s_n, w_n, 2, t_len, h, 4).transpose(-1, -2)  # unit-major rows -> [4, H]
+    b = d_gates.permute(0, 2, 1, 3, 4, 5).reshape(2 * s_n, w_n * t_len, 4 * h).contiguous()
+    dwh = torch.bmm(a, b).reshape(s_n, 2, h, 4 * h)
+    for cell, got in ((0, grads[1]), (1, grads[4])):
+        scale = float(got.abs().max())
+        err = float((dwh[:, cell] - got).abs().max())
+        check(err <= AE_GRAD_TOL * scale, f"8(b) bmm dW_h of cell {cell} off the kernel's by {err:.3e}")
+    bmm_ms = cuda_ms(lambda: torch.bmm(a, b), iters=10, repeats=5)
+    pairs = s_n * w_n * t_len
+    g = 4 * h
+    chain_bytes = pairs * 2 * (6 * h * 4 + g * 4) + pairs * (f * 4 * 2 + 1 + 4) + s_n * 4 * (2 * h * g + h * f + f)
+    prod_bytes = pairs * 2 * (g * 4 + h * 4) + pairs * f * 4 * 2 + s_n * 4 * (2 * h * g + f * g + 2 * g + h * f + f)
+    chain_flops = pairs * 2 * (2 * g * h + 12 * h) + pairs * 4 * h * f
+    prod_flops = pairs * 2 * g * (2 * h + f + 2) + pairs * 2 * (h + 1) * f
+    bmm_flops = pairs * 2 * 2 * g * h
+    rows = []
+    for name, ms, nbytes, flops in (("chain", chain_ms, chain_bytes, chain_flops),
+                                    ("products", prod_ms, prod_bytes, prod_flops)):
+        bound = max(nbytes / peak_bytes, flops / PEAK_F32_FLOPS) * 1e3
+        rows.append(f"{name} {ms:.4f} ms (bound {bound:.4f}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    print(f"phase 8: (b) lstm_ae_backward S={s_n} W={w_n} T={t_len} F={f} H={h} launched apart: "
+          + "; ".join(rows) + f"; sum {chain_ms + prod_ms:.4f} ms, both in one call {total_ms:.4f} ms; "
+          f"yardstick of the product half: torch.bmm of the dW_h products [{2 * s_n}, {h}, {w_n * t_len}] x "
+          f"[{2 * s_n}, {w_n * t_len}, {g}] (allow_tf32 False) {bmm_ms:.4f} ms ({bmm_flops / 1e9:.3f} GFLOP)")
+    for line in ptxas_report("lstm_ae_backward"):
+        print(f"phase 8: (b) lstm_ae_backward ptxas {line}")
+    return {"chain_ms": chain_ms, "products_ms": prod_ms, "bmm_ms": bmm_ms}
 
 
 def quality_prf(judge, hist, cur, truth, prefix: str):
@@ -2352,24 +2432,10 @@ def phase_joint_worker(dev, smi: str) -> dict:
     card's trained LSTM entries carried into its cache, writes the same
     (status, code, reason, anomaly_info) after each tick, and both
     arenas count the same per doc."""
-    import dataclasses
-
     import torch
 
-    from foremast_tpu_torch.config import BrainConfig
-    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
-    from foremast_tpu_torch.metrics.source import MetricSource
     from foremast_tpu_torch.observe.spans import Tracer
     from foremast_tpu_torch.ops import kernels as K
-
-    class ArraySource(MetricSource):
-        concurrent_fetch = False
-
-        def __init__(self, series):
-            self.data = dict(series)
-
-        def fetch(self, url: str):
-            return self.data[url]
 
     os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
     t_now = int(time.time())
@@ -2380,13 +2446,7 @@ def phase_joint_worker(dev, smi: str) -> dict:
           f"metrics = {n_win} windows, Th={FULL_TH}, Tc={FULL_TC}, m={SEASON}) built in {time.perf_counter() - t0:.1f} s")
 
     def new_worker(doc_json, device, tracer=None):
-        store = InMemoryStore()
-        for d in doc_json:
-            store.create(Document.from_json(d))
-        cfg = BrainConfig(algorithm="auto", max_cache_size=4 * len(doc_json) + 64)
-        cfg = dataclasses.replace(cfg, anomaly=dataclasses.replace(cfg.anomaly, threshold=4.0))
-        return BrainWorker(store, ArraySource(data), config=cfg, device=device, claim_limit=len(doc_json),
-                           worker_id=f"joint-{device}", tracer=tracer), store
+        return joint_worker(doc_json, data, device, tracer)
 
     def written(store):
         return {d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
@@ -2533,7 +2593,69 @@ def phase_joint_worker(dev, smi: str) -> dict:
               f"{n_win / t['seconds']:.0f} windows/s (CPU worker, {JOINT_CPU_DOCS} docs: {t['cpu_seconds']:.3f} s); "
               f"stage seconds: {stages}; outside the stage spans {t['seconds'] - sum(t['stages'].values()):.4f}; "
               f"launches {t['launched']}")
-    return {k: out[k]["seconds"] for k in "abc"}
+    return {"seconds": {k: out[k]["seconds"] for k in "abc"}, "fleet": (docs, data, t_now)}
+
+
+def joint_worker(doc_json, data, device, tracer=None):
+    """A BrainWorker under `auto` (threshold 4.0) over a fresh in-memory
+    store of `doc_json`, fetching from the in-memory series `data`."""
+    import dataclasses
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.metrics.source import MetricSource
+
+    class ArraySource(MetricSource):
+        concurrent_fetch = False
+
+        def __init__(self, series):
+            self.data = dict(series)
+
+        def fetch(self, url: str):
+            return self.data[url]
+
+    store = InMemoryStore()
+    for d in doc_json:
+        store.create(Document.from_json(d))
+    cfg = BrainConfig(algorithm="auto", max_cache_size=4 * len(doc_json) + 64)
+    cfg = dataclasses.replace(cfg, anomaly=dataclasses.replace(cfg.anomaly, threshold=4.0))
+    return BrainWorker(store, ArraySource(data), config=cfg, device=device, claim_limit=len(doc_json),
+                       worker_id=f"joint-{device}", tracer=tracer), store
+
+
+def profile_joint_cold_tick(dev, fleet, top: int = 10) -> None:
+    """8(d), split: the joint cold tick again under cProfile, on a fresh
+    worker over the first quarter of 8(d)'s fleet (the timed ticks stay
+    unprofiled). Prints the tick's seconds and the `top` functions by
+    cumulative and by own time."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    docs, data, t_now = fleet
+    n = len(docs) // 4
+    worker, _ = joint_worker(docs[:n], data, dev)
+    worker.warmup()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    done = worker.tick(now=t_now + 150)
+    torch.cuda.synchronize()
+    prof.disable()
+    seconds = time.perf_counter() - t0
+    check(done == n, f"8(d) the profiled cold tick judged {done} of {n} docs")
+    stats = pstats.Stats(prof)
+    rows = []
+    for (path, line, fn), (_cc, calls, own, cum, _callers) in stats.stats.items():
+        rows.append((cum, own, calls, f"{os.path.relpath(path, ROOT) if path.startswith(ROOT) else path}:{line}({fn})"))
+    rows.sort(key=lambda r: -r[0])
+    own_rows = sorted(rows, key=lambda r: -r[1])[:top]
+    print(f"phase 8: (d) the cold tick again under cProfile, a fresh worker over {n} docs: {seconds:.3f} s; "
+          f"top {top} by cumulative s: " + "; ".join(f"{c:.3f} {name} ({k} calls)" for c, _o, k, name in rows[:top]))
+    print(f"phase 8: (d) the same profile, top {top} by own s: "
+          + "; ".join(f"{o:.3f} {name} ({k} calls)" for _c, o, k, name in own_rows))
 
 def main() -> int:
     import torch
@@ -2570,9 +2692,8 @@ def main() -> int:
     build_s = _build.build_all()
     print(f"phase 1: kernels built in {build_s:.1f} s")
     for kname in KERNEL_FILES:
-        for line in _build.build_log(kname).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"phase 1: {kname}: {line.strip()}")
+        for line in ptxas_report(kname):
+            print(f"phase 1: {kname}: {line}")
 
     worst = phase_kernels_vs_plain(dev)
     worst.update(phase_scan_kernels_vs_plain(dev))
@@ -2613,7 +2734,7 @@ def main() -> int:
             check(got[kname] > 0, f"the seasonal {label} never launched {kname}")
     group, launched_group = path(phase_lstm_group, dev)
     _, launched_quality = path(phase_joint_quality, dev)
-    _, launched_joint_worker = path(phase_joint_worker, dev, smi)
+    joint, launched_joint_worker = path(phase_joint_worker, dev, smi)
     for label, got in (("cold LSTM group (phase 8b)", launched_group),
                        ("joint quality gates (phase 8c)", launched_quality),
                        ("joint worker fleet tick (phase 8d)", launched_joint_worker)):
@@ -2641,6 +2762,7 @@ def main() -> int:
     for kname in ("lstm_ae_forward", "lstm_ae_backward"):
         timings[kname] = lstm[kname]
         full_err[kname] = lstm[kname]["full_err"]
+    profile_joint_cold_tick(dev, joint["fleet"])
 
     print("kernels: " + ", ".join(f"{k} launches={launches[k]} phase2=pass" for k in KERNEL_FILES))
     table = []

@@ -137,6 +137,13 @@ def _losses(ls, x, mask) -> torch.Tensor:
     return err.sum(dim=(1, 2)) / n
 
 
+def bias_corrections(count: int) -> tuple[float, float]:
+    """Adam's (1 - b1^count, 1 - b2^count), rounded as float32 on the
+    host: Python floats reach the update without a host-to-device copy."""
+    b1, b2 = (torch.tensor(b, dtype=torch.float32) for b in (_B1, _B2))
+    return float(1.0 - b1**count), float(1.0 - b2**count)
+
+
 def train_step_many(params: AEParams, opt: AdamState, x: torch.Tensor, mask: torch.Tensor, cfg: LSTMAEConfig):
     """One Adam step of every model: params/opt stacked [S, ...], x [S,
     W, T, F], mask [S, W, T]. Returns (params, opt, loss [S]) — the loss
@@ -146,9 +153,7 @@ def train_step_many(params: AEParams, opt: AdamState, x: torch.Tensor, mask: tor
         loss = _losses(ls, x, mask)
         grads = torch.autograd.grad(loss.sum(), ls)
     count = opt.count + 1
-    dev = x.device
-    bc1 = 1.0 - torch.tensor(_B1, dtype=torch.float32, device=dev) ** count
-    bc2 = 1.0 - torch.tensor(_B2, dtype=torch.float32, device=dev) ** count
+    bc1, bc2 = bias_corrections(count)
     new_p, new_mu, new_nu = [], [], []
     with torch.no_grad():
         for p, g, mu, nu in zip(ls, grads, opt.mu, opt.nu):

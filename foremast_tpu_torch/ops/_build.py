@@ -40,7 +40,7 @@ _ARGTYPES = {
     "holt_winters_scan": [_P] * 11 + [_I] * 5,
     "holt_scan": [_P] * 8 + [_I] * 2,
     "lstm_ae_forward": [_P] * 12 + [_I] * 4,
-    "lstm_ae_backward": [_P] * 15 + [_I] * 4,
+    "lstm_ae_backward": [_P] * 17 + [_I] * 5,
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
 // Shared device code of the scoring kernels: block reductions, the
-// two-pass masked row moments, and the judgment tail (band, flags,
-// measurability gate, verdict) for one row.
+// two-pass masked row moments, the judgment tail (band, flags,
+// measurability gate, verdict) for one row, and the cp.async copies that
+// stage tiles in shared memory.
 //
 // Every kernel runs one thread block of kThreads threads per row of the
 // batch; threads stride over the time axis, so neighbouring threads read
@@ -136,6 +137,29 @@ __device__ void judge_row(long long row, float n, float mean, float sigma,
   any = __syncthreads_or(any);
   if (threadIdx.x == 0)
     verdict[row] = measurable ? (any ? kUnhealthy : kHealthy) : kUnknown;
+}
+
+// 16 bytes from device to shared memory; zeros, and no read, when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+
+// 4 bytes from device to shared memory (through L1: for unaligned rows).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 inline bool aligned(const void* p, uintptr_t bytes) {

@@ -36,7 +36,10 @@ scores through two more:
                                encoder-decoder LSTMs over W windows each
                                (and the activations the backward needs).
   * `lstm_ae_backward`       — backpropagation through time: per-model
-                               gradients of every parameter leaf.
+                               gradients of every parameter leaf (a
+                               chain kernel writes each step's gate and
+                               output gradients, a product kernel sums
+                               them into the weight gradients).
 
 A wrapper given CPU tensors runs the plain version beside it; given CUDA
 tensors it launches the kernel on the current stream or raises. Each
@@ -579,7 +582,7 @@ AE_LEAVES = ("enc_w_x", "enc_w_h", "enc_b", "dec_w_x", "dec_w_h", "dec_b", "w_ou
 _AE_HIDDEN = 32  # the one width the kernels take: a warp is a hidden state
 _AE_MAX_F = 8
 _AE_MAX_W_FWD = 32  # a block of 32 warps
-_AE_MAX_W_BWD = 8  # 8 warps' 16 KB dW_h partials in shared memory
+_AE_MAX_W_BWD = 8  # a warp a window: 8 warps of ~200 registers fill an SM's register file
 
 
 def _lstm_cell_plain(w_x, w_h, b, h, c, x, keep):
@@ -696,10 +699,31 @@ def lstm_ae_backward(leaves, x: torch.Tensor, mask: torch.Tensor, act, grad_err:
     (`act` unused). On the card: 1..8 windows a model."""
     if not _on_cuda(x, mask, grad_err, *leaves):
         return _lstm_ae_backward_plain(leaves, x.float(), mask, grad_err)
+    return _lstm_ae_backward_cuda(leaves, x, mask, act, grad_err)[0]
+
+
+def _lstm_ae_backward_cuda(leaves, x, mask, act, grad_err, scratch=None, parts: int = 3):
+    """Launch the backward's two kernels on CUDA operands: the chain
+    (writes the scratch: d_gates [S, W, 2T, 4H], each step's gate
+    gradients unit by unit — unit j's i, f, g, o at 4j .. 4j+3 — and
+    d_out [S, W, T, F], the decoder's output gradients)
+    and the products (every leaf's gradient from the scratch and `act`).
+    Returns (grads, scratch). `parts` 1 or 2 launches one of them alone,
+    on a given scratch: for timing."""
     _, s, w, t_len, f = _check_ae(leaves, x, mask, _AE_MAX_W_BWD)
     _check(act, "act", torch.float32, (s, w, 2 * t_len, 6 * _AE_HIDDEN))
     _check(grad_err, "grad_err", torch.float32, (s, w, t_len))
     ewx, ewh, eb, dwx, dwh, db, wout, bout = leaves
+    for name, t in (("act", act), ("enc_w_h", ewh), ("dec_w_h", dwh)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: copied 16 bytes at a time, so it must be 16-byte aligned")
+    dev = x.device
+    if scratch is None:
+        scratch = (
+            torch.empty((s, w, 2 * t_len, 4 * _AE_HIDDEN), dtype=torch.float32, device=dev),
+            torch.empty((s, w, t_len, f), dtype=torch.float32, device=dev),
+        )
+    d_gates, d_out = scratch
     g_ewx, g_ewh, g_eb, g_dwh, g_db, g_wout, g_bout = (
         torch.empty_like(leaf) for leaf in (ewx, ewh, eb, dwh, db, wout, bout)
     )
@@ -707,12 +731,13 @@ def lstm_ae_backward(leaves, x: torch.Tensor, mask: torch.Tensor, act, grad_err:
         "lstm_ae_backward",
         ewh.data_ptr(), dwh.data_ptr(), wout.data_ptr(), bout.data_ptr(),
         x.data_ptr(), mask.data_ptr(), act.data_ptr(), grad_err.data_ptr(),
+        d_gates.data_ptr(), d_out.data_ptr(),
         g_ewx.data_ptr(), g_ewh.data_ptr(), g_eb.data_ptr(), g_dwh.data_ptr(),
         g_db.data_ptr(), g_wout.data_ptr(), g_bout.data_ptr(),
-        s, w, t_len, f,
+        s, w, t_len, f, parts,
     )
     # the decoder's input is zero, so its w_x gradient is exactly zero
-    return g_ewx, g_ewh, g_eb, torch.zeros_like(dwx), g_dwh, g_db, g_wout, g_bout
+    return (g_ewx, g_ewh, g_eb, torch.zeros_like(dwx), g_dwh, g_db, g_wout, g_bout), scratch
 
 
 class LSTMAEError(torch.autograd.Function):

@@ -137,6 +137,16 @@ def test_three_adam_steps_match_train_step_many():
     assert po.count == 3
 
 
+def test_bias_corrections_equal_f32_tensors():
+    """Adam's bias corrections come from the host as Python floats; for
+    counts 1..60 they equal, bit for bit, the float32 tensors
+    1 - b^count that the step once built per call."""
+    for count in range(1, 61):
+        got = torch.tensor(P.bias_corrections(count), dtype=torch.float32)
+        want = torch.stack([1.0 - torch.tensor(b, dtype=torch.float32) ** count for b in (P._B1, P._B2)])
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), count
+
+
 def test_sixty_step_run_follows_jax_loss():
     """fit_many from the same start for the judge's 60 steps: the loss
     curves stay within 1e-3 of each other, and the trained moments too."""
