@@ -67,18 +67,21 @@ Phases; any failure exits non-zero:
      tie (gap under 1e-5, printed).
   8. the joint detectors (bivariate normal, LSTM autoencoder + residual
      MVN, `auto`): (a) lstm_ae_forward and lstm_ae_backward against
-     their plain versions at S in {1, 3, 37}, W in {1, 8}, T in {8, 32,
-     64}, F in {2, 3, 4}, with all-masked, single-step and ragged windows
-     and a rows gather with repeated rows (err within 1e-5 relative,
-     gradients within 1e-4 of float64 autograd of the plain loop; two
-     backward calls bit-identical); (b)
+     their plain versions at 96 shapes (S in {1, 3, 37}, W in {1, 3, 8,
+     32}, T in {1, 8, 32, 33, 64}, F in {1, 2, 3, 4, 8}), with
+     all-masked, single-step and ragged windows and rows gathers with
+     repeated rows (err within 1e-5 relative, saved activations within
+     1e-5, gradients from that act within 1e-4 of float64 autograd of
+     the plain loop where W <= 8; two forward and two backward calls
+     bit-identical); (b)
      one cold LSTM group at the joint fleet's width (512 jobs, W=8, T=32,
      F=4, H=32, 60 steps) through MultivariateJudge.judge, held to a CPU
      judge given the trained entries; then fit_many's loss curve and
-     both kernels timed beside their bounds, their plain versions and
-     cuDNN's unmasked nn.LSTM (another function); the backward's chain
-     and product launches timed apart, beside torch.bmm of its dW_h
-     products, with their ptxas registers and spill; (c) the joint quality
+     both kernels timed beside their bounds (and share of it), their
+     plain versions and cuDNN's unmasked nn.LSTM (another function); the
+     backward's chain and product launches timed apart, beside torch.bmm
+     of its dW_h products; both kernels' ptxas registers, shared memory
+     and spill for every entry function; (c) the joint quality
      gates of tests/test_benchmarks.py at 256 jobs a scenario; (d) the
      worker's joint fleet tick, 1,024 docs under `auto` at Th=10,080 and
      m=1440: cold, warm (joint columnar, 0 trainings, 0 MVN fits),
@@ -129,6 +132,7 @@ L2_BYTES = 50e6  # H100 L2 cache
 FLEET = 4096  # one fit chunk of the JAX judge: a fleet-cold tick's batch
 FIT_FLEET = 16384  # phase 5: four fit chunks
 BUSY_CYCLES = 200_000_000  # ~0.1 s of the card's clock ahead of an async dispatch
+QUEUE_CYCLES = 60_000_000  # ~0.03 s ahead of a queued kernel timing: room to enqueue its calls
 FULL_B, FULL_TH, FULL_TC = 32768, 10080, 30  # bench.py's steady-state shape
 
 KERNEL_FILES = {
@@ -178,6 +182,29 @@ def cuda_ms(fn, iters: int = 10, repeats: int = 5) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def queued_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+    """Median over `repeats` of the mean device time of `iters` calls,
+    queued behind a busy kernel: the host enqueues them all while the card
+    sleeps, so a kernel shorter than its wrapper's host time (tens of
+    microseconds a call) is timed back to back, not at the host's pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        torch.cuda._sleep(QUEUE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1867,6 +1894,7 @@ def time_scan_kernels(dev, peak_bytes: float, sm_clock_hz: float) -> dict:
 
 AE_TOL = 1e-5  # forward err: |kernel - plain| <= AE_TOL * |plain| + 1e-7
 AE_GRAD_TOL = 1e-4  # gradients: |kernel - f64 plain| <= AE_GRAD_TOL * max |f64 plain| of the leaf
+AE_ACT_TOL = 1e-5  # saved activations, absolute: gates and h lie in [-1, 1], c within a few units
 AE_LEAF_NAMES = ("enc_w_x", "enc_w_h", "enc_b", "dec_w_x", "dec_w_h", "dec_b", "w_out", "b_out")
 
 
@@ -1928,54 +1956,87 @@ def ae_grads_close(got, want, what: str) -> float:
     return worst
 
 
+def ae_shapes() -> list:
+    """8(a)'s (S, W, T, F): PR 6's 54 (S in {1, 3, 37}, W in {1, 8}, T in
+    {8, 32, 64}, F in {2, 3, 4}) and, for every other (W, T) of W in {1,
+    3, 8, 32} and T in {1, 8, 32, 33, 64}, one F a shape, cycling through
+    {1, 4, 8}. S in {1, 3, 37} leaves the last block of a W=1 launch (4
+    pairs a block) part empty."""
+    shapes, n = [], 0
+    for s in (1, 3, 37):
+        for w in (1, 3, 8, 32):
+            for t_len in (1, 8, 32, 33, 64):
+                if w in (1, 8) and t_len in (8, 32, 64):
+                    shapes += [(s, w, t_len, f) for f in (2, 3, 4)]
+                else:
+                    shapes.append((s, w, t_len, (1, 4, 8)[n % 3]))
+                    n += 1
+    return shapes
+
+
 def phase_lstm_kernels_vs_plain(dev) -> dict:
     """8(a): lstm_ae_forward and lstm_ae_backward against their plain
-    versions on the same CUDA tensors: S in {1, 3, 37}, W in {1, 8}, T in
-    {8, 32, 64}, F in {2, 3, 4}; full, all-masked, single-step,
-    ragged-tail and random windows; the forward also through a `rows`
-    gather with repeated rows from a larger stack. The forward err within
-    1e-5 relative of the f32 plain loop; gradients (upstream 1/n_s, the
-    loss's) within 1e-4 of each leaf's largest gradient from float64
-    autograd of the plain loop; two backward calls give the same bits."""
+    versions on the same CUDA tensors at `ae_shapes()` (96 shapes; full,
+    all-masked, single-step, ragged-tail and random windows). The forward:
+    err within 1e-5 relative of the f32 plain loop, also through a `rows`
+    gather with repeated rows from a larger stack (at W=1 once more with
+    every model on one row); its saved activations within AE_ACT_TOL of
+    `_lstm_ae_act_plain`; two calls give the same bits of err and act.
+    The backward, where it takes the shape (W <= 8), on that act:
+    gradients (upstream 1/n_s, the loss's) within 1e-4 of each leaf's
+    largest gradient from float64 autograd of the plain loop; two calls
+    give the same bits."""
     import torch
 
     from foremast_tpu_torch.ops import kernels as K
 
     rng = np.random.default_rng(81)
-    worst_f = worst_b = 0.0
-    cases = 0
-    for s in (1, 3, 37):
-        for w in (1, 8):
-            for t_len in (8, 32, 64):
-                for f in (2, 3, 4):
-                    what = f"lstm_ae S={s} W={w} T={t_len} F={f}"
-                    leaves, x, mask = ae_edge_inputs(rng, s, w, t_len, f, dev)
-                    err, act = K.lstm_ae_forward(leaves, x, mask, save_act=True)
-                    worst_f = max(worst_f, ae_close(err, K._lstm_ae_forward_plain(leaves, x, mask), what))
-                    # the arena gather: a larger stack, repeated rows
-                    cap = s + 5
-                    stack, _, _ = ae_edge_inputs(rng, s, w, t_len, f, dev, cap=cap)
-                    rows = torch.from_numpy(rng.integers(0, cap, s)).to(dev)
-                    if s > 1:
-                        rows[1] = rows[0]
-                    got_r, _ = K.lstm_ae_forward(stack, x, mask, rows=rows)
-                    worst_f = max(worst_f, ae_close(got_r, K._lstm_ae_forward_plain(stack, x, mask, rows), what + " rows"))
-                    n = mask.sum(dim=(1, 2)).float().clamp_min(1.0)
-                    grad_err = (1.0 / n)[:, None, None].expand(s, w, t_len).contiguous()
-                    got_g = K.lstm_ae_backward(leaves, x, mask, act, grad_err)
-                    again = K.lstm_ae_backward(leaves, x, mask, act, grad_err)
-                    for name, a, b in zip(AE_LEAF_NAMES, got_g, again):
-                        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
-                              f"{what}: two backward calls gave different {name} bits")
-                    want_g = K._lstm_ae_backward_plain(
-                        [leaf.double() for leaf in leaves], x.double(), mask, grad_err.double()
-                    )
-                    worst_b = max(worst_b, ae_grads_close(got_g, want_g, what))
-                    cases += 1
+    worst_f = worst_a = worst_b = 0.0
+    cases = bwd_cases = 0
+    for s, w, t_len, f in ae_shapes():
+        what = f"lstm_ae S={s} W={w} T={t_len} F={f}"
+        leaves, x, mask = ae_edge_inputs(rng, s, w, t_len, f, dev)
+        err, act = K.lstm_ae_forward(leaves, x, mask, save_act=True)
+        err2, act2 = K.lstm_ae_forward(leaves, x, mask, save_act=True)
+        check(torch.equal(err.view(torch.int32), err2.view(torch.int32))
+              and torch.equal(act.view(torch.int32), act2.view(torch.int32)),
+              f"{what}: two forward calls gave different bits")
+        worst_f = max(worst_f, ae_close(err, K._lstm_ae_forward_plain(leaves, x, mask), what))
+        a_diff = float((act.double() - K._lstm_ae_act_plain(leaves, x, mask).double()).abs().max())
+        check(bool(torch.isfinite(act).all()) and a_diff <= AE_ACT_TOL,
+              f"{what}: saved activations off the plain ones by {a_diff:.3e}")
+        worst_a = max(worst_a, a_diff)
+        # the arena gather: a larger stack, repeated rows
+        cap = s + 5
+        stack, _, _ = ae_edge_inputs(rng, s, w, t_len, f, dev, cap=cap)
+        row_sets = [torch.from_numpy(rng.integers(0, cap, s)).to(dev)]
+        if s > 1:
+            row_sets[0][1] = row_sets[0][0]
+        if w == 1:
+            row_sets.append(torch.full((s,), cap - 1, dtype=torch.int64, device=dev))
+        for rows in row_sets:
+            got_r, _ = K.lstm_ae_forward(stack, x, mask, rows=rows)
+            worst_f = max(worst_f, ae_close(got_r, K._lstm_ae_forward_plain(stack, x, mask, rows), what + " rows"))
+        cases += 1
+        if w > K._AE_MAX_W_BWD:
+            continue
+        n = mask.sum(dim=(1, 2)).float().clamp_min(1.0)
+        grad_err = (1.0 / n)[:, None, None].expand(s, w, t_len).contiguous()
+        got_g = K.lstm_ae_backward(leaves, x, mask, act, grad_err)
+        again = K.lstm_ae_backward(leaves, x, mask, act, grad_err)
+        for name, a, b in zip(AE_LEAF_NAMES, got_g, again):
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"{what}: two backward calls gave different {name} bits")
+        want_g = K._lstm_ae_backward_plain(
+            [leaf.double() for leaf in leaves], x.double(), mask, grad_err.double()
+        )
+        worst_b = max(worst_b, ae_grads_close(got_g, want_g, what))
+        bwd_cases += 1
     torch.cuda.synchronize()
-    print(f"phase 8: (a) lstm_ae_forward / lstm_ae_backward equal their plain versions at {cases} shapes "
-          f"(with rows gathers): forward max |err| diff {worst_f:.3e}, gradients max diff {worst_b:.3e}; "
-          f"two backward calls give the same bits at every shape")
+    print(f"phase 8: (a) lstm_ae_forward equals its plain version at {cases} shapes (with rows gathers, repeated "
+          f"rows): err max diff {worst_f:.3e}, saved activations max diff {worst_a:.3e} (tolerance "
+          f"{AE_ACT_TOL:g}), two calls the same bits; lstm_ae_backward on that act at the {bwd_cases} shapes "
+          f"with W <= {K._AE_MAX_W_BWD}: gradients max diff {worst_b:.3e}, two calls the same bits")
     return {"lstm_ae_forward": worst_f, "lstm_ae_backward": worst_b}
 
 
@@ -2166,8 +2227,9 @@ def time_lstm_kernels(dev, hist, peak_bytes: float, sm_clock_hz: float) -> dict:
     first 10 steps (the mean over models); then the two kernels on the
     trained parameters — the training forward (activations saved), its
     backward, and the warm path's scoring forward (W=1, a rows gather) —
-    each held to its plain version at full size and timed beside its
-    bound (bytes over the memory rate, f32 operations over the f32 peak)
+    each held to its plain version at full size and timed (device time,
+    the calls queued behind a busy kernel) beside its bound (bytes over
+    the memory rate, f32 operations over the f32 peak)
     and the floor of its dependent chain (2T steps of FMA latency);
     cuDNN's unmasked nn.LSTM encoder + decoder forward of the same shapes
     is timed as another function (one weight set for every window, no
@@ -2213,9 +2275,10 @@ def time_lstm_kernels(dev, hist, peak_bytes: float, sm_clock_hz: float) -> dict:
     want_s, plain_s = events(lambda: K._lstm_ae_forward_plain(leaves, xs, ms, rows))
     err_s = ae_close(K.lstm_ae_forward(leaves, xs, ms, rows=rows)[0], want_s, "8(b) scoring forward at full size")
     del want_f, want_b, want_s
-    fwd_ms = cuda_ms(lambda: K.lstm_ae_forward(leaves, x, mask, save_act=True), iters=5, repeats=5)
-    bwd_ms = cuda_ms(lambda: K.lstm_ae_backward(leaves, x, mask, act, grad_err), iters=5, repeats=5)
-    score_ms = cuda_ms(lambda: K.lstm_ae_forward(leaves, xs, ms, rows=rows), iters=10, repeats=5)
+    fwd_ms = queued_ms(lambda: K.lstm_ae_forward(leaves, x, mask, save_act=True), iters=10)
+    bwd_ms = queued_ms(lambda: K.lstm_ae_backward(leaves, x, mask, act, grad_err), iters=10)
+    score_ms = queued_ms(lambda: K.lstm_ae_forward(leaves, xs, ms, rows=rows), iters=20)
+    score_host_ms = cuda_ms(lambda: K.lstm_ae_forward(leaves, xs, ms, rows=rows), iters=10, repeats=5)
     split = time_backward_parts(leaves, x, mask, act, grad_err, bwd_ms, peak_bytes)
     step_ms = cuda_ms(lambda: ae.train_step_many(params, ae.adam_init(params), x, mask,
                                                  ae.LSTMAEConfig(features=f)), iters=3, repeats=3)
@@ -2255,7 +2318,8 @@ def time_lstm_kernels(dev, hist, peak_bytes: float, sm_clock_hz: float) -> dict:
                              bound_by="bytes" if bytes_ms >= ops_ms else "operations", chain_ms=chain_ms,
                              full_err=full_err)
         print(f"phase 8: {name} S={s_n} W={w_n if 'scoring' not in name else 1} T={t_len} F={f} H={h}: "
-              f"kernel_ms={ms:.4f} bound_ms={max(bytes_ms, ops_ms):.4f} ({nbytes / 1e6:.1f} MB at "
+              f"kernel_ms={ms:.4f} bound_ms={max(bytes_ms, ops_ms):.4f} (share {max(bytes_ms, ops_ms) / ms:.1%}; "
+              f"{nbytes / 1e6:.1f} MB at "
               f"{peak_bytes / 1e12:.2f} TB/s = {bytes_ms:.4f} ms; {flops / 1e9:.3f} GFLOP at "
               f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms); chain floor {chain_ms:.4f} ms "
               f"({chain_cycles} cycles at {sm_clock_hz / 1e9:.2f} GHz); plain_ms={plain_ms:.2f} (one call, "
@@ -2264,6 +2328,10 @@ def time_lstm_kernels(dev, hist, peak_bytes: float, sm_clock_hz: float) -> dict:
           f"a step; one train_step_many (forward + backward kernels, Adam on 8 leaves) {step_ms:.3f} ms; "
           f"another function: cuDNN nn.LSTM encoder + decoder forward, unmasked, one weight set, same shapes "
           f"{cudnn_ms:.4f} ms (torch.backends.cudnn.allow_tf32 = False)")
+    print(f"phase 8: (b) kernel_ms above is device time, the calls queued behind a busy kernel; the scoring "
+          f"forward at the host's pace (one wrapper call after another): {score_host_ms:.4f} ms a call")
+    for line in ptxas_report("lstm_ae_forward"):
+        print(f"phase 8: (b) lstm_ae_forward ptxas {line}")
     timings["lstm_ae_forward"]["score"] = timings["lstm_ae_forward scoring (W=1, rows)"]
     timings["lstm_ae_backward"].update(split)
     return timings
@@ -2278,8 +2346,11 @@ def ptxas_report(kname: str) -> list[str]:
     for line in _build.build_log(kname).splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-            short = re.search(r"[A-Za-z_]+_kernel", fn)  # the name inside the mangled one
-            fn = short.group(0) if short else fn
+            # the name inside the mangled one, with its bool template arguments
+            short = re.search(r"([A-Za-z_]+_kernel)(I((?:Lb[01]E)+)E)?", fn)
+            if short:
+                flags = re.findall(r"Lb([01])E", short.group(3) or "")
+                fn = short.group(1) + (f"<{','.join(flags)}>" if flags else "")
         elif fn and ("spill" in line or "registers" in line):
             out.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -2291,17 +2362,18 @@ def time_backward_parts(leaves, x, mask, act, grad_err, total_ms: float, peak_by
     beside the bytes and f32 operations it needs; cuBLAS's torch.bmm of
     the same dW_h products h_prev^T dA ([2S, H, W*T] x [2S, W*T, 4H],
     TF32 off) timed as the product half's yardstick and held to the
-    kernel's dW_h; both kernels' ptxas registers and spill."""
+    kernel's dW_h; all three as `queued_ms` device time, as the whole
+    backward; both kernels' ptxas registers and spill."""
     import torch
 
     from foremast_tpu_torch.ops import kernels as K
 
     check(not torch.backends.cuda.matmul.allow_tf32, "8(b) the bmm yardstick must run in full f32")
     grads, scratch = K._lstm_ae_backward_cuda(leaves, x, mask, act, grad_err)
-    chain_ms = cuda_ms(lambda: K._lstm_ae_backward_cuda(leaves, x, mask, act, grad_err, scratch, parts=1),
-                       iters=5, repeats=5)
-    prod_ms = cuda_ms(lambda: K._lstm_ae_backward_cuda(leaves, x, mask, act, grad_err, scratch, parts=2),
-                      iters=5, repeats=5)
+    chain_ms = queued_ms(lambda: K._lstm_ae_backward_cuda(leaves, x, mask, act, grad_err, scratch, parts=1),
+                         iters=10)
+    prod_ms = queued_ms(lambda: K._lstm_ae_backward_cuda(leaves, x, mask, act, grad_err, scratch, parts=2),
+                        iters=10)
     s_n, w_n, t_len, f = x.shape
     h = 32
     hs = act[..., 5 * h:]  # [S, W, 2T, H]
@@ -2314,7 +2386,7 @@ def time_backward_parts(leaves, x, mask, act, grad_err, total_ms: float, peak_by
         scale = float(got.abs().max())
         err = float((dwh[:, cell] - got).abs().max())
         check(err <= AE_GRAD_TOL * scale, f"8(b) bmm dW_h of cell {cell} off the kernel's by {err:.3e}")
-    bmm_ms = cuda_ms(lambda: torch.bmm(a, b), iters=10, repeats=5)
+    bmm_ms = queued_ms(lambda: torch.bmm(a, b), iters=10)
     pairs = s_n * w_n * t_len
     g = 4 * h
     chain_bytes = pairs * 2 * (6 * h * 4 + g * 4) + pairs * (f * 4 * 2 + 1 + 4) + s_n * 4 * (2 * h * g + h * f + f)

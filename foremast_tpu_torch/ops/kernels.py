@@ -581,39 +581,45 @@ def holt_scan(values: torch.Tensor, mask: torch.Tensor, alpha, beta):
 AE_LEAVES = ("enc_w_x", "enc_w_h", "enc_b", "dec_w_x", "dec_w_h", "dec_b", "w_out", "b_out")
 _AE_HIDDEN = 32  # the one width the kernels take: a warp is a hidden state
 _AE_MAX_F = 8
-_AE_MAX_W_FWD = 32  # a block of 32 warps
+_AE_MAX_W_FWD = 32  # `kMaxW` of csrc/lstm_ae_forward.cu: a warp a window, up to 8 a block
 _AE_MAX_W_BWD = 8  # a warp a window: 8 warps of ~200 registers fill an SM's register file
 
 
-def _lstm_cell_plain(w_x, w_h, b, h, c, x, keep):
+def _lstm_cell_plain(w_x, w_h, b, h, c, x, keep, steps=None):
     """One masked LSTM step of S models at once: h, c [S, W, H], x [S, W,
     F_in] or None (the decoder's zero input, whose product is exactly 0),
-    keep [S, W] bool or None (every step updates)."""
+    keep [S, W] bool or None (every step updates). `steps`, a list, gets
+    the step's (i, f, g, o, c, h) [S, W, 6H]: the gates after their
+    nonlinearities, then the state after the mask."""
     hid = w_h.shape[1]
     gates = torch.bmm(h, w_h)
     if x is not None:
         gates = torch.bmm(x, w_x) + gates
     gates = gates + b[:, None, :]
     i, f, g, o = (gates[..., k * hid : (k + 1) * hid] for k in range(4))
-    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    h_new = torch.sigmoid(o) * torch.tanh(c_new)
-    if keep is None:
-        return h_new, c_new
-    k = keep[..., None]
-    return torch.where(k, h_new, h), torch.where(k, c_new, c)
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    if keep is not None:
+        k = keep[..., None]
+        h_new, c_new = torch.where(k, h_new, h), torch.where(k, c_new, c)
+    if steps is not None:
+        steps.append(torch.cat([i, f, g, o, c_new, h_new], dim=-1))
+    return h_new, c_new
 
 
-def _lstm_ae_reconstruct_plain(leaves, x, mask):
-    """Decoder outputs [S, W, T, F] of stacked models on x [S, W, T, F]."""
+def _lstm_ae_reconstruct_plain(leaves, x, mask, steps=None):
+    """Decoder outputs [S, W, T, F] of stacked models on x [S, W, T, F];
+    `steps` as `_lstm_cell_plain`'s, encoder steps then decoder steps."""
     ewx, ewh, eb, _dwx, dwh, db, wout, bout = leaves
     s, w, t_len, _ = x.shape
     h = x.new_zeros((s, w, ewh.shape[1]))
     c = torch.zeros_like(h)
     for t in range(t_len):
-        h, c = _lstm_cell_plain(ewx, ewh, eb, h, c, x[:, :, t], mask[:, :, t])
+        h, c = _lstm_cell_plain(ewx, ewh, eb, h, c, x[:, :, t], mask[:, :, t], steps)
     ys = []
     for _ in range(t_len):
-        h, c = _lstm_cell_plain(None, dwh, db, h, c, None, None)
+        h, c = _lstm_cell_plain(None, dwh, db, h, c, None, None, steps)
         ys.append(torch.bmm(h, wout) + bout[:, None, :])
     return torch.stack(ys, dim=2) if ys else torch.zeros_like(x)
 
@@ -626,6 +632,16 @@ def _lstm_ae_forward_plain(leaves, x, mask, rows=None):
     r = _lstm_ae_reconstruct_plain(leaves, x, mask)
     e = ((r - x) ** 2).mean(dim=-1)
     return torch.where(mask, e, torch.zeros_like(e))
+
+
+def _lstm_ae_act_plain(leaves, x, mask):
+    """The activations `lstm_ae_forward` saves (`save_act`), act [S, W,
+    2T, 6H]: each encoder step, then each decoder step, as (i, f, g, o)
+    after their nonlinearities, then c and h; a masked encoder step keeps
+    the carried (c, h)."""
+    steps = []
+    _lstm_ae_reconstruct_plain(leaves, x, mask, steps)
+    return torch.stack(steps, dim=2) if steps else x.new_zeros((*x.shape[:2], 0, 6 * leaves[1].shape[1]))
 
 
 def _lstm_ae_backward_plain(leaves, x, mask, grad_err):
@@ -673,6 +689,9 @@ def lstm_ae_forward(leaves, x: torch.Tensor, mask: torch.Tensor, rows=None, save
     if not _on_cuda(x, mask, *leaves, *(() if rows is None else (rows,))):
         return _lstm_ae_forward_plain(leaves, x.float(), mask, rows), None
     _, s, w, t_len, f = _check_ae(leaves, x, mask, _AE_MAX_W_FWD)
+    for name, t in (("enc_w_h", leaves[1]), ("dec_w_h", leaves[4])):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: copied 16 bytes at a time, so it must be 16-byte aligned")
     if rows is not None:
         if save_act:
             raise ValueError("activations are saved for training, which gathers no rows")
