@@ -91,10 +91,29 @@ Phases; any failure exits non-zero:
      trained entries; after the timings, the cold tick again under
      cProfile on a fresh worker over a quarter of the fleet (top 10
      functions by cumulative and by own time).
+  9. the deployable worker: (a) a BrainWorker over ElasticsearchStore and
+     PrometheusSource (claim limit 256, the CLI's default) against a fake
+     Elasticsearch and a fake Prometheus (tests/torch_fake_services.py)
+     on loopback sockets in this process, over phase 6's fleet shape at
+     1,024 docs x 4 aliases (4,096 query_range histories of 7 days): a
+     cold pass, a warm pass and a spiked warm pass, every doc's (status,
+     code, reason, anomaly_info) equal to phase 6's in-memory worker on
+     the same fleet, exactly the spiked docs flagged; (b) each tick's
+     wall clock, docs/s and claim / metric_fetch / fit / score /
+     write_back spans; (c) phase 5's cold chunk packed as before (numpy
+     rows into an f32 scratch, then the bf16 cast, then pinned staging;
+     timed apart) and by the native library into a pinned buffer, bit
+     for bit equal, and phase 5's and phase 6's cold ticks before and
+     after; (d) `python3 -m foremast_tpu_torch worker` as a subprocess
+     with FOREMAST_SNAPSHOT_DIR set: it judges the fleet to (a)'s writes
+     and exits 0 on SIGTERM; restarted on the same directory it judges
+     the reset fleet with 0 history fetches and an all-warm first tick;
+     an f32 run (FOREMAST_BF16_DELTA=0, fresh directory, 256 docs)
+     launches masked_stats, which it reports when it stops.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
-7b, 7c, 7d, 8b, 8c, 8d) and read just after its checked calls, so they
-count the main paths' launches only: on the default worker path (phase
-6) only the f32 cold fit launches a kernel (masked_stats); the seasonal
+7b, 7c, 7d, 8b, 8c, 8d, 9) and read just after its checked calls, so they
+count the main paths' launches only: on the default worker path (phases
+6 and 9) only the f32 cold fit launches a kernel (masked_stats); the seasonal
 fits launch holt_winters_scan (Holt-Winters, and auto_univariate at m <=
 64), holt_scan (double exponential smoothing) and masked_stats (every
 mean model and identifiability guard); the joint paths launch
@@ -103,7 +122,8 @@ lstm_ae_forward (training, moments, every scoring), lstm_ae_backward
 
 `python3 chip_smoke.py --kernels-only` builds the kernels, runs phase 2,
 7(a) and 8(a), times the two scan kernels at full size and stops: the
-short first call after a kernel change.
+short first call after a kernel change. `python3 chip_smoke.py
+--deployable-only` runs phase 9 alone (on fleets built for it).
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -118,6 +138,7 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.parse
 
 import numpy as np
 
@@ -855,7 +876,7 @@ def phase_fit_cache(dev, peak_bytes: float) -> dict:
     # copy to the card, then the fit and its one copy back
     ragged = [(t.hist_times, t.hist_values) for t in tasks[:_FIT_CHUNK]]
     t0 = time.perf_counter()
-    anchor, delta, lens = _pack_hist_bf16_host(ragged, th)
+    anchor, delta, lens = _pack_hist_bf16_host(ragged, th, pin=True)
     t_pack = time.perf_counter() - t0
     t0 = time.perf_counter()
     pinned = delta.pin_memory()
@@ -909,7 +930,7 @@ def phase_fit_cache(dev, peak_bytes: float) -> dict:
     print(f"phase 5: score_from_arena B={B} Tc={FULL_TC} (PAIRWISE_NONE, arena of {arena.cap} rows): "
           f"{ms:.4f} ms per batch = {B / (ms * 1e-3):.0f} windows/s; bound {bound_ms:.4f} ms "
           f"({nbytes} B at {peak_bytes / 1e12:.2f} TB/s; bytes)")
-    return {"seconds": s, "score_from_arena_ms": ms, "score_from_arena_bound_ms": bound_ms}
+    return {"seconds": s, "score_from_arena_ms": ms, "score_from_arena_bound_ms": bound_ms, "tasks": tasks}
 
 
 # ---------------------------------------------------------------------------
@@ -968,7 +989,7 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
     return docs, data, latency
 
 
-def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None) -> dict:
+def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: bool = True) -> dict:
     """On one port worker over its own store (copies of `docs`) and
     source: (a) cold tick, (b) warm tick, (c) warm tick with the last 3
     latency points of every 16th doc spiked; then (d) the f32 cold tick of
@@ -1083,12 +1104,13 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None) -> di
     tick("c", t_now + 250)
     out["spiked"] = [f"job-{i}" for i in spiked]
 
-    scoring.set_bf16_delta(False)
-    try:
-        fresh, fstore = new_worker(docs[:F32_DOCS])
-        tick("d", t_now + 150, w=fresh, st=fstore)
-    finally:
-        scoring.set_bf16_delta(None)
+    if f32:
+        scoring.set_bf16_delta(False)
+        try:
+            fresh, fstore = new_worker(docs[:F32_DOCS])
+            tick("d", t_now + 150, w=fresh, st=fstore)
+        finally:
+            scoring.set_bf16_delta(None)
     return out
 
 
@@ -1159,7 +1181,414 @@ def phase_worker(dev, smi: str, columnar_s: float) -> dict:
     print(f"phase 6: (b) warm worker tick {b['seconds']:.3f} s against phase 5 (c)'s columnar judge calls "
           f"{columnar_s:.3f} s: {b['seconds'] / columnar_s:.1f}x, the worker's share above the judge "
           f"{1 - columnar_s / b['seconds']:.1%}")
-    return {k: gpu[k]["seconds"] for k in "abcd"}
+    return {"seconds": {k: gpu[k]["seconds"] for k in "abcd"}, "fleet": (docs, data, t_now)}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the deployable worker (Elasticsearch + Prometheus over HTTP, the
+# native packing library, fit journals, `python -m foremast_tpu_torch`)
+# ---------------------------------------------------------------------------
+
+# phase 6's fleet shape at 1,024 docs took 5.4 minutes for phase 9 alone
+# (H100 80GB HBM3 at 700 W, `--deployable-only`), 4,096 JSON histories
+# parsed per pass; cut to 512 docs
+DEPLOY_DOCS = 512  # x 4 aliases = 2,048 query_range histories of 7 days
+DEPLOY_CLAIM = 256  # the CLI's default --claim-limit (FOREMAST_CLAIM_LIMIT)
+DEPLOY_F32_DOCS = 256  # (d) the f32 CLI run: one claim
+CLI_TIMEOUT = 240  # seconds for one CLI run to judge its fleet
+
+
+def pack_hist_before(series, length: int, pin: bool = False):
+    """The judge's bf16-delta packing before the native library: rows
+    copied into a zeroed f32 [B, L] scratch in a numpy loop, then the
+    whole block cast to bf16 by torch (the upload pinned it afterwards).
+    Returns (anchor, delta, lens) and records the two steps' seconds in
+    `pack_hist_before.split`."""
+    import torch
+
+    t0 = time.perf_counter()
+    b = len(series)
+    delta = np.zeros((b, length), np.float32)
+    anchor = np.zeros(b, np.float32)
+    lens = np.zeros(b, np.int32)
+    for i, (_, v) in enumerate(series):
+        n = min(len(v), length)
+        if n:
+            row = np.asarray(v, np.float32)[:n]
+            anchor[i] = row[0]
+            np.subtract(row, anchor[i], out=delta[i, :n])
+        lens[i] = n
+    t1 = time.perf_counter()
+    out = torch.from_numpy(delta).to(torch.bfloat16)
+    pack_hist_before.split = (t1 - t0, time.perf_counter() - t1)
+    return anchor, out, lens
+
+
+class before_packing:
+    """Within the block the judge packs as it did before the native
+    library: `pack_hist_before` for the bf16-delta histories and the numpy
+    loop for every `MetricWindows.from_ragged`."""
+
+    def __enter__(self):
+        from foremast_tpu_torch import native
+        from foremast_tpu_torch.engine import judge
+
+        self.saved = (judge._pack_hist_bf16_host, native.pack_windows)
+        judge._pack_hist_bf16_host = pack_hist_before
+        native.pack_windows = lambda *a, **kw: None
+        return self
+
+    def __exit__(self, *exc):
+        from foremast_tpu_torch import native
+        from foremast_tpu_torch.engine import judge
+
+        judge._pack_hist_bf16_host, native.pack_windows = self.saved
+        return False
+
+
+def es_written(sources: dict) -> dict:
+    """What phase 6's `written` records, from the fake index's documents."""
+    from foremast_tpu_torch.jobs import Document
+
+    out = {}
+    for doc_id, src in sources.items():
+        d = Document.from_json(src)
+        out[doc_id] = json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+    return out
+
+
+def all_judged(es, base: dict) -> bool:
+    """Every document written back since `base` (its claim and its
+    verdict: two writes) and none left in progress."""
+    with es.lock:
+        return all(
+            es.writes[k] >= base.get(k, 0) + 2 and r["_source"].get("status") not in ("initial", "preprocess_inprogress")
+            for k, r in es.docs.items()
+        )
+
+
+def sync_card() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def es_pass(worker, es, now: float, tracer) -> list:
+    """Tick the in-process worker until every document was judged once
+    more; one record per tick (wall clock, docs, stage seconds). The
+    documents are first stamped as written long ago (the re-check loop
+    at its poll interval): ticks that finish within one second would
+    otherwise tie on the index's one-second stamps and re-claim docs of
+    the pass while others wait."""
+    es.set_status(None)
+    base = dict(es.writes)
+    ticks = []
+    # the claim shuffles an oversampled page (2x the limit) of the oldest
+    # claimable docs: once that page holds the whole fleet, a doc waits
+    # about fleet/limit ticks for its turn, like a coupon collector
+    for _ in range(24 * -(-len(es.docs) // worker.claim_limit)):
+        sync_card()
+        t0 = time.perf_counter()
+        n = worker.tick(now=now)
+        sync_card()
+        ticks.append(dict(seconds=time.perf_counter() - t0, docs=n, stages=dict(tracer.last_stage_seconds)))
+        if all_judged(es, base):
+            return ticks
+    check(False, f"{len(ticks)} ticks did not judge every document once")
+
+
+def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_extra=None) -> dict:
+    """`python -m foremast_tpu_torch worker` as the deployed container runs
+    it, until every document of the fake index was judged once; then
+    SIGTERM, which must exit 0. Returns the statuses, the startup lines
+    and the JSON log records. Its stderr is printed on any failure."""
+    import signal
+
+    err_path = os.path.join(workdir, f"cli-{tag}.err")
+    env = dict(os.environ, FOREMAST_SNAPSHOT_DIR=snap_dir, MAX_CACHE_SIZE=str(4 * len(es.docs) + 64),
+               PYTHONPATH=ROOT, **(env_extra or {}))
+    cmd = [sys.executable, "-m", "foremast_tpu_torch", "worker", "--device", str(device), "--elastic-url", es_url,
+           "--claim-limit", str(DEPLOY_CLAIM), "--gauge-port", "0", "--poll", "0.2"]
+    base = dict(es.writes)
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            while not all_judged(es, base):
+                if proc.poll() is not None or time.perf_counter() - t0 > CLI_TIMEOUT:
+                    break
+                time.sleep(0.25)
+            judged_s = time.perf_counter() - t0
+            judged = all_judged(es, base)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = open(err_path).read()
+    if not judged or rc != 0:
+        print(f"phase 9: ({tag}) CLI stderr:\n{text[-20000:]}", file=sys.stderr)
+    check(judged, f"({tag}) the CLI worker did not judge the fleet within {CLI_TIMEOUT} s (rc={proc.returncode})")
+    check(rc == 0, f"({tag}) the CLI worker exited {rc} on SIGTERM")
+    records = []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            try:
+                records.append(json.loads(line))
+            except ValueError:
+                pass
+    return dict(written=es_written(es.sources()), seconds=judged_s, stderr=text, records=records,
+                lines=[ln for ln in text.splitlines() if not ln.startswith("{")])
+
+
+def cold_tick_before_after(dev, fit_tasks, worker_fleet_args) -> dict:
+    """Phase 5's cold judge tick and phase 6's cold worker tick on fresh
+    judges and workers, packed as before (`before_packing`) and with the
+    native library, in the order before, after, after, before."""
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine.judge import HealthJudge
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.metrics.source import MetricSource
+    from foremast_tpu_torch.models.cache import ModelCache
+
+    docs, data, t_now = worker_fleet_args
+
+    class ArraySource(MetricSource):
+        concurrent_fetch = False
+
+        def fetch(self, url: str):
+            return data[url]
+
+    def judge_tick():
+        j = HealthJudge(BrainConfig(), device=dev)
+        j.fit_cache = ModelCache(4 * len(fit_tasks))
+        j.band_mode = "last"
+        sync_card()
+        t0 = time.perf_counter()
+        j.judge(fit_tasks)
+        sync_card()
+        return time.perf_counter() - t0
+
+    def worker_tick():
+        store = InMemoryStore()
+        for d in docs:
+            store.create(Document.from_json(d))
+        w = BrainWorker(store, ArraySource(), config=BrainConfig(max_cache_size=4 * len(docs) + 64),
+                        device=dev, claim_limit=len(docs), worker_id="smoke-ab")
+        sync_card()
+        t0 = time.perf_counter()
+        w.tick(now=t_now + 150)
+        sync_card()
+        return time.perf_counter() - t0
+
+    out = {"judge": {"before": [], "after": []}, "worker": {"before": [], "after": []}}
+    for arm in ("before", "after", "after", "before"):
+        if arm == "before":
+            with before_packing():
+                out["judge"][arm].append(judge_tick())
+                out["worker"][arm].append(worker_tick())
+        else:
+            out["judge"][arm].append(judge_tick())
+            out["worker"][arm].append(worker_tick())
+    return out
+
+
+def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict:
+    """Phase 9: the worker as deployed. (a) A BrainWorker over
+    ElasticsearchStore and PrometheusSource against a fake ES and a fake
+    Prometheus on loopback sockets (1,024 docs x 4 aliases, claim limit
+    256): cold ticks until the fleet is judged, a warm pass and a spiked
+    warm pass, each document's writes equal to phase 6's in-memory worker
+    on the same fleet; (b) each tick's wall clock and spans; (c) phase
+    5's cold chunk packed before and after the native library, and phase
+    5's and phase 6's cold ticks before and after; (d) the CLI as a
+    subprocess: judge, SIGTERM, restart warm on its fit journals, and an
+    f32 run that launches masked_stats. Returns the launches of its main
+    path: the in-process worker's three passes (counts zeroed just before
+    the first, read just after the last) plus the CLI's f32 run, which
+    reports its own when it stops. The reference run, the packing
+    comparison and the CLI's bf16 runs are not counted."""
+    import tempfile
+
+    import torch
+
+    from foremast_tpu_torch import native
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine.judge import _FIT_CHUNK, _pack_hist_bf16_host, bucket_length
+    from foremast_tpu_torch.jobs import STATUS_COMPLETED_UNHEALTH, BrainWorker
+    from foremast_tpu_torch.jobs.store import ElasticsearchStore
+    from foremast_tpu_torch.metrics.source import PrometheusSource
+    from foremast_tpu_torch.observe.spans import Tracer
+    from foremast_tpu_torch.ops import kernels as K
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import FakeElasticsearch, FakePrometheus, rebase, serve_fake_es, serve_fake_prometheus
+
+    check(native.ensure_built(), f"the native packing library did not load: {native.error()}")
+    # histories that ended 10 minutes ago: settled (the worker caches and
+    # journals only ranges older than HIST_SETTLED_SECONDS) for the CLI's
+    # real clock too; endTime stays 50 minutes ahead
+    t_now = int(time.time()) - 600
+    t0 = time.perf_counter()
+    docs, data, latency = worker_fleet(DEPLOY_DOCS, t_now)
+    print(f"phase 9: fleet of {DEPLOY_DOCS} docs x {len(ALIASES)} aliases (Th={FULL_TH}, Tc={FULL_TC}, half "
+          f"canaries) built in {time.perf_counter() - t0:.1f} s; served by a fake Elasticsearch and a fake "
+          f"Prometheus on loopback sockets in this process")
+    ref = run_worker_ticks(dev, docs, data, latency, t_now, f32=False)
+
+    servers = []
+    prom = FakePrometheus()
+    prom_srv, prom_url = serve_fake_prometheus(prom)
+    servers.append(prom_srv)
+    rdocs, keyed = rebase(docs, data, "http://prom", prom_url)
+    prom.data = dict(keyed)
+    t0 = time.perf_counter()
+    prom.prepare()  # set-up: every answer encoded before the first tick
+    print(f"phase 9: cut from phase 6's 4,096 docs to {DEPLOY_DOCS}; {len(keyed)} query_range answers "
+          f"({sum(map(len, prom._bodies.values())) / 1e6:.0f} MB of JSON) encoded in {time.perf_counter() - t0:.1f} s")
+    workdir = tempfile.mkdtemp(prefix="foremast-phase9-")
+    try:
+        # (a) in process
+        es_srv, es, es_url = serve_fake_es()
+        servers.append(es_srv)
+        es.load(rdocs)
+        store = ElasticsearchStore(es_url)
+        check(store.wait_ready(max_wait=30), f"the store did not connect: {store.connect_state}")
+        tracer = Tracer()
+        worker = BrainWorker(
+            store, PrometheusSource(), config=BrainConfig(max_cache_size=4 * DEPLOY_DOCS + 64), device=dev,
+            claim_limit=DEPLOY_CLAIM, worker_id="smoke-es", tracer=tracer,
+        )
+        if torch.device(dev).type == "cuda":
+            worker.warmup()
+        passes = {}
+        # the in-process main path: counted from the first pass to the
+        # spiked one, and nothing else of this phase
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        passes["a"] = es_pass(worker, es, t_now + 150, tracer)
+        got_a = es_written(es.sources())
+        hist_fetches = prom.requests["/hist"]
+        passes["b"] = es_pass(worker, es, t_now + 200, tracer)
+        got_b = es_written(es.sources())
+        spiked = [f"job-{i}" for i in range(5, DEPLOY_DOCS, 16)]
+        for i in range(5, DEPLOY_DOCS, 16):
+            u = urllib.parse.urlsplit(latency[i])
+            key = f"{u.path}?{u.query}"
+            t, v = prom.data[key]
+            v = v.copy()
+            v[-3:] = 40.0
+            prom.set_series(key, (t, v))
+        passes["c"] = es_pass(worker, es, t_now + 250, tracer)
+        launched_here = dict(K.LAUNCHES)
+        got_c = es_written(es.sources())
+        worker.close()
+        for i in range(5, DEPLOY_DOCS, 16):  # unspiked again for the CLI runs
+            u = urllib.parse.urlsplit(latency[i])
+            prom.set_series(f"{u.path}?{u.query}", keyed[f"{u.path}?{u.query}"])
+        for name, got in (("a", got_a), ("b", got_b), ("c", got_c)):
+            diff = sum(got[k] != v for k, v in ref[name]["written"].items())
+            check(got == ref[name]["written"],
+                  f"({name}) the HTTP worker's writes differ from phase 6's in-memory worker on {diff} docs")
+        unhealthy = sorted(k for k, v in got_c.items() if json.loads(v)[0] == STATUS_COMPLETED_UNHEALTH)
+        check(unhealthy == sorted(spiked), f"(c) flagged {len(unhealthy)} docs, want the {len(spiked)} spiked")
+        check(hist_fetches == DEPLOY_DOCS * len(ALIASES), f"(a) fetched {hist_fetches} histories")
+        print(f"phase 9: (a) every doc's (status, code, reason, anomaly_info) after the cold, warm and spiked "
+              f"passes equals phase 6's in-memory worker on the same fleet; (c) flagged exactly the "
+              f"{len(spiked)} spiked docs; {hist_fetches} history fetches over HTTP, all in the cold pass")
+
+        # (b) timing
+        print(f"phase 9 on {smi}:")
+        for name, what in (("a", "cold"), ("b", "warm"), ("c", "spiked warm")):
+            for k, t in enumerate(passes[name]):
+                st = t["stages"]
+                spans = ", ".join(f"{s} {st.get(s, 0.0):.4f}" for s in ("claim", "metric_fetch", "fit", "score",
+                                                                      "write_back"))
+                print(f"phase 9: (b) {what} tick {k + 1}: {t['seconds']:.3f} s, {t['docs']} docs = "
+                      f"{t['docs'] / t['seconds']:.0f} docs/s; spans {spans}; other spans "
+                      f"{sum(st.values()) - sum(st.get(s, 0.0) for s in ('claim', 'metric_fetch', 'fit', 'score', 'write_back')):.4f}")
+            tot = sum(t["seconds"] for t in passes[name])
+            print(f"phase 9: (b) {what} pass: {len(passes[name])} ticks, {tot:.3f} s = {DEPLOY_DOCS / tot:.0f} docs/s")
+
+        # (c) packing before and after, on the card's host
+        th = bucket_length(FULL_TH)
+        ragged = [(t.hist_times, t.hist_values) for t in fit_tasks[:_FIT_CHUNK]]
+        cuda = torch.device(dev).type == "cuda"
+        before, after = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a_b, d_b, l_b = pack_hist_before(ragged, th)
+            t1 = time.perf_counter()
+            pinned = d_b.pin_memory() if cuda else d_b
+            t2 = time.perf_counter()
+            before.append((t1 - t0, *pack_hist_before.split, t2 - t1))
+            t0 = time.perf_counter()
+            a_n, d_n, l_n = _pack_hist_bf16_host(ragged, th, pin=cuda)
+            after.append((time.perf_counter() - t0,))
+        check(d_n.is_pinned() or not cuda, "the native packing did not write into a pinned buffer")
+        check(np.array_equal(a_b.view(np.uint32), a_n.view(np.uint32)) and np.array_equal(l_b, l_n)
+              and torch.equal(pinned.view(torch.int16), d_n.view(torch.int16)),
+              "the native bf16-delta packing differs from the numpy path (anchor, delta or lens)")
+        med = lambda xs, i: statistics.median(x[i] for x in xs)  # noqa: E731
+        print(f"phase 9: (c) one cold chunk of {len(ragged)} rows x L={th} ({sum(len(v) for _, v in ragged)} valid "
+              f"points): before: host packing {med(before, 0):.4f} s = row copies into the f32 scratch "
+              f"{med(before, 1):.4f} s + bf16 cast {med(before, 2):.4f} s, then pinned staging {med(before, 3):.4f} s; "
+              f"after (native, into a pinned buffer): {med(after, 0):.4f} s, no staging copy (median of 3 each); "
+              f"anchor, delta and lens bit-equal")
+        ab = cold_tick_before_after(dev, fit_tasks, worker_fleet_args)
+        for key, what in (("judge", f"phase 5 cold judge tick ({len(fit_tasks)} tasks)"),
+                          ("worker", f"phase 6 cold worker tick ({len(worker_fleet_args[0])} docs)")):
+            b_s, a_s = ab[key]["before"], ab[key]["after"]
+            print(f"phase 9: (c) {what} on {smi}: before {', '.join(f'{x:.3f}' for x in b_s)} s, "
+                  f"after {', '.join(f'{x:.3f}' for x in a_s)} s (order before, after, after, before)")
+
+        # (d) the CLI, as the container runs it
+        snap = os.path.join(workdir, "snap")
+        es_d = FakeElasticsearch()
+        es_srv_d, es_d, es_url_d = serve_fake_es(es_d)
+        servers.append(es_srv_d)
+        es_d.load(rdocs)
+        prom.requests.clear()
+        run1 = cli_run(es_url_d, snap, es_d, workdir, "first", dev)
+        check(run1["written"] == ref["a"]["written"], "(d) the CLI worker's writes differ from (a)'s cold pass")
+        hist1 = prom.requests["/hist"]
+        es_d.set_status("preprocess_completed")
+        prom.requests.clear()
+        run2 = cli_run(es_url_d, snap, es_d, workdir, "restart", dev)
+        ticks = [r for r in run2["records"] if r.get("msg") == "tick complete"]
+        restored = [ln for ln in run2["lines"] if ln.startswith("restored fit state")]
+        check(prom.requests["/hist"] == 0, f"(d) the restarted worker fetched {prom.requests['/hist']} histories")
+        check(ticks and ticks[0]["fast_path"] == ticks[0]["docs"] == min(DEPLOY_CLAIM, len(rdocs)),
+              f"(d) the restarted worker's first tick was not all warm: {ticks[:1]}")
+        check(restored and f"'fits': {len(rdocs) * len(ALIASES)}," in restored[0],
+              f"(d) the journals restored {restored}")
+        check(run2["written"] == ref["a"]["written"], "(d) the restarted worker's writes differ from (a)'s")
+        es_f = FakeElasticsearch()
+        es_srv_f, es_f, es_url_f = serve_fake_es(es_f)
+        servers.append(es_srv_f)
+        es_f.load(rdocs[:DEPLOY_F32_DOCS])
+        run3 = cli_run(es_url_f, os.path.join(workdir, "snap-f32"), es_f, workdir, "f32", dev,
+                       {"FOREMAST_BF16_DELTA": "0"})
+        stopped = [r for r in run3["records"] if r.get("msg") == "worker stopped"]
+        launches = stopped[-1]["kernel_launches"] if stopped else {}
+        check(launches.get("masked_stats", 0) > 0, f"(d) the f32 CLI run launched no masked_stats: {launches}")
+        same_f32 = sum(run3["written"][k] == ref["a"]["written"][k] for k in run3["written"])
+        print(f"phase 9: (d) python3 -m foremast_tpu_torch worker (claim limit {DEPLOY_CLAIM}, poll 0.2 s, "
+              f"FOREMAST_SNAPSHOT_DIR set): judged the {DEPLOY_DOCS} docs in {run1['seconds']:.1f} s from "
+              f"start ({hist1} history fetches), writes equal (a)'s, SIGTERM exit 0; restarted on the same "
+              f"directory ({restored[0]}): judged the reset fleet in {run2['seconds']:.1f} s with 0 history "
+              f"fetches, first tick {ticks[0]['docs']} docs all on the fast path (0 cold fits), writes equal "
+              f"(a)'s, exit 0; f32 run (FOREMAST_BF16_DELTA=0, fresh directory, {DEPLOY_F32_DOCS} docs) "
+              f"judged in {run3['seconds']:.1f} s, launches {launches}, {same_f32} of {len(run3['written'])} "
+              f"writes equal (a)'s, exit 0")
+        print(f"phase 9: launches of the in-process passes {launched_here}; of the CLI's f32 run {launches}")
+        return {k: launched_here[k] + int(launches.get(k, 0)) for k in KERNEL_FILES}
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
 
 
 # ---------------------------------------------------------------------------
@@ -2740,6 +3169,7 @@ def main() -> int:
     from foremast_tpu_torch.ops import kernels as K
 
     kernels_only = "--kernels-only" in sys.argv[1:]
+    deployable_only = "--deployable-only" in sys.argv[1:]
     # the seasonal model's f32 products must not round through TF32 (its
     # normal equations run in float64, which never does)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2767,6 +3197,13 @@ def main() -> int:
         for line in ptxas_report(kname):
             print(f"phase 1: {kname}: {line}")
 
+    if deployable_only:
+        os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
+        t_now = int(time.time())
+        docs, data, _ = worker_fleet(WORKER_DOCS, t_now)
+        launched = phase_deployable_worker(dev, smi, fit_cache_fleet(FIT_FLEET)[0], (docs, data, t_now))
+        print(f"chip_smoke: --deployable-only: phase 9 passed; its main path launched {launched}")
+        return 0
     worst = phase_kernels_vs_plain(dev)
     worst.update(phase_scan_kernels_vs_plain(dev))
     worst.update(phase_lstm_kernels_vs_plain(dev))
@@ -2793,7 +3230,7 @@ def main() -> int:
         check(launched_object[kname] > 0, f"the object path (phases 3-4) never launched {kname}")
     fit_cache, launched_fit_cache = path(phase_fit_cache, dev, peak_bytes)
     check(launched_fit_cache["masked_stats"] > 0, "the fit-cache path (phase 5) never launched masked_stats")
-    _, launched_worker = path(phase_worker, dev, smi, fit_cache["seconds"]["c"])
+    worker_run, launched_worker = path(phase_worker, dev, smi, fit_cache["seconds"]["c"])
     check(launched_worker["masked_stats"] > 0, "the worker's f32 cold tick (phase 6) never launched masked_stats")
     _, launched_fits = path(phase_cold_fits, dev)
     for kname in ("masked_stats", "holt_winters_scan", "holt_scan"):
@@ -2812,6 +3249,10 @@ def main() -> int:
                        ("joint worker fleet tick (phase 8d)", launched_joint_worker)):
         for kname in ("lstm_ae_forward", "lstm_ae_backward", "holt_winters_scan"):
             check(got[kname] > 0, f"the {label} never launched {kname}")
+    # phase 9 reads its counts itself: its in-process passes (the bf16
+    # default launches no kernel) plus the CLI subprocess's f32 run
+    launched_deploy = phase_deployable_worker(dev, smi, fit_cache["tasks"], worker_run["fleet"])
+    check(launched_deploy["masked_stats"] > 0, "the deployable worker (phase 9) never launched masked_stats")
     paths = {
         "object path (phases 3-4)": launched_object,
         "fit-cache path (phase 5)": launched_fit_cache,
@@ -2822,6 +3263,7 @@ def main() -> int:
         "cold LSTM group (phase 8b)": launched_group,
         "joint quality gates (phase 8c)": launched_quality,
         "joint worker fleet tick (phase 8d)": launched_joint_worker,
+        "deployable worker (phase 9, with the CLI's f32 run)": launched_deploy,
     }
     print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}

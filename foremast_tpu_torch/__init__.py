@@ -19,5 +19,14 @@ Layers:
   models/     the fit cache (fitted terminal state kept between ticks),
               the seasonal (Prophet-substitute) model, the joint models
   parallel/   synthetic fixed-shape batches for throughput runs
+  jobs/       the job store (in memory or Elasticsearch over HTTP), the
+              chunk pipeline and the brain worker
+  metrics/    the config codec, Prometheus and in-memory metric sources
+  ingest/     crc-framed record logs under the fit journals
+  observe/    spans, JSON logs, Prometheus gauges and the /metrics server
+  native.py   the host packing library (ops/csrc/windowpack.cpp, g++)
+  cli.py      `python -m foremast_tpu_torch worker`
   interop.py  JAX-side state (numpy leaves) -> the port's tensors
 """
+
+__version__ = "0.1.0"

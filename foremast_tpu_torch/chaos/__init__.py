@@ -1,6 +1,8 @@
 """Graceful degradation: the shared circuit breaker, transient
-classification, the write-behind buffer, tick budgets and their counters.
-(The JAX package's fault-injection half waits for a later slice.)"""
+classification, the write-behind buffer, tick budgets and their counters;
+`guard.py`'s `GuardedSession` puts the breaker around an HTTP session.
+(The JAX package's fault-injection plan and collector wait for a later
+slice.)"""
 
 from foremast_tpu_torch.chaos.breaker import (
     BreakerOpen,

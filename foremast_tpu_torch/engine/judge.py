@@ -32,6 +32,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from foremast_tpu_torch import native
 from foremast_tpu_torch.config import BrainConfig
 from foremast_tpu_torch.engine import scoring
 from foremast_tpu_torch.engine.arena import StateArena, _arena_bytes
@@ -284,28 +285,28 @@ def _fetch(tensors) -> tuple[np.ndarray, ...]:
     return _HostCopy(tensors).wait()
 
 
-def _pack_hist_bf16_host(series, length: int):
+def _pack_hist_bf16_host(series, length: int, pin: bool = False):
     """Host-side anchor-shifted bf16-delta packing of ragged histories.
 
     Returns (anchor f32 [B] numpy, delta [B, length] bf16 CPU tensor,
     lens int32 [B] numpy). Rows are left-packed (valid prefix), so the
     device rebuilds the mask from `lens` and the upload is 2 B/point
     (f32 values + bool mask are 5). Anchor = first valid value, so the
-    deltas are bounded by the window range; padding is +0.0. The f32
-    deltas are the JAX package's bit for bit, and the cast rounds to
-    nearest even as `ml_dtypes` does."""
+    deltas are bounded by the window range; padding is +0.0. The deltas
+    are the JAX package's bit for bit: f32 differences rounded to
+    nearest even as `ml_dtypes` rounds them (NaN the quiet NaN of its
+    sign). The native library writes the bf16 rows straight into the
+    delta tensor, pinned when `pin` (so the upload needs no staging
+    copy); without the library a numpy row loop does the same."""
     b = len(series)
-    delta = np.zeros((b, length), np.float32)
-    anchor = np.zeros(b, np.float32)
-    lens = np.zeros(b, np.int32)
-    for i, (_, v) in enumerate(series):
-        n = min(len(v), length)
-        if n:
-            row = np.asarray(v, np.float32)[:n]
-            anchor[i] = row[0]
-            np.subtract(row, anchor[i], out=delta[i, :n])
-        lens[i] = n
-    return anchor, torch.from_numpy(delta).to(torch.bfloat16), lens
+    delta = torch.empty((b, length), dtype=torch.bfloat16, pin_memory=pin and b * length > 0)
+    packed = native.pack_bf16_delta(series, length, out=delta.view(torch.int16).numpy().view(np.uint16))
+    if packed is None:
+        anchor, bits, lens = native.pack_bf16_delta_plain(series, length)
+        delta.view(torch.int16).copy_(torch.from_numpy(bits.view(np.int16)))
+    else:
+        anchor, _, lens = packed
+    return anchor, delta, lens
 
 
 # Columnar-path padding: a zero terminal-state entry (n_hist=0 =>
@@ -513,7 +514,7 @@ class HealthJudge:
             ragged = [(tasks[i].hist_times, tasks[i].hist_values) for i in chunk + pad]
             puts = []
             if bf16_fit and ma_fit:
-                anchor, delta, lens = _pack_hist_bf16_host(ragged, th)
+                anchor, delta, lens = _pack_hist_bf16_host(ragged, th, pin=dev.type == "cuda")
                 level, scale, nh = _fetch(
                     scoring.fit_ma_from_bf16_delta(
                         to_device(anchor, dev), to_device(delta, dev), to_device(lens, dev)
@@ -526,7 +527,7 @@ class HealthJudge:
                         puts.append((keys[i], entry))
             else:
                 if bf16_fit:
-                    anchor, delta, lens = _pack_hist_bf16_host(ragged, th)
+                    anchor, delta, lens = _pack_hist_bf16_host(ragged, th, pin=dev.type == "cuda")
                     n_hist = to_device(lens, dev)
                     fc = scoring.fit_forecast_bf16_delta(
                         to_device(anchor, dev),

@@ -22,10 +22,11 @@ Every univariate `ML_ALGORITHM` of the engine's registry judges here
 joint selectors (`bivariate_normal`, `lstm_autoencoder`, `auto`) through
 the default `MultivariateJudge`: multi-alias docs fit on the slow path
 and, once their joint fit is cached, re-check on the joint columnar path
-(`_judge_joint_fast`). Not here yet, each waiting for its own slice:
-sliced sweeps and micro-ticks (so `FOREMAST_SWEEP_SLICE_DOCS` must not
-slice this worker's claims), ring-first cold reads and refinement, fit
-journals, tenancy, the worker mesh and the worker's Prometheus gauges.
+(`_judge_joint_fast`). Fit journals (`enable_fit_persistence`) make a
+restart warm. Not here yet, each waiting for its own slice: sliced
+sweeps and micro-ticks (so `FOREMAST_SWEEP_SLICE_DOCS` must not slice
+this worker's claims), ring-first cold reads and refinement, tenancy and
+the worker mesh.
 """
 
 from __future__ import annotations
@@ -79,7 +80,9 @@ from foremast_tpu_torch.jobs.models import (
 )
 from foremast_tpu_torch.jobs.pipeline import ChunkPipeline, StageError
 from foremast_tpu_torch.jobs.store import JobStore, parse_time
-from foremast_tpu_torch.metrics.promql import decode_config
+# the module, not the function: `metrics.promql` imports `jobs.models`,
+# so importing `metrics` first reaches this line while promql is half built
+from foremast_tpu_torch.metrics import promql
 from foremast_tpu_torch.metrics.source import MetricSource
 from foremast_tpu_torch.models.cache import ModelCache
 from foremast_tpu_torch.observe.logs import ctx_log
@@ -214,6 +217,7 @@ class BrainWorker:
         band_mode: str = "last",
         tracer=None,  # observe.spans.Tracer (optional)
         degrade: Degradation | None = None,
+        metrics=None,  # observe.gauges.WorkerMetrics (optional)
     ):
         """`band_mode` controls how much of the model band each verdict
         carries back from the device: "last" (default — only the final
@@ -322,6 +326,10 @@ class BrainWorker:
         # fetch, fit, arena, score, decode, decide, write — parents to
         # it through the ambient-context helper. None = zero overhead.
         self.tracer = tracer
+        # optional Prometheus families (observe.gauges.WorkerMetrics)
+        self.metrics = metrics
+        # FitJournal per journaled cache (enable_fit_persistence)
+        self._fit_journals: dict = {}
         self._last_tick = {"at": 0.0, "docs": 0, "fast": 0, "seconds": 0.0}
         # last status logged per open job (pruned on terminal): open docs
         # are re-judged every poll, and re-asserting an unchanged status
@@ -364,9 +372,9 @@ class BrainWorker:
         meta = self._meta_cache.peek(doc.id)
         if meta is not None:
             return meta
-        cur = decode_config(doc.current_config)
-        base = decode_config(doc.baseline_config)
-        hist = decode_config(doc.historical_config)
+        cur = promql.decode_config(doc.current_config)
+        base = promql.decode_config(doc.baseline_config)
+        hist = promql.decode_config(doc.historical_config)
         aliases = []
         ops = np.empty((3, len(cur)), np.float32)
         for i, (alias, cur_url) in enumerate(cur.items()):
@@ -497,6 +505,8 @@ class BrainWorker:
         (http / cache). Fetch-pool threads land here, hence the lock."""
         with self._cold_lock:
             self._cold_counts[source] += 1
+        if self.metrics is not None:
+            self.metrics.cold_hist.labels(source=source).inc()
 
     def _fetch_hist(self, url: str, now: float):
         """Historical window (times, values) for a cold fit, through the
@@ -666,13 +676,64 @@ class BrainWorker:
         return self._prefetch_pool
 
     def close(self) -> None:
-        """Shut down the persistent thread pools. Idempotent, and the
-        worker stays usable afterwards (pools rebuild lazily)."""
+        """Shut down the persistent thread pools and close the fit
+        journals. Idempotent, and the worker stays usable afterwards
+        (pools rebuild lazily)."""
         for attr in ("_fetch_pool", "_prefetch_pool"):
             pool = getattr(self, attr)
             if pool is not None:
                 pool.shutdown(wait=True, cancel_futures=True)
                 setattr(self, attr, None)
+        for journal in self._fit_journals.values():
+            journal.close()
+        self._fit_journals = {}
+
+    # -- durable fit state -----------------------------------------------
+
+    def enable_fit_persistence(self, directory: str) -> dict:
+        """Mount write-through fit journals under `directory`: restore
+        each cache's persisted terminal states (staged for LAZY
+        rehydration: the first claim of a document pulls its fits back
+        in, so admission passes without an HTTP history re-fetch), then
+        attach write-through so every completed fit persists the moment
+        the judge caches it. Returns per-journal restore counts.
+
+        Journaled caches: the univariate fit cache and its gap anchors,
+        the joint entry cache and its warm metadata. The JAX worker also
+        journals its provisional-fit refine book; the port has no
+        provisional fits yet (ROADMAP.md Queue 1, the ingest plane), so
+        it has no refine journal. NOT journaled: the history cache
+        (re-fetchable), the per-doc meta cache (derived from immutable
+        configs) and the device arena (it rehydrates row by row from the
+        restored fit cache)."""
+        from foremast_tpu_torch.models.cache import FitJournal
+
+        os.makedirs(directory, exist_ok=True)
+        pairs = [
+            ("fits", self._fit_cache),
+            ("gaps", self._gap_meta),
+            ("joint", self._mvj.cache),
+            ("jmeta", self._mvj.joint_meta),
+        ]
+        restored = {}
+        for name, cache in pairs:
+            journal = FitJournal(os.path.join(directory, f"fit-{name}"))
+            restored[name] = cache.restore_lazy(journal.restore())
+            journal.attach(cache)
+            self._fit_journals[name] = journal
+        if any(restored.values()):
+            log.info("fit persistence: restored %s from %s (lazy rehydration)", restored, directory)
+        return restored
+
+    def _maybe_persist(self) -> None:
+        """Per-tick durability housekeeping: compact any fit journal whose
+        log outgrew its budget. Failures are logged, never allowed to
+        fail a tick that already judged its docs."""
+        try:
+            for journal in self._fit_journals.values():
+                journal.maybe_compact()
+        except Exception:  # noqa: BLE001 - durability must not kill ticks
+            log.exception("durability housekeeping failed")
 
     # -- degraded store writes -------------------------------------------
 
@@ -821,9 +882,13 @@ class BrainWorker:
 
     def _account_fast_kinds(self, kind_counts: dict) -> None:
         """Fold one tick's columnar doc counts into the cumulative
-        per-bucket counters (debug_state)."""
+        per-bucket counters (debug_state) and the WorkerMetrics family."""
         for kind, n in kind_counts.items():
+            if not n:
+                continue
             self._fast_kinds[kind] += n
+            if self.metrics is not None:
+                self.metrics.fast_docs.labels(kind=kind).inc(n)
 
     # -- joint (multi-alias) columnar path --------------------------------
 
@@ -928,6 +993,8 @@ class BrainWorker:
                 self._log_judged(doc)
                 updated.append(doc)
                 counts[mode] += 1
+                if self.metrics is not None:
+                    self.metrics.observe_doc(doc.status, len(jinfo[1]))
                 if hook:
                     vs = [
                         MetricVerdict(
@@ -996,6 +1063,8 @@ class BrainWorker:
                     self._log_judged(doc)
                     updated.append(doc)
                     counts[mode] += 1
+                    if self.metrics is not None:
+                        self.metrics.observe_doc(doc.status, f)
                     if hook:
                         try:
                             hook(doc, self._joint_verdicts(doc, jinfo, ct, cv, n, fl, jv, thr))
@@ -1054,6 +1123,8 @@ class BrainWorker:
         ok_items, ok_citems, ok_joint, failed, released = self._fetch_fast(fast, fastc, fastj)
         for doc in failed:
             self._store_update(doc)
+            if self.metrics is not None:
+                self.metrics.observe_doc(doc.status, 0)
         self._release_docs(released, REASON_FETCH)
         if not ok_items and not ok_citems and not ok_joint:
             return len(failed) + len(released), slow
@@ -1431,6 +1502,8 @@ class BrainWorker:
             self._decide_status(doc, jv, values_map, now, end_epoch)
             self._log_judged(doc)
             updated.append(doc)
+            if self.metrics is not None:
+                self.metrics.observe_doc(doc.status, len(s))
             if hook:
                 vs = []
                 full_bands = ub is not None and ub.ndim == 2
@@ -1470,12 +1543,16 @@ class BrainWorker:
     def tick(self, now: float | None = None) -> int:
         """One claim-fetch-judge-write cycle. Returns #docs processed."""
         if self.tracer is None:
-            return self._tick(now)
-        # the root span mints the tick's trace ID: every stage span
-        # below (and the judge spans nested inside them) shares it, as
-        # do JSON log records emitted while the tick is open
-        with self.tracer.span("worker.tick", worker=self.worker_id):
-            return self._tick(now)
+            n = self._tick(now)
+        else:
+            # the root span mints the tick's trace ID: every stage span
+            # below (and the judge spans nested inside them) shares it,
+            # as do JSON log records emitted while the tick is open
+            with self.tracer.span("worker.tick", worker=self.worker_id):
+                n = self._tick(now)
+        if self._fit_journals:
+            self._maybe_persist()
+        return n
 
     def _claim_cycle(self) -> list[Document]:
         """Stamp the claim instant and claim — degrading a transient
@@ -1529,6 +1606,9 @@ class BrainWorker:
         n_fast, docs = self._fast_tick(docs, now)
         if docs:
             self._run_slow_chunks(docs, now, self._tick_claim_mono)
+        if self.metrics is not None:
+            self.metrics.observe_arena(self._uni.device_state_counters())
+            self.metrics.tick_seconds.observe(time.perf_counter() - t0)
         self._tick_done(n_fast + len(docs), n_fast, t0)
         return n_fast + len(docs)
 
@@ -1581,6 +1661,8 @@ class BrainWorker:
             # surface occupancy on the abort path too (completed=False
             # marks the partial snapshot)
             self._last_pipeline = pipe.last_stats.as_dict()
+            if self.metrics is not None:
+                self.metrics.observe_pipeline(pipe.last_stats)
 
     # -- slow-path pipeline stages (jobs/pipeline.py) --------------------
 
@@ -1657,11 +1739,15 @@ class BrainWorker:
                 self._release_docs(docs_r, reason, claim_mono=claim_mono)
         for doc in failed:
             self._store_update(doc, claim_mono=claim_mono)
+            if self.metrics is not None:
+                self.metrics.observe_doc(doc.status, 0)
         with span("worker.decide", stage="decide", docs=len(ok_docs)):
             for doc in ok_docs:
                 vs = by_job.get(doc.id, [])
                 self._write_back(doc, vs, now)
                 self._log_judged(doc)
+                if self.metrics is not None:
+                    self.metrics.observe_doc(doc.status, len(vs))
                 if self.on_verdict:
                     try:
                         self.on_verdict(doc, vs)
@@ -1773,6 +1859,12 @@ class BrainWorker:
             ),
             "sweep": {"slice_docs": self.sweep_slice_docs, "sliced": False},
             "degradation": self._degrade.debug_state(),
+            # fit persistence counters per journal; None when ephemeral
+            "durability": (
+                {"fit_journals": {name: j.debug_state() for name, j in self._fit_journals.items()}}
+                if self._fit_journals
+                else None
+            ),
         }
         if self.tracer is not None:
             state["trace"] = self.tracer.debug_state()
@@ -1782,10 +1874,25 @@ class BrainWorker:
         self,
         poll_seconds: float = 5.0,
         stop: Callable[[], bool] | None = None,
+        after_tick: Callable[[int], None] | None = None,
     ) -> None:
         """Poll until `stop()` says so: tick, and sleep `poll_seconds`
         after an idle tick (the shared-nothing worker loop,
-        design.md:35-43)."""
+        design.md:35-43). `after_tick(n_processed)` runs after every
+        tick: the hook for periodic model-cache checkpoints; its
+        failures are logged, never raised. The idle sleep runs in short
+        slices so a stop request is honored within a quarter second."""
         while not (stop and stop()):
-            if self.tick() == 0:
-                time.sleep(poll_seconds)
+            n = self.tick()
+            if after_tick is not None:
+                try:
+                    after_tick(n)
+                except Exception:  # noqa: BLE001 - housekeeping must not kill the loop
+                    log.exception("after_tick hook failed")
+            if n == 0:
+                deadline = time.monotonic() + poll_seconds
+                while not (stop and stop()):
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    time.sleep(min(0.25, remaining))

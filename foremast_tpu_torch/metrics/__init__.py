@@ -1,5 +1,5 @@
 """Metric windows in: the config-string codec, the datasource URL
-functions and the in-memory metric sources."""
+functions, the Prometheus source and the in-memory metric sources."""
 
 from foremast_tpu_torch.metrics.promql import (
     build_url,
@@ -10,6 +10,7 @@ from foremast_tpu_torch.metrics.promql import (
 )
 from foremast_tpu_torch.metrics.source import (
     MetricSource,
+    PrometheusSource,
     ReplaySource,
     StaticSource,
     load_csv_trace,
@@ -22,6 +23,7 @@ __all__ = [
     "prometheus_url",
     "wavefront_url",
     "MetricSource",
+    "PrometheusSource",
     "ReplaySource",
     "StaticSource",
     "load_csv_trace",

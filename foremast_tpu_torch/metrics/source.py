@@ -2,10 +2,11 @@
 
 The reference brain HTTP-GETs each `query_range` URL stored in the ES
 document's config strings (SURVEY.md section 3.2). The port's own copy
-of the JAX package's `foremast_tpu/metrics/source.py`, without
-`PrometheusSource` (its HTTP client is not on the card's machine; it
-comes with a later slice, over `urllib`). Sources here:
+of the JAX package's `foremast_tpu/metrics/source.py`. Sources here:
 
+  * `PrometheusSource` — real HTTP fetch (the port's standard-library
+    session, `foremast_tpu_torch/httpclient.py`), parsing the
+    query_range JSON matrix response;
   * `ReplaySource` — serves deterministic CSV traces keyed by substring
     match on the URL/query, the analog of the reference demo's
     `FileErrorGenerator` replay (`error/FileErrorGenerator.java:27-37`) —
@@ -18,6 +19,13 @@ All return (times: int64[N], values: float32[N]) numpy arrays.
 from __future__ import annotations
 
 import csv
+import http.client
+import math
+import os
+import random
+import socket
+import threading
+import time
 from datetime import datetime, timezone
 from typing import Callable, Mapping
 
@@ -46,10 +54,119 @@ RETRY_STATUSES = frozenset({429, 500, 502, 503, 504})
 
 
 def _transient_exceptions() -> tuple:
-    """The retryable exception types. The JAX package adds `requests`'
-    connection and timeout types, which its HTTP source raises; no
-    source of the port uses `requests`, so the builtins are the set."""
-    return (ConnectionError, TimeoutError)
+    """The retryable exception types: the builtin connection and timeout
+    errors (what `httpclient.Session` raises for a transport failure, and
+    what injected test sessions raise), and the socket and `http.client`
+    failures a session of another make may let through."""
+    return (ConnectionError, TimeoutError, socket.gaierror, http.client.HTTPException)
+
+
+class PrometheusSource(MetricSource):
+    """Fetches query_range URLs; merges a multi-series result by summing
+    values per timestamp (recording rules normally return one series).
+
+    Thread-safe: the worker fetches a claimed batch from a thread pool
+    and a session is not safe for concurrent use, so each thread gets
+    its own session. An explicitly injected `session` (tests) is used
+    as-is.
+
+    Transient failures (HTTP 429/5xx, connection/timeout errors) are
+    retried up to `FOREMAST_FETCH_RETRIES` times (default 2) with
+    exponential jittered backoff. Non-transient errors (4xx, parse
+    errors) raise on the first attempt.
+
+    `chaos` perturbs every attempt at this one request choke point;
+    `breaker` (chaos.CircuitBreaker) is checked once per fetch and
+    records the fetch's final outcome, so a dead Prometheus fails
+    further fetches in microseconds (BreakerOpen is a ConnectionError).
+    """
+
+    def __init__(
+        self,
+        session=None,
+        timeout: float = 10.0,
+        retries: int | None = None,
+        backoff_seconds: float = 0.25,
+        chaos=None,
+        breaker=None,
+    ):
+        self._injected = session
+        self._local = threading.local()
+        self.timeout = timeout
+        if retries is None:
+            retries = int(os.environ.get("FOREMAST_FETCH_RETRIES", "") or 2)
+        self.retries = max(0, retries)
+        self.backoff_seconds = backoff_seconds
+        self.chaos = chaos
+        self.breaker = breaker
+
+    @property
+    def _session(self):
+        if self._injected is not None:
+            return self._injected
+        sess = getattr(self._local, "session", None)
+        if sess is None:
+            from foremast_tpu_torch.httpclient import Session
+
+            sess = self._local.session = Session()
+        return sess
+
+    def _get_with_retries(self, url: str):
+        transient = _transient_exceptions()
+        breaker = self.breaker
+        if breaker is not None:
+            breaker.allow()  # BreakerOpen (a ConnectionError) fails fast
+        chaos = self.chaos
+        for attempt in range(self.retries + 1):
+            last = attempt == self.retries
+            try:
+                if chaos is not None:
+                    chaos.perturb(url)  # injected faults are transient
+                resp = self._session.get(url, timeout=self.timeout)
+            except transient:
+                if last:
+                    if breaker is not None:
+                        breaker.record_failure()
+                    raise
+            else:
+                if resp.status_code not in RETRY_STATUSES:
+                    if breaker is not None:
+                        breaker.record_success()
+                    return resp
+                if last:
+                    if breaker is not None:
+                        breaker.record_failure()
+                    return resp
+            # bounded jittered exponential backoff: 0.5-1x of
+            # base * 2^attempt, so a herd of claim fetches does not
+            # re-synchronize on the throttling server
+            time.sleep(self.backoff_seconds * (2**attempt) * (0.5 + 0.5 * random.random()))
+        raise AssertionError("unreachable")  # pragma: no cover
+
+    def fetch(self, url: str) -> Series:
+        resp = self._get_with_retries(url)
+        resp.raise_for_status()
+        body = resp.json()
+        if body.get("status") != "success":
+            raise RuntimeError(f"prometheus error response: {body.get('error')}")
+        acc: dict[int, float] = {}
+        for series in body.get("data", {}).get("result", []):
+            for t, v in series.get("values", []):
+                try:
+                    fv = float(v)
+                    ft = int(float(t))
+                except (TypeError, ValueError):
+                    continue
+                if not math.isfinite(fv):
+                    # Prometheus emits "NaN"/"+Inf" strings, which float()
+                    # parses: drop them or they poison the window
+                    continue
+                acc[ft] = acc.get(ft, 0.0) + fv
+        if not acc:
+            return _empty()
+        ts = np.asarray(sorted(acc), np.int64)
+        vs = np.asarray([acc[t] for t in ts], np.float32)
+        return ts, vs
 
 
 def load_csv_trace(path: str, t0: int | None = None, step: int = 60) -> Series:

@@ -1,7 +1,8 @@
 """Dapper-style span pipeline: one correlation ID per judgment, end to end.
 
-The port's own copy of the JAX package's `foremast_tpu/observe/spans.py`
-(the /metrics server waits for the port's shell). A tick opens a root
+The port's own copy of the JAX package's `foremast_tpu/observe/spans.py`,
+with the worker's `/metrics` + `/healthz` + `/debug/state` server
+(`start_observe_server`). A tick opens a root
 span on the worker's `Tracer`; every stage span below it — claim, fetch,
 fit, arena assembly, score, decode, decide, write-back — parents to it
 through one contextvar, so the engine and store need no tracer plumbing
@@ -35,6 +36,7 @@ import os
 import threading
 import time
 import uuid
+import weakref
 
 log = logging.getLogger("foremast_tpu_torch.observe.spans")
 
@@ -393,3 +395,101 @@ def inherit_span(fn):
             _ACTIVE.reset(token)
 
     return wrapped
+
+
+# ---------------------------------------------------------------------------
+# shared metric families and the worker's exposition server
+# ---------------------------------------------------------------------------
+
+# one collector object per (registry, name): several BrainGauges or
+# Tracer instances over one registry must share a family, not collide on
+# prometheus_client's duplicate-registration error
+_FAMILIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_FAMILY_LOCK = threading.Lock()
+
+
+def _shared_family(registry, name: str, make):
+    from prometheus_client import REGISTRY
+
+    reg = registry if registry is not None else REGISTRY
+    with _FAMILY_LOCK:
+        per = _FAMILIES.get(reg)
+        if per is None:
+            per = {}
+            _FAMILIES[reg] = per
+        fam = per.get(name)
+        if fam is None:
+            fam = make(reg)
+            per[name] = fam
+        return fam
+
+
+def counter(name: str, documentation: str, labels=(), registry=None):
+    from prometheus_client import Counter
+
+    return _shared_family(registry, name, lambda reg: Counter(name, documentation, list(labels), registry=reg))
+
+
+def start_observe_server(port: int, registry=None, state_fn=None, host: str = "0.0.0.0", max_port_tries: int = 1):
+    """Serve /metrics (Prometheus exposition), /healthz, and /debug/state
+    (JSON varz from `state_fn`) on one port: the worker's :8000 scrape
+    endpoint. Returns (server, thread); the thread is a daemon.
+    `max_port_tries` > 1 walks past ports already bound (up to
+    port+tries-1); read the actual port from `server.server_address`."""
+    import errno
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from prometheus_client import CONTENT_TYPE_LATEST, REGISTRY, generate_latest
+
+    from foremast_tpu_torch import __version__
+
+    reg = registry if registry is not None else REGISTRY
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # metrics scrapes must not spam stderr
+            pass
+
+        def _send(self, code: int, body: bytes, ctype: str) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            path = self.path.split("?", 1)[0]
+            if path == "/metrics":
+                self._send(200, generate_latest(reg), CONTENT_TYPE_LATEST)
+            elif path == "/healthz":
+                body = json.dumps({"ok": True, "version": __version__})
+                self._send(200, body.encode(), "application/json")
+            elif path == "/debug/state":
+                try:
+                    state = state_fn() if state_fn is not None else {}
+                    code = 200
+                except Exception as e:  # noqa: BLE001 - varz must not 500-loop
+                    state, code = {"error": str(e)}, 500
+                self._send(code, json.dumps(state, default=str, indent=2).encode(), "application/json")
+            else:
+                self._send(404, b'{"reason": "not found"}', "application/json")
+
+    srv = None
+    last_err: OSError | None = None
+    # port 0 is the OS's ephemeral pick: walking past it is meaningless
+    tries = 1 if port == 0 else max(1, int(max_port_tries))
+    for i in range(tries):
+        try:
+            srv = ThreadingHTTPServer((host, port + i), Handler)
+            break
+        except OSError as e:
+            # only a BUSY port is worth walking past
+            if e.errno != errno.EADDRINUSE:
+                raise
+            last_err = e
+    if srv is None:
+        raise last_err
+    if port and srv.server_address[1] != port:
+        log.info("observe port %d busy; serving /metrics + /debug/state on :%d instead", port, srv.server_address[1])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    return srv, thread

@@ -14,6 +14,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from foremast_tpu_torch import native
+
 
 def resolve_device(device: str | torch.device) -> torch.device:
     """`device` as a torch.device; a CUDA device with no card raises
@@ -70,7 +72,8 @@ class MetricWindows:
         """Pack (times, values) ragged series into one padded batch.
 
         Rows are left-packed and truncated to `length`; the packing runs
-        in numpy and the batch is copied to `device` once per array.
+        in the native library (`native.pack_windows`, a numpy row loop
+        without it) and the batch is copied to `device` once per array.
         `device_times=False` leaves times off the device (None): no
         scoring program reads them, anomaly timestamps are decoded on
         the host from each task's own ragged times."""
@@ -78,16 +81,10 @@ class MetricWindows:
         if length is None:
             length = max((len(v) for _, v in series), default=1)
             length = max(length, 1)
-        b = len(series)
-        values = np.zeros((b, length), dtype=np.float32)
-        times = np.zeros((b, length), dtype=np.int32)
-        mask = np.zeros((b, length), dtype=bool)
-        for i, (t, v) in enumerate(series):
-            n = min(len(v), length)
-            values[i, :n] = np.asarray(v, dtype=np.float32)[:n]
-            if device_times:
-                times[i, :n] = np.asarray(t, dtype=np.int64)[:n].astype(np.int32)
-            mask[i, :n] = True
+        packed = native.pack_windows(series, length, with_times=device_times)
+        if packed is None:
+            packed = native.pack_windows_plain(series, length, with_times=device_times)
+        values, times, mask = packed
         return MetricWindows(
             values=torch.from_numpy(values).to(dev),
             mask=torch.from_numpy(mask).to(dev),

@@ -6,8 +6,11 @@ bf16 goes through torch),
 and no module of the port imports `requests` or `prometheus_client` when
 it is imported (the card's machine has neither).
 
-The import check runs in a fresh interpreter (`-I`: no site hooks, no
-PYTHONPATH), because this test process has JAX loaded already."""
+`tests/torch_fake_services.py`, the fake Elasticsearch and Prometheus
+that `chip_smoke.py` serves on the card's machine, is held to the same
+rules. The import check runs in a fresh interpreter (`-I`: no site
+hooks, no PYTHONPATH), because this test process has JAX loaded
+already."""
 
 import ast
 import pathlib
@@ -22,8 +25,11 @@ import importlib, pkgutil, sys
 sys.path.insert(0, {root!r})
 import foremast_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "foremast_tpu_torch.")]
+sys.path.insert(0, {tests!r})
+names.append("torch_fake_services")
 for name in names:
     importlib.import_module(name)
+assert "foremast_tpu_torch.cli" in names and "foremast_tpu_torch.__main__" in names
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "foremast_tpu", "scipy", "optax", "ml_dtypes", "requests",
@@ -35,7 +41,7 @@ print(len(names), bad)
 
 def test_port_imports_without_jax():
     out = subprocess.run(
-        [sys.executable, "-I", "-c", _IMPORT_ALL.format(root=str(ROOT))],
+        [sys.executable, "-I", "-c", _IMPORT_ALL.format(root=str(ROOT), tests=str(ROOT / "tests"))],
         capture_output=True, text=True, timeout=120, cwd=str(ROOT),
     )
     assert out.returncode == 0, out.stderr
@@ -59,7 +65,7 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 
 def test_no_source_of_the_port_imports_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_fake_services.py"]
     assert len(files) >= 34
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "foremast_tpu", "scipy", "optax", "ml_dtypes"}
