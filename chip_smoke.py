@@ -95,12 +95,22 @@ Phases; any failure exits non-zero:
      PrometheusSource (claim limit 256, the CLI's default) against a fake
      Elasticsearch and a fake Prometheus (tests/torch_fake_services.py)
      on loopback sockets in this process, over phase 6's fleet shape at
-     1,024 docs x 4 aliases (4,096 query_range histories of 7 days): a
+     512 docs x 4 aliases (2,048 query_range histories of 7 days): a
      cold pass, a warm pass and a spiked warm pass, every doc's (status,
      code, reason, anomaly_info) equal to phase 6's in-memory worker on
-     the same fleet, exactly the spiked docs flagged; (b) each tick's
-     wall clock, docs/s and claim / metric_fetch / fit / score /
-     write_back spans; (c) phase 5's cold chunk packed as before (numpy
+     the same fleet, exactly the spiked docs flagged; (e) the push arm:
+     every series of the fleet pushed as FMW1 frames to the port's
+     receiver (foremast_tpu_torch/ingest) in this process, then the same
+     three passes through RingSource(ring, fallback=PrometheusSource) and
+     one more cold pass on the f32 route (FOREMAST_BF16_DELTA=0, a fresh
+     worker): writes equal the pull arm's (the f32 pass phase 6's f32
+     tick), 0 Prometheus requests, 0 ring evictions, every cold history
+     read from the ring, masked_stats launched; (b) each tick's wall
+     clock, docs/s, metric_fetch share, Prometheus requests, cold reads
+     by source and claim / metric_fetch / fit / score / write_back
+     spans, and PrometheusSource.fetch of a sample of history and
+     current windows split into HTTP round trip, json.loads and the
+     per-point loop; (c) phase 5's cold chunk packed as before (numpy
      rows into an f32 scratch, then the bf16 cast, then pinned staging;
      timed apart) and by the native library into a pinned buffer, bit
      for bit equal, and phase 5's and phase 6's cold ticks before and
@@ -109,7 +119,12 @@ Phases; any failure exits non-zero:
      and exits 0 on SIGTERM; restarted on the same directory it judges
      the reset fleet with 0 history fetches and an all-warm first tick;
      an f32 run (FOREMAST_BF16_DELTA=0, fresh directory, 256 docs)
-     launches masked_stats, which it reports when it stops.
+     launches masked_stats, which it reports when it stops; with
+     FOREMAST_INGEST=1 it takes the fleet's samples on its receiver,
+     judges the fleet to (a)'s writes with 0 Prometheus requests, exits
+     0 on SIGTERM, and restarted on the same directory restores the ring
+     and judges the reset fleet with 0 requests and an all-warm first
+     tick.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
 7b, 7c, 7d, 8b, 8c, 8d, 9) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phases
@@ -948,8 +963,13 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
     current windows riding inside the band (so the fleet stays on the
     re-check path, endTime an hour out), every even doc a canary with a
     baseline URL on every alias (its window the current signal plus
-    noise). Histories lie on a 1/64 grid, as in phase 5. Returns
-    (documents as JSON, URL -> series, each doc's latency current URL)."""
+    noise, an hour earlier, under its own series name). Histories lie on
+    a 1/64 grid, as in phase 5. Each URL's query names its series and
+    its start and end bound exactly the samples it answers, so the ingest
+    plane's ring (phase 9's push arm) resolves every window the pull
+    path fetches; a doc's history and current window are one series.
+    Returns (documents as JSON, URL -> series, each doc's latency current
+    URL)."""
     from foremast_tpu_torch.jobs import Document
 
     rng = np.random.default_rng(seed)
@@ -965,8 +985,8 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
     for i in range(n_docs):
         parts = {"current": [], "historical": [], "baseline": []}
         for k, a in enumerate(ALIASES):
-            cur_url = f"http://prom/cur?q={a}:app{i}&end={int(ct[0]) - 60}&step=60"
-            hist_url = f"http://prom/hist?q={a}:app{i}&end={int(ht[-1]) + 60}&step=60"
+            cur_url = f"http://prom/cur?q={a}:app{i}&start={int(ct[0])}&end={int(ct[-1])}&step=60"
+            hist_url = f"http://prom/hist?q={a}:app{i}&start={int(ht[0])}&end={int(ht[-1])}&step=60"
             data[cur_url] = (ct, cv)
             if a == "latency":
                 latency.append(cur_url)
@@ -974,8 +994,9 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
             parts["current"].append(f"{a}== {cur_url}")
             parts["historical"].append(f"{a}== {hist_url}")
             if i % 2 == 0:
-                base_url = f"http://prom/base?q={a}:app{i}&step=60"
-                data[base_url] = (ct - 3600, (cv + rng.normal(0, 0.01, FULL_TC)).astype(np.float32))
+                bt = ct - 3600
+                base_url = f"http://prom/base?q={a}_baseline:app{i}&start={int(bt[0])}&end={int(bt[-1])}&step=60"
+                data[base_url] = (bt, (cv + rng.normal(0, 0.01, FULL_TC)).astype(np.float32))
                 parts["baseline"].append(f"{a}== {base_url}")
         docs.append(
             Document(
@@ -1196,6 +1217,169 @@ DEPLOY_DOCS = 512  # x 4 aliases = 2,048 query_range histories of 7 days
 DEPLOY_CLAIM = 256  # the CLI's default --claim-limit (FOREMAST_CLAIM_LIMIT)
 DEPLOY_F32_DOCS = 256  # (d) the f32 CLI run: one claim
 CLI_TIMEOUT = 240  # seconds for one CLI run to judge its fleet
+# (e) the push arm's ring: 2,048 series of a 7-day history and its
+# current window (10,110 points: a 16,384-point ring of 196,608 B) and
+# 1,024 baselines (30 points: 3,072 B), about 406 MB. The default budget
+# (256 MB) would evict about a third of the histories, whose cold fits
+# would then fall back to HTTP without any error
+PUSH_BUDGET_BYTES = 1 << 30
+PUSH_BODY_SERIES = 64  # series per FMW1 body: <= 7.8 MB, under the receiver's 8 MiB cap
+# (e) steady remote-write traffic while the push arm's warm passes tick:
+# successive 15 s scrapes of STEADY_SERIES series that no document reads
+# (one sample each, one scrape to a body: Prometheus' remote-write
+# default max_samples_per_send is 2,000), spread over the ring's shards
+# like the fleet's own, pushed by one client in a subprocess; the bodies
+# wrap round (then as revisions) past the last. One warm pass takes them
+# at STEADY_RATE, the stream of 100,000 active series scraped every 15 s
+# (one mid-sized Prometheus sending all it scrapes); another back to
+# back, the most one client gets the receiver to take while it ticks
+STEADY_SERIES = 2_000
+STEADY_BODIES = 256
+STEADY_RATE = 100_000 / 15
+STEADY_PUSHER = r"""
+import json, os, signal, sys, time, urllib.request
+url, folder, ctype, rate = sys.argv[1], sys.argv[2], sys.argv[3], float(sys.argv[4])
+bodies = [open(os.path.join(folder, f), "rb").read() for f in sorted(os.listdir(folder))]
+stop = []
+signal.signal(signal.SIGTERM, lambda *_: stop.append(1))
+n = samples = 0
+t0 = time.perf_counter()
+while not stop:
+    if n and rate > 0:
+        time.sleep(max(0.0, t0 + samples / rate - time.perf_counter()))
+        if stop:
+            break
+    req = urllib.request.Request(url, data=bodies[n % len(bodies)], method="POST", headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        samples += json.loads(resp.read())["accepted_samples"]
+    if not n:
+        print("answered", flush=True)
+    n += 1
+print(json.dumps({"bodies": n, "samples": samples, "seconds": time.perf_counter() - t0}), flush=True)
+"""
+FETCH_SPLIT_SAMPLE = 64  # history and current-window fetches timed part by part
+
+
+def fetch_split(urls) -> list:
+    """Mean ms per fetch of `PrometheusSource.fetch`'s three parts over
+    `urls`: the HTTP round trip (request to the body's last byte), the
+    `json.loads` of the body, and the per-point loop (`series_from_body`);
+    each split result equal to `fetch`'s own."""
+    from foremast_tpu_torch.metrics.source import PrometheusSource, series_from_body
+
+    src = PrometheusSource()
+    parts = []
+    for url in urls:
+        t0 = time.perf_counter()
+        resp = src._get_with_retries(url)
+        resp.raise_for_status()
+        t1 = time.perf_counter()
+        body = json.loads(resp.content)
+        t2 = time.perf_counter()
+        ts, vs = series_from_body(body)
+        t3 = time.perf_counter()
+        want = src.fetch(url)
+        check(np.array_equal(ts, want[0]) and np.array_equal(vs, want[1]), f"the split fetch of {url} differs")
+        parts.append((t1 - t0, t2 - t1, t3 - t2))
+    return [1e3 * statistics.mean(p[i] for p in parts) for i in range(3)]
+
+
+def push_entries(data: dict) -> list:
+    """(key, times, values, start) of every ring series of a fleet: the
+    samples of every URL whose query names the series, in time order,
+    with the series' first sample as its coverage start; keys resolved
+    from the URLs as the ring resolves them."""
+    from foremast_tpu_torch.ingest import resolve_query_range
+
+    series: dict = {}
+    for url, (t, v) in data.items():
+        series.setdefault(resolve_query_range(url)[0], []).append((t, v))
+    out = []
+    for key, parts in series.items():
+        parts.sort(key=lambda p: int(p[0][0]))
+        t = np.concatenate([p[0] for p in parts])
+        check(bool(np.all(np.diff(t) > 0)), f"the windows of {key} overlap")
+        out.append((key, t, np.concatenate([p[1] for p in parts]), float(t[0])))
+    return out
+
+
+def push_frames(url: str, entries: list, wait: float = 0.0) -> tuple:
+    """POST `entries` to a receiver as FMW1 frames of PUSH_BODY_SERIES
+    series each; (seconds, samples accepted, body bytes), the encoding
+    included in the seconds. Only a failure to connect before the
+    receiver's first answer is retried, for `wait` seconds while it comes
+    up: an answer of 413 or 429 (an HTTPError) raises at once."""
+    import urllib.error
+    import urllib.request
+
+    from foremast_tpu_torch.ingest import BINARY_CONTENT_TYPE, encode_frame
+
+    deadline = time.monotonic() + wait
+    t0 = time.perf_counter()
+    samples = nbytes = 0
+    for i in range(0, len(entries), PUSH_BODY_SERIES):
+        body = encode_frame(entries[i : i + PUSH_BODY_SERIES])
+        while True:
+            req = urllib.request.Request(url, data=body, method="POST", headers={"Content-Type": BINARY_CONTENT_TYPE})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    samples += json.loads(resp.read())["accepted_samples"]
+                break
+            except urllib.error.HTTPError:
+                raise
+            except (urllib.error.URLError, ConnectionError):
+                if nbytes or time.monotonic() > deadline:
+                    raise
+                time.sleep(0.25)
+                if not nbytes:
+                    t0 = time.perf_counter()  # time the push from the receiver's first answer
+        nbytes += len(body)
+    return time.perf_counter() - t0, samples, nbytes
+
+
+def steady_bodies(folder: str, t_start: int) -> int:
+    """Write STEADY_BODIES FMW1 bodies into `folder`: body k is the scrape
+    at `t_start + 15 k` of STEADY_SERIES series that no document of the
+    fleet reads. Returns the bytes of one body."""
+    from foremast_tpu_torch.ingest import encode_frame
+
+    rng = np.random.default_rng(11)
+    keys = [f'foremast_smoke_scrape{{instance="i-{j}",job="steady"}}' for j in range(STEADY_SERIES)]
+    vals = rng.normal(1.0, 0.1, (STEADY_BODIES, STEADY_SERIES)).astype(np.float32)
+    for k in range(STEADY_BODIES):
+        t = np.array([t_start + 15 * k], np.int64)
+        body = encode_frame([(key, t, vals[k, j : j + 1], None) for j, key in enumerate(keys)])
+        with open(os.path.join(folder, f"{k:04d}.fmw1"), "wb") as fh:
+            fh.write(body)
+    return len(body)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tick_lines(label: str, ticks: list) -> None:
+    """Print each tick's wall clock, docs/s, spans, metric_fetch share,
+    and (when recorded) Prometheus requests and cold-history reads."""
+    names = ("claim", "metric_fetch", "fit", "score", "write_back")
+    for k, t in enumerate(ticks):
+        st = t["stages"]
+        spans = ", ".join(f"{s} {st.get(s, 0.0):.4f}" for s in names)
+        extra = ""
+        if "prom" in t:
+            cold = t["cold"]
+            extra = (f"; {t['prom']} Prometheus requests; cold reads so far ring_full {cold['ring_full']} / http "
+                     f"{cold['http']} / cache {cold['cache']}")
+        print(f"phase 9: (b) {label} tick {k + 1}: {t['seconds']:.3f} s, {t['docs']} docs = "
+              f"{t['docs'] / t['seconds']:.0f} docs/s; metric_fetch {100 * st.get('metric_fetch', 0.0) / t['seconds']:.1f} "
+              f"% of the tick; spans {spans}; other spans {sum(st.values()) - sum(st.get(s, 0.0) for s in names):.4f}"
+              f"{extra}")
+    tot = sum(t["seconds"] for t in ticks)
+    print(f"phase 9: (b) {label} pass: {len(ticks)} ticks, {tot:.3f} s = {DEPLOY_DOCS / tot:.0f} docs/s")
 
 
 def pack_hist_before(series, length: int, pin: bool = False):
@@ -1274,13 +1458,15 @@ def sync_card() -> None:
         torch.cuda.synchronize()
 
 
-def es_pass(worker, es, now: float, tracer) -> list:
+def es_pass(worker, es, now: float, tracer, prom=None) -> list:
     """Tick the in-process worker until every document was judged once
-    more; one record per tick (wall clock, docs, stage seconds). The
-    documents are first stamped as written long ago (the re-check loop
-    at its poll interval): ticks that finish within one second would
-    otherwise tie on the index's one-second stamps and re-claim docs of
-    the pass while others wait."""
+    more; one record per tick (wall clock, docs, stage seconds, and with
+    `prom` the fake Prometheus' requests in the tick and the worker's
+    cold-history reads by source after it). The documents are first
+    stamped as written long ago (the re-check loop at its poll interval):
+    ticks that finish within one second would otherwise tie on the
+    index's one-second stamps and re-claim docs of the pass while others
+    wait."""
     es.set_status(None)
     base = dict(es.writes)
     ticks = []
@@ -1289,20 +1475,25 @@ def es_pass(worker, es, now: float, tracer) -> list:
     # about fleet/limit ticks for its turn, like a coupon collector
     for _ in range(24 * -(-len(es.docs) // worker.claim_limit)):
         sync_card()
+        asked = sum(prom.requests.values()) if prom is not None else 0
         t0 = time.perf_counter()
         n = worker.tick(now=now)
         sync_card()
         ticks.append(dict(seconds=time.perf_counter() - t0, docs=n, stages=dict(tracer.last_stage_seconds)))
+        if prom is not None:
+            ticks[-1].update(prom=sum(prom.requests.values()) - asked, cold=dict(worker._cold_counts))
         if all_judged(es, base):
             return ticks
     check(False, f"{len(ticks)} ticks did not judge every document once")
 
 
-def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_extra=None) -> dict:
+def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_extra=None, started=None) -> dict:
     """`python -m foremast_tpu_torch worker` as the deployed container runs
     it, until every document of the fake index was judged once; then
-    SIGTERM, which must exit 0. Returns the statuses, the startup lines
-    and the JSON log records. Its stderr is printed on any failure."""
+    SIGTERM, which must exit 0. `started()`, if given, runs once the
+    process is started and before the wait (it may fill the index).
+    Returns the statuses, the startup lines and the JSON log records. Its
+    stderr is printed on any failure."""
     import signal
 
     err_path = os.path.join(workdir, f"cli-{tag}.err")
@@ -1315,6 +1506,8 @@ def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_
     with open(err_path, "w") as err:
         proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
         try:
+            if started is not None:
+                started()
             while not all_judged(es, base):
                 if proc.poll() is not None or time.perf_counter() - t0 > CLI_TIMEOUT:
                     break
@@ -1398,25 +1591,42 @@ def cold_tick_before_after(dev, fit_tasks, worker_fleet_args) -> dict:
 def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict:
     """Phase 9: the worker as deployed. (a) A BrainWorker over
     ElasticsearchStore and PrometheusSource against a fake ES and a fake
-    Prometheus on loopback sockets (1,024 docs x 4 aliases, claim limit
+    Prometheus on loopback sockets (512 docs x 4 aliases, claim limit
     256): cold ticks until the fleet is judged, a warm pass and a spiked
     warm pass, each document's writes equal to phase 6's in-memory worker
-    on the same fleet; (b) each tick's wall clock and spans; (c) phase
-    5's cold chunk packed before and after the native library, and phase
-    5's and phase 6's cold ticks before and after; (d) the CLI as a
-    subprocess: judge, SIGTERM, restart warm on its fit journals, and an
-    f32 run that launches masked_stats. Returns the launches of its main
-    path: the in-process worker's three passes (counts zeroed just before
-    the first, read just after the last) plus the CLI's f32 run, which
-    reports its own when it stops. The reference run, the packing
+    on the same fleet; (e) the push arm: every series pushed as FMW1
+    frames to the port's receiver in this process (a bulk load), then the
+    same three passes through RingSource(ring, fallback=PrometheusSource)
+    with 0 Prometheus requests, 0 evictions and the same writes, the warm
+    pass under steady remote-write of series no document reads (paced,
+    then once more back to back), and an f32
+    cold pass on a fresh worker (masked_stats) equal to phase 6's f32
+    tick; (b) each tick's wall clock, spans and metric_fetch share, and
+    PrometheusSource.fetch split into round trip, json.loads and the
+    per-point loop; (c) phase 5's cold chunk packed before and after the
+    native library, and phase 5's and phase 6's cold ticks before and
+    after; (d) the CLI as a subprocess: judge, SIGTERM, restart warm on
+    its fit journals, an f32 run that launches masked_stats, and with
+    FOREMAST_INGEST=1 a run judged from samples pushed to its receiver
+    and a restart on its restored ring, both with 0 Prometheus requests.
+    Returns the launches of its main path: the in-process pull and push
+    passes (counts zeroed just before the first, after both workers'
+    warmups, and read just after the push arm's f32 pass) plus the CLI's
+    f32 run, which reports its own when it stops (zeroed after its
+    warmup). The reference run, the warmups, the fetch split, the packing
     comparison and the CLI's bf16 runs are not counted."""
+    import signal
     import tempfile
 
     import torch
 
     from foremast_tpu_torch import native
     from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
     from foremast_tpu_torch.engine.judge import _FIT_CHUNK, _pack_hist_bf16_host, bucket_length
+    from foremast_tpu_torch.ingest import (
+        BINARY_CONTENT_TYPE, RingSource, RingStore, resolve_query_range, start_ingest_server,
+    )
     from foremast_tpu_torch.jobs import STATUS_COMPLETED_UNHEALTH, BrainWorker
     from foremast_tpu_torch.jobs.store import ElasticsearchStore
     from foremast_tpu_torch.metrics.source import PrometheusSource
@@ -1436,7 +1646,7 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
     print(f"phase 9: fleet of {DEPLOY_DOCS} docs x {len(ALIASES)} aliases (Th={FULL_TH}, Tc={FULL_TC}, half "
           f"canaries) built in {time.perf_counter() - t0:.1f} s; served by a fake Elasticsearch and a fake "
           f"Prometheus on loopback sockets in this process")
-    ref = run_worker_ticks(dev, docs, data, latency, t_now, f32=False)
+    ref = run_worker_ticks(dev, docs, data, latency, t_now)
 
     servers = []
     prom = FakePrometheus()
@@ -1463,15 +1673,36 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
         )
         if torch.device(dev).type == "cuda":
             worker.warmup()
+        # the push arm's ring, receiver and first worker, built and warmed
+        # here: its warmup is no part of the main path
+        ring = RingStore(budget_bytes=PUSH_BUDGET_BYTES)
+        ing_srv, _ = start_ingest_server(0, ring, host="127.0.0.1")
+        servers.append(ing_srv)
+        ing_url = f"http://127.0.0.1:{ing_srv.server_address[1]}/api/v1/write"
+        es_srv_p, es_p, es_url_p = serve_fake_es(FakeElasticsearch())
+        servers.append(es_srv_p)
+        es_p.load(rdocs)
+        tracer_p = Tracer()
+        store_p = ElasticsearchStore(es_url_p)
+        check(store_p.wait_ready(max_wait=30), f"the store did not connect: {store_p.connect_state}")
+        worker_p = BrainWorker(
+            store_p, RingSource(ring, fallback=PrometheusSource()), config=BrainConfig(max_cache_size=4 * DEPLOY_DOCS + 64),
+            device=dev, claim_limit=DEPLOY_CLAIM, worker_id="smoke-push", tracer=tracer_p,
+        )
+        if torch.device(dev).type == "cuda":
+            worker_p.warmup()
         passes = {}
-        # the in-process main path: counted from the first pass to the
-        # spiked one, and nothing else of this phase
+        # the in-process main path: counted from the pull arm's first pass
+        # to the push arm's f32 pass, and nothing else of this phase. What
+        # lies between them launches nothing: the fetch split, the pushes,
+        # the steady pusher's bodies (written on the host) and the f32
+        # worker's construction; both workers were warmed up above
         for k in K.LAUNCHES:
             K.LAUNCHES[k] = 0
-        passes["a"] = es_pass(worker, es, t_now + 150, tracer)
+        passes["a"] = es_pass(worker, es, t_now + 150, tracer, prom)
         got_a = es_written(es.sources())
         hist_fetches = prom.requests["/hist"]
-        passes["b"] = es_pass(worker, es, t_now + 200, tracer)
+        passes["b"] = es_pass(worker, es, t_now + 200, tracer, prom)
         got_b = es_written(es.sources())
         spiked = [f"job-{i}" for i in range(5, DEPLOY_DOCS, 16)]
         for i in range(5, DEPLOY_DOCS, 16):
@@ -1481,8 +1712,7 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
             v = v.copy()
             v[-3:] = 40.0
             prom.set_series(key, (t, v))
-        passes["c"] = es_pass(worker, es, t_now + 250, tracer)
-        launched_here = dict(K.LAUNCHES)
+        passes["c"] = es_pass(worker, es, t_now + 250, tracer, prom)
         got_c = es_written(es.sources())
         worker.close()
         for i in range(5, DEPLOY_DOCS, 16):  # unspiked again for the CLI runs
@@ -1499,18 +1729,148 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
               f"passes equals phase 6's in-memory worker on the same fleet; (c) flagged exactly the "
               f"{len(spiked)} spiked docs; {hist_fetches} history fetches over HTTP, all in the cold pass")
 
+
+        # the fetch split, on a sample of the pull arm's URLs
+        hist_urls = sorted(u for u in keyed if u.startswith("/hist"))[:FETCH_SPLIT_SAMPLE]
+        cur_urls = sorted(u for u in keyed if u.startswith("/cur"))[:FETCH_SPLIT_SAMPLE]
+        split = {what: fetch_split([prom_url + u for u in urls])
+                 for what, urls in (("history", hist_urls), ("current", cur_urls))}
+
+        # (e) the push arm: the same fleet's samples pushed to the port's
+        # receiver, then the same passes served from the ring
+        entries = push_entries(data)
+        push_s, push_n, push_bytes = push_frames(ing_url, entries)
+        n_samples = sum(len(t) for _, t, _, _ in entries)
+        check(push_n == n_samples, f"(e) the receiver accepted {push_n} of {n_samples} samples")
+        steady_dir = os.path.join(workdir, "steady")
+        os.makedirs(steady_dir)
+        steady_body = steady_bodies(steady_dir, t_now - 86_400)
+        prom.requests.clear()
+        pushed = {}
+        pushed["a"] = es_pass(worker_p, es_p, t_now + 150, tracer_p, prom)
+        got_pa = es_written(es_p.sources())
+        def steady_pass(now: float, rate: float) -> tuple:
+            """A warm pass under steady remote-write into the shards the
+            ticks read, from the receiver's first answer to the pass's
+            end: (ticks, the pusher's bodies, samples and seconds)."""
+            pusher = subprocess.Popen(
+                [sys.executable, "-c", STEADY_PUSHER, ing_url, steady_dir, BINARY_CONTENT_TYPE, str(rate)],
+                stdout=subprocess.PIPE, text=True,
+            )
+            try:
+                check(pusher.stdout.readline().strip() == "answered", "(e) the steady pusher's first body got no answer")
+                ticks = es_pass(worker_p, es_p, now, tracer_p, prom)
+                pusher.send_signal(signal.SIGTERM)
+                out, _ = pusher.communicate(timeout=60)
+            finally:
+                if pusher.poll() is None:
+                    pusher.kill()
+                    pusher.wait()
+            check(pusher.returncode == 0, f"(e) the steady pusher exited {pusher.returncode}")
+            got = json.loads(out.strip().splitlines()[-1])
+            check(got["samples"] == got["bodies"] * STEADY_SERIES,
+                  f"(e) the receiver accepted {got['samples']} of the steady pusher's {got['bodies'] * STEADY_SERIES} samples")
+            return ticks, got
+
+        steady = {}
+        pushed["b"], steady["paced"] = steady_pass(t_now + 200, STEADY_RATE)
+        got_pb = es_written(es_p.sources())
+        pushed["b_max"], steady["back to back"] = steady_pass(t_now + 225, 0.0)
+        got_pb_max = es_written(es_p.sources())
+        spikes, unspikes = [], []
+        for i in range(5, DEPLOY_DOCS, 16):
+            key = resolve_query_range(latency[i])[0]
+            t, v = data[latency[i]]
+            spikes.append((key, t[-3:], np.full(3, 40.0, np.float32), None))
+            unspikes.append((key, t[-3:], v[-3:], None))
+        push_frames(ing_url, spikes)  # revisions: the last write wins
+        pushed["c"] = es_pass(worker_p, es_p, t_now + 250, tracer_p, prom)
+        got_pc = es_written(es_p.sources())
+        cold_p = dict(worker_p._cold_counts)
+        worker_p.close()
+        # one more cold pass on the f32 route, a fresh worker and index
+        push_frames(ing_url, unspikes)
+        es_srv_pf, es_pf, es_url_pf = serve_fake_es(FakeElasticsearch())
+        servers.append(es_srv_pf)
+        es_pf.load(rdocs)
+        store_f = ElasticsearchStore(es_url_pf)
+        check(store_f.wait_ready(max_wait=30), f"the store did not connect: {store_f.connect_state}")
+        worker_f = BrainWorker(
+            store_f, RingSource(ring, fallback=PrometheusSource()),
+            config=BrainConfig(max_cache_size=4 * DEPLOY_DOCS + 64), device=dev, claim_limit=DEPLOY_CLAIM,
+            worker_id="smoke-push-f32", tracer=tracer_p,
+        )
+        masked_before = K.LAUNCHES["masked_stats"]
+        scoring.set_bf16_delta(False)
+        try:
+            pushed["f32"] = es_pass(worker_f, es_pf, t_now + 150, tracer_p, prom)
+        finally:
+            scoring.set_bf16_delta(None)
+        launched_here = dict(K.LAUNCHES)
+        got_pf = es_written(es_pf.sources())
+        cold_f = dict(worker_f._cold_counts)
+        worker_f.close()
+        # the same windows as ring reads, one at a time on this thread
+        # (the worker fans its fetches over its fetch pool), timed on the
+        # second read, with each URL's resolution memoized as in a worker
+        ring_src = RingSource(ring)
+        ring_ms = {}
+        for what, urls in (("history", hist_urls), ("current", cur_urls)):
+            got = [ring_src.fetch(prom_url + u) for u in urls]
+            want = [keyed[u] for u in urls]
+            check(all(np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1]) for g, w in zip(got, want)),
+                  f"(e) a ring read of a {what} window differs from the pull path's series")
+            t0 = time.perf_counter()
+            for u in urls:
+                ring_src.fetch(prom_url + u)
+            ring_ms[what] = 1e3 * (time.perf_counter() - t0) / len(urls)
+        ring_stats = ring.stats()
+        for name, got in (("a", got_pa), ("b", got_pb), ("b", got_pb_max), ("c", got_pc)):
+            diff = sum(got[k] != v for k, v in ref[name]["written"].items())
+            check(got == ref[name]["written"], f"(e) the push arm's writes differ from the pull arm's after ({name}) on {diff} docs")
+        diff = sum(got_pf[k] != v for k, v in ref["d"]["written"].items())
+        check(got_pf == ref["d"]["written"], f"(e) the push arm's f32 pass differs from phase 6's f32 tick on {diff} docs")
+        asked = sum(t["prom"] for ticks in pushed.values() for t in ticks)
+        check(asked == 0 and sum(prom.requests.values()) == 0,
+              f"(e) the ring-served passes sent {asked} requests to Prometheus: {dict(prom.requests)}")
+        n_hist = DEPLOY_DOCS * len(ALIASES)
+        check(cold_p["ring_full"] == n_hist and cold_p["http"] == cold_p["cache"] == 0,
+              f"(e) cold reads {cold_p}, want {n_hist} ring_full")
+        check(cold_f["ring_full"] == n_hist and cold_f["http"] == 0, f"(e) the f32 pass's cold reads {cold_f}")
+        check(ring_stats["evictions"] == 0, f"(e) the ring evicted {ring_stats['evictions']} series")
+        masked_f32 = launched_here["masked_stats"] - masked_before
+        check(masked_f32 > 0, "(e) the push arm's f32 pass launched no masked_stats")
+        print(f"phase 9: (e) bulk load: pushed {len(entries)} series ({n_samples} samples, {push_bytes / 1e6:.1f} MB of "
+              f"FMW1 in {-(-len(entries) // PUSH_BODY_SERIES)} bodies) to the port's receiver in {push_s:.3f} s = "
+              f"{n_samples / push_s:.0f} samples/s before any tick")
+        for how, got in steady.items():
+            print(f"phase 9: (e) steady remote-write during a warm pass, {how} "
+                  f"({'to %.0f samples/s' % STEADY_RATE if how == 'paced' else 'one client'}): {got['bodies']} "
+                  f"bodies of {STEADY_SERIES} samples ({steady_body} B of FMW1 each) = {got['samples']} samples in "
+                  f"{got['seconds']:.3f} s = {got['samples'] / got['seconds']:.0f} samples/s into the shards the ticks "
+                  f"read; the pass's writes still equal the pull arm's warm pass")
+        print(f"phase 9: (e) ring {ring_stats['series']} series ({STEADY_SERIES} of them the steady stream's), {ring_stats['bytes']} bytes "
+              f"resident of a {PUSH_BUDGET_BYTES}-byte budget, {ring_stats['evictions']} evictions, "
+              f"{ring_stats['hits']} hits / {ring_stats['misses']} misses / {ring_stats['stale']} stale / "
+              f"{ring_stats['uncovered']} uncovered")
+        print(f"phase 9: (e) every doc's (status, code, reason, anomaly_info) after the ring-served cold, warm and "
+              f"spiked passes equals the pull arm's, and after the f32 cold pass phase 6's f32 tick; 0 Prometheus "
+              f"requests in all four; cold reads {cold_p} (bf16) and {cold_f} (f32); the f32 pass launched "
+              f"masked_stats {masked_f32} times")
+
         # (b) timing
         print(f"phase 9 on {smi}:")
         for name, what in (("a", "cold"), ("b", "warm"), ("c", "spiked warm")):
-            for k, t in enumerate(passes[name]):
-                st = t["stages"]
-                spans = ", ".join(f"{s} {st.get(s, 0.0):.4f}" for s in ("claim", "metric_fetch", "fit", "score",
-                                                                      "write_back"))
-                print(f"phase 9: (b) {what} tick {k + 1}: {t['seconds']:.3f} s, {t['docs']} docs = "
-                      f"{t['docs'] / t['seconds']:.0f} docs/s; spans {spans}; other spans "
-                      f"{sum(st.values()) - sum(st.get(s, 0.0) for s in ('claim', 'metric_fetch', 'fit', 'score', 'write_back')):.4f}")
-            tot = sum(t["seconds"] for t in passes[name])
-            print(f"phase 9: (b) {what} pass: {len(passes[name])} ticks, {tot:.3f} s = {DEPLOY_DOCS / tot:.0f} docs/s")
+            tick_lines(f"pull {what}", passes[name])
+        for name, what in (("a", "cold"), ("b", "warm under paced remote-write"),
+                           ("b_max", "warm under back-to-back remote-write"), ("c", "spiked warm, quiet"),
+                           ("f32", "f32 cold")):
+            tick_lines(f"push {what}", pushed[name])
+        for what, (rt, parse, loop) in split.items():
+            print(f"phase 9: (b) metric_fetch split, PrometheusSource.fetch of a {what} window "
+                  f"({FULL_TH if what == 'history' else FULL_TC} points, mean of {FETCH_SPLIT_SAMPLE} fetches): "
+                  f"HTTP round trip {rt:.3f} ms + json.loads {parse:.3f} ms + per-point loop {loop:.3f} ms = "
+                  f"{rt + parse + loop:.3f} ms; RingSource.fetch of the same windows {ring_ms[what]:.4f} ms")
 
         # (c) packing before and after, on the card's host
         th = bucket_length(FULL_TH)
@@ -1575,6 +1935,37 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
         launches = stopped[-1]["kernel_launches"] if stopped else {}
         check(launches.get("masked_stats", 0) > 0, f"(d) the f32 CLI run launched no masked_stats: {launches}")
         same_f32 = sum(run3["written"][k] == ref["a"]["written"][k] for k in run3["written"])
+        # the CLI with the ingest plane: its index fills only once the
+        # fleet's samples are resident in its ring
+        ing_port = free_port()
+        es_srv_i, es_i, es_url_i = serve_fake_es(FakeElasticsearch())
+        servers.append(es_srv_i)
+        env_i = {"FOREMAST_INGEST": "1", "FOREMAST_INGEST_PORT": str(ing_port),
+                 "FOREMAST_INGEST_BUDGET_BYTES": str(PUSH_BUDGET_BYTES)}
+        cli_push = {}
+
+        def push_then_load():
+            cli_push["push"] = push_frames(f"http://127.0.0.1:{ing_port}/api/v1/write", entries, wait=CLI_TIMEOUT)
+            es_i.load(rdocs)
+
+        snap_i = os.path.join(workdir, "snap-ingest")
+        prom.requests.clear()
+        run4 = cli_run(es_url_i, snap_i, es_i, workdir, "ingest", dev, env_i, started=push_then_load)
+        asked4 = dict(prom.requests)
+        check(run4["written"] == ref["a"]["written"], "(d) the ingest CLI's writes differ from (a)'s cold pass")
+        check(not asked4, f"(d) the ingest CLI sent requests to Prometheus: {asked4}")
+        es_i.set_status("preprocess_completed")
+        prom.requests.clear()
+        run5 = cli_run(es_url_i, snap_i, es_i, workdir, "ingest-restart", dev, env_i)
+        asked5 = dict(prom.requests)
+        ticks5 = [r for r in run5["records"] if r.get("msg") == "tick complete"]
+        ring_restored = [ln for ln in run5["lines"] if ln.startswith("restored ring state")]
+        check(not asked5, f"(d) the restarted ingest CLI sent requests to Prometheus: {asked5}")
+        check(ring_restored and ring_restored[0].startswith(f"restored ring state {len(entries)} series"),
+              f"(d) the ring restored {ring_restored}")
+        check(ticks5 and ticks5[0]["fast_path"] == ticks5[0]["docs"] == min(DEPLOY_CLAIM, len(rdocs)),
+              f"(d) the restarted ingest CLI's first tick was not all warm: {ticks5[:1]}")
+        check(run5["written"] == ref["a"]["written"], "(d) the restarted ingest CLI's writes differ from (a)'s")
         print(f"phase 9: (d) python3 -m foremast_tpu_torch worker (claim limit {DEPLOY_CLAIM}, poll 0.2 s, "
               f"FOREMAST_SNAPSHOT_DIR set): judged the {DEPLOY_DOCS} docs in {run1['seconds']:.1f} s from "
               f"start ({hist1} history fetches), writes equal (a)'s, SIGTERM exit 0; restarted on the same "
@@ -1583,7 +1974,15 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
               f"(a)'s, exit 0; f32 run (FOREMAST_BF16_DELTA=0, fresh directory, {DEPLOY_F32_DOCS} docs) "
               f"judged in {run3['seconds']:.1f} s, launches {launches}, {same_f32} of {len(run3['written'])} "
               f"writes equal (a)'s, exit 0")
-        print(f"phase 9: launches of the in-process passes {launched_here}; of the CLI's f32 run {launches}")
+        p4_s, p4_n, _ = cli_push["push"]
+        check(p4_n == n_samples, f"(d) the ingest CLI's receiver accepted {p4_n} of {n_samples} samples")
+        print(f"phase 9: (d) with FOREMAST_INGEST=1: pushed {p4_n} samples to the CLI's receiver in {p4_s:.1f} s "
+              f"({p4_n / p4_s:.0f} samples/s), judged the fleet in {run4['seconds']:.1f} s from start with 0 "
+              f"Prometheus requests, writes equal (a)'s, SIGTERM exit 0; restarted on the same directory "
+              f"({ring_restored[0]}): judged the reset fleet in {run5['seconds']:.1f} s, first tick "
+              f"{ticks5[0]['docs']} docs all on the fast path, 0 Prometheus requests, writes equal (a)'s, exit 0")
+        print(f"phase 9: launches of the in-process pull and push passes {launched_here}; of the CLI's f32 run "
+              f"{launches}")
         return {k: launched_here[k] + int(launches.get(k, 0)) for k in KERNEL_FILES}
     finally:
         for srv in servers:
@@ -3249,8 +3648,9 @@ def main() -> int:
                        ("joint worker fleet tick (phase 8d)", launched_joint_worker)):
         for kname in ("lstm_ae_forward", "lstm_ae_backward", "holt_winters_scan"):
             check(got[kname] > 0, f"the {label} never launched {kname}")
-    # phase 9 reads its counts itself: its in-process passes (the bf16
-    # default launches no kernel) plus the CLI subprocess's f32 run
+    # phase 9 reads its counts itself: its in-process pull and push passes
+    # (the bf16 default launches no kernel; the push arm's f32 pass
+    # launches masked_stats) plus the CLI subprocess's f32 run
     launched_deploy = phase_deployable_worker(dev, smi, fit_cache["tasks"], worker_run["fleet"])
     check(launched_deploy["masked_stats"] > 0, "the deployable worker (phase 9) never launched masked_stats")
     paths = {

@@ -7,7 +7,10 @@ the deployed `foremast-brain` container's loop. It dials Elasticsearch
 any) for jobs and Prometheus for series, judges on the card (`--device`,
 default `cuda`; `cpu` runs every kernel's plain version), journals its
 fits under `FOREMAST_SNAPSHOT_DIR` so a restart is warm, and serves
-`/metrics`, `/healthz` and `/debug/state` on `--gauge-port`.
+`/metrics`, `/healthz` and `/debug/state` on `--gauge-port`. With
+`FOREMAST_INGEST=1` it also mounts the push-based ingest plane: a
+remote-write receiver on `FOREMAST_INGEST_PORT` fills resident rings,
+and fetches and cold fits read them before Prometheus.
 
 The JAX CLI's other subcommands and its multi-device modes are not
 ported yet; each mode that would need them raises `NotImplementedError`
@@ -27,7 +30,6 @@ log = logging.getLogger("foremast_tpu_torch.cli")
 # Queue 1 item); each is refused when it asks for the mode
 _UNPORTED_ENV = {
     "FOREMAST_MESH": ("the worker mesh", "item 7"),
-    "FOREMAST_INGEST": ("the push-based ingest plane", "item 5"),
     "FOREMAST_LOCK_WITNESS": ("the lock-order witness", "item 8"),
     "FOREMAST_RECOMPILE_WITNESS": ("the recompile witness", "item 8"),
 }
@@ -92,6 +94,47 @@ def _make_store(elastic_url: str | None, breaker=None, stop=None):
             "FOREMAST_ES_CONNECT_DEADLINE_SECONDS=0 to wait forever"
         )
     return store
+
+
+def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, degrade=None):
+    """FOREMAST_INGEST=1: wrap the pull source in the push plane's
+    RingSource, so fetches and cold fits read resident ring columns and
+    a miss falls back to `inner` (Prometheus) and backfills the ring,
+    making the next read resident. With `snapshot_dir` the ring is
+    durable: it restores BEFORE the receiver takes its first push, then
+    every push journals. The receiver listens on FOREMAST_INGEST_PORT
+    (default 9009; 0 = no receiver, backfill only), and the
+    foremast_ingest_* families join /metrics when a gauge port is live.
+    Returns (source, ring, receiver or None, snapshotter or None)."""
+    from foremast_tpu_torch.ingest import IngestCollector, RingSnapshotter, RingSource, RingStore, start_ingest_server
+
+    ring = RingStore.from_env()
+    snapshotter = None
+    if snapshot_dir:
+        snapshotter = RingSnapshotter.from_env(ring, snapshot_dir)
+        snapshotter.restore()  # logs series, samples and discards itself
+        snapshotter.attach()
+    source = RingSource(ring, fallback=inner)
+    # short-history admission is pure-push only (RingSource.hist_columns):
+    # an operator who sets the floor on a fleet with a fallback is told
+    # it does nothing
+    log.info("cold-start path: ring-resident historical reads ON (admit floor %.0f s%s: "
+             "FOREMAST_ADMIT_MIN_COVERAGE_SECONDS; partial fits wait for ROADMAP.md Queue 1 item 5, part 5b)",
+             source.admit_floor, "" if inner is None else " [inert: fallback configured]")
+    port = _env_int("FOREMAST_INGEST_PORT", 9009)
+    srv = None
+    if port:
+        srv, _ = start_ingest_server(port, ring, book=source.book,
+                                     degrade_stats=degrade.stats if degrade is not None else None)
+    log.info("ingest plane ON: %d shards, budget %d bytes, staleness %.0f s, receiver %s; cold fits read "
+             "ring columns first, misses fall back to Prometheus and backfill",
+             ring.shard_count, ring.budget_bytes, ring.stale_seconds,
+             f":{srv.server_address[1]}" if srv is not None else "off")
+    if gauge_port:
+        from prometheus_client import REGISTRY
+
+        REGISTRY.register(IngestCollector(ring, book=source.book, wire=getattr(srv, "_foremast_wire_stats", None)))
+    return source, ring, srv, snapshotter
 
 
 def _persistent_worker_id(snap_dir: str, minted: str) -> str:
@@ -182,6 +225,10 @@ def cmd_worker(args: argparse.Namespace) -> int:
             snap_dir = None
     if snap_dir:
         worker_id = _persistent_worker_id(snap_dir, worker_id)
+    ingest_srv = snapshotter = None
+    if os.environ.get("FOREMAST_INGEST", "0") == "1":
+        source, _, ingest_srv, snapshotter = _mount_ingest(source, args.gauge_port, snapshot_dir=snap_dir,
+                                                           degrade=degrade)
 
     on_verdict = worker_metrics = None
     if args.gauge_port:
@@ -214,12 +261,25 @@ def cmd_worker(args: argparse.Namespace) -> int:
         restored = worker.enable_fit_persistence(snap_dir)
         if any(restored.values()):
             print(f"restored fit state {restored} from {snap_dir}", file=sys.stderr)
+        if snapshotter is not None:
+            # the snapshot cadence runs in the tick loop
+            worker.attach_ring_snapshotter(snapshotter)
+            ring_restored = snapshotter.stats()
+            if ring_restored["restored_series"]:
+                print(f"restored ring state {ring_restored['restored_series']} series, "
+                      f"{ring_restored['restored_samples']} samples from {snap_dir}", file=sys.stderr)
 
     obs_srv = None
     if args.gauge_port:
         from foremast_tpu_torch.observe.spans import start_observe_server
 
         obs_srv, _ = start_observe_server(args.gauge_port, state_fn=worker.debug_state, max_port_tries=32)
+        if snap_dir:
+            from prometheus_client import REGISTRY
+
+            from foremast_tpu_torch.ingest import SnapshotCollector
+
+            REGISTRY.register(SnapshotCollector(snapshotter, journals=worker._fit_journals.values()))
 
     ckpt_path = None
     after_tick = None
@@ -270,6 +330,25 @@ def cmd_worker(args: argparse.Namespace) -> int:
         if obs_srv is not None:
             obs_srv.shutdown()
             obs_srv.server_close()
+        if ingest_srv is not None:
+            # bounded drain: in-flight pushes finish (or are abandoned as
+            # daemon threads), the listen port frees at once
+            from foremast_tpu_torch.ingest import stop_ingest_server
+
+            try:
+                stop_ingest_server(ingest_srv)
+            except Exception as e:  # noqa: BLE001 - see loop_failed
+                log.warning("ingest receiver shutdown failed: %s", e)
+        if snapshotter is not None:
+            # one final pass AFTER the receiver drained (the last pushes
+            # are in), so a restart replays a snapshot, not a long log
+            try:
+                snapshotter.snapshot()
+                snapshotter.close()
+            except Exception as e:  # noqa: BLE001 - see loop_failed
+                if not loop_failed:
+                    raise
+                log.warning("final ring snapshot failed: %s", e)
         if ckpt_path and len(cache):
             try:
                 os.makedirs(args.model_cache_dir, exist_ok=True)

@@ -312,24 +312,55 @@ class BrainWorker:
         self._fetch_pool = None
         self._prefetch_pool = None
         self._last_pipeline: dict | None = None
+        # Ring-first cold path: when the source serves historical ranges
+        # from resident ring columns (ingest.RingSource.hist_columns,
+        # duck-typed like ingest_debug_state), cold fits read the ring
+        # directly and the history cache below is BYPASSED for
+        # ring-covered ranges: it would double-buffer ~120 KB histories
+        # the ring already owns. The cache shrinks to a sliver serving
+        # only fallback-path (HTTP) reads; /debug/state shows the
+        # decision (`cold_start.hist_bypass`).
+        self._ring_hist = getattr(source, "hist_columns", None)
+        self._hist_bypass = self._ring_hist is not None
+        # pure push: a ring source with no fallback never does HTTP; its
+        # unservable reads come back empty and count "unserved", not
+        # "http" (operators read the http count as proof a pull path
+        # exists)
+        self._cold_unserved = self._hist_bypass and getattr(source, "fallback", object()) is None
+        if self._cold_unserved and float(getattr(source, "admit_floor", 0.0) or 0.0) > 0:
+            # pure push with a positive floor admits PARTIAL windows as
+            # provisional fits, which only the refinement book grows
+            # back to a full history; without it a partial fit would be
+            # final
+            raise NotImplementedError(
+                f"a pure-push RingSource (fallback=None) with admit_floor={source.admit_floor:g} admits "
+                "short histories as provisional fits, and their refinement is not ported yet: ROADMAP.md "
+                "Queue 1 item 5, part 5b; give the source a fallback or admit_floor=0"
+            )
         # Historical-window cache for the re-check loop (SURVEY "hard
         # part" (d)): a job's historical URL is fixed for its lifetime,
         # so a job re-checked every tick until endTime need not re-fetch
         # ~10k-point histories each time. Only settled ranges are cached
         # (see _fetch_hist_cached).
-        self._hist_cache = ModelCache(HIST_CACHE_ENTRIES)
+        self._hist_cache = ModelCache(
+            max(8, HIST_CACHE_ENTRIES // 16) if self._hist_bypass else HIST_CACHE_ENTRIES
+        )
         # cold-path historical-read accounting (fetch-pool threads write,
-        # debug_state reads — lock-guarded)
+        # debug_state reads — lock-guarded); "ring_partial" stays 0 until
+        # short-history admission is ported (ROADMAP.md Queue 1 item 5,
+        # part 5b)
         self._cold_lock = threading.Lock()
-        self._cold_counts = {"http": 0, "cache": 0}
+        self._cold_counts = {"ring_full": 0, "ring_partial": 0, "http": 0, "cache": 0, "unserved": 0}
         # Span tracer: tick() opens a root span and every stage — claim,
         # fetch, fit, arena, score, decode, decide, write — parents to
         # it through the ambient-context helper. None = zero overhead.
         self.tracer = tracer
         # optional Prometheus families (observe.gauges.WorkerMetrics)
         self.metrics = metrics
-        # FitJournal per journaled cache (enable_fit_persistence)
+        # FitJournal per journaled cache (enable_fit_persistence), and
+        # the ring snapshotter the CLI attaches (attach_ring_snapshotter)
         self._fit_journals: dict = {}
+        self._snapshotter = None
         self._last_tick = {"at": 0.0, "docs": 0, "fast": 0, "seconds": 0.0}
         # last status logged per open job (pruned on terminal): open docs
         # are re-judged every poll, and re-asserting an unchanged status
@@ -502,17 +533,33 @@ class BrainWorker:
 
     def _count_cold(self, source: str) -> None:
         """One historical-range read on the cold-fit path, by source
-        (http / cache). Fetch-pool threads land here, hence the lock."""
+        (ring_full / http / cache / unserved). Fetch-pool threads land
+        here, hence the lock."""
         with self._cold_lock:
             self._cold_counts[source] += 1
         if self.metrics is not None:
             self.metrics.cold_hist.labels(source=source).inc()
 
     def _fetch_hist(self, url: str, now: float):
-        """Historical window (times, values) for a cold fit, through the
-        settled-range cache."""
+        """Historical window (times, values) for a cold fit: ring
+        columns first, HTTP second.
+
+        A ring read bypasses `_hist_cache` entirely: the ring IS the
+        resident history (one slice copy under the shard lock, no JSON),
+        and the bf16-delta fit packs straight off the returned columns.
+        Only ranges the ring cannot serve go through the settled-range
+        cache to the source's `fetch`, whose fallback result backfills
+        the ring write-through, so the NEXT cold fit of the same series
+        reads resident. The source never admits a partial window here:
+        with a fallback `hist_columns` passes no admission floor, and
+        the constructor refuses pure push with one."""
+        if self._ring_hist is not None:
+            res = self._ring_hist(url, now)
+            if res is not None:
+                self._count_cold("ring_full")
+                return res[1], res[2]
         series, hit = self._fetch_hist_cached(url, now)
-        self._count_cold("cache" if hit else "http")
+        self._count_cold("cache" if hit else "unserved" if self._cold_unserved else "http")
         return series
 
     def _fetch_hist_cached(self, url: str, now: float):
@@ -529,7 +576,11 @@ class BrainWorker:
         if cached is not None:
             return cached, True
         series = self.source.fetch(url)
-        self._hist_cache.put(url, series)
+        # pure push: an unservable range comes back EMPTY, not fetched;
+        # memoizing it would make every later read of the same URL count
+        # "cache" (a served history) while the doc sits UNKNOWN
+        if not (self._cold_unserved and len(series[0]) == 0):
+            self._hist_cache.put(url, series)
         return series, False
 
     # -- postprocess: verdicts -> document status -----------------------
@@ -701,7 +752,7 @@ class BrainWorker:
         Journaled caches: the univariate fit cache and its gap anchors,
         the joint entry cache and its warm metadata. The JAX worker also
         journals its provisional-fit refine book; the port has no
-        provisional fits yet (ROADMAP.md Queue 1, the ingest plane), so
+        provisional fits yet (ROADMAP.md Queue 1 item 5, part 5b), so
         it has no refine journal. NOT journaled: the history cache
         (re-fetchable), the per-doc meta cache (derived from immutable
         configs) and the device arena (it rehydrates row by row from the
@@ -725,13 +776,21 @@ class BrainWorker:
             log.info("fit persistence: restored %s from %s (lazy rehydration)", restored, directory)
         return restored
 
+    def attach_ring_snapshotter(self, snapshotter) -> None:
+        """Expose an ingest.snapshot.RingSnapshotter on /debug/state
+        and fold its cadence into the tick loop (`_maybe_persist`)."""
+        self._snapshotter = snapshotter
+
     def _maybe_persist(self) -> None:
         """Per-tick durability housekeeping: compact any fit journal whose
-        log outgrew its budget. Failures are logged, never allowed to
-        fail a tick that already judged its docs."""
+        log outgrew its budget, and let the ring snapshotter decide
+        whether a snapshot pass is due. Failures are logged, never
+        allowed to fail a tick that already judged its docs."""
         try:
             for journal in self._fit_journals.values():
                 journal.maybe_compact()
+            if self._snapshotter is not None:
+                self._snapshotter.maybe_snapshot()
         except Exception:  # noqa: BLE001 - durability must not kill ticks
             log.exception("durability housekeeping failed")
 
@@ -1821,6 +1880,13 @@ class BrainWorker:
         pads = self._uni.pad_rows_total + self._mvj.pad_rows_total
         with self._cold_lock:
             hist_reads = dict(self._cold_counts)
+        # the push-based ingest plane (any source exposing
+        # ingest_debug_state: ingest.RingSource)
+        ingest_fn = getattr(self.source, "ingest_debug_state", None)
+        try:
+            ingest = ingest_fn() if ingest_fn is not None else None
+        except Exception:  # noqa: BLE001 - varz must not depend on ingest
+            ingest = None
         state = {
             "worker_id": self.worker_id,
             "device": str(self.judge.device),
@@ -1836,10 +1902,18 @@ class BrainWorker:
                 "joint_entries": len(self._mvj.cache),
                 "joint_admission_entries": len(self._jadmit),
             },
+            # ring-first cold path: whether the history cache is bypassed
+            # for resident ring columns (and shrunk), and where cold-fit
+            # histories came from
             "cold_start": {
+                "hist_bypass": self._hist_bypass,
                 "hist_cache_cap": self._hist_cache.max_size,
                 "hist_reads": hist_reads,
+                "admit_floor_seconds": getattr(self.source, "admit_floor", None),
             },
+            # FOREMAST_INGEST=1: series resident, bytes, evictions, hit
+            # ratio, receiver lag, subscriptions; None when pure pull
+            "ingest": ingest,
             "arena": arena,
             # the joint models' device arena (TreeArena rows)
             "joint_arena": self._mvj.joint_state_counters(),
@@ -1859,10 +1933,13 @@ class BrainWorker:
             ),
             "sweep": {"slice_docs": self.sweep_slice_docs, "sliced": False},
             "degradation": self._degrade.debug_state(),
-            # fit persistence counters per journal; None when ephemeral
+            # fit-journal and ring-snapshot counters; None when ephemeral
             "durability": (
-                {"fit_journals": {name: j.debug_state() for name, j in self._fit_journals.items()}}
-                if self._fit_journals
+                {
+                    "fit_journals": {name: j.debug_state() for name, j in self._fit_journals.items()},
+                    "ring": self._snapshotter.debug_state() if self._snapshotter is not None else None,
+                }
+                if self._fit_journals or self._snapshotter is not None
                 else None
             ),
         }

@@ -146,27 +146,34 @@ class PrometheusSource(MetricSource):
     def fetch(self, url: str) -> Series:
         resp = self._get_with_retries(url)
         resp.raise_for_status()
-        body = resp.json()
-        if body.get("status") != "success":
-            raise RuntimeError(f"prometheus error response: {body.get('error')}")
-        acc: dict[int, float] = {}
-        for series in body.get("data", {}).get("result", []):
-            for t, v in series.get("values", []):
-                try:
-                    fv = float(v)
-                    ft = int(float(t))
-                except (TypeError, ValueError):
-                    continue
-                if not math.isfinite(fv):
-                    # Prometheus emits "NaN"/"+Inf" strings, which float()
-                    # parses: drop them or they poison the window
-                    continue
-                acc[ft] = acc.get(ft, 0.0) + fv
-        if not acc:
-            return _empty()
-        ts = np.asarray(sorted(acc), np.int64)
-        vs = np.asarray([acc[t] for t in ts], np.float32)
-        return ts, vs
+        return series_from_body(resp.json())
+
+
+def series_from_body(body: dict) -> Series:
+    """A `query_range` answer, parsed from JSON, as one series: the
+    values of every result series summed per timestamp, non-numeric and
+    non-finite points dropped. `PrometheusSource.fetch` is the round trip,
+    `json.loads` and this."""
+    if body.get("status") != "success":
+        raise RuntimeError(f"prometheus error response: {body.get('error')}")
+    acc: dict[int, float] = {}
+    for series in body.get("data", {}).get("result", []):
+        for t, v in series.get("values", []):
+            try:
+                fv = float(v)
+                ft = int(float(t))
+            except (TypeError, ValueError):
+                continue
+            if not math.isfinite(fv):
+                # Prometheus emits "NaN"/"+Inf" strings, which float()
+                # parses: drop them or they poison the window
+                continue
+            acc[ft] = acc.get(ft, 0.0) + fv
+    if not acc:
+        return _empty()
+    ts = np.asarray(sorted(acc), np.int64)
+    vs = np.asarray([acc[t] for t in ts], np.float32)
+    return ts, vs
 
 
 def load_csv_trace(path: str, t0: int | None = None, step: int = 60) -> Series:

@@ -14,9 +14,31 @@ and the recording rules republish every family under the reference
 spelling.
 
 `prometheus_client` is imported when a class is built, never when this
-module is imported (the card's machine may not have it). Families of
-planes the port does not have yet (sliced sweeps, refinement, micro-ticks,
-the device mesh) are registered and stay at zero.
+module is imported (the card's machine may not have it). Only families
+with a producer are registered: those of planes the port does not have
+yet (sliced sweeps, refinement, micro-ticks, the device mesh) come with
+them.
+
+The ingest plane's families are custom collectors that read their
+planes' own counters at scrape time, with the JAX package's names, types
+and labels, registered by the CLI when `--gauge-port` is live:
+
+    ingest.IngestCollector (FOREMAST_INGEST=1)
+        foremast_ingest_fetches_total{result}  counter: hit / partial /
+            miss / stale / uncovered ring reads
+        foremast_ingest_samples_total, foremast_ingest_evictions_total
+        foremast_ingest_series_resident, foremast_ingest_bytes_resident,
+        foremast_ingest_receiver_lag_seconds  gauges
+        foremast_ingest_requests_total{codec},
+        foremast_ingest_stage_seconds_total{codec,stage}  (with a receiver)
+    ingest.SnapshotCollector (FOREMAST_SNAPSHOT_DIR set)
+        foremast_snapshot_discards_total{reason}, foremast_snapshot_writes_total
+        foremast_snapshot_restored_{series,samples,fits},
+        foremast_snapshot_age_seconds  gauges
+
+and `WorkerMetrics.cold_hist` counts ring-served cold histories under
+`source="ring_full"`, and pure-push reads the ring could not serve
+under `source="unserved"`.
 """
 
 from __future__ import annotations
@@ -250,7 +272,9 @@ class WorkerMetrics:
             columnar fast path, by model kind
         foremast_worker_pipeline_* {path} — cold chunk pipeline occupancy
         foremast_cold_hist_reads_total{source} — cold-fit history
-            serving source
+            serving source (ring_full / ring_partial / http / cache /
+            unserved; ring_partial waits for short-history admission,
+            ROADMAP.md Queue 1 item 5, part 5b)
 
     The families, types and labels are the JAX worker's, and only those
     that this worker feeds. The JAX worker's sliced-sweep, refinement,

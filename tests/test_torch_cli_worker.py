@@ -4,9 +4,12 @@ fake Prometheus on loopback sockets (`tests/torch_fake_services.py`).
 
 It judges a small fleet to the JAX worker's statuses, exits 0 on
 SIGTERM, and after a restart on the same `FOREMAST_SNAPSHOT_DIR` judges
-the reset fleet again with no history fetch. Modes the port does not
-have are refused with `NotImplementedError`. Every subprocess has its own
-timeout of at most 60 s."""
+the reset fleet again with no history fetch. With `FOREMAST_INGEST=1` it
+takes the fleet's samples as a push on its receiver and judges from them
+with no GET to Prometheus at all, before and after a restart that
+restores the ring. Modes the port does not have are refused with
+`NotImplementedError`. Every subprocess has its own timeout of at most
+60 s."""
 
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from benchmarks.worker_bench import build_mixed_fleet
@@ -24,6 +28,7 @@ from foremast_tpu.config import BrainConfig as JaxConfig
 from foremast_tpu.jobs import BrainWorker as JaxWorker
 from foremast_tpu.jobs.models import TERMINAL_STATUSES
 from tests.torch_fake_services import (
+    FakeElasticsearch,
     FakePrometheus,
     rebase,
     serve_fake_es,
@@ -161,12 +166,11 @@ def test_connect_deadline_exits_loudly(tmp_path):
     [
         (["--sharded"], {}, "item 7"),
         ([], {"FOREMAST_MESH": "1"}, "item 7"),
-        ([], {"FOREMAST_INGEST": "1"}, "item 5"),
         ([], {"FOREMAST_MICROTICK_SECONDS": "0.5"}, "item 4"),
         ([], {"FOREMAST_LOCK_WITNESS": "1"}, "item 8"),
         ([], {"FOREMAST_RECOMPILE_WITNESS": "1"}, "item 8"),
     ],
-    ids=["sharded", "mesh", "ingest", "microtick", "lock_witness", "recompile_witness"],
+    ids=["sharded", "mesh", "microtick", "lock_witness", "recompile_witness"],
 )
 def test_unported_modes_are_refused(flag, env, item):
     proc = _start(["--device", "cpu", "--gauge-port", "0", *flag], env)
@@ -179,3 +183,143 @@ def test_cuda_without_a_card_raises():
     proc = _start(["--gauge-port", "0"])
     _, err = proc.communicate(timeout=60)
     assert proc.returncode != 0 and "no CUDA device" in err
+
+
+def _pushed_fleet(prom_url: str):
+    """Docs and pushes of a small fleet whose current and historical
+    windows are one series each at two ranges, with query_range URLs that
+    carry start and end (the shape the ring resolves), endTime past so
+    every judgment is terminal, one service spiked; the FakePrometheus
+    data for the same URLs; and the JAX worker's statuses on a pull of
+    the same samples."""
+    import urllib.parse
+
+    from foremast_tpu.jobs.models import Document as JaxDocument
+    from foremast_tpu.jobs.store import InMemoryStore as JaxStore
+    from foremast_tpu.metrics.promql import prometheus_url
+    from foremast_tpu.metrics.source import MetricSource
+    from foremast_tpu_torch.ingest import canonical_series, resolve_query_range
+
+    rng = np.random.default_rng(11)
+    t_now = 1_760_000_000
+    ht = t_now - 86_400 * 7 + 60 * np.arange(512, dtype=np.int64)
+    ct = ht[-1] + 60 + 60 * np.arange(30, dtype=np.int64)
+    series, docs, keyed = {}, [], {}
+    for s in range(SERVICES):
+        for alias in ("latency", "tps"):
+            expr = f'namespace_app_per_pod:{alias}{{namespace="ns",app="app{s}"}}'
+            hv = rng.normal(1.0, 0.1, len(ht)).astype(np.float32)
+            cv = (1.0 + 0.05 * np.sin(np.arange(len(ct)) / 3.0)).astype(np.float32)
+            if s == 3 and alias == "latency":
+                cv[-3:] = 40.0
+            series[canonical_series(expr)] = (np.concatenate([ht, ct]), np.concatenate([hv, cv]))
+        urls = {
+            kind: " ||".join(
+                f"{alias}== " + prometheus_url({"endpoint": f"{prom_url}/api/v1/",
+                                                "query": f'namespace_app_per_pod:{alias}{{namespace="ns",app="app{s}"}}',
+                                                "start": int(t[0]), "end": int(t[-1]), "step": 60})
+                for alias in ("latency", "tps")
+            )
+            for kind, t in (("current", ct), ("historical", ht))
+        }
+        docs.append(JaxDocument(id=f"job-{s}", app_name=f"app{s}", end_time="2025-01-01T00:00:00Z",
+                                current_config=urls["current"], historical_config=urls["historical"],
+                                strategy="continuous").to_json())
+
+    def window(url):
+        key, t0, t1, _ = resolve_query_range(url)
+        t, v = series[key]
+        keep = (t >= t0) & (t <= t1)
+        return t[keep], v[keep]
+
+    class Pull(MetricSource):
+        concurrent_fetch = False
+
+        def fetch(self, url):
+            return window(url)
+
+    store = JaxStore()
+    for d in docs:
+        store.create(JaxDocument.from_json(d))
+        for part in (d["currentConfig"], d["historicalConfig"]):
+            for item in part.split(" ||"):
+                url = item.split("== ", 1)[1]
+                u = urllib.parse.urlsplit(url)
+                keyed[f"{u.path}?{u.query}"] = window(url)
+    assert JaxWorker(store, Pull(), config=JaxConfig(), device_mesh=None, worker_id="jax").tick() == SERVICES
+    want = {d.id: {f: d.to_json().get(f) for f in FIELDS} for d in store._docs.values()}
+    assert all(w["status"] in TERMINAL_STATUSES for w in want.values())
+    assert sum(w["status"] == "completed_unhealth" for w in want.values()) == 1
+    return docs, [(k, t, v, float(ht[0])) for k, (t, v) in series.items()], keyed, want
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _push_frame(port: int, entries, deadline: float) -> dict:
+    """POST the entries as one FMW1 frame once the receiver answers."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from foremast_tpu_torch.ingest import BINARY_CONTENT_TYPE, encode_frame
+
+    body = encode_frame(entries)
+    while True:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/api/v1/write", data=body, method="POST",
+                                     headers={"Content-Type": BINARY_CONTENT_TYPE})
+        try:
+            return json.loads(urllib.request.urlopen(req, timeout=10).read())
+        except (urllib.error.URLError, ConnectionError):
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+
+
+def test_ingest_worker_judges_pushed_samples_with_no_prometheus_get(tmp_path):
+    """FOREMAST_INGEST=1: the CLI mounts its receiver, takes the fleet's
+    samples as one FMW1 push, judges every document to the JAX worker's
+    statuses with 0 requests to Prometheus, exits 0 on SIGTERM; restarted
+    on the same FOREMAST_SNAPSHOT_DIR it restores the ring and judges the
+    reset fleet again with 0 requests."""
+    prom = FakePrometheus()
+    prom_srv, prom_url = serve_fake_prometheus(prom)
+    es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+    try:
+        docs, entries, keyed, want = _pushed_fleet(prom_url)
+        prom.data = keyed  # the fallback would answer, were it asked
+        port = _free_port()
+        args = ["--device", "cpu", "--elastic-url", es_url, "--gauge-port", "0", "--poll", "0.2"]
+        # the fleet's samples are a year old by the real clock: the ring
+        # restore's age cutoff (a day by default) would discard them
+        env = {"FOREMAST_SNAPSHOT_DIR": str(tmp_path / "snap"), "FOREMAST_INGEST": "1",
+               "FOREMAST_INGEST_PORT": str(port), "FOREMAST_SNAPSHOT_MAX_AGE_SECONDS": str(10 * 365 * 86_400)}
+        proc = _start(args, env)
+        answer = _push_frame(port, entries, time.monotonic() + 60)
+        assert answer == {"accepted_samples": sum(len(t) for _, t, _, _ in entries), "series": len(entries)}
+        es.load(docs)  # the fleet appears after its samples are resident
+        got = _judged(es, time.monotonic() + 60, proc)
+        rc, _, err = _stop(proc)
+        assert rc == 0, err[-4000:]
+        assert got == want
+        assert sum(prom.requests.values()) == 0, dict(prom.requests)
+        assert "ingest plane ON" in err
+        assert "[inert: fallback configured]" in err  # the admit floor, with Prometheus behind the ring
+
+        es.set_status("preprocess_completed")
+        proc = _start(args, env)
+        got = _judged(es, time.monotonic() + 60, proc)
+        rc, _, err = _stop(proc)
+        assert rc == 0, err[-4000:]
+        assert got == want
+        assert sum(prom.requests.values()) == 0, dict(prom.requests)
+        assert f"restored ring state {len(entries)} series" in err
+    finally:
+        for srv in (es_srv, prom_srv):
+            srv.shutdown()
+            srv.server_close()

@@ -113,3 +113,81 @@ def test_observe_server_serves_metrics_health_and_state():
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+INGEST_FAMILIES = {
+    "foremast_ingest_fetches", "foremast_ingest_samples", "foremast_ingest_evictions",
+    "foremast_ingest_series_resident", "foremast_ingest_bytes_resident", "foremast_ingest_receiver_lag_seconds",
+    "foremast_ingest_requests", "foremast_ingest_stage_seconds",
+}
+
+
+def test_ingest_families_equal_jax():
+    """`IngestCollector`'s families over the same pushes (JSON and FMW1
+    through each package's receiver) and the same reads: JAX's names,
+    types and labels, and JAX's values but for the wall-clock ones."""
+    from foremast_tpu import ingest as J
+    from foremast_tpu_torch import ingest as T
+
+    entries = [(f'm{{app="a{i}"}}', 60 * np.arange(1, 41, dtype=np.int64), np.ones(40, np.float32), 60.0)
+               for i in range(3)]
+    body = json.dumps({"timeseries": [{"alias": "j", "times": [60, 120], "values": [1.0, 2.0]}]}).encode()
+    regs = {}
+    for name, m in (("jax", J), ("port", T)):
+        store = m.RingStore(shards=2, budget_bytes=2 * 3072)  # one shard holds one ring: evictions
+        srv, _ = m.start_ingest_server(0, store, host="127.0.0.1")
+        try:
+            url = f"http://127.0.0.1:{srv.server_address[1]}/api/v1/write"
+            for data, ctype in ((m.encode_frame(entries), m.BINARY_CONTENT_TYPE), (body, "application/json")):
+                urllib.request.urlopen(urllib.request.Request(url, data=data, method="POST",
+                                                              headers={"Content-Type": ctype}), timeout=10).read()
+            for key, t0, t1, now in (("j", 60, 120, 130.0), ("j", 60, 9_000, 9_000.0), ("nope", 0, 60, 70.0),
+                                     ('m{app="a1"}', 0, 2_400, 2_410.0)):
+                store.query(key, t0, t1, now)
+            reg = CollectorRegistry()
+            reg.register(m.IngestCollector(store, wire=srv._foremast_wire_stats))
+            regs[name] = reg
+        finally:
+            m.stop_ingest_server(srv)
+    got = _families(regs["port"])
+    assert set(got) == INGEST_FAMILIES and got == _families(regs["jax"])
+    clocked = ("foremast_ingest_stage_seconds", "foremast_ingest_receiver_lag_seconds")
+    values = [{k: v for k, v in _samples(r).items() if not k[0].startswith(clocked)} for r in (regs["port"],
+                                                                                              regs["jax"])]
+    assert values[0] == values[1]
+    assert values[0][("foremast_ingest_evictions_total", ())] > 0
+    assert values[0][("foremast_ingest_fetches_total", (("result", "stale"),))] == 1
+
+
+def test_cold_hist_ring_sources_equal_jax():
+    """One tick of a fleet whose histories are resident in the ring feeds
+    `foremast_cold_hist_reads_total{source="ring_full"}` alike."""
+    from foremast_tpu import ingest as J
+    from foremast_tpu.config import BrainConfig as JaxConfig
+    from foremast_tpu.jobs import BrainWorker as JaxWorker
+    from foremast_tpu.jobs.models import Document as JaxDocument
+    from foremast_tpu.jobs.store import InMemoryStore as JaxStore
+    from foremast_tpu_torch import ingest as T
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from tests.torch_workers import ring_fleet
+
+    docs, data, (ht, _) = ring_fleet(3)
+    entries = [(k, t, v, float(ht[0])) for k, (t, v) in data.items()]
+    regs = CollectorRegistry(), CollectorRegistry()
+    workers = []
+    for (m, store, doc, worker, cfg, g, kw), reg in zip(
+        ((J, JaxStore(), JaxDocument, JaxWorker, JaxConfig, jg, {"device_mesh": None}),
+         (T, InMemoryStore(), Document, BrainWorker, BrainConfig, tg, {"device": "cpu"})), regs):
+        ring = m.RingStore(shards=2)
+        ring.push_batch(entries, now=NOW)
+        for d in docs:
+            store.create(doc.from_json(d))
+        workers.append(worker(store, m.RingSource(ring, fallback=None, admit_floor=0.0),
+                              config=cfg(algorithm="moving_average_all", max_cache_size=32), claim_limit=4,
+                              metrics=g.WorkerMetrics(registry=reg), **kw))
+    for w in workers:
+        assert w.tick(now=NOW + 150) == 3
+    fam = {"foremast_cold_hist_reads"}
+    assert _samples(regs[1], only=fam) == _samples(regs[0], only=fam)
+    assert _samples(regs[1], only=fam)[("foremast_cold_hist_reads_total", (("source", "ring_full"),))] == 3

@@ -481,7 +481,8 @@ def test_debug_state_sections():
     assert state["device"] == "cpu"
     assert state["queue_depth"] == 2 and state["store_ok"]
     assert state["model_cache"]["fit_entries"] == 8
-    assert state["cold_start"]["hist_reads"] == {"http": 8, "cache": 0}
+    assert state["cold_start"]["hist_reads"] == {"ring_full": 0, "ring_partial": 0, "http": 8, "cache": 0, "unserved": 0}
+    assert state["cold_start"]["hist_bypass"] is False and state["ingest"] is None
     assert state["fast_path_docs"] == {"univariate": 2, "bivariate": 0, "lstm": 0, "baseline": 0}
     assert state["arena"]["hit_rate"] is not None
     assert state["last_tick"]["docs"] == 2 and state["last_tick"]["fast"] == 2

@@ -8,13 +8,17 @@ counters are comparable row for row; the port's runs on the CPU."""
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from benchmarks.worker_bench import build_mixed_fleet
 from foremast_tpu.config import BrainConfig as JaxConfig
 from foremast_tpu.jobs import BrainWorker as JaxWorker
 from foremast_tpu_torch.config import BrainConfig
+from foremast_tpu_torch.ingest import canonical_series
 from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+from foremast_tpu_torch.metrics.promql import prometheus_url
 from foremast_tpu_torch.metrics.source import MetricSource
 from tests.torch_fleet import BAND_TOL
 
@@ -204,3 +208,30 @@ def assert_same_hook_records(got: list, want: list, tol: float = BAND_TOL[True])
         for a, b in ((g[4], w[4]), (g[5], w[5])):
             assert a.shape == b.shape
             np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
+
+
+def ring_fleet(services: int, seed: int = 0, hist_len: int = 256, cur_len: int = CUR_LEN):
+    """Docs (JSON) and series of a continuous-strategy fleet whose current
+    and historical windows are the SAME series at different ranges, with
+    query_range URLs that carry start and end, as the watcher builds
+    them: {canonical key: (times, values)}, (ht, ct)."""
+    rng = np.random.default_rng(seed)
+    t_now = int(NOW)
+    ht = t_now - 86_400 * 7 + 60 * np.arange(hist_len, dtype=np.int64)
+    ct = ht[-1] + 60 + 60 * np.arange(cur_len, dtype=np.int64)
+    end_time = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(t_now + 3600))
+    endpoint = "http://prom/api/v1/"
+    data, docs = {}, []
+    for s in range(services):
+        expr = f'namespace_app_per_pod:latency{{namespace="ns",app="app{s}"}}'
+        hv = rng.normal(1.0, 0.1, hist_len).astype(np.float32)
+        cv = (1.0 + 0.05 * np.sin(np.arange(cur_len) / 3.0)).astype(np.float32)
+        data[canonical_series(expr)] = (np.concatenate([ht, ct]), np.concatenate([hv, cv]))
+        cur = prometheus_url({"endpoint": endpoint, "query": expr, "start": int(ct[0]), "end": int(ct[-1]),
+                              "step": 60})
+        hist = prometheus_url({"endpoint": endpoint, "query": expr, "start": int(ht[0]), "end": int(ht[-1]),
+                               "step": 60})
+        docs.append(Document(id=f"job-{s}", app_name=f"app{s}", end_time=end_time,
+                             current_config=f"latency== {cur}", historical_config=f"latency== {hist}",
+                             strategy="continuous").to_json())
+    return docs, data, (ht, ct)
