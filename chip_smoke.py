@@ -35,7 +35,12 @@ Phases; any failure exits non-zero:
      which must flag exactly those docs, (d) the f32 cold tick of a fresh
      1,024-doc worker (masked_stats); every doc's (status, code, reason,
      anomaly_info) and the arena counters equal a CPU worker's after each
-     tick; wall clock, docs/s, windows/s and the span breakdown.
+     tick; wall clock, docs/s, windows/s and the span breakdown; then (a)-(c)
+     again as sliced sweeps (FOREMAST_SWEEP_SLICE_DOCS unset, 2,048 docs a
+     slice, and 1,024), the columnar dispatches on the tick thread under
+     set_sync_debug_mode("error"): writes and arena counters equal the
+     monolithic tick's, each sweep's wall clock beside the monolithic
+     one, slice and preemption counters.
   7. the univariate forecaster family at the default daily season
      (m=1440; Th=10,080 in its 16,384 bucket, Tc=30):
      (a) holt_winters_scan (grid G=8, per-series with predictions) and
@@ -124,7 +129,31 @@ Phases; any failure exits non-zero:
      judges the fleet to (a)'s writes with 0 Prometheus requests, exits
      0 on SIGTERM, and restarted on the same directory restores the ring
      and judges the reset fleet with 0 requests and an all-warm first
-     tick.
+     tick; (f) short-history admission: 512 newcomers pushed with 1-2
+     days of a 7-day window into a pure-push ring with an admission floor
+     are judged on their first tick from provisional fits, a backfill
+     makes refinement invalidate and refit them, the window's close makes
+     the terminal refit; the final fits equal a fresh worker's
+     from-scratch fit on the same columns, and a spiked warm tick writes
+     the same statuses, on the bf16-delta route and the f32 one (which
+     launches masked_stats); (g) micro-ticks: phase 6's 4,096-doc fleet,
+     its series with their docs' `app` label bulk-loaded to a receiver
+     with the dirty set wired, a worker's run loop (sweeps in four slices
+     of 1,024 docs, micro-ticks every 0.05 s between them), 64 docs
+     spread over the fleet spiked through the receiver per condition,
+     shuffled, from the end of a sweep: quiet, with sweeps every 5 s,
+     half evenly over 4 s and half in a burst as the next sweep starts
+     (into its slice boundaries); evenly over 8 s
+     with sweeps every 30 s (micro-ticks alone) 2 s into a remote-write
+     stream from a pusher subprocess at 6,667, 10,000 and 15,000
+     samples/s and back to back, back to back again with the stream's
+     apps owned by another worker (decoded, never marked), then with
+     micro-ticks off (no dirty set in the worker: sweeps back to back):
+     push->verdict latency, p50 and p99 of the worker's
+     foremast_verdict_latency_seconds observations and of each doc's
+     client-seen latency, each sweep's wall clock, the boundaries'
+     promotions, in-flight requeues and nested micro-ticks (each must
+     have happened); every doc's writes equal one full cold tick's.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
 7b, 7c, 7d, 8b, 8c, 8d, 9) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phases
@@ -957,7 +986,7 @@ WORKER_DOCS = 4096  # x 4 aliases = 16,384 windows, phase 5's width
 F32_DOCS = 1024  # (d): one 4,096-window cold chunk on the f32 route
 
 
-def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
+def worker_fleet(n_docs: int, t_now: int, seed: int = 13, labelled: bool = False):
     """The shape of `benchmarks/worker_bench.py`'s fleet: one document per
     service x 4 aliases, 7-day settled histories at a 60 s step, 30-point
     current windows riding inside the band (so the fleet stays on the
@@ -968,8 +997,10 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
     its start and end bound exactly the samples it answers, so the ingest
     plane's ring (phase 9's push arm) resolves every window the pull
     path fetches; a doc's history and current window are one series.
-    Returns (documents as JSON, URL -> series, each doc's latency current
-    URL)."""
+    `labelled` names each series as a selector with the doc's `app`
+    label (`latency{app="app7"}`), the routing label the receiver marks
+    dirty. Returns (documents as JSON, URL -> series, each doc's latency
+    current URL)."""
     from foremast_tpu_torch.jobs import Document
 
     rng = np.random.default_rng(seed)
@@ -985,8 +1016,9 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
     for i in range(n_docs):
         parts = {"current": [], "historical": [], "baseline": []}
         for k, a in enumerate(ALIASES):
-            cur_url = f"http://prom/cur?q={a}:app{i}&start={int(ct[0])}&end={int(ct[-1])}&step=60"
-            hist_url = f"http://prom/hist?q={a}:app{i}&start={int(ht[0])}&end={int(ht[-1])}&step=60"
+            q = urllib.parse.quote(f'{a}{{app="app{i}"}}') if labelled else f"{a}:app{i}"
+            cur_url = f"http://prom/cur?q={q}&start={int(ct[0])}&end={int(ct[-1])}&step=60"
+            hist_url = f"http://prom/hist?q={q}&start={int(ht[0])}&end={int(ht[-1])}&step=60"
             data[cur_url] = (ct, cv)
             if a == "latency":
                 latency.append(cur_url)
@@ -995,7 +1027,8 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
             parts["historical"].append(f"{a}== {hist_url}")
             if i % 2 == 0:
                 bt = ct - 3600
-                base_url = f"http://prom/base?q={a}_baseline:app{i}&start={int(bt[0])}&end={int(bt[-1])}&step=60"
+                bq = urllib.parse.quote(f'{a}_baseline{{app="app{i}"}}') if labelled else f"{a}_baseline:app{i}"
+                base_url = f"http://prom/base?q={bq}&start={int(bt[0])}&end={int(bt[-1])}&step=60"
                 data[base_url] = (bt, (cv + rng.normal(0, 0.01, FULL_TC)).astype(np.float32))
                 parts["baseline"].append(f"{a}== {base_url}")
         docs.append(
@@ -1010,14 +1043,18 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13):
     return docs, data, latency
 
 
-def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: bool = True) -> dict:
+def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: bool = True,
+                     slice_docs: int | None = 0) -> dict:
     """On one port worker over its own store (copies of `docs`) and
     source: (a) cold tick, (b) warm tick, (c) warm tick with the last 3
     latency points of every 16th doc spiked; then (d) the f32 cold tick of
     a fresh worker over the first F32_DOCS docs. After each: what the
     store holds, the arena counters, the fit-cache size, the columnar
-    calls, the host-clock seconds (after a device sync) and the tracer's
-    stage breakdown."""
+    calls, the host-clock seconds (after a device sync), the tracer's
+    stage breakdown and the sliced sweep's record. `slice_docs` is
+    FOREMAST_SWEEP_SLICE_DOCS for the workers (None: unset, the default
+    2,048; 0: the monolithic tick); a sliced worker on the card dispatches
+    its columnar programs under set_sync_debug_mode("error")."""
     import gc
 
     import torch
@@ -1047,10 +1084,18 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
         for d in doc_json:
             store.create(Document.from_json(d))
         cfg = BrainConfig(max_cache_size=len(doc_json) * len(ALIASES) + 64)
-        worker = BrainWorker(
-            store, ArraySource(data), config=cfg, device=device,
-            claim_limit=len(doc_json), worker_id=f"smoke-{device}", tracer=tr,
-        )
+        saved = os.environ.pop("FOREMAST_SWEEP_SLICE_DOCS", None)
+        if slice_docs is not None:
+            os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = str(slice_docs)
+        try:
+            worker = BrainWorker(
+                store, ArraySource(data), config=cfg, device=device,
+                claim_limit=len(doc_json), worker_id=f"smoke-{device}", tracer=tr,
+            )
+        finally:
+            os.environ.pop("FOREMAST_SWEEP_SLICE_DOCS", None)
+            if saved is not None:
+                os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = saved
         return worker, store
 
     def written(store):
@@ -1080,6 +1125,18 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
 
     worker._admit_fast = timed("admission walk", worker._admit_fast)
     worker._pack_uni = timed("columnar packing", worker._pack_uni)
+    if cuda and worker._sweep_sliceable():
+        dispatch = worker._dispatch_uni
+
+        def strict_dispatch(packed):
+            # the tick thread's async columnar dispatch must not synchronize
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(packed)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        worker._dispatch_uni = strict_dispatch
     out = {}
 
     gc_acc = [0.0, 0.0]  # collector pause seconds in the tick, last start
@@ -1111,7 +1168,7 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
             columnar=list(calls), refit=w._fit_cache.version != versions[0],
             scattered=w._uni.device_state_counters()["misses"] - versions[1],
             stages=dict(tracer.last_stage_seconds) if tracer is not None and w is worker else None,
-            fast=dict(w._fast_kinds),
+            fast=dict(w._fast_kinds), sweep=dict(w._last_sweep) if w._last_sweep else None,
         )
 
     tick("a", t_now + 150)
@@ -1143,7 +1200,9 @@ def phase_worker(dev, smi: str, columnar_s: float) -> dict:
     from foremast_tpu_torch.jobs import STATUS_COMPLETED_UNHEALTH, STATUS_PREPROCESS_COMPLETED
     from foremast_tpu_torch.observe.spans import Tracer
 
-    os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"  # the monolithic tick (no sliced sweeps yet)
+    # the monolithic tick outside the sliced arm (a worker of the later
+    # phases built with a claim above 2,048 would otherwise slice)
+    os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
     t_now = int(time.time())
     t0 = time.perf_counter()
     docs, data, latency = worker_fleet(WORKER_DOCS, t_now)
@@ -1202,6 +1261,30 @@ def phase_worker(dev, smi: str, columnar_s: float) -> dict:
     print(f"phase 6: (b) warm worker tick {b['seconds']:.3f} s against phase 5 (c)'s columnar judge calls "
           f"{columnar_s:.3f} s: {b['seconds'] / columnar_s:.1f}x, the worker's share above the judge "
           f"{1 - columnar_s / b['seconds']:.1%}")
+
+    # the sliced arm: the same ticks as sliced sweeps, the knob unset (its
+    # default, 2,048 docs a slice) and at 1,024; the columnar dispatches
+    # on the tick thread under set_sync_debug_mode("error")
+    for slice_docs, want_slices in ((None, WORKER_DOCS // 2048), (1024, WORKER_DOCS // 1024)):
+        arm = run_worker_ticks(dev, docs, data, latency, t_now, f32=False, slice_docs=slice_docs)
+        label = f"{slice_docs or 2048}-doc slices" + (" (the default)" if slice_docs is None else "")
+        for name, what in (("a", "cold"), ("b", "warm"), ("c", "spiked warm")):
+            t, sweep = arm[name], arm[name]["sweep"]
+            check(t["docs"] == WORKER_DOCS and sweep is not None, f"sliced ({label}) ({name}): {t['docs']} docs, {sweep}")
+            check(sweep["slices"] == want_slices, f"sliced ({label}) ({name}): {sweep['slices']} slices")
+            diff = sum(t["written"][k] != v for k, v in gpu[name]["written"].items())
+            check(t["written"] == gpu[name]["written"],
+                  f"sliced ({label}) ({name}): writes differ from the monolithic tick's on {diff} docs")
+            check(t["counters"] == gpu[name]["counters"], f"sliced ({label}) ({name}): arena counters {t['counters']}")
+            pipe = sweep["pipeline"] or {}
+            print(f"phase 6: sliced sweep, {label}, ({name}) {what}: {t['seconds']:.3f} s against the monolithic "
+                  f"tick's {gpu[name]['seconds']:.3f} s; {sweep['slices']} slices, {sweep['slow_docs']} slow docs, "
+                  f"preemptions: promoted {sweep['promoted']}, in-flight requeued {sweep['inflight_requeued']}, "
+                  f"micro-ticks {sweep['preempt_microticks']}; warm pipeline overlap "
+                  f"{pipe.get('overlap_ratio', 0.0):.2f}, device idle {pipe.get('device_idle_seconds', 0.0):.3f} s")
+    print(f"phase 6: the sliced sweeps (2,048 and 1,024 docs a slice) wrote every doc's (status, code, reason, "
+          f"anomaly_info) and the arena counters of the monolithic tick, cold, warm and spiked; their columnar "
+          f"dispatches ran under set_sync_debug_mode(\"error\")")
     return {"seconds": {k: gpu[k]["seconds"] for k in "abcd"}, "fleet": (docs, data, t_now)}
 
 
@@ -1588,6 +1671,591 @@ def cold_tick_before_after(dev, fit_tasks, worker_fleet_args) -> dict:
     return out
 
 
+# (f) short-history admission and refinement: newcomers pushed with 1-2 days
+# of their 7-day window into a pure-push ring with an admission floor
+ADMIT_DOCS = 512
+ADMIT_FLOOR = 80_000.0  # FOREMAST_ADMIT_MIN_COVERAGE_SECONDS: a day's coverage (86,400 s) clears it
+ADMIT_HEAD_GAP = 4  # the pushes stop 4 steps short of the window's end: the head stays uncovered, the span fresh
+# (g) micro-ticks: phase 6's 4,096-doc fleet, whose sweeps run sliced
+# (MICRO_SLICES slices of 1,024 docs) with the dirty set wired, so a sweep
+# takes longer than a micro-tick and arrivals meet its preemption points.
+# MICRO_SPIKED docs a condition get a spike through the receiver, in a
+# shuffled order, evenly over MICRO_WINDOW seconds from the end of a
+# sweep, while the worker's run loop drains the dirty set every
+# MICRO_SECONDS (FOREMAST_MICROTICK_SECONDS) between sweeps. Quiet, it
+# sweeps every MICRO_POLL seconds (the CLI's default --poll): half the
+# spikes meet the gap's micro-ticks, and the other half go in a burst
+# as the next sweep starts, to meet its promotions, in-flight requeues
+# and nested micro-ticks. Under a stream it sweeps
+# every MICRO_STREAM_POLL seconds, and the spikes start MICRO_STREAM_WARM
+# seconds into the stream: the window holds micro-ticks alone, whose
+# latency is what the stream's share of the process costs
+MICRO_DOCS = 4096
+MICRO_SLICES = 4  # FOREMAST_SWEEP_SLICE_DOCS = MICRO_DOCS // MICRO_SLICES
+# the 4,096-doc ring: 8x (e)'s 406 MB, with room for the shards' spread
+MICRO_BUDGET_BYTES = 6 << 30
+MICRO_SPIKED = 64
+MICRO_SECONDS = 0.05
+MICRO_POLL = 5.0
+MICRO_STREAM_POLL = 30.0
+MICRO_STREAM_WARM = 2.0
+MICRO_WINDOW = 8.0
+MICRO_BURST_SPACING = 0.01  # s between the quiet condition's pushes at a sweep's start
+# the stream under which each condition runs: none, STEADY_RATE, two
+# rates between it and one client's most, and back to back (rate 0); the
+# last stream's series belong to apps another worker owns (the dirty
+# set's ownership predicate refuses them): decoded, never marked, so no
+# micro-tick claims for them
+MICRO_RATES = (("quiet", None, False), ("paced", STEADY_RATE, False), ("10,000 samples/s", 10_000.0, False),
+               ("15,000 samples/s", 15_000.0, False), ("back to back", 0.0, False),
+               ("back to back, another worker's apps", 0.0, True))
+MICRO_STREAM_APPS = 250  # the stream's 2,000 series belong to 250 apps that have no document
+
+
+class _Quiet:
+    """Takes any WorkerMetrics call and keeps nothing."""
+
+    def __getattr__(self, name):
+        return _Quiet()
+
+    def __call__(self, *a, **kw):
+        return _Quiet()
+
+
+class _Observations:
+    def __init__(self):
+        self.by_labels: dict = {}
+
+    def labels(self, **labels):
+        obs = self.by_labels.setdefault(tuple(sorted(labels.items())), [])
+        return type("Child", (), {"observe": staticmethod(obs.append)})()
+
+    def take(self, path: str) -> list:
+        """The observations of `path` (every tenant) since the last take."""
+        out = []
+        for labels, obs in self.by_labels.items():
+            if dict(labels).get("path") == path:
+                out += obs
+                obs.clear()
+        return out
+
+
+class LatencyMetrics(_Quiet):
+    """WorkerMetrics' surface for the worker, keeping only the raw
+    observations of foremast_verdict_latency_seconds, by its labels, and
+    each sliced sweep's wall clock and counters (observe_sweep, the feed
+    of foremast_sweep_slices_total and
+    foremast_sweep_preempt_events_total): the card's machine has no
+    prometheus_client, and raw values give exact quantiles where the
+    family's buckets would interpolate."""
+
+    def __init__(self):
+        self.verdict_latency = _Observations()
+        self.sweeps: list = []
+
+    def observe_sweep(self, stats, counters: dict) -> None:
+        self.sweeps.append(dict(counters, seconds=stats.wall_seconds if stats is not None else None))
+
+
+def newcomer_fleet(n: int, t1: int, seed: int = 21):
+    """(f)'s newcomers: one latency series each, whose doc asks for the
+    7-day window ending at `t1` (FULL_TH points at a 60 s step) and a
+    FULL_TC-point current window at the end of what is pushed. The series'
+    values over the whole window (history noise on a 1/64 grid, the
+    current window the band-centred signal of phase 6), and the three
+    pushes: the first 1 or 2 days (alternating) ending ADMIT_HEAD_GAP
+    steps short of `t1`, a backfill to 5 days, the oldest 2 days, and the
+    head. Returns (docs as JSON, keys, ht, values, pushes, each doc's
+    current window's stamps)."""
+    from foremast_tpu_torch.ingest import canonical_series
+    from foremast_tpu_torch.jobs import Document
+
+    rng = np.random.default_rng(seed)
+    ht = t1 - 60 * (FULL_TH - 1) + 60 * np.arange(FULL_TH, dtype=np.int64)
+    hv = (np.round(64 * rng.normal(1.0, 0.1, (n, FULL_TH))) / 64).astype(np.float32)
+    cv = (1.0 + 0.05 * np.sin(np.arange(FULL_TC) / 3.0)).astype(np.float32)
+    end = FULL_TH - ADMIT_HEAD_GAP  # one past the last stamp of the first pushes
+    hv[:, end - FULL_TC - 1 : end - 1] = cv
+    ct = ht[end - FULL_TC - 1 : end - 1]
+    end_time = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(t1 + 3600))
+    docs, keys, pushes = [], [], ([], [], [], [])
+    for i in range(n):
+        expr = f'namespace_app_per_pod:latency{{namespace="ns",app="newcomer{i}"}}'
+        key = canonical_series(expr)
+        keys.append(key)
+        day = 1440 * (1 + i % 2)
+        for stage, sl in enumerate((slice(end - day, end), slice(end - 5 * 1440, end - day),
+                                    slice(0, end - 5 * 1440), slice(end, FULL_TH))):
+            pushes[stage].append((key, ht[sl], hv[i, sl], None))
+        cur = f"http://prom/api/v1/query_range?query={urllib.parse.quote(expr)}&start={int(ct[0])}&end={int(ct[-1])}&step=60"
+        hist = f"http://prom/api/v1/query_range?query={urllib.parse.quote(expr)}&start={int(ht[0])}&end={int(ht[-1])}&step=60"
+        docs.append(Document(id=f"newcomer-{i}", app_name=f"newcomer{i}", end_time=end_time,
+                             current_config=f"latency== {cur}", historical_config=f"latency== {hist}",
+                             strategy="continuous").to_json())
+    return docs, keys, ht, hv, pushes, ct
+
+
+def admission_arm(dev, t1: int) -> dict:
+    """Phase 9 (f): short-history admission and refinement on the card, on
+    the bf16-delta route and the f32 one. Newcomers pushed with 1-2 days
+    of coverage into a pure-push ring (`RingSource(fallback=None,
+    admit_floor=ADMIT_FLOOR)`) through a receiver are judged on their
+    first tick from provisional fits; a backfill to 5 days makes
+    refinement invalidate every fit (one all-warm tick) and the next claim
+    refit it; the window's head and oldest days close the window, and the
+    terminal refit follows. The final fits must equal a fresh worker's
+    from-scratch fit on the same ring within the band tolerance (their
+    exact equality printed); then every 16th doc's current window is
+    spiked, and one warm tick of each worker must write the same statuses,
+    exactly the spiked docs flagged. Returns each route's record, and the
+    launches of the refining worker's ticks (zeroed after its warmup; the
+    from-scratch reference is not counted)."""
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.ingest import RingSource, RingStore, start_ingest_server, stop_ingest_server
+    from foremast_tpu_torch.jobs import STATUS_COMPLETED_UNHEALTH, BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.models.cache import is_pad_fit_key
+    from foremast_tpu_torch.ops import kernels as K
+
+    cuda = torch.device(dev).type == "cuda"
+    docs, keys, ht, hv, pushes, ct = newcomer_fleet(ADMIT_DOCS, t1)
+    spiked = list(range(5, ADMIT_DOCS, 16))
+    spikes = [(keys[i], ct[-3:], np.full(3, 40.0, np.float32), None) for i in spiked]
+    launched = dict.fromkeys(K.LAUNCHES, 0)
+    out = {}
+
+    def written(store):
+        return {d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+                for d in store._docs.values()}
+
+    def new_worker(source, wid):
+        store = InMemoryStore()
+        for d in docs:
+            store.create(Document.from_json(d))
+        w = BrainWorker(store, source, config=BrainConfig(max_cache_size=2 * ADMIT_DOCS + 64), device=dev,
+                        claim_limit=ADMIT_DOCS, worker_id=wid)
+        # FOREMAST_REFINE_DOCS_PER_TICK at the fleet: one all-warm tick
+        # invalidates every grown fit (the default 256 takes two)
+        w.refine_docs_per_tick = ADMIT_DOCS
+        return w, store
+
+    for route, bf16 in (("bf16-delta", True), ("f32", False)):
+        ring = RingStore(budget_bytes=PUSH_BUDGET_BYTES)
+        srv, _ = start_ingest_server(0, ring, host="127.0.0.1")
+        url = f"http://127.0.0.1:{srv.server_address[1]}/api/v1/write"
+        scoring.set_bf16_delta(bf16)
+        try:
+            source = RingSource(ring, fallback=None, admit_floor=ADMIT_FLOOR)
+            w, store = new_worker(source, f"smoke-admit-{route}")
+            if cuda:
+                w.warmup()
+            book = w._refine_book
+            rec = {"ticks": []}
+
+            def tick(what, now, expect):
+                sync_card()
+                t0 = time.perf_counter()
+                n = w.tick(now=now)
+                sync_card()
+                rec["ticks"].append((what, time.perf_counter() - t0, n, dict(book.debug_state())))
+                check(n == expect, f"(f) {route} {what}: {n} docs, want {expect}")
+
+            rec["push_s"] = [push_frames(url, pushes[0])[0]]
+            for k in K.LAUNCHES:
+                K.LAUNCHES[k] = 0
+            tick("first tick: provisional fits", t1 + 150, ADMIT_DOCS)
+            cold = dict(w._cold_counts)
+            check(cold["ring_partial"] == ADMIT_DOCS and len(book) == ADMIT_DOCS,
+                  f"(f) {route} first tick: cold reads {cold}, {len(book)} provisional records")
+            check({json.loads(v)[0] for v in written(store).values()} == {"preprocess_completed"},
+                  f"(f) {route}: a newcomer's provisional judgment was not a healthy re-check")
+            rec["push_s"].append(push_frames(url, pushes[1])[0])  # backfill to 5 days
+            tick("all warm: refinement invalidates", t1 + 160, ADMIT_DOCS)
+            check(book.debug_state()["refit"] == ADMIT_DOCS, f"(f) {route}: refinement {book.debug_state()}")
+            tick("refit from 5 days", t1 + 170, ADMIT_DOCS)
+            check(len(book) == ADMIT_DOCS and w._cold_counts["ring_partial"] == 2 * ADMIT_DOCS,
+                  f"(f) {route}: after the refits {book.debug_state()}, cold reads {w._cold_counts}")
+            rec["push_s"] += [push_frames(url, pushes[2])[0], push_frames(url, pushes[3])[0]]  # the window closes
+            tick("all warm: refinement finalizes", t1 + 180, ADMIT_DOCS)
+            check(book.debug_state()["finalized"] == ADMIT_DOCS and len(book) == 0,
+                  f"(f) {route}: refinement {book.debug_state()}")
+            tick("terminal refit, full window", t1 + 190, ADMIT_DOCS)
+            check(w._cold_counts["ring_full"] == ADMIT_DOCS and len(book) == 0,
+                  f"(f) {route}: cold reads {w._cold_counts}, book {book.debug_state()}")
+            for k, v in K.LAUNCHES.items():
+                launched[k] += v
+            rec["launches"] = {k: v for k, v in K.LAUNCHES.items() if v}
+            if not bf16:
+                check(K.LAUNCHES["masked_stats"] > 0, "(f) the f32 route launched no masked_stats")
+
+            # the reference: a fresh worker's from-scratch fit of the same
+            # columns (not counted), then one spiked warm tick of both
+            fresh, fstore = new_worker(RingSource(ring, fallback=None, admit_floor=ADMIT_FLOOR), "smoke-scratch")
+            sync_card()
+            t0 = time.perf_counter()
+            check(fresh.tick(now=t1 + 190) == ADMIT_DOCS, f"(f) {route}: the from-scratch worker lost docs")
+            sync_card()
+            rec["scratch_s"] = time.perf_counter() - t0
+            fits, ref = ({k: v for k, v in c.snapshot().items() if not is_pad_fit_key(k)}
+                         for c in (w._fit_cache, fresh._fit_cache))
+            check(set(fits) == set(ref) and len(fits) == ADMIT_DOCS, f"(f) {route}: fit keys differ")
+            err, exact = 0.0, 0
+            for key, e in fits.items():
+                r = ref[key]
+                check(e[3] == r[3] and e[5] == r[5] == len(ht), f"(f) {route} {key}: phase or points {e[3:6:2]}, {r[3:6:2]}")
+                e_err = max(abs(e[0] - r[0]), abs(e[1] - r[1]), abs(e[4] - r[4]),
+                            float(np.max(np.abs(np.asarray(e[2]) - np.asarray(r[2])), initial=0.0)))
+                err = max(err, e_err)
+                exact += int(e_err == 0.0)
+            # the same refit path over the same ring columns: equal bits,
+            # not a tolerance, so a change of bucket or chunking shows
+            check(exact == ADMIT_DOCS, f"(f) {route}: {ADMIT_DOCS - exact} refined fits differ from the "
+                                       f"from-scratch fits (worst by {err:.3g})")
+            push_frames(url, spikes)
+            for k in K.LAUNCHES:
+                K.LAUNCHES[k] = 0
+            tick("spiked warm", t1 + 200, ADMIT_DOCS)
+            for k, v in K.LAUNCHES.items():
+                launched[k] += v
+            check(fresh.tick(now=t1 + 200) == ADMIT_DOCS, f"(f) {route}: the from-scratch worker lost docs")
+            got, want = written(store), written(fstore)
+            diff = sum(got[k] != v for k, v in want.items())
+            check(got == want, f"(f) {route}: the refined worker's writes differ from a from-scratch fit's on {diff} docs")
+            unhealthy = sorted(k for k, v in got.items() if json.loads(v)[0] == STATUS_COMPLETED_UNHEALTH)
+            check(unhealthy == sorted(f"newcomer-{i}" for i in spiked),
+                  f"(f) {route}: flagged {len(unhealthy)} docs, want the {len(spiked)} spiked")
+            rec.update(err=err, exact=exact, cold=dict(w._cold_counts), book=book.debug_state())
+            out[route] = rec
+            fresh.close()
+            w.close()
+        finally:
+            scoring.set_bf16_delta(None)
+            stop_ingest_server(srv)
+    out["launches"] = launched
+    return out
+
+
+def micro_stream_bodies(folder: str, t_start: int) -> int:
+    """(g)'s stream: STEADY_BODIES FMW1 bodies, body k the scrape at
+    `t_start + 15 k` of STEADY_SERIES series of MICRO_STREAM_APPS apps
+    that no document judges (the receiver marks each app dirty, and the
+    micro-ticks find no document for it). Returns the bytes of one body."""
+    from foremast_tpu_torch.ingest import encode_frame
+
+    rng = np.random.default_rng(12)
+    per_app = STEADY_SERIES // MICRO_STREAM_APPS
+    keys = [f'foremast_smoke_scrape{{app="stream{j // per_app}",instance="i-{j}"}}' for j in range(STEADY_SERIES)]
+    vals = rng.normal(1.0, 0.1, (STEADY_BODIES, STEADY_SERIES)).astype(np.float32)
+    for k in range(STEADY_BODIES):
+        t = np.array([t_start + 15 * k], np.int64)
+        body = encode_frame([(key, t, vals[k, j : j + 1], None) for j, key in enumerate(keys)])
+        with open(os.path.join(folder, f"{k:04d}.fmw1"), "wb") as fh:
+            fh.write(body)
+    return len(body)
+
+
+def not_the_streams(key: str) -> bool:
+    """(g)'s ownership predicate for the foreign-stream condition: the
+    stream's apps belong to another worker, the fleet's to this one."""
+    return 'app="stream' not in key
+
+
+def microtick_arm(dev, n_docs: int, t_now: int, workdir: str) -> dict:
+    """Phase 9 (g): push->verdict latency of micro-ticks against a
+    sweep-only worker. Phase 6's fleet shape at `n_docs` docs, each series
+    named with its doc's `app` label (the route key the receiver marks),
+    bulk-loaded as FMW1 to a receiver with the dirty set wired. One worker
+    over a fake Elasticsearch and that receiver's ring (claim limit above
+    the fleet: a sweep claims every doc and is not saturated; sweeps
+    sliced in MICRO_SLICES slices) runs its loop on a thread, started
+    afresh for each condition: a sweep at once and then every MICRO_POLL
+    s (MICRO_STREAM_POLL s under a stream), and between sweeps a
+    micro-tick every MICRO_SECONDS s over what the dirty set holds.
+
+    Each condition starts just after that first sweep ends. Quiet,
+    MICRO_SPIKED docs spread over the fleet get their current window's
+    last 3 points pushed as 40.0, in a shuffled order: half evenly in the
+    gap, where they meet micro-ticks, and half in a burst (one a push
+    every MICRO_BURST_SPACING s) as the next sweep starts, where they meet
+    its slice boundaries (promotion, in-flight requeue, nested
+    micro-tick). Under a stream (STEADY_SERIES-sample bodies of
+    MICRO_STREAM_APPS apps without documents from a pusher subprocess at
+    its rate, started at the sweep's end) the spikes go evenly over
+    MICRO_WINDOW s from MICRO_STREAM_WARM s into it and meet micro-ticks
+    alone; with micro-ticks off, evenly over MICRO_WINDOW s. The
+    condition ends when all of them are written unhealthy and no arrival
+    is pending. The latencies are the
+    worker's foremast_verdict_latency_seconds observations (the
+    receiver's arrival stamp to the verdict's write), by path, and each
+    doc's as a client sees it (its push sent to its status unhealthy in
+    the index, polled every 10 ms). Then one condition again with
+    micro-ticks off, as the CLI runs without FOREMAST_MICROTICK_SECONDS
+    (no dirty set in the worker): the loop sweeps back to back (a
+    re-check fleet always has claimable docs), and the sweeps alone judge
+    the arrivals. The sweeps must have promoted, requeued and
+    micro-ticked arrivals at their boundaries, and every doc's writes
+    must equal a full cold tick's over the same ring. Returns the
+    conditions and the launches of the worker's ticks."""
+    import signal
+    import threading
+
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.ingest import (
+        BINARY_CONTENT_TYPE, RingSource, RingStore, resolve_query_range, start_ingest_server, stop_ingest_server,
+    )
+    from foremast_tpu_torch.jobs import STATUS_COMPLETED_UNHEALTH, BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.jobs.store import ElasticsearchStore
+    from foremast_tpu_torch.ops import kernels as K
+    from foremast_tpu_torch.reactive import DirtySet
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import FakeElasticsearch, serve_fake_es
+
+    cuda = torch.device(dev).type == "cuda"
+    stream_dir = os.path.join(workdir, "micro-stream")
+    os.makedirs(stream_dir)
+    body_bytes = micro_stream_bodies(stream_dir, int(time.time()) - 86_400)
+    conditions = [*MICRO_RATES, ("sweeps only, quiet", None, False)]
+    stride = n_docs // MICRO_SPIKED
+    check(len(conditions) <= stride, "(g) not enough docs for a fresh spiked set per condition")
+    rdocs, data, latency = worker_fleet(n_docs, t_now, seed=19, labelled=True)
+    ring = RingStore(budget_bytes=MICRO_BUDGET_BYTES)
+    dirty = DirtySet()
+    srv, _ = start_ingest_server(0, ring, host="127.0.0.1", dirty=dirty)
+    url = f"http://127.0.0.1:{srv.server_address[1]}/api/v1/write"
+    entries = push_entries(data)
+    load_s, load_n, _ = push_frames(url, entries)
+    check(load_n == sum(len(t) for _, t, _, _ in entries) and len(dirty) == n_docs,
+          f"(g) bulk load: {load_n} samples accepted, {len(dirty)} route keys marked (want {n_docs} apps)")
+    dirty.take_all()  # the bulk load is no arrival to judge
+    es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+    es.load(rdocs)
+    metrics = LatencyMetrics()
+    store = ElasticsearchStore(es_url)
+    check(store.wait_ready(max_wait=30), f"the store did not connect: {store.connect_state}")
+    worker = BrainWorker(store, RingSource(ring, fallback=None), config=BrainConfig(max_cache_size=4 * len(rdocs) + 64),
+                         device=dev, claim_limit=len(rdocs) + 16, worker_id="smoke-micro", dirty=dirty,
+                         metrics=metrics)
+    worker.microtick_seconds = MICRO_SECONDS  # FOREMAST_MICROTICK_SECONDS
+    worker.sweep_slice_docs = n_docs // MICRO_SLICES  # FOREMAST_SWEEP_SLICE_DOCS
+    if cuda:
+        worker.warmup()
+    results = []
+    stop = threading.Event()
+    loop = None
+
+    def start_loop(poll: float):
+        t = threading.Thread(target=worker.run, kwargs=dict(poll_seconds=poll, stop=stop.is_set), daemon=True)
+        t.start()
+        return t
+
+    def stop_loop() -> None:
+        stop.set()
+        loop.join(timeout=120)
+        check(not loop.is_alive(), "(g) the worker's loop did not stop")
+        stop.clear()
+
+    try:
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        check(worker.tick() == len(rdocs), "(g) the cold sweep lost docs")
+        cold_s = time.perf_counter() - t0
+        check(metrics.sweeps and metrics.sweeps[-1]["slices"] == MICRO_SLICES,
+              f"(g) the cold sweep ran {metrics.sweeps[-1]['slices'] if metrics.sweeps else 0} slices")
+        for c, (label, rate, foreign) in enumerate(conditions):
+            # a fresh loop each condition: its first sweep starts at once
+            if loop is not None:
+                stop_loop()
+            if label.startswith("sweeps only"):
+                # the CLI without FOREMAST_MICROTICK_SECONDS: no dirty set
+                # in the worker, so no micro-tick and no preemption point;
+                # the loop then sweeps back to back
+                worker.microtick_seconds = 0.0
+                worker.dirty = None
+            loop = start_loop(MICRO_POLL if rate is None else MICRO_STREAM_POLL)
+            dirty.owns = not_the_streams if foreign else None
+            pusher = None
+            try:
+                at = worker._last_tick["at"]
+                deadline = time.monotonic() + 4 * MICRO_POLL + 120
+                while worker._last_tick["at"] == at:  # start just after a sweep
+                    check(time.monotonic() < deadline and loop.is_alive(), f"(g) {label}: no sweep finished")
+                    time.sleep(0.005)
+                if rate is not None:
+                    pusher = subprocess.Popen([sys.executable, "-c", STEADY_PUSHER, url, stream_dir,
+                                               BINARY_CONTENT_TYPE, str(rate)], stdout=subprocess.PIPE, text=True)
+                    check(pusher.stdout.readline().strip() == "answered", "(g) the stream's first body got no answer")
+                    time.sleep(MICRO_STREAM_WARM)
+                metrics.verdict_latency.take("micro")
+                metrics.verdict_latency.take("sweep")
+                counts0, n_sweeps0, runs0 = dirty.counts(), len(metrics.sweeps), worker._last_micro["runs"]
+                # spread over the fleet, pushed in a shuffled order: an
+                # arrival during a sweep may meet its doc in any slice
+                order = np.random.default_rng(c).permutation(MICRO_SPIKED)
+                ids = [f"job-{c + stride * int(k)}" for k in order]
+                spikes = []
+                for doc_id in ids:
+                    t, _ = data[latency[int(doc_id[4:])]]
+                    spikes.append((resolve_query_range(latency[int(doc_id[4:])])[0], t[-3:],
+                                   np.full(3, 40.0, np.float32), None))
+                sent: dict = {}
+
+                # quiet, with micro-ticks: half the spikes in the gap, the
+                # other half in a burst as the next sweep starts, so that
+                # they meet its slice boundaries with docs pooled, in
+                # flight and written
+                n_even = MICRO_SPIKED // 2 if rate is None and worker.dirty is not None else MICRO_SPIKED
+
+                def push_spread(spikes=spikes, ids=ids, sent=sent, n_even=n_even):
+                    t_start = time.perf_counter()
+                    for k, (doc_id, spike) in enumerate(zip(ids, spikes)):
+                        if k < n_even:
+                            time.sleep(max(0.0, t_start + k * MICRO_WINDOW / MICRO_SPIKED - time.perf_counter()))
+                        elif k == n_even:
+                            while not worker._sweep_active and time.perf_counter() - t_start < 4 * MICRO_POLL + 60:
+                                time.sleep(0.001)
+                        else:
+                            time.sleep(MICRO_BURST_SPACING)
+                        sent[doc_id] = time.perf_counter()
+                        push_frames(url, [spike])
+
+                pushing = threading.Thread(target=push_spread, daemon=True)
+                t_push = time.perf_counter()
+                pushing.start()
+                seen: dict = {}
+                while len(seen) < len(ids):
+                    check(time.perf_counter() - t_push < MICRO_WINDOW + 4 * MICRO_POLL + 120 and loop.is_alive(),
+                          f"(g) {label}: {len(seen)} of {len(ids)} spiked docs judged")
+                    now_s = time.perf_counter()
+                    with es.lock:
+                        done = [i for i in ids if i not in seen and i in sent
+                                and es.docs[i]["_source"].get("status") == STATUS_COMPLETED_UNHEALTH]
+                    for i in done:
+                        seen[i] = now_s - sent[i]
+                    time.sleep(0.01)
+                pushing.join(timeout=60)
+                check(not pushing.is_alive(), f"(g) {label}: the spike pushes did not finish")
+            finally:
+                stream = None
+                if pusher is not None:
+                    pusher.send_signal(signal.SIGTERM)
+                    text, _ = pusher.communicate(timeout=60)
+                    check(pusher.returncode == 0, f"(g) the stream's pusher exited {pusher.returncode}")
+                    stream = json.loads(text.strip().splitlines()[-1])
+            if worker.dirty is not None:
+                # settle: a verdict the client has seen may still be short
+                # of its observation, or of its requeued arrival's drop;
+                # wait until no arrival is pending anywhere (three reads
+                # 10 ms apart, as a take hands entries to a cycle)
+                quiet_reads, deadline = 0, time.monotonic() + 4 * MICRO_POLL + 120
+                while quiet_reads < 3:
+                    check(time.monotonic() < deadline and loop.is_alive(), f"(g) {label}: arrivals never settled")
+                    idle = not len(dirty) and not worker._sweep_active and not worker._ledger.pending
+                    quiet_reads = quiet_reads + 1 if idle else 0
+                    time.sleep(0.01)
+            micro, sweep = metrics.verdict_latency.take("micro"), metrics.verdict_latency.take("sweep")
+            counts = dirty.counts()
+            sweeps = metrics.sweeps[n_sweeps0:]
+            pre = {k: counts[k] - counts0[k] for k in ("promoted", "inflight_requeued", "unattributed", "foreign")}
+            pre["preempt_microticks"] = sum(sw["preempt_microticks"] for sw in sweeps)
+            if label.startswith("sweeps only"):
+                check(not micro and not sweep and not pre["preempt_microticks"],
+                      f"(g) {label}: {len(micro)} micro, {len(sweep)} sweep latency observations and "
+                      f"{pre['preempt_microticks']} preemption micro-ticks without a dirty set")
+            elif rate is None or foreign:
+                # every spiked doc's arrival is observed, or dropped as
+                # unattributed: an arrival marked after the sweep's
+                # catch-all drain, whose window a slice then read, has its
+                # verdict written by the sweep unseen, and the boundary's
+                # micro-tick finds the doc terminal. Here no other key is
+                # marked, so the two must add up
+                check(len(micro) + len(sweep) + pre["unattributed"] == MICRO_SPIKED,
+                      f"(g) {label}: {len(micro)} micro + {len(sweep)} sweep latency observations and "
+                      f"{pre['unattributed']} unattributed arrivals, want {MICRO_SPIKED}")
+            else:
+                # the stream's apps are marked too, and are unattributed
+                check(len(micro) + len(sweep) <= MICRO_SPIKED,
+                      f"(g) {label}: {len(micro)} micro + {len(sweep)} sweep latency observations, want <= {MICRO_SPIKED}")
+            results.append(dict(label=label, rate=rate, micro=micro, sweep=sweep, seen=[seen[i] for i in ids[:n_even]],
+                                seen_burst=[seen[i] for i in ids[n_even:]],
+                                stream=stream, preempt=pre, sweeps=[sw["seconds"] for sw in sweeps],
+                                microticks=worker._last_micro["runs"] - runs0))
+        stop.set()
+        loop.join(timeout=120)
+        check(not loop.is_alive(), "(g) the worker's loop did not stop")
+        launched = dict(K.LAUNCHES)
+        dirty_counts = dirty.counts()
+    finally:
+        stop.set()
+        worker.close()
+        stop_ingest_server(srv)
+        es_srv.shutdown()
+        es_srv.server_close()
+    for key in ("promoted", "inflight_requeued", "preempt_microticks"):
+        n = sum(r["preempt"][key] for r in results)
+        check(n > 0, f"(g) the sliced sweeps' boundaries saw {n} {key} arrivals")
+    check(ring.stats()["evictions"] == 0, f"(g) the ring evicted {ring.stats()['evictions']} series")
+
+    # the reference: one full (monolithic) cold tick of a fresh worker
+    # over the same ring
+    ref_store = InMemoryStore()
+    for d in rdocs:
+        ref_store.create(Document.from_json(d))
+    ref = BrainWorker(ref_store, RingSource(ring, fallback=None), config=BrainConfig(max_cache_size=4 * len(rdocs) + 64),
+                      device=dev, claim_limit=len(rdocs), worker_id="smoke-micro-ref")
+    ref.sweep_slice_docs = 0
+    check(ref.tick() == len(rdocs), "(g) the reference tick lost docs")
+    ref.close()
+    want = {d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+            for d in ref_store._docs.values()}
+    got = es_written(es.sources())
+    diff = sum(got[k] != v for k, v in want.items())
+    check(got == want, f"(g) the micro-ticked fleet's writes differ from a full tick's on {diff} docs")
+    flagged = sum(json.loads(v)[0] == STATUS_COMPLETED_UNHEALTH for v in got.values())
+    check(flagged == len(conditions) * MICRO_SPIKED, f"(g) {flagged} docs flagged, want {len(conditions) * MICRO_SPIKED}")
+    return dict(conditions=results, cold_s=cold_s, body_bytes=body_bytes, dirty=dirty_counts,
+                launches=launched, load=(load_s, load_n))
+
+
+def report_microtick_arm(micro: dict, smi: str) -> None:
+    """Print (g)'s conditions: latency by path, the sweeps' wall clock,
+    micro-ticks, and the preemption and dirty-set counters."""
+    print(f"phase 9: (g) micro-ticks every {MICRO_SECONDS} s between sweeps every {MICRO_POLL} s ({MICRO_STREAM_POLL}"
+          f" s under a stream), {MICRO_DOCS} docs with app-labelled series swept in {MICRO_SLICES} slices of "
+          f"{MICRO_DOCS // MICRO_SLICES} (bulk load {micro['load'][1]} samples in {micro['load'][0]:.3f} s, cold "
+          f"sweep {micro['cold_s']:.3f} s), {MICRO_SPIKED} docs spiked through the receiver per condition from the "
+          f"end of a sweep ({MICRO_STREAM_WARM} s later under a stream), evenly over {MICRO_WINDOW} s (quiet with "
+          f"micro-ticks: half of them, the rest {MICRO_BURST_SPACING} s apart as the next sweep starts), on {smi}; "
+          f"push->verdict latency (foremast_verdict_latency_seconds by path: the "
+          f"receiver's arrival stamp to the verdict's write; client-seen: the push sent to the status read "
+          f"from the index):")
+    for cond in micro["conditions"]:
+        stream = cond["stream"]
+        rate = ("no stream" if stream is None else
+                f"stream {stream['samples'] / stream['seconds']:.0f} samples/s over {stream['seconds']:.1f} s "
+                f"({stream['bodies']} bodies of {STEADY_SERIES} samples, {micro['body_bytes']} B each)")
+        parts = []
+        for path, what in (("micro", "micro"), ("sweep", "sweep"), ("seen", "client-seen"),
+                           ("seen_burst", "client-seen, the burst at a sweep's start")):
+            obs = cond[path]
+            if obs:
+                parts.append(f"{what} {len(obs)}: p50 {np.percentile(obs, 50):.4f} s, p99 "
+                             f"{np.percentile(obs, 99):.4f} s, max {max(obs):.4f} s")
+        pre, sw = cond["preempt"], [x for x in cond["sweeps"] if x is not None]
+        sweeps = (f"{len(sw)} sweeps of {min(sw):.3f}-{max(sw):.3f} s" if sw else "no sweep")
+        print(f"phase 9: (g) {cond['label']}: {rate}; {'; '.join(parts)}; {sweeps}, {cond['microticks']} "
+              f"micro-ticks in all; at slice boundaries promoted {pre['promoted']}, in-flight requeued "
+              f"{pre['inflight_requeued']}, nested micro-ticks {pre['preempt_microticks']}; dirty keys "
+              f"unattributed {pre['unattributed']}, foreign {pre['foreign']}")
+    print(f"phase 9: (g) dirty set {micro['dirty']}; every doc's writes equal one full cold tick's over the same "
+          f"ring")
+
+
 def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict:
     """Phase 9: the worker as deployed. (a) A BrainWorker over
     ElasticsearchStore and PrometheusSource against a fake ES and a fake
@@ -1858,6 +2526,21 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
               f"requests in all four; cold reads {cold_p} (bf16) and {cold_f} (f32); the f32 pass launched "
               f"masked_stats {masked_f32} times")
 
+        # (f) short-history admission and refinement, (g) micro-ticks
+        admit = admission_arm(dev, t_now)
+        for route in ("bf16-delta", "f32"):
+            rec = admit[route]
+            ticks = "; ".join(f"{what} {sec:.3f} s ({n} docs, book pending {st['pending']})"
+                              for what, sec, n, st in rec["ticks"])
+            print(f"phase 9: (f) {route}: {ADMIT_DOCS} newcomers pushed with 1-2 days of coverage into a pure-push "
+                  f"ring (admission floor {ADMIT_FLOOR:.0f} s) in {rec['push_s'][0]:.3f} s; ticks on {smi}: {ticks}")
+            print(f"phase 9: (f) {route}: refine book {rec['book']}, cold reads {rec['cold']}; the final fits equal a "
+                  f"from-scratch fit on the same columns ({rec['scratch_s']:.3f} s) bit for bit ({rec['exact']} of "
+                  f"{ADMIT_DOCS}, worst difference {rec['err']:.3g}), every doc's writes "
+                  f"equal, exactly the spiked docs flagged; launches {rec['launches']}")
+        micro = microtick_arm(dev, MICRO_DOCS, t_now, workdir)
+        report_microtick_arm(micro, smi)
+
         # (b) timing
         print(f"phase 9 on {smi}:")
         for name, what in (("a", "cold"), ("b", "warm"), ("c", "spiked warm")):
@@ -1981,9 +2664,10 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
               f"Prometheus requests, writes equal (a)'s, SIGTERM exit 0; restarted on the same directory "
               f"({ring_restored[0]}): judged the reset fleet in {run5['seconds']:.1f} s, first tick "
               f"{ticks5[0]['docs']} docs all on the fast path, 0 Prometheus requests, writes equal (a)'s, exit 0")
-        print(f"phase 9: launches of the in-process pull and push passes {launched_here}; of the CLI's f32 run "
-              f"{launches}")
-        return {k: launched_here[k] + int(launches.get(k, 0)) for k in KERNEL_FILES}
+        print(f"phase 9: launches of the in-process pull and push passes {launched_here}; of (f) "
+              f"{admit['launches']}; of (g) {micro['launches']}; of the CLI's f32 run {launches}")
+        return {k: launched_here[k] + admit["launches"][k] + micro["launches"][k] + int(launches.get(k, 0))
+                for k in KERNEL_FILES}
     finally:
         for srv in servers:
             srv.shutdown()
@@ -2564,7 +3248,7 @@ def phase_seasonal_worker(dev) -> dict:
     from foremast_tpu_torch.config import BrainConfig
     from foremast_tpu_torch.jobs import STATUS_COMPLETED_UNHEALTH, STATUS_PREPROCESS_COMPLETED
 
-    os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"  # the monolithic tick (no sliced sweeps yet)
+    os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"  # the monolithic tick
     t_now = int(time.time())
     out = {}
     for algo, n_docs, m in (("auto_univariate", SEASONAL_DOCS, SEASON), ("holt_winters", HW_DOCS, HW_SEASON)):
@@ -3650,7 +4334,8 @@ def main() -> int:
             check(got[kname] > 0, f"the {label} never launched {kname}")
     # phase 9 reads its counts itself: its in-process pull and push passes
     # (the bf16 default launches no kernel; the push arm's f32 pass
-    # launches masked_stats) plus the CLI subprocess's f32 run
+    # launches masked_stats), the admission arm (its f32 route launches
+    # masked_stats), the micro-tick arm, and the CLI subprocess's f32 run
     launched_deploy = phase_deployable_worker(dev, smi, fit_cache["tasks"], worker_run["fleet"])
     check(launched_deploy["masked_stats"] > 0, "the deployable worker (phase 9) never launched masked_stats")
     paths = {

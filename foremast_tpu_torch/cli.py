@@ -10,7 +10,10 @@ fits under `FOREMAST_SNAPSHOT_DIR` so a restart is warm, and serves
 `/metrics`, `/healthz` and `/debug/state` on `--gauge-port`. With
 `FOREMAST_INGEST=1` it also mounts the push-based ingest plane: a
 remote-write receiver on `FOREMAST_INGEST_PORT` fills resident rings,
-and fetches and cold fits read them before Prometheus.
+and fetches and cold fits read them before Prometheus; with
+`FOREMAST_MICROTICK_SECONDS` > 0 as well, the receiver marks each pushed
+series dirty and the worker judges just those documents in micro-ticks
+between its sweeps.
 
 The JAX CLI's other subcommands and its multi-device modes are not
 ported yet; each mode that would need them raises `NotImplementedError`
@@ -52,15 +55,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     for name, (what, item) in _UNPORTED_ENV.items():
         if os.environ.get(name, "0") not in ("", "0"):
             raise NotImplementedError(f"{name}={os.environ[name]}: {what} is not ported yet: ROADMAP.md Queue 1 {item}")
-    micro = os.environ.get("FOREMAST_MICROTICK_SECONDS", "")
-    try:
-        micro_on = float(micro or 0.0) > 0
-    except ValueError:
-        micro_on = False
-    if micro_on:
-        raise NotImplementedError(
-            f"FOREMAST_MICROTICK_SECONDS={micro}: micro-ticks are not ported yet: ROADMAP.md Queue 1 item 4"
-        )
     if os.environ.get("FOREMAST_CHAOS_PLAN"):
         raise NotImplementedError("FOREMAST_CHAOS_PLAN: the chaos plan is not ported yet: ROADMAP.md Queue 1 item 6")
 
@@ -96,7 +90,7 @@ def _make_store(elastic_url: str | None, breaker=None, stop=None):
     return store
 
 
-def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, degrade=None):
+def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, degrade=None, dirty=None):
     """FOREMAST_INGEST=1: wrap the pull source in the push plane's
     RingSource, so fetches and cold fits read resident ring columns and
     a miss falls back to `inner` (Prometheus) and backfills the ring,
@@ -105,8 +99,11 @@ def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, degra
     every push journals. The receiver listens on FOREMAST_INGEST_PORT
     (default 9009; 0 = no receiver, backfill only), and the
     foremast_ingest_* families join /metrics when a gauge port is live.
+    `dirty` (reactive.DirtySet) makes the receiver mark each applied
+    series for the next micro-tick.
     Returns (source, ring, receiver or None, snapshotter or None)."""
     from foremast_tpu_torch.ingest import IngestCollector, RingSnapshotter, RingSource, RingStore, start_ingest_server
+    from foremast_tpu_torch.jobs.refine import refine_docs_per_tick_from_env
 
     ring = RingStore.from_env()
     snapshotter = None
@@ -115,17 +112,20 @@ def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, degra
         snapshotter.restore()  # logs series, samples and discards itself
         snapshotter.attach()
     source = RingSource(ring, fallback=inner)
-    # short-history admission is pure-push only (RingSource.hist_columns):
-    # an operator who sets the floor on a fleet with a fallback is told
-    # it does nothing
+    # the worker reads historical ranges straight off resident columns,
+    # admits newcomers on short coverage and refines provisional fits in
+    # the background: say so, with the two knobs that tune it. Partial
+    # admission is pure-push only (RingSource.hist_columns), so a fleet
+    # with a fallback is told its floor is inert
     log.info("cold-start path: ring-resident historical reads ON (admit floor %.0f s%s: "
-             "FOREMAST_ADMIT_MIN_COVERAGE_SECONDS; partial fits wait for ROADMAP.md Queue 1 item 5, part 5b)",
-             source.admit_floor, "" if inner is None else " [inert: fallback configured]")
+             "FOREMAST_ADMIT_MIN_COVERAGE_SECONDS; refinement %d docs/tick: FOREMAST_REFINE_DOCS_PER_TICK)",
+             source.admit_floor, "" if inner is None else " [inert: fallback configured]",
+             refine_docs_per_tick_from_env())
     port = _env_int("FOREMAST_INGEST_PORT", 9009)
     srv = None
     if port:
         srv, _ = start_ingest_server(port, ring, book=source.book,
-                                     degrade_stats=degrade.stats if degrade is not None else None)
+                                     degrade_stats=degrade.stats if degrade is not None else None, dirty=dirty)
     log.info("ingest plane ON: %d shards, budget %d bytes, staleness %.0f s, receiver %s; cold fits read "
              "ring columns first, misses fall back to Prometheus and backfill",
              ring.shard_count, ring.budget_bytes, ring.stale_seconds,
@@ -225,10 +225,27 @@ def cmd_worker(args: argparse.Namespace) -> int:
             snap_dir = None
     if snap_dir:
         worker_id = _persistent_worker_id(snap_dir, worker_id)
+    ingest_on = os.environ.get("FOREMAST_INGEST", "0") == "1"
+    # the reactive plane: FOREMAST_MICROTICK_SECONDS > 0 turns pushed-sample
+    # arrivals into micro-ticks. It needs the ingest receiver: arrivals are
+    # what the receiver sees
+    from foremast_tpu_torch.reactive import DirtySet, ReactiveCollector, microtick_docs_from_env, \
+        microtick_seconds_from_env
+
+    micro_seconds = microtick_seconds_from_env()
+    dirty = None
+    if micro_seconds > 0 and not ingest_on:
+        print("FOREMAST_MICROTICK_SECONDS needs FOREMAST_INGEST=1 (the receiver is what marks arrivals); "
+              "staying tick-paced", file=sys.stderr)
+        micro_seconds = 0.0
+    if micro_seconds > 0:
+        dirty = DirtySet.from_env()
+        log.info("reactive plane ON: micro-ticks every %.3f s, %d dirty keys/tick, dirty-set cap %d",
+                 micro_seconds, microtick_docs_from_env(), dirty.max_keys)
     ingest_srv = snapshotter = None
-    if os.environ.get("FOREMAST_INGEST", "0") == "1":
+    if ingest_on:
         source, _, ingest_srv, snapshotter = _mount_ingest(source, args.gauge_port, snapshot_dir=snap_dir,
-                                                           degrade=degrade)
+                                                           degrade=degrade, dirty=dirty)
 
     on_verdict = worker_metrics = None
     if args.gauge_port:
@@ -253,6 +270,7 @@ def cmd_worker(args: argparse.Namespace) -> int:
         tracer=tracer,
         degrade=degrade,
         metrics=worker_metrics,
+        dirty=dirty,
     )
     if snap_dir:
         # fit journals restore lazily (the first claim of each doc
@@ -280,6 +298,10 @@ def cmd_worker(args: argparse.Namespace) -> int:
             from foremast_tpu_torch.ingest import SnapshotCollector
 
             REGISTRY.register(SnapshotCollector(snapshotter, journals=worker._fit_journals.values()))
+        if dirty is not None:
+            from prometheus_client import REGISTRY
+
+            REGISTRY.register(ReactiveCollector(dirty))
 
     ckpt_path = None
     after_tick = None

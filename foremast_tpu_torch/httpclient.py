@@ -15,8 +15,11 @@ allow_nan=False)` in UTF-8 with `Content-Type: application/json`, a
 port) and a request that finds a pooled connection closed by the peer is
 sent again once on a fresh one. Transport failures raise the builtin
 `TimeoutError` or `ConnectionError` (the transient set of
-`metrics.source._transient_exceptions`). Not thread-safe: give each
-thread its own session.
+`metrics.source._transient_exceptions`). One session may be shared
+between threads, as a `requests.Session` is: each thread keeps its own
+keep-alive connections, so two threads never interleave requests on one
+connection (a sliced sweep's writer thread and the tick thread's nested
+micro-tick share the job store's session).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import json as _json
 import socket
 import ssl
 import string
+import threading
 from urllib.parse import quote, unquote, urlsplit
 
 USER_AGENT = "foremast-tpu-torch"
@@ -85,7 +89,15 @@ class Session:
 
     def __init__(self, headers: dict | None = None):
         self.headers = dict(headers or {})
-        self._conns: dict[tuple, http.client.HTTPConnection] = {}
+        self._local = threading.local()
+
+    @property
+    def _conns(self) -> dict[tuple, http.client.HTTPConnection]:
+        """This thread's keep-alive connections by (scheme, host, port)."""
+        conns = getattr(self._local, "conns", None)
+        if conns is None:
+            conns = self._local.conns = {}
+        return conns
 
     def get(self, url, **kw) -> Response:
         return self.request("GET", url, **kw)

@@ -58,12 +58,22 @@ metric families via a custom collector — counters and gauges are
 materialized from `RingStore.stats()` at scrape time, so the hot
 push/fetch paths never touch prometheus_client.
 
+Reactive plane: with a `dirty` set wired (`reactive.DirtySet`), every
+accepted push marks its series' route key dirty so the worker's next
+micro-tick judges the affected documents. **Arrival-clock contract:**
+the dirty stamp is THIS process's wall clock taken at handler entry,
+BEFORE the body is read or parsed (the RECEIVER's arrival instant),
+never the pusher's sample timestamps, so the push->verdict latency
+(`foremast_verdict_latency_seconds`) measures time spent inside this
+system and is immune to client clock skew. Both codecs mark through the
+one apply path.
+
 The JAX receiver's hooks of planes the port does not have yet are left
 out of `start_ingest_server`'s signature: the mesh router and the
 peer-to-peer transfer endpoint (`router`, `handoff`: ROADMAP.md Queue 1
-item 7), edge fault injection and per-tenant ingest envelopes (`chaos`,
-`tenancy`: item 6) and the micro-tick dirty set (`dirty`: item 4). The
-CLI refuses each of those modes where it would ask for them.
+item 7), and edge fault injection and per-tenant ingest envelopes
+(`chaos`, `tenancy`: item 6). The CLI refuses each of those modes where
+it would ask for them.
 """
 
 from __future__ import annotations
@@ -386,6 +396,7 @@ def start_ingest_server(
     max_body_bytes: int | None = None,
     max_inflight: int | None = None,
     degrade_stats=None,
+    dirty=None,
     decode_workers: int | None = None,
     max_decoded_bytes: int | None = None,
 ):
@@ -401,6 +412,14 @@ def start_ingest_server(
     its body is read, so a pusher flood degrades to client-side
     retry-then-buffer instead of a handler-thread pileup.
     `degrade_stats` (chaos.DegradeStats) counts sheds.
+
+    `dirty` (reactive.DirtySet): every entry a push APPLIES samples for
+    marks its route key dirty, stamped with the receiver's arrival clock
+    (see the module docstring's clock contract): the micro-tick trigger.
+    Re-pushes mark too: a last-write-wins revision of an existing
+    timestamp is exactly the spike-correction case that must re-judge.
+    Only entries the ring wholly ignored (empty sample arrays) mark
+    nothing. The contract is codec-independent.
 
     `decode_workers` / `max_decoded_bytes`: pooled decode width (None
     reads ``FOREMAST_INGEST_DECODE_WORKERS``, default 4; 0 decodes
@@ -439,7 +458,7 @@ def start_ingest_server(
     # GIL, and a racing double-insert writes the identical value.
     intern_cache: dict[bytes, str] = {}
 
-    def decode_apply(raw, codec, snappy_enc, read_s):
+    def decode_apply(raw, codec, snappy_enc, arrived_at, read_s):
         """The pooled stage pipeline: decompress → decode → apply, one
         codec switch and ONE shared apply path (push_batch + response
         shape), so the two codecs cannot drift apart in observable
@@ -472,6 +491,13 @@ def start_ingest_server(
         # decode_frame's interning; JSON keys canonicalize in-store)
         counts = store.push_batch(entries, canonical=(codec == "binary"))
         accepted = sum(counts)
+        if dirty is not None:
+            # ONE arrival instant for the whole batch, taken at handler
+            # entry: the latency clock starts when the samples reached
+            # us, not when each ring shard finished applying
+            for (key, _ts, _vs, _start), n_new in zip(entries, counts):
+                if n_new:
+                    dirty.mark_series(key, now=arrived_at)
         stages["apply"] = time.perf_counter() - t0
         wire_stats.record(codec, stages, samples=accepted, ok=True)
         body = {"accepted_samples": accepted, "series": len(entries)}
@@ -506,6 +532,11 @@ def start_ingest_server(
                 self._post()
 
         def _post(self):
+            # the arrival instant, BEFORE the body is read or parsed: a
+            # near-cap batch on a slow link can spend seconds in read and
+            # parse, and that is in-system time the push->verdict latency
+            # must charge for
+            arrived_at = time.time()
             path = self.path.split("?", 1)[0]
             if path != WRITE_PATH:
                 self._send(404, b'{"reason": "not found"}')
@@ -600,7 +631,7 @@ def start_ingest_server(
             read_s = time.perf_counter() - t_read0
             try:
                 code, out = pool.run(
-                    lambda: decode_apply(raw, codec, snappy_enc, read_s)
+                    lambda: decode_apply(raw, codec, snappy_enc, arrived_at, read_s)
                 )
             except _PoolClosed:
                 # receiver draining: the job never started, so nothing

@@ -257,9 +257,8 @@ class RingShard:
     ) -> tuple:
         """(state, points_in_window, (cov_from, cov_to)) without column
         copies and without touching LRU order or the serve counters —
-        the refinement planner's pacing probe (the JAX worker's
-        `_refine_provisional` runs it per provisional fit per idle tick;
-        the port's comes with ROADMAP.md Queue 1 item 5, part 5b). state
+        the refinement planner's pacing probe (the worker's
+        `_refine_provisional` runs it per provisional fit per idle tick). state
         "full" | "partial" (live span short of t0) | None (not resident /
         dead pusher)."""
         with self._lock:

@@ -1,10 +1,9 @@
 """`RingSource` — the worker-facing adapter of the ingest plane.
 
 The port's copy of the JAX package's `foremast_tpu/ingest/source.py`,
-the short-history admission of `hist_columns` included. The port's
-worker does not take partial windows yet: given a pure-push source
-(`fallback=None`) with `admit_floor > 0` it raises, naming ROADMAP.md
-Queue 1 item 5, part 5b (refinement of provisional fits).
+the short-history admission of `hist_columns` included: the worker fits
+a pure-push source's partial windows as provisional fits and refines
+them as coverage grows (`jobs/refine.py`).
 
 A `MetricSource` whose warm path is a resident ring-slice gather: the
 worker's slow and fast tick paths only ever see the `MetricSource`

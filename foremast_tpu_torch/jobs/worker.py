@@ -23,14 +23,24 @@ joint selectors (`bivariate_normal`, `lstm_autoencoder`, `auto`) through
 the default `MultivariateJudge`: multi-alias docs fit on the slow path
 and, once their joint fit is cached, re-check on the joint columnar path
 (`_judge_joint_fast`). Fit journals (`enable_fit_persistence`) make a
-restart warm. Not here yet, each waiting for its own slice: sliced
-sweeps and micro-ticks (so `FOREMAST_SWEEP_SLICE_DOCS` must not slice
-this worker's claims), ring-first cold reads and refinement, tenancy and
-the worker mesh.
+restart warm. Cold fits read resident ring columns first (`_fetch_hist`);
+a pure-push source with an admission floor admits newcomers on short
+coverage as PROVISIONAL fits, which `_refine_provisional` invalidates as
+the ring grows so the next claim refits them (`jobs/refine.py`).
+
+The reactive plane: with a `DirtySet` wired (`dirty=`), `micro_tick`
+judges just the documents whose series the receiver saw pushed, through
+the same `_tick` body; a sweep whose claim can exceed
+`FOREMAST_SWEEP_SLICE_DOCS` runs SLICED (`_sweep_sliced`): bounded
+slices through a prefetch / dispatch / write pipeline, with a micro-tick
+preemption point between slices. Not here yet, each waiting for its own
+slice: tenancy (ROADMAP.md Queue 1 item 6) and the worker mesh (item 7).
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 import logging
 import os
 import threading
@@ -43,6 +53,7 @@ from typing import Callable
 import numpy as np
 
 from foremast_tpu_torch.chaos.degrade import (
+    REASON_ABORT,
     REASON_DEADLINE,
     REASON_DEMOTED,
     REASON_FETCH,
@@ -78,7 +89,8 @@ from foremast_tpu_torch.jobs.models import (
     AnomalyInfo,
     Document,
 )
-from foremast_tpu_torch.jobs.pipeline import ChunkPipeline, StageError
+from foremast_tpu_torch.jobs.pipeline import END, ChunkPipeline, StageError
+from foremast_tpu_torch.jobs.refine import RefineBook, refine_docs_per_tick_from_env
 from foremast_tpu_torch.jobs.store import JobStore, parse_time
 # the module, not the function: `metrics.promql` imports `jobs.models`,
 # so importing `metrics` first reaches this line while promql is half built
@@ -87,6 +99,12 @@ from foremast_tpu_torch.metrics.source import MetricSource
 from foremast_tpu_torch.models.cache import ModelCache
 from foremast_tpu_torch.observe.logs import ctx_log
 from foremast_tpu_torch.observe.spans import inherit_span, span
+from foremast_tpu_torch.reactive.dirty import (
+    doc_route_key,
+    microtick_docs_from_env,
+    microtick_seconds_from_env,
+    sweep_slice_docs_from_env,
+)
 
 log = logging.getLogger("foremast_tpu_torch.worker")
 
@@ -97,11 +115,6 @@ log = logging.getLogger("foremast_tpu_torch.worker")
 # ingestion latency with margin, metricsquery.go:53-55).
 HIST_CACHE_ENTRIES = 256
 HIST_SETTLED_SECONDS = 120.0
-
-# The JAX worker slices a sweep whose claim can exceed this many docs
-# (`FOREMAST_SWEEP_SLICE_DOCS`, 0 = monolithic); sliced results equal the
-# monolithic body's by contract, and the port runs only the latter.
-DEFAULT_SWEEP_SLICE_DOCS = 2_048
 
 _EMPTY_TIMES = np.zeros(0, np.int64)
 _EMPTY_VALUES = np.zeros(0, np.float32)
@@ -116,26 +129,174 @@ RELEASED = object()  # transient fetch failure
 RELEASED_DEADLINE = object()  # tick budget exceeded
 
 
-def sweep_slice_docs_from_env() -> int:
-    """`FOREMAST_SWEEP_SLICE_DOCS` as the JAX worker resolves it: empty
-    means the default, a malformed value warns and takes the default."""
-    raw = os.environ.get("FOREMAST_SWEEP_SLICE_DOCS", "")
-    if not raw:
-        return DEFAULT_SWEEP_SLICE_DOCS
-    try:
-        return int(raw)
-    except ValueError:
-        log.warning(
-            "ignoring malformed FOREMAST_SWEEP_SLICE_DOCS=%r; using %r",
-            raw, DEFAULT_SWEEP_SLICE_DOCS,
-        )
-        return DEFAULT_SWEEP_SLICE_DOCS
+# Sliced, preemptible sweeps: a full sweep whose claim can exceed
+# FOREMAST_SWEEP_SLICE_DOCS (reactive/dirty.py: sweep_slice_docs_from_env,
+# default 2048, 0 = the monolithic body) runs as a SEQUENCE of bounded
+# slices through a warm-path pipeline (claim-pool prepare / async
+# columnar dispatch / gather + decode + write), with a micro-tick
+# preemption point at every slice boundary: a pushed anomaly's latency is
+# bounded by one slice's wall clock, not the sweep's.
+
+
+class _TickLedger:
+    """One judging cycle's arrival-attribution state: the route keys this
+    cycle owes a push->verdict latency observation (``pending``: key ->
+    receiver arrival stamp) and the keys already observed. A sliced sweep
+    and the micro-ticks that PREEMPT it mid-flight each carry their OWN
+    ledger, so a nested cycle can never clobber the outer one's
+    attribution (the sweep's writer thread reads its ledger while the
+    tick thread runs the nested micro). Single dict and set operations
+    are GIL-atomic; iteration happens only after the cycle's pipeline
+    threads are joined."""
+
+    __slots__ = ("path", "pending", "observed")
+
+    def __init__(self, path: str, pending=None):
+        self.path = path
+        self.pending: dict[str, float] = dict(pending) if pending else {}
+        self.observed: set[str] = set()
+
+
+class _SweepPool:
+    """The sliced sweep's claimed-but-unsliced document pool.
+
+    One leaf lock guards the queue, the route-key index, the promoted
+    front and the in-flight key counts; three threads touch it: the
+    prefetch thread takes slices, the tick thread promotes dirty route
+    keys to the front at preemption points, and the writer thread
+    retires written slices. ``promote`` is how a pushed anomaly whose
+    document is claimed but NOT yet fetched jumps the queue: its slice
+    runs next, fetches post-arrival samples, and the sweep itself
+    delivers the verdict inside ~one slice. The tenant-fair slice order
+    (`tenancy=`) is ROADMAP.md Queue 1 item 6 and raises."""
+
+    def __init__(self, docs, tenancy=None):
+        if tenancy is not None:
+            raise NotImplementedError(
+                "the tenant-fair slice order (the tenant plane) is not ported yet: ROADMAP.md Queue 1 item 6"
+            )
+        self._lock = threading.Lock()
+        self._queue = collections.OrderedDict((d.id, d) for d in docs)
+        self._keys: dict[str, list[str]] = {}
+        for d in docs:
+            self._keys.setdefault(doc_route_key(d), []).append(d.id)
+        self._front: collections.deque = collections.deque()
+        self._inflight: dict[str, int] = {}
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    def take(self, n: int) -> list:
+        """Next slice: promoted docs first, then claim order. Taken docs
+        enter the in-flight set until `done` retires them."""
+        out = []
+        with self._lock:
+            while self._front and len(out) < n:
+                doc = self._queue.pop(self._front.popleft(), None)
+                if doc is not None:
+                    out.append(doc)
+            while self._queue and len(out) < n:
+                _, doc = self._queue.popitem(last=False)
+                out.append(doc)
+            for doc in out:
+                rk = doc_route_key(doc)
+                ids = self._keys.get(rk)
+                if ids:
+                    try:
+                        ids.remove(doc.id)
+                    except ValueError:
+                        pass
+                    if not ids:
+                        del self._keys[rk]
+                self._inflight[rk] = self._inflight.get(rk, 0) + 1
+        return out
+
+    def drain(self) -> list:
+        """Everything still pooled (deadline expiry, abort): one bulk
+        release instead of judging over budget."""
+        with self._lock:
+            out = list(self._queue.values())
+            self._queue.clear()
+            self._keys.clear()
+            return out
+
+    def done(self, docs) -> None:
+        """A slice's docs were written (or released): their route keys
+        leave the in-flight set, making them fair game for the next
+        boundary's micro-tick."""
+        with self._lock:
+            for doc in docs:
+                rk = doc_route_key(doc)
+                c = self._inflight.get(rk, 0)
+                if c <= 1:
+                    self._inflight.pop(rk, None)
+                else:
+                    self._inflight[rk] = c - 1
+
+    def promote(self, route_key: str) -> bool:
+        """Move every pooled doc of `route_key` to the front of the slice
+        order; False when none are pooled."""
+        with self._lock:
+            ids = self._keys.get(route_key)
+            if not ids:
+                return False
+            self._front.extend(ids)
+            return True
+
+    def inflight(self, route_key: str) -> bool:
+        with self._lock:
+            return route_key in self._inflight
+
+
+class _SlicePrep:
+    """One prepared slice: admission split + fetched windows + packed
+    columnar buffers, built on the prefetch thread. `release_all` marks a
+    deadline-expiry bundle (every doc releases un-judged)."""
+
+    __slots__ = (
+        "docs", "claim_mono", "slow", "ok_items", "ok_citems", "ok_joint",
+        "failed", "released", "uni_packed", "canary_packed", "release_all",
+        "slow_done",
+    )
+
+    def __init__(self, docs, claim_mono, release_all=False):
+        self.docs = docs
+        self.claim_mono = claim_mono
+        self.release_all = release_all
+        self.slow_done = False
+        self.slow = []
+        self.ok_items = []
+        self.ok_citems = []
+        self.ok_joint = []
+        self.failed = []
+        self.released = []
+        self.uni_packed = None
+        self.canary_packed = None
+
+
+class _SliceResult:
+    """A dispatched slice: pending (ungathered) columnar judgments plus
+    the synchronously judged joint docs. `aborted` marks a StageError
+    partial: finish writes what was judged and releases the rest."""
+
+    __slots__ = ("prep", "joint_updated", "joint_counts", "uni_pending", "canary_pending", "aborted")
+
+    def __init__(self, prep):
+        self.prep = prep
+        self.joint_updated = []
+        self.joint_counts = None
+        self.uni_pending = None
+        self.canary_pending = None
+        self.aborted = False
 
 
 class _UniPacked:
     """One packed univariate/canary columnar bucket: the [B, tc]
-    buffers plus per-row operands, ready for `judge_columnar`.
-    `ok_items` is the (canary-split) item list the decode walks."""
+    buffers plus per-row operands, ready for `judge_columnar_async`.
+    `ok_items` is the (canary-split) item list the decode walks. Built on
+    whichever thread packs (the prefetch thread under a sliced sweep);
+    consumed by the dispatch (tick thread) and the decode (writer)."""
 
     __slots__ = (
         "ok_items", "values", "mask", "keys", "entries", "nidx",
@@ -218,6 +379,7 @@ class BrainWorker:
         tracer=None,  # observe.spans.Tracer (optional)
         degrade: Degradation | None = None,
         metrics=None,  # observe.gauges.WorkerMetrics (optional)
+        dirty=None,  # reactive.DirtySet (optional: the micro-tick plane)
     ):
         """`band_mode` controls how much of the model band each verdict
         carries back from the device: "last" (default — only the final
@@ -228,17 +390,6 @@ class BrainWorker:
         self.source = source
         self.config = config or BrainConfig()
         self.claim_limit = claim_limit
-        # Sliced sweeps are a later slice of the port: a claim that the
-        # JAX worker would slice must not silently run another path here
-        self.sweep_slice_docs = sweep_slice_docs_from_env()
-        if 0 < self.sweep_slice_docs < claim_limit:
-            raise NotImplementedError(
-                f"claim_limit={claim_limit} exceeds "
-                f"FOREMAST_SWEEP_SLICE_DOCS={self.sweep_slice_docs}, so the "
-                "sweep would run sliced, which the port does not have yet "
-                "(ROADMAP.md Queue 1); set FOREMAST_SWEEP_SLICE_DOCS=0 for "
-                "the monolithic tick"
-            )
         # MultivariateJudge dispatches by metric count (1 -> univariate,
         # 2 -> bivariate normal, 3+ -> LSTM-AE hybrid, per the selector)
         # and delegates univariate jobs to its HealthJudge, `_uni`
@@ -327,16 +478,13 @@ class BrainWorker:
         # "http" (operators read the http count as proof a pull path
         # exists)
         self._cold_unserved = self._hist_bypass and getattr(source, "fallback", object()) is None
-        if self._cold_unserved and float(getattr(source, "admit_floor", 0.0) or 0.0) > 0:
-            # pure push with a positive floor admits PARTIAL windows as
-            # provisional fits, which only the refinement book grows
-            # back to a full history; without it a partial fit would be
-            # final
-            raise NotImplementedError(
-                f"a pure-push RingSource (fallback=None) with admit_floor={source.admit_floor:g} admits "
-                "short histories as provisional fits, and their refinement is not ported yet: ROADMAP.md "
-                "Queue 1 item 5, part 5b; give the source a fallback or admit_floor=0"
-            )
+        # Short-history admission + background refinement: the ledger of
+        # provisional fits and the per-tick upgrade budget. Refinement
+        # INVALIDATES a provisional fit when its ring coverage grew
+        # enough; the next claim refits it from the ring through the
+        # production slow path (band parity by construction).
+        self.refine_docs_per_tick = refine_docs_per_tick_from_env()
+        self._refine_book = RefineBook()
         # Historical-window cache for the re-check loop (SURVEY "hard
         # part" (d)): a job's historical URL is fixed for its lifetime,
         # so a job re-checked every tick until endTime need not re-fetch
@@ -346,9 +494,7 @@ class BrainWorker:
             max(8, HIST_CACHE_ENTRIES // 16) if self._hist_bypass else HIST_CACHE_ENTRIES
         )
         # cold-path historical-read accounting (fetch-pool threads write,
-        # debug_state reads — lock-guarded); "ring_partial" stays 0 until
-        # short-history admission is ported (ROADMAP.md Queue 1 item 5,
-        # part 5b)
+        # debug_state reads — lock-guarded)
         self._cold_lock = threading.Lock()
         self._cold_counts = {"ring_full": 0, "ring_partial": 0, "http": 0, "cache": 0, "unserved": 0}
         # Span tracer: tick() opens a root span and every stage — claim,
@@ -386,6 +532,31 @@ class BrainWorker:
         self._tick_claim_mono = time.monotonic()
         # one WARNING per degradation episode, not per buffered write
         self._write_degraded = False
+        # Reactive plane: the receiver-fed dirty-series set. When wired,
+        # `micro_tick()` drains it between full ticks, claiming JUST the
+        # dirty documents through the same _tick body (columnar fast path
+        # for warm docs, slow pipeline for cold), and full ticks demote to
+        # sweeps that drain whatever arrivals the micro-ticks missed.
+        # `_ledger` is the innermost live cycle's route-key -> arrival
+        # stamp map; every judged doc whose route key is pending observes
+        # the push->verdict latency (foremast_verdict_latency_seconds).
+        self.dirty = dirty
+        # the base claim filter (doc -> bool): the mesh's partition filter
+        # once ROADMAP.md Queue 1 item 7 sets it, None until then; a
+        # micro-tick's dirty-key restriction composes with it
+        self.claim_filter = None
+        self.microtick_seconds = microtick_seconds_from_env()
+        self.microtick_docs = microtick_docs_from_env()
+        self._ledger = _TickLedger("sweep")
+        self._last_micro = {"at": 0.0, "docs": 0, "seconds": 0.0, "runs": 0}
+        # Sliced, preemptible sweeps: claims above this size run as
+        # bounded slices through the warm-path pipeline, with a
+        # dirty-drain preemption point between slices; 0 = monolithic
+        self.sweep_slice_docs = sweep_slice_docs_from_env()
+        self._last_sweep: dict | None = None
+        # True while a sliced sweep is in flight: pins _tick_claim_mono at
+        # the sweep's claim instant (see _claim_cycle)
+        self._sweep_active = False
 
     # -- preprocess: document -> MetricTasks ----------------------------
 
@@ -447,6 +618,10 @@ class BrainWorker:
         # joint models align histories across metrics and fit their own
         # state, so an empty-history task would collapse the joint fit
         may_skip_hist = not self._mv or len(aliases) == 1
+        # aliases whose history came back as a PARTIAL ring slice this
+        # fetch (short-history admission): noted in the refine book after
+        # the loop so the fit they produce is tracked provisional
+        partials: list[tuple] = []
         try:
             for (
                 alias,
@@ -489,7 +664,9 @@ class BrainWorker:
                                     hist_step=gap[0], hist_last_t=gap[1]
                                 )
                         else:
-                            ht, hv = self._fetch_hist(hist_url, now)
+                            ht, hv, prov = self._fetch_hist(hist_url, now)
+                            if prov:
+                                partials.append((fullkey, key, hist_url, len(ht)))
                             if len(ht) and self._gap_sensitive:
                                 self._gap_meta.put(
                                     key, (infer_step(ht), float(ht[-1]))
@@ -529,20 +706,35 @@ class BrainWorker:
                 return RELEASED
             log.warning("preprocess failed for %s: %s", doc.id, e)
             return None
+        if partials:
+            if may_skip_hist:
+                # univariate fits: one provisional record per fit key
+                for fullkey, key, url, n in partials:
+                    self._refine_book.note_uni(fullkey, key, url, n)
+            else:
+                # joint doc: one record for the doc (its joint cache keys
+                # resolve through the admission cache, or by app when the
+                # doc never warmed, at invalidation time)
+                self._refine_book.note_joint(
+                    doc.id, doc.app_name, tuple(u for _, _, u, _ in partials), sum(n for _, _, _, n in partials)
+                )
         return tasks
 
     def _count_cold(self, source: str) -> None:
         """One historical-range read on the cold-fit path, by source
-        (ring_full / http / cache / unserved). Fetch-pool threads land
-        here, hence the lock."""
+        (ring_full / ring_partial / http / cache / unserved). Fetch-pool
+        threads land here, hence the lock."""
         with self._cold_lock:
             self._cold_counts[source] += 1
         if self.metrics is not None:
             self.metrics.cold_hist.labels(source=source).inc()
 
     def _fetch_hist(self, url: str, now: float):
-        """Historical window (times, values) for a cold fit: ring
-        columns first, HTTP second.
+        """Historical window for a cold fit: ring columns first, HTTP
+        second. Returns (times, values, provisional): provisional is True
+        when the window is a PARTIAL ring slice under short-history
+        admission whose coverage can still grow inside the requested
+        range (the caller notes it in the refine book).
 
         A ring read bypasses `_hist_cache` entirely: the ring IS the
         resident history (one slice copy under the shard lock, no JSON),
@@ -550,17 +742,24 @@ class BrainWorker:
         Only ranges the ring cannot serve go through the settled-range
         cache to the source's `fetch`, whose fallback result backfills
         the ring write-through, so the NEXT cold fit of the same series
-        reads resident. The source never admits a partial window here:
-        with a fallback `hist_columns` passes no admission floor, and
-        the constructor refuses pure push with one."""
+        reads resident."""
         if self._ring_hist is not None:
             res = self._ring_hist(url, now)
             if res is not None:
-                self._count_cold("ring_full")
-                return res[1], res[2]
+                status, ht, hv, cov, window = res
+                if status == "full":
+                    self._count_cold("ring_full")
+                    return ht, hv, False
+                self._count_cold("ring_partial")
+                t1 = window[1]
+                # provisional iff in-window data can still arrive: the
+                # window head is not yet covered. A slice whose head IS
+                # covered is terminal; marking it provisional would re-note
+                # every finalized refit back into the book
+                return ht, hv, t1 is None or cov[1] < t1
         series, hit = self._fetch_hist_cached(url, now)
         self._count_cold("cache" if hit else "unserved" if self._cold_unserved else "http")
-        return series
+        return series[0], series[1], False
 
     def _fetch_hist_cached(self, url: str, now: float):
         """Fetch a settled historical window, memoized by URL; returns
@@ -750,19 +949,21 @@ class BrainWorker:
         the judge caches it. Returns per-journal restore counts.
 
         Journaled caches: the univariate fit cache and its gap anchors,
-        the joint entry cache and its warm metadata. The JAX worker also
-        journals its provisional-fit refine book; the port has no
-        provisional fits yet (ROADMAP.md Queue 1 item 5, part 5b), so
-        it has no refine journal. NOT journaled: the history cache
-        (re-fetchable), the per-doc meta cache (derived from immutable
-        configs) and the device arena (it rehydrates row by row from the
-        restored fit cache)."""
+        the provisional-fit refine book (the journals restore a
+        short-history FIT warm, so the restored doc takes the fast path
+        and nothing would ever re-note it: without its own journal the fit
+        would stay parked at the admitted history instead of refining to
+        the full window), and the joint entry cache and its warm
+        metadata. NOT journaled: the history cache (re-fetchable), the
+        per-doc meta cache (derived from immutable configs) and the device
+        arena (it rehydrates row by row from the restored fit cache)."""
         from foremast_tpu_torch.models.cache import FitJournal
 
         os.makedirs(directory, exist_ok=True)
         pairs = [
             ("fits", self._fit_cache),
             ("gaps", self._gap_meta),
+            ("refine", self._refine_book),
             ("joint", self._mvj.cache),
             ("jmeta", self._mvj.joint_meta),
         ]
@@ -794,6 +995,107 @@ class BrainWorker:
         except Exception:  # noqa: BLE001 - durability must not kill ticks
             log.exception("durability housekeeping failed")
 
+    # -- background refinement of provisional fits ------------------------
+
+    def _count_refine(self, result: str) -> None:
+        if self.metrics is not None:
+            self.metrics.refine_docs.labels(result=result).inc()
+
+    def _refine_provisional(self, now: float) -> int:
+        """Upgrade provisional fits whose ring coverage grew (idle and
+        all-warm sweeps only: a busy slow-path tick already has cold fits
+        to pay for). Bounded to `refine_docs_per_tick` records a pass;
+        each upgrade is an INVALIDATION, so the next claim refits the doc
+        from the (larger) ring window through the production slow path
+        and a refined fit equals a from-scratch fit on the same columns.
+        Returns #invalidated."""
+        book = self._refine_book
+        if not len(book) or self._ring_hist is None:
+            return 0
+        if getattr(self, "mesh", None) is not None and getattr(self.mesh, "draining", False):
+            # a draining mesh member streams its fits to the new owners; an
+            # invalidation now would hand them a hole. The port has no
+            # worker mesh yet (ROADMAP.md Queue 1 item 7), so this never
+            # fires
+            return 0
+        probe = getattr(self.source, "hist_coverage", None)
+        if probe is None:
+            return 0
+        upgraded = 0
+        for bkey, rec in book.take(self.refine_docs_per_tick):
+            states = [probe(u, now) for u in rec["urls"]]
+            if any(s is None for s in states):
+                # unresolvable URL: no series identity to ever pace
+                book.drop(bkey, "dropped")
+                continue
+            if any(s[0] is None for s in states):
+                # no serving span RIGHT NOW (pusher pause past the
+                # staleness cutoff, eviction): pacing pauses but the
+                # record STAYS, since the short-history fit is still warm
+                # and no cold claim will re-note it. take() already
+                # rotated the record to the back
+                continue
+            n_now = sum(s[1] for s in states)
+            closed = all(s[0] == "full" or (s[3][1] is not None and s[2][1] >= s[3][1]) for s in states)
+            if closed:
+                # the window is fully covered (or its head is past: nothing
+                # more can arrive inside it). A TERMINAL refit only when the
+                # resident data grew past the admitted fit; either way the
+                # record settles, and "finalized" counts only refits paid
+                if n_now > rec["points"]:
+                    self._invalidate_provisional(bkey, rec)
+                    upgraded += 1
+                    book.drop(bkey, "finalized")
+                    self._count_refine("finalized")
+                else:
+                    book.drop(bkey, "settled")
+                    self._count_refine("settled")
+            elif book.due(rec["points"], n_now):
+                self._invalidate_provisional(bkey, rec)
+                book.refit(bkey, n_now)
+                self._count_refine("refit")
+                upgraded += 1
+        if self.metrics is not None:
+            self.metrics.provisional.set(len(book))
+        if upgraded:
+            log.info(
+                "refinement: invalidated %d provisional fit(s) for refit from the ring (%d still pending)",
+                upgraded, len(book),
+            )
+        return upgraded
+
+    def _invalidate_provisional(self, bkey: tuple, rec: dict) -> None:
+        """Drop a provisional fit's cached state so the next claim refits
+        from the ring. The version bumps make the fast-path admission
+        caches revalidate and demote the doc to the slow path for exactly
+        one refit tick."""
+        if rec["kind"] == "uni":
+            self._fit_cache.pop(rec["fullkey"])
+            if self._gap_sensitive:
+                self._gap_meta.pop(rec["gap_key"])
+            return
+        # joint: resolve the cache keys through the admission cache
+        jad = self._jadmit.pop(rec["doc_id"], None)
+        if jad is not None:
+            jinfo = jad[1]
+            self._mvj.cache.pop(jinfo[3])
+            self._mvj.joint_meta.pop(jinfo[5])
+            return
+        # never fast-path-admitted (columnar off, or refinement fired
+        # before the doc's second claim): the slow path's joint cache key
+        # carries no history content, so its short-history fit would be
+        # served FOREVER unless popped; invalidate by app. Joint cache
+        # keys are (mode, app, ...), meta keys ("jmeta", mode, app, ...);
+        # over-matching sibling docs of the same app costs them one extra
+        # refit, never a wrong verdict
+        app = rec.get("app")
+        if app is None:
+            return
+        self._mvj.cache.pop_where(lambda k: isinstance(k, tuple) and len(k) > 1 and k[1] == app)
+        self._mvj.joint_meta.pop_where(
+            lambda k: isinstance(k, tuple) and len(k) > 2 and k[0] == "jmeta" and k[2] == app
+        )
+
     # -- degraded store writes -------------------------------------------
 
     def _store_update(
@@ -803,8 +1105,10 @@ class BrainWorker:
         store failure (connection/timeout, 429/5xx, breaker open) parks
         the doc in the bounded buffer for replay instead of failing the
         tick; permanent errors propagate. `claim_mono` is the doc's
-        claim instant for the write-behind age stamp (default: this
-        tick's)."""
+        claim instant for the write-behind age stamp: a sliced sweep
+        passes each slice's own claim time so a late slice can never
+        inherit a fresher stamp from a nested micro-tick's claim (default:
+        this tick's, `_tick_claim_mono`)."""
         try:
             doc = self.store.update(doc)
             self._write_degraded = False
@@ -894,6 +1198,7 @@ class BrainWorker:
         self,
         docs: list[Document],
         reason: str,
+        led: _TickLedger | None = None,
         claim_mono: float | None = None,
     ) -> None:
         """Partial-tick semantics: give docs back un-judged (status →
@@ -902,10 +1207,21 @@ class BrainWorker:
         fail a doc for a dependency's transient sin."""
         if not docs:
             return
+        led = self._ledger if led is None else led
         for doc in docs:
             doc.status = STATUS_PREPROCESS_COMPLETED
         self._store_update_many(docs, claim_mono=claim_mono)
         self._degrade.stats.count_docs(reason, len(docs))
+        # reactive: a released doc's pending arrival goes BACK to the dirty
+        # set with its ORIGINAL stamp, so a brownout mid-micro-tick does not
+        # lose the arrival and the eventual verdict still measures from the
+        # push's receive instant
+        if led.pending and self.dirty is not None:
+            for doc in docs:
+                rk = doc_route_key(doc)
+                stamp = led.pending.pop(rk, None)
+                if stamp is not None:
+                    self.dirty.mark(rk, stamp, requeue=True)
         log.warning(
             "released %d doc(s) un-judged (%s); they stay claimable "
             "for the next tick", len(docs), reason,
@@ -1210,6 +1526,7 @@ class BrainWorker:
             "worker.write_back", stage="write_back", docs=len(updated_all)
         ):
             self._store_update_many(updated_all)
+        self._observe_verdicts(updated_all)
         return (
             len(ok_items) + len(ok_citems) + n_joint + len(failed) + len(released),
             slow,
@@ -1395,6 +1712,11 @@ class BrainWorker:
         [B, tc] buffer pair judged by the pairwise-active variant — hook
         verdicts then carry the REAL device (p, differs). Returns the
         decided docs; the caller persists."""
+        # pack -> dispatch -> gather + decode are separate helpers so the
+        # sliced sweep can run them on different pipeline stages; this
+        # wrapper composes the same pack and decode around
+        # `judge_columnar` (itself the async dispatch + wait pair), which
+        # is what pins sliced-vs-monolithic byte parity by construction
         packed = self._pack_uni(ok_items, canary)
         res = self._uni.judge_columnar(
             packed.values,
@@ -1500,10 +1822,33 @@ class BrainWorker:
             thr, bnd, mlb, gaps, tc, canary, base_vals, base_m,
         )
 
+    def _dispatch_uni(self, packed: _UniPacked):
+        """The device-dispatch half (tick thread ONLY: arena assignment
+        order is load-bearing): one async columnar program, returns the
+        un-gathered `ColumnarPending`. Its one copy back records a CUDA
+        event on this thread's stream, and `wait()` synchronizes that
+        event from whichever thread gathers."""
+        return self._uni.judge_columnar_async(
+            packed.values,
+            packed.mask,
+            packed.keys,
+            packed.entries,
+            packed.nidx,
+            packed.thr,
+            packed.bnd,
+            packed.mlb,
+            gap_steps=packed.gaps,
+            with_bands=self.on_verdict is not None,
+            base_values=packed.base_vals,
+            base_mask=packed.base_m,
+        )
+
     def _decode_uni(self, packed: _UniPacked, res, now: float) -> list:
-        """The decode half: segment-reduce per-doc verdicts and decide
-        statuses off the gathered result tuple. Returns the decided
-        docs; the caller persists."""
+        """The decode half (any single consumer thread: the sliced sweep
+        runs it on the writer after `ColumnarPending.wait()`):
+        segment-reduce per-doc verdicts and decide statuses off the
+        gathered result tuple. Returns the decided docs; the caller
+        persists."""
         ok_items = packed.ok_items
         v8, anoms, ub, lb, ps, difs = res
         counts = np.fromiter(
@@ -1597,36 +1942,482 @@ class BrainWorker:
                     log.exception("on_verdict hook failed for %s", doc.id)
         return updated
 
+    # -- reactive plane: micro-ticks and verdict latency ------------------
+
+    def micro_tick(self, now: float | None = None) -> int:
+        """Drain up to `FOREMAST_MICROTICK_DOCS` dirty route keys through
+        ONE claim-fetch-judge-write cycle restricted to their documents.
+        The body is `_tick` itself: warm docs ride the columnar fast path,
+        cold docs take the slow pipeline, and every degradation contract
+        (write-behind, transient release, breakers) applies unchanged, so
+        a micro-tick-judged doc's status is byte-identical to the same doc
+        judged by a full tick. Housekeeping (refinement, snapshots) stays
+        with the sweeps. Returns #docs processed."""
+        dirty = self.dirty
+        if dirty is None:
+            return 0
+        entries = dirty.take(self.microtick_docs)
+        if not entries:
+            return 0
+        if self.tracer is None:
+            return self._tick(now, micro=entries)
+        with self.tracer.span("worker.microtick", worker=self.worker_id):
+            return self._tick(now, micro=entries)
+
+    def _begin_pending(self, micro) -> _TickLedger:
+        """Set up this cycle's arrival-attribution ledger: a micro-tick
+        owns exactly the entries it took; a full sweep drains the WHOLE
+        dirty set (the catch-all: arrivals the micro-ticks missed, dropped
+        keys' documents). `self._ledger` tracks the INNERMOST live cycle
+        (a sweep's preemption point saves and restores it around the
+        nested micro-tick)."""
+        if micro is not None:
+            led = _TickLedger("micro", micro)
+        elif self.dirty is not None:
+            led = _TickLedger("sweep", self.dirty.take_all())
+        else:
+            led = _TickLedger("sweep")
+        self._ledger = led
+        return led
+
+    def _requeue_pending(self, led: _TickLedger) -> None:
+        """Give every un-attributed arrival back to the dirty set with its
+        original stamp (claim brownout: nothing was claimed, the docs stay
+        claimable, the arrivals must survive)."""
+        if led.pending and self.dirty is not None:
+            for rk, stamp in led.pending.items():
+                self.dirty.mark(rk, stamp, requeue=True)
+        led.pending = {}
+
+    def _finish_pending(self, led: _TickLedger) -> None:
+        """Close out arrival attribution: pending keys no judged doc
+        matched (terminal docs, apps claimed by a peer, sweep claims past
+        the limit) are DROPPED and counted, never re-queued: a key with no
+        claimable doc would cycle forever."""
+        pending = led.pending
+        if pending:
+            missed = sum(1 for k in pending if k not in led.observed)
+            if missed and self.dirty is not None:
+                self.dirty.count("unattributed", missed)
+        led.pending = {}
+        led.observed = set()
+
+    def _observe_verdicts(self, docs, led: _TickLedger | None = None) -> None:
+        """Per-verdict latency: every just-written doc whose route key
+        carries a pending arrival observes (now - receiver arrival stamp)
+        on `foremast_verdict_latency_seconds{path, tenant}`. Called at the
+        write-back points of both tick paths; a write-behind-buffered
+        verdict observes too (the verdict exists; its persistence is the
+        buffer's contract). `tenant` is the untenanted worker's constant
+        "default" until the tenant plane (ROADMAP.md Queue 1 item 6)."""
+        led = self._ledger if led is None else led
+        pending = led.pending
+        if not pending or not docs:
+            return
+        hist = self.metrics.verdict_latency if self.metrics is not None else None
+        observed = led.observed
+        path = led.path
+        now = time.time()
+        for doc in docs:
+            rk = doc_route_key(doc)
+            stamp = pending.get(rk)
+            if stamp is None:
+                continue
+            observed.add(rk)
+            if hist is not None:
+                hist.labels(path=path, tenant="default").observe(max(0.0, now - stamp))
+
+    def _micro_claim_filter(self, base, led: _TickLedger):
+        """The micro-tick's claim restriction: only documents whose route
+        key is in this tick's pending set, composed with the base filter
+        (claim-CAS stays the net beneath both)."""
+        keys = led.pending
+
+        def claim_filter(doc) -> bool:
+            if base is not None and not base(doc):
+                return False
+            return doc_route_key(doc) in keys
+
+        return claim_filter
+
     # -- main cycle ------------------------------------------------------
 
     def tick(self, now: float | None = None) -> int:
-        """One claim-fetch-judge-write cycle. Returns #docs processed."""
-        if self.tracer is None:
-            n = self._tick(now)
-        else:
-            # the root span mints the tick's trace ID: every stage span
-            # below (and the judge spans nested inside them) shares it,
-            # as do JSON log records emitted while the tick is open
-            with self.tracer.span("worker.tick", worker=self.worker_id):
-                n = self._tick(now)
-        if self._fit_journals:
-            self._maybe_persist()
-        return n
+        """One claim-fetch-judge-write cycle. Returns #docs processed.
 
-    def _claim_cycle(self) -> list[Document]:
-        """Stamp the claim instant and claim — degrading a transient
-        store failure to an empty cycle."""
-        self._tick_claim_mono = time.monotonic()
+        Sweeps whose claim can exceed one slice run SLICED
+        (`_sweep_sliced`): bounded slices through the warm-path pipeline
+        with a dirty-drain preemption point between slices. Everything
+        else, and `FOREMAST_SWEEP_SLICE_DOCS=0`, keeps the monolithic body
+        (`_tick`), the byte-parity arm."""
+        if self.tracer is None:
+            return self._cycle(now)
+        # the root span mints the tick's trace ID: every stage span
+        # below (and the judge spans nested inside them) shares it, as do
+        # JSON log records emitted while the tick is open
+        with self.tracer.span("worker.tick", worker=self.worker_id):
+            return self._cycle(now)
+
+    def _cycle(self, now: float | None) -> int:
+        if self._sweep_sliceable():
+            return self._sweep_sliced(now)
+        return self._tick(now)
+
+    def _sweep_sliceable(self) -> bool:
+        """Sliced sweeps engage when a claim can outgrow one slice
+        (FOREMAST_SWEEP_SLICE_DOCS > 0 and < claim_limit) and `_fast_tick`
+        has not been replaced on the instance (tests forcing the object
+        path get exactly the monolithic body they stubbed)."""
+        return 0 < self.sweep_slice_docs < self.claim_limit and "_fast_tick" not in self.__dict__
+
+    # -- sliced, preemptible sweeps --------------------------------------
+
+    def _sweep_sliced(self, now: float | None = None) -> int:
+        """One full sweep as a sequence of bounded slices through a
+        warm-path pipeline: the prefetch thread takes slice N+1 from the
+        claim pool and packs it while the tick thread async-dispatches
+        slice N's columnar programs and the writer thread gathers,
+        decodes and bulk-writes slice N-1. At every slice boundary the
+        reactive drain gets a PREEMPTION POINT
+        (`_preempt_between_slices`), so a pushed anomaly's latency is
+        bounded by one slice's wall clock, not the sweep's.
+
+        Contract preservation: the claim is ONE store round trip (the same
+        claim and lease semantics as the monolithic tick); each slice's
+        write-behind stamps carry the sweep's claim instant; the tick
+        budget is checked per slice, with the still-pooled remainder
+        released in one bulk write on expiry; per-doc judgment is
+        byte-identical to the monolithic tick because both compose the
+        same pack / dispatch / decode helpers."""
+        t0 = time.perf_counter()
+        self._tick_deadline = self._degrade.deadline(t0)
+        now = time.time() if now is None else now
+        self._flush_write_behind()
+        led = self._begin_pending(None)
+        docs = self._claim_cycle(led, None)
+        claim_mono = self._tick_claim_mono
+        if docs and self._deadline_exceeded():
+            self._release_docs(docs, REASON_DEADLINE, led, claim_mono)
+            docs = []
+        if not docs:
+            # idle sweep: the monolithic idle tick's housekeeping
+            self._finish_pending(led)
+            self._refine_provisional(now)
+            self._maybe_persist()
+            if self.metrics is not None:
+                self.metrics.tick_seconds.observe(time.perf_counter() - t0)
+            return 0
+
+        pool = _SweepPool(docs)
+        counters = {
+            "slices": 0, "slow_docs": 0, "promoted": 0,
+            "inflight_requeued": 0, "preempt_microticks": 0,
+            "preempt_docs": 0,
+        }
+        totals = {"docs": 0, "fast": 0}
+        # the SWEEP's deadline, captured like claim_mono: prepare runs on
+        # the prefetch thread CONCURRENTLY with the boundary hook, and a
+        # nested preemption micro-tick points self._tick_deadline at its
+        # own (fresher) deadline while it runs
+        sweep_deadline = self._tick_deadline
+
+        def past_deadline() -> bool:
+            return sweep_deadline is not None and time.perf_counter() > sweep_deadline
+
+        def prepare(_i):
+            # prefetch thread: deadline check FIRST, so an expired sweep
+            # releases its pooled remainder in one bulk write instead of
+            # fetching work it may not judge
+            if past_deadline():
+                rest = pool.drain()
+                if not rest:
+                    return END
+                return _SlicePrep(rest, claim_mono, release_all=True)
+            batch = pool.take(self.sweep_slice_docs)
+            if not batch:
+                return END
+            return self._prepare_slice(batch, now, claim_mono)
+
+        def judge(_i, prep):
+            if not prep.release_all:
+                # release bundles judge nothing: counting them would
+                # overstate foremast_sweep_slices_total
+                counters["slices"] += 1
+                counters["slow_docs"] += len(prep.slow)
+            return self._dispatch_slice(prep, now, led)
+
+        def write(_i, res):
+            n_docs, n_fast = self._finish_slice(res, now, led, pool)
+            totals["docs"] += n_docs
+            totals["fast"] += n_fast
+
+        def boundary():
+            self._preempt_between_slices(pool, led, now, counters)
+
+        # _sweep_active pins _tick_claim_mono for nested micro-ticks (see
+        # _claim_cycle); flipped back in the SAME finally that releases
+        # the pool, so no setup failure can leave it stuck True
+        self._sweep_active = True
+        pipe = None
+        try:
+            use_threads = self.pipeline_depth > 1
+            if use_threads:
+                # materialize the fetch pool on the tick thread (see the
+                # slow pipeline's rationale)
+                self._fetch_pool_get()
+            pipe = ChunkPipeline(
+                inherit_span(prepare),
+                judge,
+                inherit_span(write),
+                depth=self.pipeline_depth,
+                prefetch_pool=self._prefetch_pool_get() if use_threads else None,
+                boundary=boundary,
+                on_drained=lambda _i, prep: self._abort_slice(prep, led),
+            )
+            pipe.run(itertools.count())
+        finally:
+            self._sweep_active = False
+            rest = pool.drain()
+            if rest:
+                # abort path: claimed docs whose slice never ran go back
+                # un-judged instead of waiting out stuck takeover
+                try:
+                    self._release_docs(rest, REASON_ABORT, led, claim_mono)
+                except Exception:  # noqa: BLE001 - the primary error propagates
+                    log.exception(
+                        "failed to release %d pooled doc(s) after sweep abort; stuck-claim takeover will "
+                        "net them", len(rest),
+                    )
+            stats = pipe.last_stats if pipe is not None else None
+            pipe_state = stats.as_dict() if stats else None
+            if pipe_state is not None:
+                # chunk specs are opaque slice indices; the honest doc
+                # count is what the writer retired
+                pipe_state["docs"] = totals["docs"]
+            self._last_sweep = {"slice_docs": self.sweep_slice_docs, **counters, "pipeline": pipe_state}
+            if self.metrics is not None:
+                self.metrics.observe_sweep(stats, counters)
+        if counters["slow_docs"] == 0:
+            # all-warm sweep: the cheap moment to upgrade provisional fits,
+            # the monolithic tick's rule
+            self._refine_provisional(now)
+        if self.metrics is not None:
+            self.metrics.observe_arena(self._uni.device_state_counters())
+            self.metrics.tick_seconds.observe(time.perf_counter() - t0)
+        self._tick_done(totals["docs"], totals["fast"], t0, led=led)
+        return totals["docs"]
+
+    def _prepare_slice(self, docs, now: float, claim_mono: float) -> _SlicePrep:
+        """Pipeline stage 1 (prefetch thread): admission split, window
+        fetch and columnar packing for one slice. No store writes and no
+        device work: those belong to the writer and tick threads."""
+        prep = _SlicePrep(docs, claim_mono)
+        fast, fastc, fastj, prep.slow = self._admit_fast(docs, now)
+        if fast or fastc or fastj:
+            prep.ok_items, prep.ok_citems, prep.ok_joint, prep.failed, prep.released = self._fetch_fast(
+                fast, fastc, fastj
+            )
+            if prep.ok_items:
+                prep.uni_packed = self._pack_uni(prep.ok_items, False)
+            if prep.ok_citems:
+                prep.canary_packed = self._pack_uni(prep.ok_citems, True)
+        return prep
+
+    def _dispatch_slice(self, prep: _SlicePrep, now: float, led: _TickLedger) -> _SliceResult:
+        """Pipeline stage 2 (tick thread, strict slice order: arena
+        assignment and device dispatch order are load-bearing): judge the
+        joint group synchronously, async-dispatch the univariate and
+        canary columnar programs (no synchronization: the results come
+        back through one pinned copy each, gathered on the writer), then
+        run this slice's slow leftovers through the chunk pipeline. A
+        dispatch failure raises StageError carrying the partial result so
+        already-judged work still persists through the writer."""
+        res = _SliceResult(prep)
+        if prep.release_all:
+            return res
+        try:
+            if prep.ok_joint:
+                j_updated, demoted, j_counts = self._judge_joint_fast(prep.ok_joint, now)
+                res.joint_updated = j_updated
+                res.joint_counts = j_counts
+                self._demote_to_slow(prep.slow, demoted, "joint window bucket drift")
+            if prep.uni_packed is not None:
+                res.uni_pending = self._dispatch_uni(prep.uni_packed)
+            if prep.canary_packed is not None:
+                res.canary_pending = self._dispatch_uni(prep.canary_packed)
+        except BaseException as e:  # noqa: BLE001 - re-raised post-drain
+            res.aborted = True
+            raise StageError(e, res) from e
+        if prep.slow:
+            try:
+                self._run_slow_chunks(prep.slow, now, led, prep.claim_mono)
+                prep.slow_done = True
+            except BaseException as e:  # noqa: BLE001 - re-raised post-drain
+                # the warm dispatches above still owe their writes: ship
+                # them through the writer before the error propagates (the
+                # slow pipeline released or persisted its own partial work)
+                prep.slow_done = True
+                raise StageError(e, res) from e
+        return res
+
+    def _finish_slice(self, res: _SliceResult, now: float, led: _TickLedger, pool) -> tuple[int, int]:
+        """Pipeline stage 3 (writer thread): gather + decode the pending
+        columnar judgments, persist everything, observe the verdict
+        latencies, and retire the slice's route keys from the in-flight
+        set. Returns (docs_processed, fast_docs)."""
+        prep = res.prep
+        try:
+            if prep.release_all:
+                self._release_docs(prep.docs, REASON_DEADLINE, led, prep.claim_mono)
+                return len(prep.docs), 0
+            for doc in prep.failed:
+                self._store_update(doc, claim_mono=prep.claim_mono)
+                if self.metrics is not None:
+                    self.metrics.observe_doc(doc.status, 0)
+            if prep.released:
+                self._release_docs(prep.released, REASON_FETCH, led, prep.claim_mono)
+            updated = list(res.joint_updated)
+            kind_counts = {"univariate": 0, "bivariate": 0, "lstm": 0, "baseline": 0}
+            if res.joint_counts:
+                for kind, n in res.joint_counts.items():
+                    kind_counts[kind] += n
+            drop: list = []
+            if res.uni_pending is not None:
+                updated += self._decode_uni(prep.uni_packed, res.uni_pending.wait(), now)
+                kind_counts["univariate"] += len(prep.uni_packed.ok_items)
+            elif res.aborted and prep.uni_packed is not None:
+                drop += [it[0] for it, _ in prep.uni_packed.ok_items]
+            if res.canary_pending is not None:
+                updated += self._decode_uni(prep.canary_packed, res.canary_pending.wait(), now)
+                kind_counts["baseline"] += len(prep.canary_packed.ok_items)
+            elif res.aborted and prep.canary_packed is not None:
+                drop += [it[0] for it, _ in prep.canary_packed.ok_items]
+            if res.aborted:
+                if not res.joint_updated and prep.ok_joint:
+                    drop += [it[0] for it, _ in prep.ok_joint]
+                if not prep.slow_done:
+                    drop += list(prep.slow)
+                self._release_docs(drop, REASON_ABORT, led, prep.claim_mono)
+            self._account_fast_kinds(kind_counts)
+            if updated:
+                with span("worker.write_back", stage="write_back", docs=len(updated)):
+                    self._store_update_many(updated, claim_mono=prep.claim_mono)
+            self._observe_verdicts(updated, led)
+            n_fast = len(updated) + len(prep.failed) + len(prep.released)
+            return n_fast + len(prep.slow), n_fast
+        finally:
+            pool.done(prep.docs)
+
+    def _abort_slice(self, prep: _SlicePrep, led: _TickLedger) -> None:
+        """A prepared slice whose judgment never ran (pipeline abort):
+        persist the fetch-failure marks and give every other claimed doc
+        back un-judged. Best effort: a store that is itself the abort
+        cause leaves the docs to stuck-claim takeover."""
+        try:
+            if prep.release_all:
+                self._release_docs(prep.docs, REASON_DEADLINE, led, prep.claim_mono)
+                return
+            for doc in prep.failed:
+                self._store_update(doc, claim_mono=prep.claim_mono)
+            # fetch-released docs keep their honest reason: an abort
+            # coinciding with a dependency brownout must not hide the
+            # brownout from the fetch_released counter
+            self._release_docs(list(prep.released), REASON_FETCH, led, prep.claim_mono)
+            docs = [it[0] for it, _ in prep.ok_items]
+            docs += [it[0] for it, _ in prep.ok_citems]
+            docs += [it[0] for it, _ in prep.ok_joint]
+            docs += list(prep.slow)
+            self._release_docs(docs, REASON_ABORT, led, prep.claim_mono)
+        except Exception:  # noqa: BLE001 - the primary error propagates
+            log.exception("failed to release an unjudged slice after sweep abort; stuck-claim takeover will net its docs")
+
+    def _preempt_between_slices(self, pool, led: _TickLedger, now: float, counters: dict) -> None:
+        """The slice-boundary preemption point. Pending dirty arrivals are
+        triaged against the sweep itself:
+
+          * key matches POOLED docs (claimed, not yet fetched): the docs
+            are PROMOTED to the front of the slice order; their slice
+            fetches post-arrival samples, so the sweep's own write
+            delivers the verdict within ~one slice, attributed through
+            the sweep ledger (earliest stamp wins);
+          * key matches an IN-FLIGHT slice (fetched or fetching: its
+            windows may predate the arrival): requeued at the front of the
+            dirty set with the ORIGINAL stamp; once the slice's write
+            releases the doc, the next boundary claims it;
+          * anything else (docs outside this sweep's claim: new jobs,
+            already-written re-check docs): a NESTED micro-tick runs
+            between slices, the unchanged `_tick` body on its own ledger.
+        """
+        dirty = self.dirty
+        if dirty is None or not len(dirty):
+            return
+        entries = dirty.take(self.microtick_docs)
+        if not entries:
+            return
+        micro_entries = []
+        for rk, stamp in entries:
+            if pool.promote(rk):
+                cur = led.pending.get(rk)
+                if cur is None or stamp < cur:
+                    led.pending[rk] = stamp
+                counters["promoted"] += 1
+                dirty.count("promoted")
+            elif pool.inflight(rk):
+                dirty.mark(rk, stamp, requeue=True)
+                counters["inflight_requeued"] += 1
+                dirty.count("inflight_requeued")
+            else:
+                micro_entries.append((rk, stamp))
+        if not micro_entries:
+            return
+        counters["preempt_microticks"] += 1
+        # the nested cycle swaps the innermost-ledger pointer and the tick
+        # deadline; restore both so the sweep's remaining slices keep
+        # their budget and attribution. It takes a FRESH clock (the
+        # micro-tick's contract), not the sweep's start `now`: a clock
+        # stale by the sweep's duration would miss endTimes that elapsed
+        # mid-sweep
+        saved_deadline = self._tick_deadline
+        saved_ledger = self._ledger
+        try:
+            counters["preempt_docs"] += self._tick(None, micro=micro_entries)
+        finally:
+            self._tick_deadline = saved_deadline
+            self._ledger = saved_ledger
+
+    def _claim_cycle(self, led: _TickLedger, micro) -> list[Document]:
+        """Shared cycle head for the monolithic tick and the sliced sweep:
+        compose the claim filter (the base filter, plus the dirty-key
+        restriction for micro-ticks), stamp the claim instant and claim,
+        degrading a transient store failure to an empty cycle with the
+        pending arrivals requeued un-spent."""
+        claim_kw = {}
+        if self.claim_filter is not None:
+            claim_kw["claim_filter"] = self.claim_filter
+        if micro is not None:
+            claim_kw["claim_filter"] = self._micro_claim_filter(self.claim_filter, led)
+        # Write-behind age stamps measure from this instant. A sliced
+        # sweep PINS it at its own claim time (`_sweep_active`): a nested
+        # preemption micro-tick must never move it FORWARD, because the
+        # sweep's writer thread stamps concurrently, and a fresher stamp
+        # on an older claim would stretch the replay window past the
+        # stuck-takeover boundary. The micro's own entries getting the
+        # sweep's OLDER stamp is conservative: they age out earlier.
+        if not self._sweep_active:
+            self._tick_claim_mono = time.monotonic()
         with span("worker.claim", stage="claim", limit=self.claim_limit):
             try:
                 return self.store.claim(
                     self.worker_id,
                     self.config.max_stuck_seconds,
                     self.claim_limit,
+                    **claim_kw,
                 )
             except Exception as e:
                 # a store outage must degrade to an idle tick, not kill
-                # the worker loop: nothing was claimed, nothing is owed
+                # the worker loop: nothing was claimed, nothing is owed,
+                # and the pending arrivals go back to the dirty set
+                # un-spent (the push->verdict clock keeps running)
                 if not is_transient_error(e):
                     raise
                 self._degrade.stats.count_event("store", "claim_error")
@@ -1634,6 +2425,7 @@ class BrainWorker:
                     "claim degraded to empty tick (store transient "
                     "error: %s)", e,
                 )
+                self._requeue_pending(led)
                 return []
 
     # An unexpected exception mid-judgment deliberately leaves this
@@ -1641,9 +2433,9 @@ class BrainWorker:
     # could reset docs whose terminal status the chunk pipeline's writer
     # already persisted, breaking the exactly-once ledger. The detectable
     # failures all have protected edges already (claim brownout -> empty
-    # cycle, deadline -> _release_docs, judge error -> _judge_chunk's
-    # StageError write).
-    def _tick(self, now: float | None = None) -> int:
+    # cycle, deadline -> _release_docs, pipeline abort -> _abort_slice,
+    # judge error -> _judge_chunk's StageError write).
+    def _tick(self, now: float | None = None, micro=None) -> int:
         t0 = time.perf_counter()
         self._tick_deadline = self._degrade.deadline(t0)
         now = time.time() if now is None else now
@@ -1651,27 +2443,48 @@ class BrainWorker:
         # healed, and re-check docs buffered as preprocess_completed
         # must become claimable before this tick's claim
         self._flush_write_behind()
-        docs = self._claim_cycle()
+        # reactive: a micro-tick owns the dirty entries it took; a full
+        # sweep drains the rest as its catch-all
+        led = self._begin_pending(micro)
+        docs = self._claim_cycle(led, micro)
         if docs and self._deadline_exceeded():
             # the claim alone blew the tick budget (store brownout):
             # give everything back un-judged
-            self._release_docs(docs, REASON_DEADLINE)
+            self._release_docs(docs, REASON_DEADLINE, led)
             docs = []
         if not docs:
+            # an idle worker is not an idle ring (receiver threads keep
+            # pushing), so snapshot cadence and provisional-fit refinement
+            # run here (sweeps only: micro-ticks stay lean)
+            self._finish_pending(led)
+            if micro is not None:
+                self._tick_done(0, 0, t0, micro=True, led=led)
+                return 0
+            self._refine_provisional(now)
+            self._maybe_persist()
+            if self.metrics is not None:
+                self.metrics.tick_seconds.observe(time.perf_counter() - t0)
             return 0
         # the all-warm re-check subset takes the columnar fast path;
         # whatever it returns (cold fits, unsettled histories) flows
         # through the object path below
         n_fast, docs = self._fast_tick(docs, now)
-        if docs:
-            self._run_slow_chunks(docs, now, self._tick_claim_mono)
+        if not docs:
+            # all-warm steady tick: the cheap moment to upgrade provisional
+            # fits; invalidations land their refits on the NEXT tick's slow
+            # path, in bounded batches (sweeps only)
+            if micro is None:
+                self._refine_provisional(now)
+        else:
+            self._run_slow_chunks(docs, now, led, self._tick_claim_mono)
         if self.metrics is not None:
             self.metrics.observe_arena(self._uni.device_state_counters())
-            self.metrics.tick_seconds.observe(time.perf_counter() - t0)
-        self._tick_done(n_fast + len(docs), n_fast, t0)
+            if micro is None:
+                self.metrics.tick_seconds.observe(time.perf_counter() - t0)
+        self._tick_done(n_fast + len(docs), n_fast, t0, micro=micro is not None, led=led)
         return n_fast + len(docs)
 
-    def _run_slow_chunks(self, docs, now: float, claim_mono: float) -> None:
+    def _run_slow_chunks(self, docs, now: float, led: _TickLedger, claim_mono: float) -> None:
         """Progressive admission: the slow path — cold fits, unsettled
         histories — processes the claim set in bounded DOC CHUNKS
         (`FOREMAST_COLD_CHUNK_DOCS`), bounding time-to-first-verdict by
@@ -1679,7 +2492,8 @@ class BrainWorker:
         chunks run through a bounded-depth pipeline
         (`FOREMAST_PIPELINE_DEPTH`): chunk N+1's windows are prefetched
         while chunk N is judged on the card and chunk N-1's verdicts
-        drain to the store on a writer thread."""
+        drain to the store on a writer thread. Under a sliced sweep each
+        slice's leftovers run through their own bounded pass."""
         # Pool/pipeline only when the source actually blocks on I/O:
         # in-memory sources declare concurrent_fetch=False (threading
         # pure-Python dict lookups is pure GIL overhead) and run the
@@ -1705,7 +2519,7 @@ class BrainWorker:
             inherit_span(partial(self._fetch_chunk, now=now, use_pool=use_pool)),
             self._judge_chunk,
             inherit_span(
-                partial(self._write_chunk, now=now, claim_mono=claim_mono)
+                partial(self._write_chunk, now=now, led=led, claim_mono=claim_mono)
             ),
             depth=depth,
             prefetch_pool=(
@@ -1781,7 +2595,12 @@ class BrainWorker:
         return ok_docs, failed, by_job, released
 
     def _write_chunk(
-        self, chunk, result, now: float, claim_mono: float | None = None
+        self,
+        chunk,
+        result,
+        now: float,
+        led: _TickLedger | None = None,
+        claim_mono: float | None = None,
     ) -> None:
         """Pipeline stage 3 (single writer thread, FIFO): status
         transitions + per-doc persistence + hooks. The store is only
@@ -1795,7 +2614,7 @@ class BrainWorker:
             for doc, reason in released:
                 by_reason.setdefault(reason, []).append(doc)
             for reason, docs_r in by_reason.items():
-                self._release_docs(docs_r, reason, claim_mono=claim_mono)
+                self._release_docs(docs_r, reason, led, claim_mono=claim_mono)
         for doc in failed:
             self._store_update(doc, claim_mono=claim_mono)
             if self.metrics is not None:
@@ -1814,6 +2633,7 @@ class BrainWorker:
                         log.exception(
                             "on_verdict hook failed for %s", doc.id
                         )
+        self._observe_verdicts(ok_docs, led)
 
     def _log_judged(self, doc) -> None:
         """One correlatable line per service-created judgment (docs
@@ -1841,10 +2661,34 @@ class BrainWorker:
                 job_trace_id=doc.trace_id,
             )
 
-    def _tick_done(self, n_docs: int, n_fast: int, t0: float) -> None:
+    def _tick_done(
+        self,
+        n_docs: int,
+        n_fast: int,
+        t0: float,
+        micro: bool = False,
+        led: _TickLedger | None = None,
+    ) -> None:
         """Record the finished busy tick for debug_state and emit one
-        correlatable completion log."""
+        correlatable completion log. Micro-ticks keep their own record and
+        counter and skip durability housekeeping (snapshot cadence and
+        journal compaction belong to the sweeps: a sub-second judgment
+        path must never absorb a snapshot pass)."""
+        self._finish_pending(self._ledger if led is None else led)
         seconds = time.perf_counter() - t0
+        if micro:
+            self._last_micro = {
+                "at": time.time(),
+                "docs": n_docs,
+                "seconds": seconds,
+                "runs": self._last_micro.get("runs", 0) + 1,
+            }
+            if self.metrics is not None and n_docs:
+                self.metrics.microtick_docs.inc(n_docs)
+            if n_docs:
+                ctx_log(log, logging.DEBUG, "micro-tick complete", docs=n_docs, seconds=round(seconds, 4))
+            return
+        self._maybe_persist()
         self._last_tick = {
             "at": time.time(),
             "docs": n_docs,
@@ -1910,6 +2754,8 @@ class BrainWorker:
                 "hist_cache_cap": self._hist_cache.max_size,
                 "hist_reads": hist_reads,
                 "admit_floor_seconds": getattr(self.source, "admit_floor", None),
+                "refine_docs_per_tick": self.refine_docs_per_tick,
+                "refine": self._refine_book.debug_state(),
             },
             # FOREMAST_INGEST=1: series resident, bytes, evictions, hit
             # ratio, receiver lag, subscriptions; None when pure pull
@@ -1931,7 +2777,15 @@ class BrainWorker:
             "pipeline": (
                 dict(self._last_pipeline) if self._last_pipeline else None
             ),
-            "sweep": {"slice_docs": self.sweep_slice_docs, "sliced": False},
+            # sliced sweeps (FOREMAST_SWEEP_SLICE_DOCS): whether sweeps run
+            # sliced, and the latest sliced sweep's ledger (slice count,
+            # slow docs, promoted / requeued / micro-ticked preemptions,
+            # the warm pipeline's occupancy)
+            "sweep": {
+                "slice_docs": self.sweep_slice_docs,
+                "sliced": self._sweep_sliceable(),
+                "last": dict(self._last_sweep) if self._last_sweep else None,
+            },
             "degradation": self._degrade.debug_state(),
             # fit-journal and ring-snapshot counters; None when ephemeral
             "durability": (
@@ -1940,6 +2794,19 @@ class BrainWorker:
                     "ring": self._snapshotter.debug_state() if self._snapshotter is not None else None,
                 }
                 if self._fit_journals or self._snapshotter is not None
+                else None
+            ),
+            # reactive plane: dirty-set occupancy and counters, micro-tick
+            # budget and pacing, and the latest micro-tick's record; None
+            # when the worker is purely tick-paced
+            "reactive": (
+                {
+                    "dirty": self.dirty.debug_state(),
+                    "microtick_seconds": self.microtick_seconds,
+                    "microtick_docs_budget": self.microtick_docs,
+                    "last_micro": dict(self._last_micro),
+                }
+                if self.dirty is not None
                 else None
             ),
         }
@@ -1953,23 +2820,62 @@ class BrainWorker:
         stop: Callable[[], bool] | None = None,
         after_tick: Callable[[int], None] | None = None,
     ) -> None:
-        """Poll until `stop()` says so: tick, and sleep `poll_seconds`
+        """Poll until `stop()` says so: tick, and wait `poll_seconds`
         after an idle tick (the shared-nothing worker loop,
         design.md:35-43). `after_tick(n_processed)` runs after every
-        tick: the hook for periodic model-cache checkpoints; its
-        failures are logged, never raised. The idle sleep runs in short
-        slices so a stop request is honored within a quarter second."""
-        while not (stop and stop()):
-            n = self.tick()
+        sweep: the hook for periodic model-cache checkpoints; its failures
+        are logged, never raised. Waits run in slices of a quarter second
+        (of `microtick_seconds` in reactive mode), so a stop request is
+        honored within one slice.
+
+        Reactive mode (a `dirty` set wired AND `FOREMAST_MICROTICK_SECONDS`
+        > 0): the wait between full ticks becomes the micro-tick drain
+        window: every `microtick_seconds` the worker claims and judges
+        just the dirty documents, so a pushed anomaly meets its verdict in
+        ~`microtick_seconds` + judge time instead of waiting out the poll.
+        Full ticks keep the poll cadence as SWEEPS; a saturated claim (n
+        == claim_limit: more work is surely waiting) re-sweeps at once,
+        ALTERNATING one micro drain with each sweep."""
+
+        def hook(n: int) -> None:
             if after_tick is not None:
                 try:
                     after_tick(n)
                 except Exception:  # noqa: BLE001 - housekeeping must not kill the loop
                     log.exception("after_tick hook failed")
-            if n == 0:
-                deadline = time.monotonic() + poll_seconds
-                while not (stop and stop()):
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        break
-                    time.sleep(min(0.25, remaining))
+
+        def micro_drain() -> None:
+            # one bounded micro drain, with the hook only when work
+            # happened (sweeps keep the run-every-cycle contract the
+            # idle-checkpoint logic relies on)
+            if len(self.dirty):
+                n_micro = self.micro_tick()
+                if n_micro:
+                    hook(n_micro)
+
+        def wait(seconds: float, step: float, between=None) -> None:
+            deadline = time.monotonic() + seconds
+            while not (stop and stop()):
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                if between is not None:
+                    between()
+                time.sleep(min(step, max(remaining, 0.0)))
+
+        reactive = self.dirty is not None and self.microtick_seconds > 0
+        while not (stop and stop()):
+            n = self.tick()
+            hook(n)
+            if not reactive:
+                if n == 0:
+                    wait(poll_seconds, 0.25)
+                continue
+            if n >= self.claim_limit:
+                # saturated sweep (backlog exceeds one claim): keep the
+                # busy loop's drain rate, but ALTERNATE one micro drain
+                # between sweeps, so a pushed anomaly's latency stays
+                # bounded by one sweep, not by the whole backlog's drain
+                micro_drain()
+                continue
+            wait(poll_seconds, self.microtick_seconds, micro_drain)

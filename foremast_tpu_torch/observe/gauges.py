@@ -270,16 +270,21 @@ class WorkerMetrics:
             stable fleet means claim churn is re-paying state scatters
         foremast_worker_fast_docs_total{kind} — documents scored on the
             columnar fast path, by model kind
-        foremast_worker_pipeline_* {path} — cold chunk pipeline occupancy
+        foremast_worker_pipeline_* {path} — chunk pipeline occupancy
+            (slow = cold chunk pipeline, warm = sliced sweep)
+        foremast_sweep_slices_total, foremast_sweep_preempt_events_total
+            {action} — sliced sweeps and their boundary preemptions
         foremast_cold_hist_reads_total{source} — cold-fit history
             serving source (ring_full / ring_partial / http / cache /
-            unserved; ring_partial waits for short-history admission,
-            ROADMAP.md Queue 1 item 5, part 5b)
+            unserved)
+        foremast_refine_docs_total{result}, foremast_provisional_fits —
+            refinement of short-history fits and its backlog
+        foremast_verdict_latency_seconds{path,tenant},
+        foremast_microtick_docs_total — the reactive plane
 
     The families, types and labels are the JAX worker's, and only those
-    that this worker feeds. The JAX worker's sliced-sweep, refinement,
-    micro-tick, verdict-latency and device-mesh families come with those
-    modes (ROADMAP.md Queue 1), which the port does not run yet.
+    that this worker feeds. The JAX worker's device-mesh families come
+    with the device mesh (ROADMAP.md Queue 1 item 7).
     """
 
     def __init__(self, registry=None):
@@ -359,13 +364,65 @@ class WorkerMetrics:
             ["path"],
             registry=reg,
         )
-        # where each cold fit's historical range was served from
+        # sliced, preemptible sweeps
+        self.sweep_slices = Counter(
+            "foremast_sweep_slices_total",
+            "bounded slices executed by sliced sweeps "
+            "(FOREMAST_SWEEP_SLICE_DOCS)",
+            registry=reg,
+        )
+        self.sweep_preempt = Counter(
+            "foremast_sweep_preempt_events_total",
+            "slice-boundary preemption outcomes (promoted = pooled "
+            "docs pulled into the next slice, inflight_requeued = "
+            "arrival retried behind an in-flight slice, microtick = "
+            "nested micro-tick ran between slices)",
+            ["action"],
+            registry=reg,
+        )
+        # where each cold fit's historical range was served from,
+        # refinement outcomes, and the provisional-fit backlog: the
+        # Prometheus twins of the /debug/state `cold_start` section
         self.cold_hist = Counter(
             "foremast_cold_hist_reads_total",
             "historical-range reads on the cold-fit path, by serving "
             "source (ring_full / ring_partial / http / cache / "
             "unserved)",
             ["source"],
+            registry=reg,
+        )
+        self.refine_docs = Counter(
+            "foremast_refine_docs_total",
+            "background-refinement outcomes for provisional "
+            "short-history fits (refit / finalized / settled)",
+            ["result"],
+            registry=reg,
+        )
+        self.provisional = Gauge(
+            "foremast_provisional_fits",
+            "provisional (short-history) fits awaiting background "
+            "refinement",
+            registry=reg,
+        )
+        # reactive plane: the push->verdict histogram (receiver arrival
+        # stamp, on the RECEIVER's clock, to verdict write) by the tick
+        # path that wrote it (micro = ingest-triggered micro-tick, sweep =
+        # full tick catch-all), plus the micro-tick doc count. `tenant` is
+        # the constant `default` until the tenant plane (ROADMAP.md Queue 1
+        # item 6), as for an untenanted JAX worker
+        self.verdict_latency = Histogram(
+            "foremast_verdict_latency_seconds",
+            "push receive-instant to verdict write, by judging path "
+            "(micro = ingest-triggered micro-tick, sweep = full tick) "
+            "and tenant (bounded by FOREMAST_TENANT_LABEL_MAX + the "
+            "`other` overflow bucket)",
+            ["path", "tenant"],
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 5.0, 15.0, 60.0, 300.0),
+            registry=reg,
+        )
+        self.microtick_docs = Counter(
+            "foremast_microtick_docs_total",
+            "documents judged by ingest-triggered micro-ticks",
             registry=reg,
         )
 
@@ -378,6 +435,21 @@ class WorkerMetrics:
         )
         self.pipeline_overlap.labels(path=path).set(stats.overlap_ratio())
         self.pipeline_queue.labels(path=path).set(stats.write_queue_peak)
+
+    def observe_sweep(self, stats, counters: dict) -> None:
+        """Feed one sliced sweep's pipeline stats + preemption counters
+        (BrainWorker._sweep_sliced)."""
+        if stats is not None:
+            self.observe_pipeline(stats, path="warm")
+        self.sweep_slices.inc(counters.get("slices", 0))
+        for action, key in (
+            ("promoted", "promoted"),
+            ("inflight_requeued", "inflight_requeued"),
+            ("microtick", "preempt_microticks"),
+        ):
+            n = counters.get(key, 0)
+            if n:
+                self.sweep_preempt.labels(action=action).inc(n)
 
     def observe_doc(self, status: str, n_windows: int) -> None:
         self.jobs.labels(status=status).inc()

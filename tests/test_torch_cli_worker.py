@@ -7,7 +7,9 @@ SIGTERM, and after a restart on the same `FOREMAST_SNAPSHOT_DIR` judges
 the reset fleet again with no history fetch. With `FOREMAST_INGEST=1` it
 takes the fleet's samples as a push on its receiver and judges from them
 with no GET to Prometheus at all, before and after a restart that
-restores the ring. Modes the port does not have are refused with
+restores the ring; with FOREMAST_MICROTICK_SECONDS as well, its
+receiver marks each push dirty and micro-ticks judge the pushed fleet
+between sweeps. Modes the port does not have are refused with
 `NotImplementedError`. Every subprocess has its own timeout of at most
 60 s."""
 
@@ -166,17 +168,27 @@ def test_connect_deadline_exits_loudly(tmp_path):
     [
         (["--sharded"], {}, "item 7"),
         ([], {"FOREMAST_MESH": "1"}, "item 7"),
-        ([], {"FOREMAST_MICROTICK_SECONDS": "0.5"}, "item 4"),
         ([], {"FOREMAST_LOCK_WITNESS": "1"}, "item 8"),
         ([], {"FOREMAST_RECOMPILE_WITNESS": "1"}, "item 8"),
     ],
-    ids=["sharded", "mesh", "microtick", "lock_witness", "recompile_witness"],
+    ids=["sharded", "mesh", "lock_witness", "recompile_witness"],
 )
 def test_unported_modes_are_refused(flag, env, item):
     proc = _start(["--device", "cpu", "--gauge-port", "0", *flag], env)
     _, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
     assert "NotImplementedError" in err and f"Queue 1 {item}" in err
+
+
+def test_microticks_are_ignored_without_ingest():
+    """FOREMAST_MICROTICK_SECONDS > 0 without FOREMAST_INGEST=1 (no
+    receiver marks arrivals): logged as ignored, the worker stays
+    tick-paced and stops cleanly."""
+    proc = _start(["--device", "cpu", "--gauge-port", "0", "--poll", "0.2"], {"FOREMAST_MICROTICK_SECONDS": "0.5"})
+    _wait_for(proc, "FOREMAST_MICROTICK_SECONDS needs FOREMAST_INGEST=1")
+    rc, _, err = _stop(proc)
+    assert rc == 0, err[-4000:]
+    assert "reactive plane ON" not in err
 
 
 def test_cuda_without_a_card_raises():
@@ -319,6 +331,51 @@ def test_ingest_worker_judges_pushed_samples_with_no_prometheus_get(tmp_path):
         assert got == want
         assert sum(prom.requests.values()) == 0, dict(prom.requests)
         assert f"restored ring state {len(entries)} series" in err
+    finally:
+        for srv in (es_srv, prom_srv):
+            srv.shutdown()
+            srv.server_close()
+
+
+def _scrape(port: int) -> str:
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10).read().decode()
+
+
+def test_ingest_worker_with_microticks_judges_pushes_between_sweeps():
+    """FOREMAST_INGEST=1 and FOREMAST_MICROTICK_SECONDS: the CLI builds the
+    dirty set, hands it to its receiver and its worker and exports it on
+    /metrics. With the poll far longer than the test, the fleet loaded
+    after the first sweep is judged by micro-ticks alone (every doc on
+    `foremast_microtick_docs_total`, its push->verdict latency on
+    path="micro"), to the JAX worker's statuses."""
+    prom = FakePrometheus()
+    prom_srv, prom_url = serve_fake_prometheus(prom)
+    es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+    try:
+        docs, entries, keyed, want = _pushed_fleet(prom_url)
+        prom.data = keyed
+        port, gauge = _free_port(), _free_port()
+        args = ["--device", "cpu", "--elastic-url", es_url, "--gauge-port", str(gauge), "--poll", "300"]
+        env = {"FOREMAST_INGEST": "1", "FOREMAST_INGEST_PORT": str(port), "FOREMAST_MICROTICK_SECONDS": "0.05"}
+        proc = _start(args, env)
+        _wait_for(proc, "reactive plane ON")
+        _wait_for(proc, "worker started")
+        deadline = time.monotonic() + 60
+        while "foremast_worker_tick_seconds_count 1.0" not in _scrape(gauge):
+            assert time.monotonic() < deadline, "the first sweep never ran"
+            time.sleep(0.05)  # the first sweep claims an empty store
+        es.load(docs)
+        _push_frame(port, entries, time.monotonic() + 60)
+        got = _judged(es, time.monotonic() + 60, proc)
+        text = _scrape(gauge)
+        rc, _, err = _stop(proc)
+        assert rc == 0, err[-4000:]
+        assert got == want
+        assert f"foremast_microtick_docs_total {float(SERVICES)}" in text
+        assert f'foremast_verdict_latency_seconds_count{{path="micro",tenant="default"}} {float(SERVICES)}' in text
+        assert 'foremast_microtick_dirty_events_total{event="marked"}' in text
     finally:
         for srv in (es_srv, prom_srv):
             srv.shutdown()

@@ -212,6 +212,45 @@ def test_over_a_real_socket_through_the_repo_fake():
         srv.server_close()
 
 
+def test_one_store_shared_by_threads():
+    """One store used from several threads at once, as a sliced sweep
+    uses it (the writer thread's bulk writes beside the tick thread's
+    nested micro-tick claims): every request gets its own answer, as
+    through `requests`' connection pool."""
+    srv, _ = _serve_fake_es()
+    try:
+        store = ts.ElasticsearchStore(f"http://127.0.0.1:{srv.server_address[1]}")
+        assert store.wait_ready(max_wait=5)
+        n_threads = 8
+        for i in range(n_threads):
+            store.create(tm.Document(id=f"j{i}", app_name=f"a{i}"))
+        start = threading.Barrier(n_threads)
+        errors: list = []
+
+        def hammer(i: int) -> None:
+            try:
+                start.wait(timeout=30)
+                for k in range(40):
+                    doc = store.get(f"j{i}")
+                    assert doc is not None and doc.app_name == f"a{i}", doc
+                    doc.reason = f"pass {k}"
+                    store.update_many([doc])
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=hammer, args=(i,), daemon=True) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert errors == []
+        assert [store.get(f"j{i}").reason for i in range(n_threads)] == ["pass 39"] * n_threads
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
 def _recording_server():
     """A loopback server that records (method, path, content type, body
     bytes) and answers what `FakeES` answers."""

@@ -150,12 +150,12 @@ def test_restarted_workers_write_the_same_statuses(tmp_path, journal_of):
     jw2, pw2, jrest, prest = _restart(
         jw, pw, jstore, pstore, jsrc, psrc, jdir, jdir if journal_of == "jax" else pdir
     )
-    assert prest == {k: v for k, v in jrest.items() if k != "refine"}
+    assert prest == jrest  # the refine book's journal too
     assert prest["fits"] == 4 * SERVICES
     jcount, pcount = _count_hist(jw2), _count_hist(pw2)
     assert jw2.tick(now=NOW + 200) == pw2.tick(now=NOW + 200) == SERVICES
     assert jcount["hist"] == pcount["hist"] == 0
-    assert pw2._fast_kinds["univariate"] == SERVICES and len(pw2._fit_journals) == 4
+    assert pw2._fast_kinds["univariate"] == SERVICES and len(pw2._fit_journals) == 5  # fits, gaps, refine, joint, jmeta
     assert pw2._fit_journals["fits"].stats()["appended_entries"] == 0  # no fit
     assert statuses(pstore) == statuses(jstore)
     spike((jsrc, psrc), "http://prom/cur", "latency:app3")

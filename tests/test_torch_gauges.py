@@ -3,8 +3,7 @@
 each family the port exposes has the JAX family's name, type and label
 names, and one worker tick pair feeds the same counters in both. The
 port exposes only the families its worker feeds: the JAX worker's
-sliced-sweep, refinement, micro-tick, verdict-latency and device-mesh
-families are left out with those modes."""
+device-mesh families are left out with the device mesh."""
 
 from __future__ import annotations
 
@@ -27,7 +26,9 @@ PORT_WORKER_FAMILIES = {
     "foremast_worker_jobs", "foremast_worker_windows", "foremast_worker_tick_seconds",
     "foremast_worker_arena_events", "foremast_worker_fast_docs", "foremast_worker_pipeline_idle_seconds",
     "foremast_worker_pipeline_overlap_ratio", "foremast_worker_pipeline_write_queue_peak",
-    "foremast_cold_hist_reads",
+    "foremast_cold_hist_reads", "foremast_sweep_slices", "foremast_sweep_preempt_events",
+    "foremast_refine_docs", "foremast_provisional_fits", "foremast_verdict_latency_seconds",
+    "foremast_microtick_docs",
 }
 
 

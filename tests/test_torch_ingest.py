@@ -5,14 +5,15 @@ resolution agree, ring and store queries answer bit for bit alike
 413 and its drain answer alike, and a worker fleet judged from pushed
 samples (JSON and FMW1 through the receiver) writes the statuses the JAX
 worker writes on the same pushes and the port's pull path writes on the
-same samples. Short-history admission and refinement (ROADMAP.md Queue 1
-item 5, part 5b) are left out, apart from the check that the port's
-worker refuses a pure-push source with a positive admission floor."""
+same samples. A pure-push source with an admission floor admits a
+newcomer as a provisional fit as JAX's does; refinement has its own file,
+`tests/test_torch_refine.py`."""
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -428,13 +429,24 @@ def test_partial_admission_is_pure_push_only_as_in_jax():
             _same_answer(g, w)
 
 
-def test_worker_refuses_pure_push_with_an_admission_floor():
-    ring = T.RingStore(shards=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5, part 5b"):
-        BrainWorker(InMemoryStore(), T.RingSource(ring, fallback=None, admit_floor=86_400.0), device="cpu")
-    # pure push at a zero floor, and any floor with a fallback, are ported
-    BrainWorker(InMemoryStore(), T.RingSource(ring, fallback=None, admit_floor=0.0), device="cpu")
-    BrainWorker(InMemoryStore(), T.RingSource(ring, fallback=WindowedSource(), admit_floor=86_400.0), device="cpu")
+def test_pure_push_with_an_admission_floor_admits_provisional_fits_as_jax():
+    """A pure-push source with a positive floor judges a newcomer with
+    short coverage on its first tick from a provisional fit (one
+    `ring_partial` read, one refine record), writing what the JAX worker
+    writes."""
+    from tests.torch_workers import newcomer_fleet
+
+    base = int(NOW)
+    (jstore, _, jsrc), (store, _, src) = (newcomer_fleet(pkg, base - 8200, base - 1200, base - 1000, 3600.0)
+                                          for pkg in ("jax", "port"))
+    jworker = JaxWorker(jstore, jsrc, config=JaxConfig(), claim_limit=4, device_mesh=None)
+    worker = BrainWorker(store, src, config=BrainConfig(), device="cpu", claim_limit=4)
+    assert jworker.tick(now=NOW + 150) == worker.tick(now=NOW + 150) == 1
+    assert _statuses(store) == _statuses(jstore)
+    assert json.loads(_statuses(store)["new-0"])[0] == STATUS_PREPROCESS_COMPLETED
+    cs = worker.debug_state()["cold_start"]
+    assert cs["hist_reads"] == jworker.debug_state()["cold_start"]["hist_reads"]
+    assert cs["hist_reads"]["ring_partial"] == 1 and cs["refine"]["pending"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -506,6 +518,11 @@ def test_receiver_sheds_past_the_inflight_cap():
             with inflight:
                 code, out = _post(srv.server_address[1], b'{"timeseries": []}')
         assert code == 429 and "overloaded" in out["reason"]
+        # the shed handler leaves the count only after its answer is on
+        # the wire: wait for it, then the receiver takes pushes again
+        deadline = time.monotonic() + 10
+        while inflight.count and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert _post(srv.server_address[1], b'{"timeseries": []}')[0] == 200
     finally:
         T.stop_ingest_server(srv)

@@ -357,20 +357,33 @@ def test_multivariate_algorithms_raise(algorithm):
     assert worker.tick(now=1_700_000_000.0) == 0
 
 
-def test_a_claim_that_would_slice_raises(monkeypatch):
-    """The JAX worker slices a sweep whose claim can exceed
-    FOREMAST_SWEEP_SLICE_DOCS; the port refuses rather than running
-    another path. 0 (the monolithic arm) and a limit within one slice
-    construct."""
-    monkeypatch.setenv("FOREMAST_SWEEP_SLICE_DOCS", "2048")
-    with pytest.raises(NotImplementedError, match="FOREMAST_SWEEP_SLICE_DOCS"):
-        BrainWorker(InMemoryStore(), ReplaySource(), device="cpu", claim_limit=4096)
-    assert BrainWorker(InMemoryStore(), ReplaySource(), device="cpu", claim_limit=2048)
-    monkeypatch.delenv("FOREMAST_SWEEP_SLICE_DOCS")  # the default slices at 2048 too
-    with pytest.raises(NotImplementedError):
-        BrainWorker(InMemoryStore(), ReplaySource(), device="cpu", claim_limit=4096)
+def test_a_claim_past_one_slice_runs_sliced_and_writes_what_the_monolithic_tick_writes(monkeypatch):
+    """A claim that can exceed FOREMAST_SWEEP_SLICE_DOCS (default 2,048)
+    runs as a sliced sweep; 0, or a limit within one slice, keeps the
+    monolithic tick. Cold, warm and spiked, over a fleet half canaries
+    (the columnar canary bucket too), the sliced sweep writes what the
+    port's monolithic tick and the JAX worker (sliced too) write."""
+    from tests.torch_workers import spike
+
+    monkeypatch.delenv("FOREMAST_SWEEP_SLICE_DOCS")
+    assert BrainWorker(InMemoryStore(), ReplaySource(), device="cpu", claim_limit=4096)._sweep_sliceable()
+    assert not BrainWorker(InMemoryStore(), ReplaySource(), device="cpu", claim_limit=2048)._sweep_sliceable()
     monkeypatch.setenv("FOREMAST_SWEEP_SLICE_DOCS", "0")
-    assert BrainWorker(InMemoryStore(), ReplaySource(), device="cpu", claim_limit=4096).sweep_slice_docs == 0
+    (_, _, _), (mono, mstore, msrc) = worker_pair(10, baseline_frac=0.5)
+    monkeypatch.setenv("FOREMAST_SWEEP_SLICE_DOCS", "4")
+    (jw, jstore, jsrc), (pw, pstore, psrc) = worker_pair(10, baseline_frac=0.5)
+    assert pw._sweep_sliceable() and jw._sweep_sliceable() and not mono._sweep_sliceable()
+    for now in (NOW + 150, NOW + 200, NOW + 300):
+        if now == NOW + 300:
+            spike([jsrc, psrc, msrc], "http://prom/cur", "latency:app3")
+        assert jw.tick(now=now) == pw.tick(now=now) == mono.tick(now=now) == 10
+        assert statuses(pstore) == statuses(mstore) == statuses(jstore)
+    assert statuses(pstore)[next(d.id for d in pstore._docs.values() if d.app_name == "app3")][0] == (
+        STATUS_COMPLETED_UNHEALTH
+    )
+    assert pw._last_sweep["slices"] == 3 and pw.debug_state()["sweep"]["sliced"] is True
+    for w in (jw, pw, mono):
+        w.close()
 
 
 def test_default_device_is_the_card():
@@ -483,9 +496,13 @@ def test_debug_state_sections():
     assert state["model_cache"]["fit_entries"] == 8
     assert state["cold_start"]["hist_reads"] == {"ring_full": 0, "ring_partial": 0, "http": 8, "cache": 0, "unserved": 0}
     assert state["cold_start"]["hist_bypass"] is False and state["ingest"] is None
+    assert state["cold_start"]["refine_docs_per_tick"] == 256
+    assert state["cold_start"]["refine"] == {"pending": 0, "noted": 0, "refit": 0, "finalized": 0, "settled": 0,
+                                             "dropped": 0}
+    assert state["reactive"] is None  # no dirty set wired
     assert state["fast_path_docs"] == {"univariate": 2, "bivariate": 0, "lstm": 0, "baseline": 0}
     assert state["arena"]["hit_rate"] is not None
     assert state["last_tick"]["docs"] == 2 and state["last_tick"]["fast"] == 2
-    assert state["sweep"] == {"slice_docs": 0, "sliced": False}
+    assert state["sweep"] == {"slice_docs": 0, "sliced": False, "last": None}
     assert "write_behind" in state["degradation"] and "breakers" in state["degradation"]
     assert "trace" not in state  # no tracer wired

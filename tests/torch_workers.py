@@ -235,3 +235,83 @@ def ring_fleet(services: int, seed: int = 0, hist_len: int = 256, cur_len: int =
                              current_config=f"latency== {cur}", historical_config=f"latency== {hist}",
                              strategy="continuous").to_json())
     return docs, data, (ht, ct)
+
+
+def _package(pkg: str):
+    """(ingest module, Document, InMemoryStore, prometheus_url) of the JAX
+    package ("jax") or the port ("port")."""
+    if pkg == "jax":
+        from foremast_tpu import ingest
+        from foremast_tpu.jobs.models import Document as Doc
+        from foremast_tpu.jobs.store import InMemoryStore as Store
+        from foremast_tpu.metrics.promql import prometheus_url as purl
+    else:
+        from foremast_tpu_torch import ingest
+        from foremast_tpu_torch.jobs.models import Document as Doc
+        from foremast_tpu_torch.jobs.store import InMemoryStore as Store
+        from foremast_tpu_torch.metrics.promql import prometheus_url as purl
+    return ingest, Doc, Store, purl
+
+
+def newcomer_fleet(pkg: str, push0, push_end, t1, floor, services: int = 1, stale: float = 300.0, seed: int = 7):
+    """`tests/test_ingest.py`'s newcomer fleet, for either package ("jax"
+    or "port") from the same seed: docs requesting a 7-day history ending
+    at `t1` with only [push0, push_end] pushed (a newcomer's short life),
+    in a pure-push ring (no fallback) with admission floor `floor`.
+    Returns (store, ring, source)."""
+    ing, Doc, Store, purl = _package(pkg)
+    store = Store()
+    ring = ing.RingStore(shards=1, stale_seconds=stale)
+    t0 = t1 - 7 * 86_400
+    cur_t1 = push_end - 60
+    cur_t0 = cur_t1 - 28 * 60
+    end_time = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(int(NOW) + 3600))
+    rng = np.random.default_rng(seed)
+    for s in range(services):
+        expr = f'namespace_app_per_pod:latency{{namespace="ns",app="new{s}"}}'
+        pt = np.arange(int(push0), int(push_end) + 60, 60, dtype=np.int64)
+        pv = rng.normal(1.0, 0.1, len(pt)).astype(np.float32)
+        ring.push(ing.canonical_series(expr), pt, pv, now=NOW)
+        cur = purl({"endpoint": "http://prom/api/v1/", "query": expr, "start": int(cur_t0), "end": int(cur_t1),
+                    "step": 60})
+        hist = purl({"endpoint": "http://prom/api/v1/", "query": expr, "start": int(t0), "end": int(t1), "step": 60})
+        store.create(Doc(id=f"new-{s}", app_name=f"new{s}", end_time=end_time, current_config=f"latency== {cur}",
+                         historical_config=f"latency== {hist}", strategy="continuous"))
+    return store, ring, ing.RingSource(ring, fallback=None, admit_floor=floor)
+
+
+def push_fleet(pkg: str, services: int, t_now: float = NOW, hist_len: int = 256, cur_len: int = 30,
+               open_window: bool = False, expr: str = 'lat{{namespace="ns",app="app{s}"}}', seed: int = 0,
+               **ring_kw):
+    """`tests/test_reactive.py`'s pure-push fleet (and, with
+    `open_window=True`, `benchmarks/latency_bench.py`'s, whose current
+    windows stay open past `t_now`), for either package ("jax" or "port")
+    from the same seed: docs in an InMemoryStore, histories and currents
+    resident in a ring. Returns (store, ring, keys, ht, ct)."""
+    ing, Doc, Store, purl = _package(pkg)
+    rng = np.random.default_rng(seed)
+    store = Store()
+    ring = ing.RingStore(**(ring_kw or {"shards": 2}))
+    t_now = int(t_now)
+    ht = t_now - 86_400 * 7 + 60 * np.arange(hist_len, dtype=np.int64)
+    if open_window:
+        ct = t_now - 60 * cur_len + 60 * np.arange(cur_len, dtype=np.int64)
+        cur_end, end_time = t_now + 7200, t_now + 7200
+    else:
+        ct = ht[-1] + 60 + 60 * np.arange(cur_len, dtype=np.int64)
+        cur_end, end_time = int(ct[-1]), t_now + 3600
+    end_time = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(end_time))
+    keys = []
+    for s in range(services):
+        e = expr.format(s=s)
+        key = ing.canonical_series(e)
+        keys.append(key)
+        hv = rng.normal(1.0, 0.1, hist_len).astype(np.float32)
+        ring.push(key, np.concatenate([ht, ct]), np.concatenate([hv, np.ones(cur_len, np.float32)]),
+                  start=float(ht[0]), now=float(t_now))
+        cur = purl({"endpoint": "http://p/api/v1/", "query": e, "start": int(ct[0]), "end": cur_end, "step": 60})
+        hist = purl({"endpoint": "http://p/api/v1/", "query": e, "start": int(ht[0]), "end": int(ht[-1]),
+                     "step": 60})
+        store.create(Doc(id=f"job-{s}", app_name=f"app{s}", end_time=end_time, current_config=f"latency== {cur}",
+                         historical_config=f"latency== {hist}", strategy="continuous"))
+    return store, ring, keys, ht, ct
