@@ -100,7 +100,7 @@ Phases; any failure exits non-zero:
      PrometheusSource (claim limit 256, the CLI's default) against a fake
      Elasticsearch and a fake Prometheus (tests/torch_fake_services.py)
      on loopback sockets in this process, over phase 6's fleet shape at
-     512 docs x 4 aliases (2,048 query_range histories of 7 days): a
+     384 docs x 4 aliases (1,536 query_range histories of 7 days): a
      cold pass, a warm pass and a spiked warm pass, every doc's (status,
      code, reason, anomaly_info) equal to phase 6's in-memory worker on
      the same fleet, exactly the spiked docs flagged; (e) the push arm:
@@ -154,8 +154,34 @@ Phases; any failure exits non-zero:
      client-seen latency, each sweep's wall clock, the boundaries'
      promotions, in-flight requeues and nested micro-ticks (each must
      have happened); every doc's writes equal one full cold tick's.
+ 10. fault injection and the tenant plane, at phase 6's width (4,096 docs
+     x 4 aliases, every selector labelled with its doc's tenant: `whale`
+     3,584 docs, `quiet-a` and `quiet-b` 256 each, interleaved late in
+     the claim order; FOREMAST_TENANTS weights 1, the whale's arena_rows
+     envelope 3,072 below its 14,336 windows): (a) cold, warm and spiked
+     warm sweeps in 1,024-doc slices, tenanted against untenanted, writes
+     equal, every quiet doc in the first slice, the last 512 docs against
+     a tenanted CPU worker, each tenant's last slice and time-to-verdict
+     p50 / p99, the columnar dispatches under set_sync_debug_mode("error");
+     (b) every arena eviction charged to the whale, the quiet tenants'
+     rows all resident; (c) a tenanted f32 cold sweep
+     (FOREMAST_BF16_DELTA=0, masked_stats) with (a)'s statuses; (d) chaos
+     on 512 docs over the fake Elasticsearch (claim 512, slices of 256):
+     a store outage over one warm sweep's writes goes to write-behind and
+     the next sweep replays each verdict once; a seeded 0.2 error rate on
+     the Prometheus edge (the pulled path) releases docs un-judged and
+     later sweeps judge them all; a receiver rule answers 503; injections
+     by (edge, kind) and breaker transitions; (e) the whale floods a
+     receiver over its ingest byte-rate and ring-bytes envelopes while
+     quiet-a pushes at 6,670 samples/s: only the whale is shed (429
+     naming it) and evicted, accepted samples/s per tenant beside an
+     untenanted receiver's; (f) `python3 -m foremast_tpu_torch worker`
+     with FOREMAST_TENANTS, FOREMAST_CHAOS_PLAN and FOREMAST_INGEST=1
+     judges 256 pushed docs to (a)'s writes through a store outage, its
+     receiver's /debug/state carries the tenants section and its stop
+     record the plan's injections and the tenant ledger.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
-7b, 7c, 7d, 8b, 8c, 8d, 9) and read just after its checked calls, so they
+7b, 7c, 7d, 8b, 8c, 8d, 9, 10) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phases
 6 and 9) only the f32 cold fit launches a kernel (masked_stats); the seasonal
 fits launch holt_winters_scan (Holt-Winters, and auto_univariate at m <=
@@ -167,7 +193,10 @@ lstm_ae_forward (training, moments, every scoring), lstm_ae_backward
 `python3 chip_smoke.py --kernels-only` builds the kernels, runs phase 2,
 7(a) and 8(a), times the two scan kernels at full size and stops: the
 short first call after a kernel change. `python3 chip_smoke.py
---deployable-only` runs phase 9 alone (on fleets built for it).
+--deployable-only` runs phase 9 alone (on fleets built for it), and
+`--tenants-only` phase 10 alone, with two arms more in 10(a) that part
+tenancy's costs: the same tenants without the arena envelope, and the
+arenas' host seconds of `assign` and `scatter` in each sweep.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -175,6 +204,7 @@ The last lines are the kernels line, the JSON kernel table, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -986,7 +1016,7 @@ WORKER_DOCS = 4096  # x 4 aliases = 16,384 windows, phase 5's width
 F32_DOCS = 1024  # (d): one 4,096-window cold chunk on the f32 route
 
 
-def worker_fleet(n_docs: int, t_now: int, seed: int = 13, labelled: bool = False):
+def worker_fleet(n_docs: int, t_now: int, seed: int = 13, labelled: bool = False, tenant_of=None):
     """The shape of `benchmarks/worker_bench.py`'s fleet: one document per
     service x 4 aliases, 7-day settled histories at a 60 s step, 30-point
     current windows riding inside the band (so the fleet stays on the
@@ -999,8 +1029,9 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13, labelled: bool = False
     path fetches; a doc's history and current window are one series.
     `labelled` names each series as a selector with the doc's `app`
     label (`latency{app="app7"}`), the routing label the receiver marks
-    dirty. Returns (documents as JSON, URL -> series, each doc's latency
-    current URL)."""
+    dirty. `tenant_of` (doc index -> tenant name) labels every selector
+    with its doc's `tenant` as well (phase 10). Returns (documents as
+    JSON, URL -> series, each doc's latency current URL)."""
     from foremast_tpu_torch.jobs import Document
 
     rng = np.random.default_rng(seed)
@@ -1015,8 +1046,9 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13, labelled: bool = False
     data, docs, latency = {}, [], []
     for i in range(n_docs):
         parts = {"current": [], "historical": [], "baseline": []}
+        tenant = f',tenant="{tenant_of(i)}"' if tenant_of is not None else ""
         for k, a in enumerate(ALIASES):
-            q = urllib.parse.quote(f'{a}{{app="app{i}"}}') if labelled else f"{a}:app{i}"
+            q = urllib.parse.quote(f'{a}{{app="app{i}"{tenant}}}') if labelled or tenant else f"{a}:app{i}"
             cur_url = f"http://prom/cur?q={q}&start={int(ct[0])}&end={int(ct[-1])}&step=60"
             hist_url = f"http://prom/hist?q={q}&start={int(ht[0])}&end={int(ht[-1])}&step=60"
             data[cur_url] = (ct, cv)
@@ -1027,7 +1059,8 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13, labelled: bool = False
             parts["historical"].append(f"{a}== {hist_url}")
             if i % 2 == 0:
                 bt = ct - 3600
-                bq = urllib.parse.quote(f'{a}_baseline{{app="app{i}"}}') if labelled else f"{a}_baseline:app{i}"
+                bq = (urllib.parse.quote(f'{a}_baseline{{app="app{i}"{tenant}}}') if labelled or tenant
+                      else f"{a}_baseline:app{i}")
                 base_url = f"http://prom/base?q={bq}&start={int(bt[0])}&end={int(bt[-1])}&step=60"
                 data[base_url] = (bt, (cv + rng.normal(0, 0.01, FULL_TC)).astype(np.float32))
                 parts["baseline"].append(f"{a}== {base_url}")
@@ -1043,8 +1076,40 @@ def worker_fleet(n_docs: int, t_now: int, seed: int = 13, labelled: bool = False
     return docs, data, latency
 
 
+def array_source(series: dict):
+    """An in-memory MetricSource over URL -> (times, values): exact-match
+    lookups, no fetch threads."""
+    from foremast_tpu_torch.metrics.source import MetricSource
+
+    class ArraySource(MetricSource):
+        concurrent_fetch = False
+
+        def __init__(self):
+            self.data = dict(series)
+
+        def fetch(self, url: str):
+            return self.data[url]
+
+    return ArraySource()
+
+
+@contextlib.contextmanager
+def slice_env(n: int | None):
+    """FOREMAST_SWEEP_SLICE_DOCS = n (None: unset) for the workers built
+    inside, restored after."""
+    saved = os.environ.pop("FOREMAST_SWEEP_SLICE_DOCS", None)
+    if n is not None:
+        os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = str(n)
+    try:
+        yield
+    finally:
+        os.environ.pop("FOREMAST_SWEEP_SLICE_DOCS", None)
+        if saved is not None:
+            os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = saved
+
+
 def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: bool = True,
-                     slice_docs: int | None = 0) -> dict:
+                     slice_docs: int | None = 0, hook=None) -> dict:
     """On one port worker over its own store (copies of `docs`) and
     source: (a) cold tick, (b) warm tick, (c) warm tick with the last 3
     latency points of every 16th doc spiked; then (d) the f32 cold tick of
@@ -1054,7 +1119,8 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
     stage breakdown and the sliced sweep's record. `slice_docs` is
     FOREMAST_SWEEP_SLICE_DOCS for the workers (None: unset, the default
     2,048; 0: the monolithic tick); a sliced worker on the card dispatches
-    its columnar programs under set_sync_debug_mode("error")."""
+    its columnar programs under set_sync_debug_mode("error"). `hook(worker,
+    store)`, if given, runs on the main worker before its first tick."""
     import gc
 
     import torch
@@ -1062,16 +1128,6 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
     from foremast_tpu_torch.config import BrainConfig
     from foremast_tpu_torch.engine import scoring
     from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
-    from foremast_tpu_torch.metrics.source import MetricSource
-
-    class ArraySource(MetricSource):
-        concurrent_fetch = False  # in-memory: no fetch threads
-
-        def __init__(self, series):
-            self.data = dict(series)
-
-        def fetch(self, url: str):
-            return self.data[url]
 
     cuda = torch.device(device).type == "cuda"
 
@@ -1084,18 +1140,11 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
         for d in doc_json:
             store.create(Document.from_json(d))
         cfg = BrainConfig(max_cache_size=len(doc_json) * len(ALIASES) + 64)
-        saved = os.environ.pop("FOREMAST_SWEEP_SLICE_DOCS", None)
-        if slice_docs is not None:
-            os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = str(slice_docs)
-        try:
+        with slice_env(slice_docs):
             worker = BrainWorker(
-                store, ArraySource(data), config=cfg, device=device,
+                store, array_source(data), config=cfg, device=device,
                 claim_limit=len(doc_json), worker_id=f"smoke-{device}", tracer=tr,
             )
-        finally:
-            os.environ.pop("FOREMAST_SWEEP_SLICE_DOCS", None)
-            if saved is not None:
-                os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = saved
         return worker, store
 
     def written(store):
@@ -1137,6 +1186,8 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
                 torch.cuda.set_sync_debug_mode(0)
 
         worker._dispatch_uni = strict_dispatch
+    if hook is not None:
+        hook(worker, store)
     out = {}
 
     gc_acc = [0.0, 0.0]  # collector pause seconds in the tick, last start
@@ -1295,8 +1346,10 @@ def phase_worker(dev, smi: str, columnar_s: float) -> dict:
 
 # phase 6's fleet shape at 1,024 docs took 5.4 minutes for phase 9 alone
 # (H100 80GB HBM3 at 700 W, `--deployable-only`), 4,096 JSON histories
-# parsed per pass; cut to 512 docs
-DEPLOY_DOCS = 512  # x 4 aliases = 2,048 query_range histories of 7 days
+# parsed per pass; cut to 512 docs, then to 384 when phase 10 came: two
+# claims of the CLI's default limit (256 + 128), so every pass still
+# claims again over a half-judged fleet
+DEPLOY_DOCS = 384  # x 4 aliases = 1,536 query_range histories of 7 days
 DEPLOY_CLAIM = 256  # the CLI's default --claim-limit (FOREMAST_CLAIM_LIMIT)
 DEPLOY_F32_DOCS = 256  # (d) the f32 CLI run: one claim
 CLI_TIMEOUT = 240  # seconds for one CLI run to judge its fleet
@@ -2259,7 +2312,7 @@ def report_microtick_arm(micro: dict, smi: str) -> None:
 def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict:
     """Phase 9: the worker as deployed. (a) A BrainWorker over
     ElasticsearchStore and PrometheusSource against a fake ES and a fake
-    Prometheus on loopback sockets (512 docs x 4 aliases, claim limit
+    Prometheus on loopback sockets (384 docs x 4 aliases, claim limit
     256): cold ticks until the fleet is judged, a warm pass and a spiked
     warm pass, each document's writes equal to phase 6's in-memory worker
     on the same fleet; (e) the push arm: every series pushed as FMW1
@@ -4241,6 +4294,701 @@ def profile_joint_cold_tick(dev, fleet, top: int = 10) -> None:
     print(f"phase 8: (d) the same profile, top {top} by own s: "
           + "; ".join(f"{o:.3f} {name} ({k} calls)" for _c, o, k, name in own_rows))
 
+# ---------------------------------------------------------------------------
+# phase 10: fault injection and the tenant plane
+# ---------------------------------------------------------------------------
+
+TENANT_SLICE = 1024  # FOREMAST_SWEEP_SLICE_DOCS of (a)-(c): four slices of phase 6's 4,096 docs
+TENANT_QUIET_FROM = 3072  # the quiet tenants' docs interleave the last quarter of the claim order
+WHALE_ARENA_ROWS = 3072  # below the whale's 14,336 windows
+TENANT_CPU_DOCS = 512  # (a): the last 512 docs (half quiet) held to a CPU worker
+CHAOS_DOCS = 512  # (d): the fleet's last 512 docs, half of the quiet tenants' among them
+CHAOS_SLICE = 256  # (d): two slices, so the writer thread writes
+CHAOS_SEED = 20
+FLOOD_SECONDS = 4.0  # (e): each flood, tenanted and untenanted
+WHALE_INGEST_BYTES_PER_S = 1 << 20
+WHALE_RING_BYTES = 1 << 20
+FLOOD_SERIES = 256  # (e): series per whale body, FLOOD_POINTS samples each (196,608 decoded bytes)
+FLOOD_POINTS = 64
+QUIET_SERIES = 667  # (e): quiet-a's body every 0.1 s: 6,670 samples/s, STEADY_RATE's stream
+CLI_TENANT_DOCS = 256  # (f): one claim of the CLI's default limit
+CLI_CHAOS_SECONDS = 15.0  # (f): the store rule's window from the CLI's start: startup, push and first claims
+
+
+def tenant_of(i: int) -> str:
+    """Phase 10's tenants: `quiet-a` and `quiet-b` hold 256 docs each,
+    interleaved with the whale's in the last quarter of the claim order
+    (doc i % 4 == 1 and == 2: a continuous doc and a canary); `whale`
+    holds the other 3,584."""
+    if i >= TENANT_QUIET_FROM and i % 4 in (1, 2):
+        return "quiet-a" if i % 4 == 1 else "quiet-b"
+    return "whale"
+
+
+def tenant_spec(arena: bool = True, **whale) -> dict:
+    """FOREMAST_TENANTS of phase 10: all three tenants at weight 1, the
+    whale with its envelopes (`arena`: WHALE_ARENA_ROWS)."""
+    w = {"weight": 1, **whale}
+    if arena:
+        w["arena_rows"] = WHALE_ARENA_ROWS
+    return {"tenants": {"whale": w, "quiet-a": {"weight": 1}, "quiet-b": {"weight": 1}}}
+
+
+def doc_urls(docs) -> list:
+    """Every query_range URL the documents' configs name."""
+    out = []
+    for d in docs:
+        for field in ("currentConfig", "historicalConfig", "baselineConfig"):
+            for item in filter(None, (d.get(field) or "").split(" ||")):
+                out.append(item.split("== ", 1)[1].strip())
+    return out
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if len(xs) else float("nan")
+
+
+def sweep_recorder(rec: list):
+    """run_worker_ticks hook: `rec` gets the worker, then one record a
+    sweep (its claim's instant, its slices in order, each doc's write
+    instant)."""
+
+    def hook(worker, store):
+        claim, prepare, update, update_many = store.claim, worker._prepare_slice, store.update, store.update_many
+
+        def claimed(*a, **kw):
+            docs = claim(*a, **kw)
+            rec.append({"t0": time.perf_counter(), "slices": [], "writes": {}})
+            return docs
+
+        def prepared(*a, **kw):
+            prep = prepare(*a, **kw)
+            rec[-1]["slices"].append([d.id for d in prep.docs])
+            return prep
+
+        def written_many(docs):
+            update_many(docs)
+            t = time.perf_counter()
+            for d in docs:
+                rec[-1]["writes"][d.id] = t
+
+        def written(doc):
+            out = update(doc)
+            rec[-1]["writes"][doc.id] = time.perf_counter()
+            return out
+
+        store.claim, worker._prepare_slice = claimed, prepared
+        store.update, store.update_many = written, written_many
+        rec.append({"worker": worker})  # the first entry: the worker itself
+
+    return hook
+
+
+def sweep_report(label: str, sweep: dict, docs_tenant: dict) -> dict:
+    """Per tenant: the slice index of its last doc, and time-to-verdict
+    (claim to the doc's write) p50 / p99 in seconds."""
+    slice_of = {d: k for k, ids in enumerate(sweep["slices"]) for d in ids}
+    out = {}
+    for tenant in sorted(set(docs_tenant.values())):
+        ids = [d for d, t in docs_tenant.items() if t == tenant]
+        waits = [sweep["writes"][d] - sweep["t0"] for d in ids if d in sweep["writes"]]
+        out[tenant] = dict(last_slice=max(slice_of[d] for d in ids), p50=pct(waits, 50), p99=pct(waits, 99),
+                           written=len(waits), docs=len(ids))
+    print(f"phase 10: (a) {label}: " + "; ".join(
+        f"{t} ({v['docs']} docs) last doc in slice {v['last_slice'] + 1} of {len(sweep['slices'])}, "
+        f"time-to-verdict p50 {v['p50']:.3f} s p99 {v['p99']:.3f} s" for t, v in out.items()))
+    return out
+
+
+class arena_timer:
+    """Host seconds of the state arenas' `assign` and `scatter`, and rows
+    scattered, per sweep (`rec`, as `sweep_recorder` fills it: entry 0 is
+    the worker, sweep k's record entry k + 1; calls before the first claim
+    are not counted)."""
+
+    def __init__(self, rec: list):
+        from foremast_tpu_torch.engine import arena
+
+        self.rec, self.arena = rec, arena
+        self.sweeps: list = []
+
+    def _slot(self):
+        k = len(self.rec) - 2
+        if k < 0:
+            return None
+        while len(self.sweeps) <= k:
+            self.sweeps.append({"assign": 0.0, "scatter": 0.0, "rows": 0})
+        return self.sweeps[k]
+
+    def __enter__(self):
+        row, state = self.arena.RowArena, self.arena.StateArena
+        self.saved = (row.assign, state.scatter)
+        assign, scatter = self.saved
+        timer = self
+
+        def timed_assign(arena, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return assign(arena, *a, **kw)
+            finally:
+                slot = timer._slot()
+                if slot is not None:
+                    slot["assign"] += time.perf_counter() - t0
+
+        def timed_scatter(arena, rows, positions, entries):
+            t0 = time.perf_counter()
+            try:
+                return scatter(arena, rows, positions, entries)
+            finally:
+                slot = timer._slot()
+                if slot is not None:
+                    slot["scatter"] += time.perf_counter() - t0
+                    slot["rows"] += len(positions)
+
+        row.assign, state.scatter = timed_assign, timed_scatter
+        return self
+
+    def __exit__(self, *exc):
+        self.arena.RowArena.assign, self.arena.StateArena.scatter = self.saved
+
+
+def tenant_sliced_sweeps(dev, docs, data, latency, t_now: int, costs: bool = False) -> dict:
+    """(a)-(c): the tenanted sliced sweeps against the untenanted ones, the
+    arena envelope, and the f32 route. With `costs`, also against the same
+    tenants without the arena envelope (the envelope's cost apart from the
+    slice order), each arm with its arenas' host seconds (`arena_timer`)."""
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.ops import kernels as K
+    from foremast_tpu_torch.tenant import TenantRegistry, TenantSpec, accounting_for, set_tenancy
+
+    spec = tenant_spec()["tenants"]
+    docs_tenant = {d["id"]: tenant_of(i) for i, d in enumerate(docs)}
+    quiet = {d for d, t in docs_tenant.items() if t != "whale"}
+
+    def registry():
+        return TenantRegistry({n: TenantSpec.from_json(n, s) for n, s in spec.items()})
+
+    arms = [("tenanted", registry()), ("untenanted", None)]
+    if costs:
+        arms.append(("weights only", TenantRegistry({n: TenantSpec(name=n) for n in spec})))
+    runs = {}
+    for label, reg in arms:
+        set_tenancy(reg)
+        try:
+            rec: list = []
+            t0 = time.perf_counter()
+            with arena_timer(rec) if costs else contextlib.nullcontext() as timer:
+                out = run_worker_ticks(dev, docs, data, latency, t_now, f32=False, slice_docs=TENANT_SLICE,
+                                       hook=sweep_recorder(rec))
+            worker = rec.pop(0)["worker"]
+            # resident arena rows by tenant, resolved from each row's fit key
+            arenas = list(worker._uni._arenas.values())
+            resolve = registry().tenant_of_key
+            owners = [resolve(k) for a in arenas for k in a.rows]
+            runs[label] = dict(out=out, sweeps=rec, seconds=time.perf_counter() - t0,
+                               acct=accounting_for(reg).snapshot() if reg is not None else None,
+                               rows={t: owners.count(t) for t in spec},
+                               evictions=sum(a.evictions for a in arenas))
+            if costs:
+                idle = [{"assign": 0.0, "scatter": 0.0, "rows": 0}] * (len(rec) - len(timer.sweeps))
+                runs[label]["arena"] = timer.sweeps + idle
+        finally:
+            set_tenancy(None)
+    ten, plain = runs["tenanted"], runs["untenanted"]
+    tenanted = [label for label in runs if label != "untenanted"]
+    for name, what in (("a", "cold"), ("b", "warm"), ("c", "spiked warm")):
+        u = plain["out"][name]
+        for label in tenanted:
+            t = runs[label]["out"][name]
+            check(t["docs"] == u["docs"] == len(docs), f"(a) {label} {what}: {t['docs']} / {u['docs']} docs")
+            check(t["sweep"]["slices"] == len(docs) // TENANT_SLICE, f"(a) {what}: {t['sweep']['slices']} slices")
+            diff = sum(t["written"][k] != v for k, v in u["written"].items())
+            check(t["written"] == u["written"], f"(a) {label} {what}: writes differ from untenanted on {diff} docs")
+    for label in tenanted:
+        for k, sweep in enumerate(runs[label]["sweeps"]):
+            first = set(sweep["slices"][0])
+            check(quiet <= first, f"(a) {label} sweep {k + 1}: {len(quiet - first)} quiet docs missed the first slice")
+    reports = {label: [sweep_report(f"{label} sweep {k + 1} ({n})", sw, docs_tenant)
+                       for k, (sw, n) in enumerate(zip(r["sweeps"], ("cold", "warm", "spiked warm")))]
+               for label, r in runs.items()}
+    for k, (name, what) in enumerate((("a", "cold"), ("b", "warm"), ("c", "spiked warm"))):
+        print(f"phase 10: (a) {what} sweep in {TENANT_SLICE}-doc slices: " + "; ".join(
+            f"{label} {r['out'][name]['seconds']:.3f} s" + (
+                f" (arena assign {r['arena'][k]['assign']:.4f} s, scatter {r['arena'][k]['scatter']:.4f} s of "
+                f"{r['arena'][k]['rows']} rows)" if costs else "") for label, r in runs.items())
+            + f"; writes of all {len(docs)} docs equal")
+
+    # the fleet's statuses against a CPU worker (tenanted) on its last 512 docs
+    sub = docs[-TENANT_CPU_DOCS:]
+    set_tenancy(registry())
+    try:
+        cpu = run_worker_ticks("cpu", sub, data, latency[-TENANT_CPU_DOCS:], t_now, f32=False,
+                               slice_docs=TENANT_CPU_DOCS // 4)
+    finally:
+        set_tenancy(None)
+    for name in "abc":
+        for d in sub:
+            check(cpu[name]["written"][d["id"]] == ten["out"][name]["written"][d["id"]],
+                  f"(a) ({name}) {d['id']}: the card's write differs from a CPU worker's")
+    print(f"phase 10: (a) the last {TENANT_CPU_DOCS} docs' writes (cold, warm, spiked) equal a tenanted CPU worker's "
+          f"(slices of {TENANT_CPU_DOCS // 4})")
+
+    # (b) the arena envelope
+    acct = ten["acct"]
+    check(acct["whale"]["evictions"] > 0, f"(b) no eviction was charged to the whale: {acct}")
+    for q in ("quiet-a", "quiet-b"):
+        check(acct.get(q, {}).get("evictions", 0) == 0, f"(b) an eviction was charged to {q}: {acct}")
+        check(ten["rows"][q] == plain["rows"][q] > 0,
+              f"(b) {q} holds {ten['rows'][q]} arena rows, {plain['rows'][q]} without the envelope: a quiet row "
+              f"was evicted")
+    check(acct["whale"]["claims"] == 3 * sum(t == "whale" for t in docs_tenant.values()),
+          f"(b) whale claims {acct['whale']['claims']}")
+    print(f"phase 10: (b) arena envelope {WHALE_ARENA_ROWS} rows for the whale: evictions charged "
+          f"{ {t: v['evictions'] for t, v in acct.items()} }, resident rows by tenant {ten['rows']}, arena evictions "
+          f"{ten['evictions']} (untenanted: {plain['evictions']}); claims {({t: v['claims'] for t, v in acct.items()})}; "
+          f"verdicts equal the unenveloped arena's")
+
+    # (c) the f32 route: one tenanted cold sweep, FOREMAST_BF16_DELTA=0
+    store = InMemoryStore()
+    for d in docs:
+        store.create(Document.from_json(d))
+    set_tenancy(registry())
+    scoring.set_bf16_delta(False)
+    try:
+        with slice_env(TENANT_SLICE):
+            worker = BrainWorker(store, array_source(data),
+                                 config=BrainConfig(max_cache_size=len(docs) * len(ALIASES) + 64),
+                                 device=dev, claim_limit=len(docs), worker_id="smoke-f32-tenanted")
+        before = K.LAUNCHES["masked_stats"]
+        sync_card()
+        t0 = time.perf_counter()
+        n = worker.tick(now=t_now + 150)
+        sync_card()
+        f32_s = time.perf_counter() - t0
+        f32_launches = K.LAUNCHES["masked_stats"] - before
+        worker.close()
+    finally:
+        scoring.set_bf16_delta(None)
+        set_tenancy(None)
+    f32_written = {d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+                   for d in store._docs.values()}
+    check(n == len(docs), f"(c) the f32 sweep judged {n} docs")
+    statuses = {k: json.loads(v)[0] for k, v in f32_written.items()}
+    check(statuses == {k: json.loads(v)[0] for k, v in ten["out"]["a"]["written"].items()},
+          "(c) the f32 cold sweep's statuses differ from (a)'s")
+    check(f32_launches > 0, "(c) the tenanted f32 cold sweep launched no masked_stats")
+    print(f"phase 10: (c) tenanted f32 cold sweep (FOREMAST_BF16_DELTA=0) of {len(docs)} docs in {f32_s:.3f} s: "
+          f"statuses equal (a)'s; masked_stats launched {f32_launches} times")
+    return dict(runs=runs, reports=reports, f32_seconds=f32_s, f32_launches=f32_launches)
+
+
+def chaos_arm(dev, docs, data, ref: dict, smi: str, t_now: int) -> dict:
+    """(d): a worker over ElasticsearchStore (the fake index of
+    tests/torch_fake_services.py on a loopback socket; claim CHAOS_DOCS,
+    slices of CHAOS_SLICE, so the writer thread writes) under one seeded plan: a `store`
+    rule over one warm sweep's write window (the plan's clock enters it
+    right after that sweep's claim), then a `prometheus` rule of error
+    rate 0.2 over one sweep on the pulled path (PrometheusSource against
+    the fake Prometheus, fetch retries 0), then nothing; and a receiver
+    whose `receiver` rule answers 503. `ref` holds the writes of (a)'s
+    tenanted run for these docs."""
+    import urllib.error
+    import urllib.request
+
+    from foremast_tpu_torch.chaos import Degradation, FaultPlan
+    from foremast_tpu_torch.chaos.degrade import REASON_BUFFERED, REASON_FETCH, REASON_REPLAYED
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.ingest import BINARY_CONTENT_TYPE, RingStore, encode_frame, start_ingest_server
+    from foremast_tpu_torch.ingest import stop_ingest_server
+    from foremast_tpu_torch.jobs import BrainWorker
+    from foremast_tpu_torch.jobs.store import ElasticsearchStore
+    from foremast_tpu_torch.metrics.source import PrometheusSource
+    from foremast_tpu_torch.observe.spans import Tracer
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import FakeElasticsearch, FakePrometheus, rebase, serve_fake_es, serve_fake_prometheus
+
+    clock = [0.0]
+    plan = FaultPlan.from_json({"seed": CHAOS_SEED, "rules": [
+        {"edge": "store", "after": 100.0, "duration": 100.0, "error_rate": 1.0},
+        {"edge": "prometheus", "after": 300.0, "duration": 100.0, "error_rate": 0.2},
+    ]}, clock=lambda: clock[0]).activate()
+    degrade = Degradation(chaos_plan=plan)
+    prom = FakePrometheus()
+    prom_srv, prom_url = serve_fake_prometheus(prom)
+    es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+    servers = [prom_srv, es_srv]
+    data = {u: data[u] for u in doc_urls(docs)}
+    try:
+        rdocs, keyed = rebase(docs, data, "http://prom", prom_url)
+        # the warm passes fetch current windows and baselines only
+        prom.data = {k: v for k, v in keyed.items() if not k.startswith("/hist")}
+        prom.prepare()
+        es.load(rdocs)
+        store = ElasticsearchStore(es_url, chaos=plan.edge("store"), breaker=degrade.breakers.get("store"))
+        check(store.wait_ready(max_wait=30), "(d) the fake Elasticsearch never answered")
+        with slice_env(CHAOS_SLICE):
+            worker = BrainWorker(store, array_source({u.replace("http://prom", prom_url): v for u, v in data.items()}),
+                                 config=BrainConfig(max_cache_size=len(docs) * len(ALIASES) + 64),
+                                 device=dev, claim_limit=len(docs), worker_id="smoke-chaos", tracer=Tracer(),
+                                 degrade=degrade)
+        writes: dict = {}
+        update_many = store.update_many
+
+        def recorded(ds):
+            update_many(ds)
+            for d in ds:
+                writes[d.id] = writes.get(d.id, 0) + 1
+
+        store.update_many = recorded
+        claimed, released = [], []
+        claim, release = store.claim, worker._release_docs
+
+        def on_claim(*a, **kw):
+            got = claim(*a, **kw)
+            claimed.extend(d.id for d in got)
+            if on_claim.enter is not None:
+                clock[0] = on_claim.enter  # the plan enters its window right after this claim
+            return got
+
+        def on_release(ds, reason, *a, **kw):
+            released.extend(d.id for d in ds)
+            return release(ds, reason, *a, **kw)
+
+        on_claim.enter = None
+        store.claim, worker._release_docs = on_claim, on_release
+        timings = {}
+
+        def sweep(name, now):
+            es.set_status(None)  # stamps aged: one claim takes the fleet
+            claimed.clear()
+            released.clear()
+            writes.clear()
+            sync_card()
+            t0 = time.perf_counter()
+            n = worker.tick(now=now)
+            sync_card()
+            timings[name] = time.perf_counter() - t0
+            return n
+
+        check(sweep("cold", t_now + 150) == len(docs), "(d) the cold sweep lost docs")
+        got = es_written(es.sources())
+        check(got == {d["id"]: ref["a"][d["id"]] for d in docs}, "(d) the cold sweep's writes differ from (a)'s")
+        # the store outage over one warm sweep's writes
+        on_claim.enter = 150.0
+        check(sweep("outage", t_now + 200) == len(docs), "(d) the outage sweep lost docs")
+        on_claim.enter = None
+        stats = degrade.stats.docs_snapshot()
+        check(not writes, f"(d) {len(writes)} writes reached the store during its outage")
+        check(stats.get(REASON_BUFFERED, 0) == len(docs) and len(degrade.write_behind) == len(docs),
+              f"(d) write-behind holds {len(degrade.write_behind)} of {len(docs)} verdicts ({stats})")
+        store_breaker = degrade.breakers.get("store").debug_state()
+        check(store_breaker["consecutive_failures"] > 0 or store_breaker["transitions"],
+              f"(d) the store breaker saw none of the writer's failures: {store_breaker}")
+        clock[0] = 250.0  # the store heals
+        check(sweep("replay", t_now + 200) == len(docs), "(d) the replay sweep lost docs")
+        check(degrade.stats.docs_snapshot().get(REASON_REPLAYED, 0) == len(docs) and not len(degrade.write_behind),
+              f"(d) replayed {degrade.stats.docs_snapshot().get(REASON_REPLAYED, 0)} of {len(docs)}")
+        check(writes == {d["id"]: 2 for d in docs},
+              f"(d) not one replay and one verdict per doc: {sorted(set(writes.values()))} writes")
+        check(es_written(es.sources()) == {d["id"]: ref["b"][d["id"]] for d in docs},
+              "(d) after the replay the writes differ from (a)'s warm sweep")
+        # the pulled path under a seeded 0.2 error rate
+        worker.source = PrometheusSource(retries=0, chaos=plan.edge("prometheus"),
+                                         breaker=degrade.breakers.get("prometheus"))
+        clock[0] = 350.0
+        fetch_before = degrade.stats.docs_snapshot().get(REASON_FETCH, 0)
+        check(sweep("prometheus", t_now + 200) == len(docs), "(d) the Prometheus-fault sweep lost docs")
+        faulted = sorted(set(released))
+        judged = set(claimed) - set(released)
+        check(degrade.stats.docs_snapshot().get(REASON_FETCH, 0) - fetch_before == len(faulted) > 0,
+              f"(d) the 0.2 error rate released {len(faulted)} docs")
+        sources = es.sources()
+        check(all(sources[d]["status"] == "preprocess_completed" for d in faulted),
+              "(d) a released doc was left terminal or in progress")
+        clock[0] = 450.0
+        later = 0
+        every = {d["id"] for d in docs}
+        while not judged >= every and later < 4:
+            later += 1
+            sweep(f"after {later}", t_now + 200)
+            judged |= set(claimed) - set(released)
+        check(judged >= every, f"(d) {len(every - judged)} docs never judged after the faults")
+        check(es_written(es.sources()) == {d["id"]: ref["b"][d["id"]] for d in docs},
+              "(d) the final writes differ from (a)'s chaos-free warm sweep")
+        worker.close()
+
+        # the receiver edge: a rule that answers 503
+        rplan = FaultPlan.from_json({"seed": CHAOS_SEED, "rules": [
+            {"edge": "receiver", "error_rate": 1.0, "kind": "status", "status": 503}]}).activate()
+        srv, _ = start_ingest_server(0, RingStore(budget_bytes=1 << 24, shards=2), host="127.0.0.1",
+                                     chaos=rplan.edge("receiver"))
+        body = encode_frame([("foremast_smoke_chaos{app=\"a\"}", np.array([t_now], np.int64),
+                              np.ones(1, np.float32), None)])
+        codes = []
+        try:
+            for _ in range(3):
+                req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/api/v1/write", data=body,
+                                             method="POST", headers={"Content-Type": BINARY_CONTENT_TYPE})
+                try:
+                    urllib.request.urlopen(req, timeout=30).read()
+                    codes.append(200)
+                except urllib.error.HTTPError as e:
+                    codes.append(e.code)
+        finally:
+            stop_ingest_server(srv)
+        check(codes == [503] * 3, f"(d) the receiver answered {codes} under its 503 rule")
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+    inj = {**plan.injections_snapshot(), **rplan.injections_snapshot()}
+    transitions = {e: b["transitions"] for e, b in degrade.breakers.debug_state().items()}
+    print(f"phase 10: (d) chaos on {smi}, {len(docs)} docs, claim {len(docs)}, slices of {CHAOS_SLICE}: sweeps "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+          + f"; store outage over one warm sweep's writes: {len(docs)} verdicts to write-behind, each replayed once "
+          f"by the next sweep; Prometheus error rate 0.2 (seed {CHAOS_SEED}, retries 0): {len(faulted)} docs "
+          f"released un-judged, every doc judged {later} sweep(s) after; receiver rule answered {codes}; "
+          f"injections by (edge, kind) {dict(sorted(inj.items()))}; breaker transitions {transitions}; "
+          f"final writes equal a chaos-free sweep's")
+    return dict(injections=inj, transitions=transitions, seconds=timings, released=len(faulted))
+
+
+def ingest_flood(tenanted: bool, t_now: int) -> dict:
+    """(e) one flood: the whale pushes back to back from two clients while
+    quiet-a pushes QUIET_SERIES one-sample series every 0.1 s, for
+    FLOOD_SECONDS, against a receiver in this process (tenanted: the
+    whale's ingest byte-rate and ring-bytes envelopes)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from foremast_tpu_torch.ingest import BINARY_CONTENT_TYPE, RingStore, encode_frame, start_ingest_server
+    from foremast_tpu_torch.ingest import stop_ingest_server
+    from foremast_tpu_torch.tenant import TenantRegistry, TenantSpec, accounting_for
+
+    reg = None
+    if tenanted:
+        spec = tenant_spec(False, ingest_bytes_per_s=WHALE_INGEST_BYTES_PER_S, ring_bytes=WHALE_RING_BYTES)["tenants"]
+        reg = TenantRegistry({n: TenantSpec.from_json(n, s) for n, s in spec.items()})
+    ring = RingStore(budget_bytes=1 << 30, shards=8, tenancy=reg)
+    srv, _ = start_ingest_server(0, ring, host="127.0.0.1", tenancy=reg) if reg is not None else \
+        start_ingest_server(0, ring, host="127.0.0.1")
+    url = f"http://127.0.0.1:{srv.server_address[1]}/api/v1/write"
+    rng = np.random.default_rng(5)
+    whale_bodies = []
+    for b in range(32):
+        t = (t_now - 86_400 + 60 * np.arange(FLOOD_POINTS, dtype=np.int64) + 60 * FLOOD_POINTS * b)
+        whale_bodies.append(encode_frame([
+            (f'foremast_smoke_flood{{app="w{b}-{j}",tenant="whale"}}', t,
+             rng.normal(1, 0.1, FLOOD_POINTS).astype(np.float32), None) for j in range(FLOOD_SERIES)]))
+    quiet_keys = [f'foremast_smoke_quiet{{app="q{j}",tenant="quiet-a"}}' for j in range(QUIET_SERIES)]
+    stop = threading.Event()
+    tallies = {"whale": [0, 0, 0, 0], "quiet-a": [0, 0, 0, 0]}  # bodies sent, accepted samples, 200s, 429s
+    shed_tenants: set = set()
+    errors: list = []  # any other answer, and any exception, of a client thread: the main thread fails on them
+    lock = threading.Lock()
+
+    def post(tenant, body):
+        req = urllib.request.Request(url, data=body, method="POST", headers={"Content-Type": BINARY_CONTENT_TYPE})
+        with lock:
+            tallies[tenant][0] += 1
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                n = json.loads(resp.read())["accepted_samples"]
+            with lock:
+                tallies[tenant][1] += n
+                tallies[tenant][2] += 1
+        except urllib.error.HTTPError as e:
+            answer = json.loads(e.read() or b"{}")
+            with lock:
+                if e.code != 429:
+                    errors.append(f"{tenant}'s push answered {e.code}: {answer}")
+                    return
+                tallies[tenant][3] += 1
+                shed_tenants.add(answer.get("tenant"))
+
+    def whale():
+        k = 0
+        while not stop.is_set():
+            post("whale", whale_bodies[k % len(whale_bodies)])
+            k += 1
+
+    def quiet():
+        k = 0
+        t0 = time.perf_counter()
+        while not stop.is_set():
+            t = np.array([t_now + 15 * k], np.int64)
+            post("quiet-a", encode_frame([(key, t, np.ones(1, np.float32), None) for key in quiet_keys]))
+            k += 1
+            time.sleep(max(0.0, t0 + 0.1 * k - time.perf_counter()))
+
+    def client(loop):
+        def run():
+            try:
+                loop()  # returns only once `stop` is set
+            except Exception as e:  # noqa: BLE001 - reported to the main thread, which fails on it
+                with lock:
+                    errors.append(f"a {loop.__name__} client ended before the flood did: {e!r}")
+
+        return threading.Thread(target=run)
+
+    threads = [client(whale), client(whale), client(quiet)]
+    try:
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(FLOOD_SECONDS)
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+        seconds = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "(e) a pushing client never finished")
+        check(not errors, f"(e) {'tenanted' if tenanted else 'untenanted'} flood: {len(errors)} pushes failed "
+                          f"otherwise than with a 429, e.g. {errors[:3]}")
+    finally:
+        stop.set()
+        stop_ingest_server(srv)
+    resident_quiet = sum(1 for s in ring._shards for k in s._series if 'tenant="quiet-a"' in k)
+    return dict(seconds=seconds, tallies=tallies, shed_tenants=shed_tenants, resident_quiet=resident_quiet,
+                acct=accounting_for(reg).snapshot() if reg is not None else None, stats=ring.stats())
+
+
+def ingest_envelopes(smi: str, t_now: int) -> dict:
+    """(e): only the whale is shed (429 naming it) and evicted; quiet-a
+    pushes at 6,670 samples/s with 0 sheds and 0 evictions; accepted
+    samples/s per tenant, tenanted and untenanted."""
+    runs = {label: ingest_flood(label == "tenanted", t_now) for label in ("tenanted", "untenanted")}
+    ten = runs["tenanted"]
+    acct = ten["acct"]
+    check(ten["tallies"]["whale"][3] > 0 and ten["shed_tenants"] == {"whale"},
+          f"(e) sheds {ten['tallies']}, tenants named {ten['shed_tenants']}")
+    sent, _, taken, shed = ten["tallies"]["quiet-a"]
+    check(sent > 0 and taken == sent and shed == 0 and acct.get("quiet-a", {}).get("shed", 0) == 0,
+          f"(e) quiet-a sent {sent} bodies, {taken} taken, {shed} shed; ledger {acct.get('quiet-a')}")
+    sent, _, taken, shed = ten["tallies"]["whale"]
+    check(taken + shed == sent, f"(e) the whale sent {sent} bodies, {taken} taken and {shed} shed")
+    check(acct["whale"]["shed"] == shed, f"(e) whale sheds charged {acct['whale']['shed']}")
+    check(acct["whale"]["evictions"] > 0 and acct.get("quiet-a", {}).get("evictions", 0) == 0,
+          f"(e) evictions {acct}")
+    check(ten["resident_quiet"] == QUIET_SERIES, f"(e) {ten['resident_quiet']} of quiet-a's series resident")
+    check(acct["whale"]["ring_bytes"] <= WHALE_RING_BYTES, f"(e) whale ring bytes {acct['whale']['ring_bytes']}")
+    for label, r in runs.items():
+        rates = {t: v[1] / r["seconds"] for t, v in r["tallies"].items()}
+        print(f"phase 10: (e) {label} receiver on {smi}, {r['seconds']:.1f} s: accepted samples/s whale "
+              f"{rates['whale']:.0f} ({r['tallies']['whale'][2]} bodies taken, {r['tallies']['whale'][3]} shed), "
+              f"quiet-a {rates['quiet-a']:.0f} ({r['tallies']['quiet-a'][2]} of {r['tallies']['quiet-a'][0]} taken, "
+              f"{r['tallies']['quiet-a'][3]} shed); "
+              f"ring evictions {r['stats']['evictions']}"
+              + (f"; ledger {r['acct']}" if r["acct"] else ""))
+    return runs
+
+
+def tenant_cli_run(dev, docs, data, ref: dict, workdir: str) -> dict:
+    """(f): `python -m foremast_tpu_torch worker` with FOREMAST_TENANTS,
+    FOREMAST_CHAOS_PLAN (a seeded store rule over its first seconds) and
+    FOREMAST_INGEST=1: the fleet's samples pushed to its receiver, its
+    writes equal (a)'s cold ones; its receiver's /debug/state has the
+    `tenants` section, and its stop record the plan's injections and the
+    tenant ledger (the card's host has no prometheus_client, so the gauge
+    port's /debug/state is not served there; tests/test_torch_cli_worker.py
+    reads that one on the CPU)."""
+    import urllib.request
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import FakeElasticsearch, FakePrometheus, rebase, serve_fake_es, serve_fake_prometheus
+
+    prom = FakePrometheus()
+    prom_srv, prom_url = serve_fake_prometheus(prom)
+    es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+    try:
+        data = {u: data[u] for u in doc_urls(docs)}
+        rdocs, keyed = rebase(docs, data, "http://prom", prom_url)
+        prom.data = keyed  # the fallback, never asked
+        entries = push_entries(data)  # the ring's keys come from the queries, not the host
+        port = free_port()
+        plan = {"seed": CHAOS_SEED, "rules": [{"edge": "store", "duration": CLI_CHAOS_SECONDS, "error_rate": 0.3}]}
+        env = {"FOREMAST_INGEST": "1", "FOREMAST_INGEST_PORT": str(port),
+               "FOREMAST_INGEST_BUDGET_BYTES": str(PUSH_BUDGET_BYTES),
+               "FOREMAST_TENANTS": json.dumps(tenant_spec()), "FOREMAST_CHAOS_PLAN": json.dumps(plan)}
+        seen = {}
+
+        def push_then_load():
+            t0 = time.perf_counter()  # before the CLI activates its plan
+            seen["push"] = push_frames(f"http://127.0.0.1:{port}/api/v1/write", entries, wait=CLI_TIMEOUT)
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/state", timeout=30) as resp:
+                seen["state"] = json.loads(resp.read())
+            es.load(rdocs)
+            # the fleet is judged, re-check after re-check, through the
+            # outage; read it once the rule's window is over and the
+            # worker has swept since (a SIGTERM inside the window leaves a
+            # failed write in write-behind, as in the JAX worker: the doc
+            # waits for the stuck-claim takeover)
+            time.sleep(max(0.0, t0 + CLI_CHAOS_SECONDS + 3.0 - time.perf_counter()))
+
+        run = cli_run(es_url, os.path.join(workdir, "snap-tenant"), es, workdir, "tenants-chaos", dev, env,
+                      started=push_then_load)
+    finally:
+        for s in (prom_srv, es_srv):
+            s.shutdown()
+            s.server_close()
+    diff = sorted(d["id"] for d in docs if run["written"][d["id"]] != ref["a"][d["id"]])
+    if diff:
+        print(f"phase 10: (f) CLI stderr:\n{run['stderr'][-20000:]}", file=sys.stderr)
+    check(not diff, f"(f) the CLI's writes differ from (a)'s on {len(diff)} docs, e.g. {diff[:1]}: "
+                    f"{[run['written'][d] for d in diff[:1]]} against {[ref['a'][d] for d in diff[:1]]}")
+    check(sum(prom.requests.values()) == 0, f"(f) the CLI asked Prometheus {dict(prom.requests)}")
+    tenants = seen["state"].get("tenants") or {}
+    check(set(tenants.get("registry", {}).get("configured", {})) == {"whale", "quiet-a", "quiet-b"},
+          f"(f) the receiver's /debug/state tenants section: {tenants.get('registry')}")
+    started = [r for r in run["records"] if r.get("msg") == "worker started"]
+    stopped = [r for r in run["records"] if r.get("msg") == "worker stopped"]
+    check(started and started[0].get("chaos_rules") == 1 and started[0].get("tenants") == ["quiet-a", "quiet-b", "whale"],
+          f"(f) the start record: {started[:1]}")
+    check(stopped and (stopped[-1].get("chaos_injections") or {}).get("store/connection", 0) > 0,
+          f"(f) the stop record's injections: {stopped[-1:]}")
+    ledger = stopped[-1].get("tenants") or {}
+    check(all(ledger.get(t, {}).get("claims", 0) > 0 for t in ("whale", "quiet-a", "quiet-b")),
+          f"(f) the stop record's tenant ledger: {ledger}")
+    check(any("CHAOS PLAN ACTIVE" in ln for ln in run["lines"] + [json.dumps(r) for r in run["records"]]),
+          "(f) the CLI never announced its chaos plan")
+    print(f"phase 10: (f) python3 -m foremast_tpu_torch worker with FOREMAST_TENANTS, FOREMAST_CHAOS_PLAN (store "
+          f"error rate 0.3 over its first {CLI_CHAOS_SECONDS:.0f} s, seed {CHAOS_SEED}) and FOREMAST_INGEST=1: "
+          f"{seen['push'][1]} samples pushed, "
+          f"{len(docs)} docs judged in {run['seconds']:.1f} s from start, writes equal (a)'s, 0 Prometheus requests, "
+          f"SIGTERM exit 0; receiver /debug/state tenants: {sorted(tenants)}; injections "
+          f"{stopped[-1]['chaos_injections']}; ledger claims {({t: v['claims'] for t, v in ledger.items()})}")
+    return run
+
+
+def phase_tenants_and_chaos(dev, smi: str, costs: bool = False) -> dict:
+    """Phase 10: fault injection and the tenant plane at phase 6's width
+    (`costs`: tenant_sliced_sweeps' cost arms too)."""
+    import tempfile
+
+    t_now = int(time.time()) - 600  # settled histories, for the CLI's real clock too
+    t0 = time.perf_counter()
+    docs, data, latency = worker_fleet(WORKER_DOCS, t_now, tenant_of=tenant_of)
+    counts = {t: sum(tenant_of(i) == t for i in range(WORKER_DOCS)) for t in ("whale", "quiet-a", "quiet-b")}
+    print(f"phase 10: fleet of {WORKER_DOCS} docs x {len(ALIASES)} aliases (Th={FULL_TH}, Tc={FULL_TC}, half "
+          f"canaries), every selector labelled with its doc's tenant {counts}, built in "
+          f"{time.perf_counter() - t0:.1f} s; FOREMAST_TENANTS {json.dumps(tenant_spec())}")
+    sweeps = tenant_sliced_sweeps(dev, docs, data, latency, t_now, costs)
+    ref = {name: sweeps["runs"]["tenanted"]["out"][name]["written"] for name in "ab"}
+    t1 = time.perf_counter()
+    chaos = chaos_arm(dev, docs[-CHAOS_DOCS:], data, ref, smi, t_now)
+    t2 = time.perf_counter()
+    flood = ingest_envelopes(smi, t_now)
+    t3 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="foremast-phase10-")
+    cli = tenant_cli_run(dev, docs[-CLI_TENANT_DOCS:], data, ref, workdir)
+    print(f"phase 10: seconds: (a)-(c) {t1 - t0:.1f}, (d) {t2 - t1:.1f}, (e) {t3 - t2:.1f}, "
+          f"(f) {time.perf_counter() - t3:.1f}")
+    return dict(sweeps=sweeps, chaos=chaos, flood=flood, cli_seconds=cli["seconds"])
+
+
 def main() -> int:
     import torch
 
@@ -4253,6 +5001,7 @@ def main() -> int:
 
     kernels_only = "--kernels-only" in sys.argv[1:]
     deployable_only = "--deployable-only" in sys.argv[1:]
+    tenants_only = "--tenants-only" in sys.argv[1:]
     # the seasonal model's f32 products must not round through TF32 (its
     # normal equations run in float64, which never does)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4287,6 +5036,14 @@ def main() -> int:
         launched = phase_deployable_worker(dev, smi, fit_cache_fleet(FIT_FLEET)[0], (docs, data, t_now))
         print(f"chip_smoke: --deployable-only: phase 9 passed; its main path launched {launched}")
         return 0
+    if tenants_only:
+        os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        phase_tenants_and_chaos(dev, smi, costs=True)
+        check(K.LAUNCHES["masked_stats"] > 0, "phase 10 never launched masked_stats")
+        print(f"chip_smoke: --tenants-only: phase 10 passed; its main path launched {dict(K.LAUNCHES)}")
+        return 0
     worst = phase_kernels_vs_plain(dev)
     worst.update(phase_scan_kernels_vs_plain(dev))
     worst.update(phase_lstm_kernels_vs_plain(dev))
@@ -4297,10 +5054,15 @@ def main() -> int:
 
     # each main path runs with the launch counts zeroed just before it and
     # read just after; the timing loops run after the readings
+    started = time.perf_counter()
+
     def path(fn, *args):
         for k in K.LAUNCHES:
             K.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
         result = fn(*args)
+        print(f"chip_smoke: {fn.__name__} took {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - started:.1f} s since the kernels were checked)")
         return result, dict(K.LAUNCHES)
 
     def object_path():
@@ -4336,8 +5098,12 @@ def main() -> int:
     # (the bf16 default launches no kernel; the push arm's f32 pass
     # launches masked_stats), the admission arm (its f32 route launches
     # masked_stats), the micro-tick arm, and the CLI subprocess's f32 run
+    t0 = time.perf_counter()
     launched_deploy = phase_deployable_worker(dev, smi, fit_cache["tasks"], worker_run["fleet"])
+    print(f"chip_smoke: phase_deployable_worker took {time.perf_counter() - t0:.1f} s")
     check(launched_deploy["masked_stats"] > 0, "the deployable worker (phase 9) never launched masked_stats")
+    _, launched_tenants = path(phase_tenants_and_chaos, dev, smi)
+    check(launched_tenants["masked_stats"] > 0, "the tenanted f32 cold sweep (phase 10) never launched masked_stats")
     paths = {
         "object path (phases 3-4)": launched_object,
         "fit-cache path (phase 5)": launched_fit_cache,
@@ -4349,6 +5115,7 @@ def main() -> int:
         "joint quality gates (phase 8c)": launched_quality,
         "joint worker fleet tick (phase 8d)": launched_joint_worker,
         "deployable worker (phase 9, with the CLI's f32 run)": launched_deploy,
+        "tenants and chaos (phase 10)": launched_tenants,
     }
     print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}

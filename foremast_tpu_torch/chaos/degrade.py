@@ -229,8 +229,9 @@ class WriteBehindBuffer:
 
 class Degradation:
     """Everything the worker needs to degrade instead of die, bundled:
-    the write-behind buffer, the tick budget, the breaker registry, and
-    the stats they all report through."""
+    the write-behind buffer, the tick budget, the breaker registry, the
+    stats they all report through, and the active chaos plan (None in
+    production)."""
 
     def __init__(
         self,
@@ -238,6 +239,7 @@ class Degradation:
         breakers: BreakerRegistry | None = None,
         write_behind: WriteBehindBuffer | None = None,
         tick_budget_seconds: float = 0.0,
+        chaos_plan=None,
     ):
         self.stats = stats or DegradeStats()
         self.breakers = breakers or BreakerRegistry()
@@ -245,11 +247,13 @@ class Degradation:
             stats=self.stats
         )
         self.tick_budget_seconds = float(tick_budget_seconds)
+        self.chaos_plan = chaos_plan
 
     @staticmethod
     def from_env(
         max_stuck_seconds: float = DEFAULT_WRITE_BEHIND_AGE_SECONDS,
         env=None,
+        chaos_plan=None,
     ) -> "Degradation":
         e = os.environ if env is None else env
         stats = DegradeStats()
@@ -269,6 +273,7 @@ class Degradation:
             tick_budget_seconds=float(
                 e.get("FOREMAST_TICK_BUDGET_SECONDS", "") or 0.0
             ),
+            chaos_plan=chaos_plan,
         )
 
     def deadline(self, t0: float) -> float | None:
@@ -283,4 +288,9 @@ class Degradation:
             "write_behind": self.write_behind.debug_state(),
             "breakers": self.breakers.debug_state(),
             **self.stats.debug_state(),
+            "chaos": (
+                self.chaos_plan.debug_state()
+                if self.chaos_plan is not None
+                else None
+            ),
         }

@@ -13,7 +13,11 @@ remote-write receiver on `FOREMAST_INGEST_PORT` fills resident rings,
 and fetches and cold fits read them before Prometheus; with
 `FOREMAST_MICROTICK_SECONDS` > 0 as well, the receiver marks each pushed
 series dirty and the worker judges just those documents in micro-ticks
-between its sweeps.
+between its sweeps. `FOREMAST_CHAOS_PLAN` (inline JSON or `@path`)
+injects faults on the `store`, `prometheus` and `receiver` edges, and
+`FOREMAST_TENANTS` (inline JSON or `@path`) makes the tenant a scheduling
+and accounting dimension of the ring, the dirty set, the receiver and
+the worker.
 
 The JAX CLI's other subcommands and its multi-device modes are not
 ported yet; each mode that would need them raises `NotImplementedError`
@@ -55,11 +59,9 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     for name, (what, item) in _UNPORTED_ENV.items():
         if os.environ.get(name, "0") not in ("", "0"):
             raise NotImplementedError(f"{name}={os.environ[name]}: {what} is not ported yet: ROADMAP.md Queue 1 {item}")
-    if os.environ.get("FOREMAST_CHAOS_PLAN"):
-        raise NotImplementedError("FOREMAST_CHAOS_PLAN: the chaos plan is not ported yet: ROADMAP.md Queue 1 item 6")
 
 
-def _make_store(elastic_url: str | None, breaker=None, stop=None):
+def _make_store(elastic_url: str | None, chaos=None, breaker=None, stop=None):
     """ES-backed store with the reference's connect-retry loop, or
     in-memory when no URL is given (flag, then `ELASTIC_URL`, then
     `ES_ENDPOINT`). `FOREMAST_ES_CONNECT_DEADLINE_SECONDS` (0/unset =
@@ -71,7 +73,7 @@ def _make_store(elastic_url: str | None, breaker=None, stop=None):
     elastic_url = elastic_url or os.environ.get("ELASTIC_URL") or os.environ.get("ES_ENDPOINT")
     if not elastic_url:
         return InMemoryStore()
-    store = ElasticsearchStore(elastic_url, breaker=breaker)
+    store = ElasticsearchStore(elastic_url, chaos=chaos, breaker=breaker)
     deadline = float(os.environ.get("FOREMAST_ES_CONNECT_DEADLINE_SECONDS", "") or 0.0)
     log.info("connecting to Elasticsearch at %s (deadline %s)", elastic_url, f"{deadline:g} s" if deadline else "none")
     if not store.wait_ready(max_wait=deadline or None, stop=stop):
@@ -90,7 +92,7 @@ def _make_store(elastic_url: str | None, breaker=None, stop=None):
     return store
 
 
-def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, degrade=None, dirty=None):
+def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, chaos=None, degrade=None, dirty=None):
     """FOREMAST_INGEST=1: wrap the pull source in the push plane's
     RingSource, so fetches and cold fits read resident ring columns and
     a miss falls back to `inner` (Prometheus) and backfills the ring,
@@ -100,7 +102,9 @@ def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, degra
     (default 9009; 0 = no receiver, backfill only), and the
     foremast_ingest_* families join /metrics when a gauge port is live.
     `dirty` (reactive.DirtySet) makes the receiver mark each applied
-    series for the next micro-tick.
+    series for the next micro-tick; `chaos` is the receiver's fault edge.
+    The ring and the receiver take the process's tenancy
+    (`FOREMAST_TENANTS`) themselves.
     Returns (source, ring, receiver or None, snapshotter or None)."""
     from foremast_tpu_torch.ingest import IngestCollector, RingSnapshotter, RingSource, RingStore, start_ingest_server
     from foremast_tpu_torch.jobs.refine import refine_docs_per_tick_from_env
@@ -124,7 +128,7 @@ def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, degra
     port = _env_int("FOREMAST_INGEST_PORT", 9009)
     srv = None
     if port:
-        srv, _ = start_ingest_server(port, ring, book=source.book,
+        srv, _ = start_ingest_server(port, ring, book=source.book, chaos=chaos,
                                      degrade_stats=degrade.stats if degrade is not None else None, dirty=dirty)
     log.info("ingest plane ON: %d shards, budget %d bytes, staleness %.0f s, receiver %s; cold fits read "
              "ring columns first, misses fall back to Prometheus and backfill",
@@ -170,7 +174,7 @@ def cmd_worker(args: argparse.Namespace) -> int:
             ) from None
 
     from foremast_tpu_torch import native
-    from foremast_tpu_torch.chaos import Degradation
+    from foremast_tpu_torch.chaos import Degradation, chaos_from_env
     from foremast_tpu_torch.config import BrainConfig
     from foremast_tpu_torch.jobs.worker import BrainWorker
     from foremast_tpu_torch.metrics.source import PrometheusSource
@@ -190,7 +194,22 @@ def cmd_worker(args: argparse.Namespace) -> int:
             file=sys.stderr,
         )
     config = BrainConfig.from_env()
-    degrade = Degradation.from_env(max_stuck_seconds=config.max_stuck_seconds)
+    # the chaos plane: FOREMAST_CHAOS_PLAN unset (production) means every
+    # injection seam below receives None, a plain attribute check. The
+    # Degradation bundle (breakers, write-behind, tick budget) is always
+    # on: degrading through a real outage must not need a chaos plan
+    chaos_plan = chaos_from_env()
+
+    def _edge(name: str):
+        return chaos_plan.edge(name) if chaos_plan is not None else None
+
+    degrade = Degradation.from_env(max_stuck_seconds=config.max_stuck_seconds, chaos_plan=chaos_plan)
+    # the tenant plane: FOREMAST_TENANTS is read once here, so a malformed
+    # envelope fails at startup; the ring, dirty set, receiver and worker
+    # all take this process-global registry
+    from foremast_tpu_torch.tenant import get_tenancy
+
+    tenancy = get_tenancy()
 
     # graceful shutdown flag, installed BEFORE the store connect loop so
     # a SIGTERM during an ES outage at startup stops the retry promptly;
@@ -202,8 +221,9 @@ def cmd_worker(args: argparse.Namespace) -> int:
     except ValueError:
         pass  # not the main thread (embedded use); rely on the caller
 
-    store = _make_store(args.elastic_url, breaker=degrade.breakers.get("store"), stop=stop_event.is_set)
-    source = PrometheusSource(breaker=degrade.breakers.get("prometheus"))
+    store = _make_store(args.elastic_url, chaos=_edge("store"), breaker=degrade.breakers.get("store"),
+                        stop=stop_event.is_set)
+    source = PrometheusSource(chaos=_edge("prometheus"), breaker=degrade.breakers.get("prometheus"))
 
     snap_dir = os.environ.get("FOREMAST_SNAPSHOT_DIR") or None
     worker_id = f"brain-{uuid.uuid4().hex[:8]}"
@@ -245,7 +265,7 @@ def cmd_worker(args: argparse.Namespace) -> int:
     ingest_srv = snapshotter = None
     if ingest_on:
         source, _, ingest_srv, snapshotter = _mount_ingest(source, args.gauge_port, snapshot_dir=snap_dir,
-                                                           degrade=degrade, dirty=dirty)
+                                                           chaos=_edge("receiver"), degrade=degrade, dirty=dirty)
 
     on_verdict = worker_metrics = None
     if args.gauge_port:
@@ -289,18 +309,22 @@ def cmd_worker(args: argparse.Namespace) -> int:
 
     obs_srv = None
     if args.gauge_port:
+        from prometheus_client import REGISTRY
+
+        from foremast_tpu_torch.chaos import ChaosCollector
         from foremast_tpu_torch.observe.spans import start_observe_server
 
         obs_srv, _ = start_observe_server(args.gauge_port, state_fn=worker.debug_state, max_port_tries=32)
-        if snap_dir:
-            from prometheus_client import REGISTRY
 
+        # breaker states, degraded-doc counters and injected-fault counts
+        # ride the same scrape port (the worker registered the tenant
+        # ledger's collector itself)
+        REGISTRY.register(ChaosCollector(degrade))
+        if snap_dir:
             from foremast_tpu_torch.ingest import SnapshotCollector
 
             REGISTRY.register(SnapshotCollector(snapshotter, journals=worker._fit_journals.values()))
         if dirty is not None:
-            from prometheus_client import REGISTRY
-
             REGISTRY.register(ReactiveCollector(dirty))
 
     ckpt_path = None
@@ -331,7 +355,9 @@ def cmd_worker(args: argparse.Namespace) -> int:
     if args.warmup:
         worker.warmup()
     ctx_log(log, logging.INFO, "worker started", worker_id=worker_id, device=str(worker.judge.device),
-            claim_limit=args.claim_limit, snapshot_dir=snap_dir, native=native_ok)
+            claim_limit=args.claim_limit, snapshot_dir=snap_dir, native=native_ok,
+            chaos_rules=len(chaos_plan.rules) if chaos_plan is not None else 0,
+            tenants=sorted(tenancy.specs) if tenancy is not None else None)
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     loop_failed = False
@@ -379,8 +405,12 @@ def cmd_worker(args: argparse.Namespace) -> int:
                 if not loop_failed:
                     raise
                 log.warning("final model-cache checkpoint failed: %s", e)
+        # what the run injected and charged, for hosts without the gauge
+        # port's /debug/state (no prometheus_client)
         ctx_log(log, logging.INFO, "worker stopped", worker_id=worker_id,
-                kernel_launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+                kernel_launches={k: v for k, v in kernels.LAUNCHES.items() if v},
+                chaos_injections=(chaos_plan.debug_state()["injections"] if chaos_plan is not None else None),
+                tenants=(worker._debug_tenants()["accounting"] if tenancy is not None else None))
         if snap_lock is not None:
             snap_lock.close()
     return 0

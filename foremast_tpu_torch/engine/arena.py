@@ -22,8 +22,16 @@ and force-scattered, so a stale row never outlives its host entry.
 `TreeArena` holds the joint detectors' rows (a fixed-shape state tree a
 row) on the same bookkeeping.
 
-Single device only: `shards > 1` (the data-axis-sharded arena) and the
-tenant-budget hook are not ported (ROADMAP.md Queue 1 items 6 and 7).
+Tenancy (`_ArenaTenancy`, the JAX arena's): with two or more tenants
+configured, or an `arena_rows` envelope, `assign` recycles an
+over-envelope tenant's OWN least-recent row and charges each eviction to
+the tenant whose allocation forced it. It is host bookkeeping over the
+same row maps; no device tensor is read. Untenanted, or one tenant
+without an envelope, the placement is byte-identical to an untenanted
+arena's.
+
+Single device only: `shards > 1` (the data-axis-sharded arena) is not
+ported (ROADMAP.md Queue 1 item 7, 'Multi-GPU').
 """
 
 from __future__ import annotations
@@ -90,6 +98,80 @@ def _pow2(n: int) -> int:
     return b
 
 
+class _ArenaTenancy:
+    """Arena-rows budget envelopes + eviction attribution.
+
+    Tracks which tenant owns each KEYED resident row (resolved once at
+    assignment from the fit key's URL-encoded tenant label, cached by
+    the registry) so `assign` can (a) recycle an over-envelope tenant's
+    OWN least-recent row instead of evicting a neighbor's, and (b)
+    charge every eviction to the tenant whose allocation forced it.
+    Pads and transients stay untenanted. Single-threaded like the arena
+    itself; the accounting ledger flush at the end of each assign call
+    is the only lock it ever touches (tenant.accounting, a leaf)."""
+
+    __slots__ = ("registry", "acct", "envelopes", "rows", "of", "_pending")
+
+    def __init__(self, registry, acct):
+        self.registry = registry
+        self.acct = acct
+        self.envelopes = {name: s.arena_rows for name, s in registry.specs.items() if s.arena_rows > 0}
+        self.rows: dict = {}  # tenant -> keyed resident row count
+        self.of: dict = {}  # fit key -> tenant
+        self._pending: dict = {}  # tenant -> evictions this assign call
+
+    @staticmethod
+    def build(tenancy=None):
+        """A tracker when the process is tenanted and tenancy could
+        matter here (>=2 tenants, or any arena_rows envelope), else
+        None — the parity pin: an untenanted or single-tenant arena
+        keeps today's row placement byte-for-byte."""
+        from foremast_tpu_torch.tenant import accounting_for, get_tenancy
+
+        if tenancy is None:
+            tenancy = get_tenancy()
+        if tenancy is None:
+            return None
+        if not (tenancy.fair or any(s.arena_rows > 0 for s in tenancy.specs.values())):
+            return None
+        return _ArenaTenancy(tenancy, accounting_for(tenancy))
+
+    def tenant_of(self, key):
+        """Owning tenant for a REAL fit key (callers skip pads/None)."""
+        return self.registry.tenant_of_key(key)
+
+    def note_assign(self, key, tenant) -> None:
+        self.of[key] = tenant
+        self.rows[tenant] = self.rows.get(tenant, 0) + 1
+
+    def note_drop(self, key) -> None:
+        t = self.of.pop(key, None)
+        if t is not None:
+            left = self.rows.get(t, 0) - 1
+            if left > 0:
+                self.rows[t] = left
+            else:
+                self.rows.pop(t, None)
+
+    def over(self, tenant) -> bool:
+        env = self.envelopes.get(tenant, 0)
+        return env > 0 and self.rows.get(tenant, 0) >= env
+
+    def charge(self, tenant) -> None:
+        self._pending[tenant] = self._pending.get(tenant, 0) + 1
+
+    def flush(self) -> None:
+        if self._pending:
+            for t, n in self._pending.items():
+                self.acct.count_eviction(t, n)
+            self._pending.clear()
+
+    def clear(self) -> None:
+        self.rows.clear()
+        self.of.clear()
+        self._pending.clear()
+
+
 class RowArena:
     """Row-assignment machinery of a device state arena: byte-budgeted
     capacity with pow2 auto-grow toward the hard cap, approximate-LRU
@@ -132,6 +214,9 @@ class RowArena:
         # resident rows held by batch-padding keys: subtracted from
         # rows_live; their hits and misses are never counted
         self.pad_live = 0
+        # multi-tenant QoS: None unless the process is tenanted with >=2
+        # tenants or an arena_rows envelope (the parity pin above)
+        self._qos = _ArenaTenancy.build()
 
     # -- layout hooks (subclass-owned) ------------------------------------
 
@@ -193,8 +278,34 @@ class RowArena:
         self.free = []
         self._transients = []
         self.pad_live = 0
+        if self._qos is not None:
+            self._qos.clear()
 
     # -- assignment ------------------------------------------------------
+
+    def _own_victim(self, order: list, tenant, start: int) -> tuple[int, int]:
+        """First evictable row (stamp != this call's tick) OWNED by
+        `tenant`, walking `order` (a stamp argsort: LRU first) from
+        `start`; returns (row, where the tenant's next walk starts), row -1
+        when every row of the tenant is protected this call: the envelope
+        then falls through to normal placement, because a budget may
+        reorder row recycling but must never block a verdict.
+
+        The walk resumes where the tenant's last one stopped (`start`), and
+        finds the row a walk from the front would: a row passed over was
+        protected (and stays so), or held by another tenant or none (and
+        becomes this tenant's only through an assignment this call, which
+        protects it), or was taken (and so protected)."""
+        qos = self._qos
+        stamp, row_key, tick, of = self.stamp, self.row_key, self.tick, qos.of
+        for j in range(start, len(order)):
+            r = order[j]
+            if stamp[r] == tick:
+                continue
+            k = row_key[r]
+            if k is not None and of.get(k) == tenant:
+                return r, j + 1
+        return -1, len(order)
 
     def assign(self, keys, force, n_real: int | None = None) -> tuple[np.ndarray, list[int]] | None:
         """Map a batch's fit keys onto arena rows.
@@ -211,7 +322,8 @@ class RowArena:
         batch cannot fit in the byte budget. Rows touched this call
         carry stamp == tick and are never eviction candidates; last
         call's transient rows are aged to stamp -1 up front, making them
-        the preferred recycling pool."""
+        the preferred recycling pool. With tenancy, an over-envelope
+        tenant recycles its own least-recent row first (`_ArenaTenancy`)."""
         for r in self._transients:
             if self.row_key[r] is None:
                 self.stamp[r] = -1
@@ -251,8 +363,11 @@ class RowArena:
             shortfall = len(alloc) - available
             if shortfall > 0 and self.cap + shortfall <= self.hard_rows:
                 self._ensure_capacity(self.cap + shortfall)
+            qos = self._qos
             order = None
             oi = 0
+            own_order = None  # `order` as a list, for the envelope's walks
+            own_from: dict = {}  # tenant -> where its next own-row walk starts
             for ai, i in enumerate(alloc.tolist()):
                 alloc_left = len(alloc) - ai  # incl. this allocation
                 k = keys[i]
@@ -262,6 +377,34 @@ class RowArena:
                         # duplicate key later in the same batch: reuse
                         # the row its first occurrence just claimed
                         rows[i] = r
+                        continue
+                tenant = None
+                if qos is not None and k is not None and not _is_pad_key(k):
+                    tenant = qos.tenant_of(k)
+                if tenant is not None and qos.over(tenant):
+                    # arena_rows envelope: an over-budget tenant recycles
+                    # its OWN least-recent row (never a neighbor's, the
+                    # free pool or capacity growth), charged to it
+                    if order is None:
+                        order = np.argsort(self.stamp, kind="stable")
+                    if own_order is None:
+                        own_order = order.tolist()
+                    rv, own_from[tenant] = self._own_victim(own_order, tenant, own_from.get(tenant, 0))
+                    if rv >= 0:
+                        old = self.row_key[rv]
+                        del self.rows[old]
+                        self.row_entry.pop(old, None)
+                        self.evictions += 1
+                        qos.note_drop(old)
+                        qos.charge(tenant)
+                        self.rows[k] = rv
+                        self.row_key[rv] = k
+                        qos.note_assign(k, tenant)
+                        self.stamp[rv] = self.tick
+                        rows[i] = rv
+                        scatter.append(i)
+                        if i < nr:
+                            self.misses += 1
                         continue
                 if not self.free:
                     if order is None:
@@ -305,11 +448,17 @@ class RowArena:
                         self.evictions += 1
                         if _is_pad_key(old):
                             self.pad_live -= 1
+                        if qos is not None:
+                            qos.note_drop(old)
+                            if tenant is not None:
+                                qos.charge(tenant)
                 if k is not None:
                     self.rows[k] = r
                     self.row_key[r] = k
                     if i >= nr:
                         self.pad_live += 1
+                    if tenant is not None:
+                        qos.note_assign(k, tenant)
                 else:
                     # transient: recyclable at the next assign
                     self.row_key[r] = None
@@ -319,6 +468,8 @@ class RowArena:
                 scatter.append(i)
                 if i < nr:
                     self.misses += 1
+        if self._qos is not None:
+            self._qos.flush()
         return rows, scatter
 
     def device_bytes(self) -> int:

@@ -68,12 +68,16 @@ never the pusher's sample timestamps, so the push->verdict latency
 system and is immune to client clock skew. Both codecs mark through the
 one apply path.
 
-The JAX receiver's hooks of planes the port does not have yet are left
-out of `start_ingest_server`'s signature: the mesh router and the
-peer-to-peer transfer endpoint (`router`, `handoff`: ROADMAP.md Queue 1
-item 7), and edge fault injection and per-tenant ingest envelopes
-(`chaos`, `tenancy`: item 6). The CLI refuses each of those modes where
-it would ask for them.
+Chaos and tenancy: `chaos` (chaos.EdgeChaos, the ``receiver`` edge)
+answers an injected fault as its HTTP status, and `tenancy`
+(tenant.TenantRegistry) enforces per-tenant ingest byte-rate envelopes
+after decode, shedding the flooding tenant's batches with 429 +
+Retry-After while every other tenant's pushes pass.
+
+The JAX receiver's hooks of the worker mesh are left out of
+`start_ingest_server`'s signature: the mesh router and the peer-to-peer
+transfer endpoint (`router`, `handoff`: ROADMAP.md Queue 1 item 7). The
+CLI refuses the mesh.
 """
 
 from __future__ import annotations
@@ -395,10 +399,12 @@ def start_ingest_server(
     book=None,
     max_body_bytes: int | None = None,
     max_inflight: int | None = None,
+    chaos=None,
     degrade_stats=None,
     dirty=None,
     decode_workers: int | None = None,
     max_decoded_bytes: int | None = None,
+    tenancy=None,
 ):
     """Serve the push plane; returns (server, thread). Port 0 binds an
     ephemeral port (tests) — read it back from server.server_address.
@@ -410,8 +416,10 @@ def start_ingest_server(
     (None reads ``FOREMAST_INGEST_MAX_INFLIGHT``, default 64; 0
     disables) — past it a push is answered 429 + ``Retry-After`` BEFORE
     its body is read, so a pusher flood degrades to client-side
-    retry-then-buffer instead of a handler-thread pileup.
-    `degrade_stats` (chaos.DegradeStats) counts sheds.
+    retry-then-buffer instead of a handler-thread pileup. `chaos`
+    (chaos.EdgeChaos) injects latency/errors at the handler seam —
+    faults are ANSWERED as their HTTP status, never raised into the
+    server loop. `degrade_stats` (chaos.DegradeStats) counts sheds.
 
     `dirty` (reactive.DirtySet): every entry a push APPLIES samples for
     marks its route key dirty, stamped with the receiver's arrival clock
@@ -424,7 +432,19 @@ def start_ingest_server(
     `decode_workers` / `max_decoded_bytes`: pooled decode width (None
     reads ``FOREMAST_INGEST_DECODE_WORKERS``, default 4; 0 decodes
     inline) and the declared-decoded-size 413 ceiling (None reads
-    ``FOREMAST_INGEST_MAX_DECODED_BYTES``, default 32 MiB)."""
+    ``FOREMAST_INGEST_MAX_DECODED_BYTES``, default 32 MiB).
+
+    `tenancy` (tenant.TenantRegistry; None reads the process-global
+    ``FOREMAST_TENANTS`` registry): per-tenant ingest byte-rate
+    envelopes enforced AFTER decode (tenant identity lives in the series
+    labels) and BEFORE apply, on both codecs by construction — a batch
+    whose dominant-by-bytes tenant is over its envelope is shed whole
+    with 429 + a computed Retry-After charged to THAT tenant, while
+    every other tenant's pushes pass. The global inflight cap and
+    decode-pool depth remain tenant-blind backstops; decode-pool sheds
+    are blamed on the deepest-over-envelope tenant
+    (`IngestGovernor.blame`). Unconfigured fleets shed exactly as
+    untenanted ones."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     if max_body_bytes is None:
@@ -450,6 +470,18 @@ def start_ingest_server(
             or DEFAULT_MAX_DECODED_BYTES
         )
     decoded_cap = int(max_decoded_bytes)
+    if tenancy is None:
+        from foremast_tpu_torch.tenant.registry import get_tenancy
+
+        tenancy = get_tenancy()
+    governor = None
+    accounting = None
+    if tenancy is not None:
+        from foremast_tpu_torch.tenant.accounting import accounting_for
+        from foremast_tpu_torch.tenant.envelopes import IngestGovernor
+
+        accounting = accounting_for(tenancy)
+        governor = IngestGovernor(tenancy)
     inflight = _Inflight()
     pool = _DecodePool(decode_workers)
     wire_stats = WireStats()
@@ -462,7 +494,8 @@ def start_ingest_server(
         """The pooled stage pipeline: decompress → decode → apply, one
         codec switch and ONE shared apply path (push_batch + response
         shape), so the two codecs cannot drift apart in observable
-        behavior. Returns (status, body)."""
+        behavior. Returns (status, body) or (status, body, headers) —
+        the tenant-shed 429 carries its computed Retry-After."""
         stages = {"read": read_s, "decompress": 0.0, "decode": 0.0,
                   "apply": 0.0}
         try:
@@ -485,6 +518,32 @@ def start_ingest_server(
                 AttributeError) as e:
             wire_stats.record(codec, stages, samples=0, ok=False)
             return 400, json.dumps({"reason": str(e)}).encode()
+        if governor is not None and entries:
+            # tenant admission: post-decode because tenant identity lives
+            # in the series labels, pre-apply so a shed batch lands
+            # NOTHING. The whole batch is charged to its dominant-by-bytes
+            # tenant and shed atomically — re-pushes are idempotent at the
+            # ring, and a batching agent that mixes tenants shares the
+            # dominant tenant's fate.
+            by_tenant: dict[str, int] = {}
+            total = 0
+            for key, ts, vs, _start in entries:
+                nb = int(getattr(ts, "nbytes", 0)) + int(getattr(vs, "nbytes", 0))
+                t = tenancy.tenant_of_series(key)
+                by_tenant[t] = by_tenant.get(t, 0) + nb
+                total += nb
+            dominant = max(by_tenant, key=by_tenant.get)
+            retry = governor.admit(dominant, total, time.monotonic())
+            if retry > 0:
+                accounting.count_shed(dominant)
+                if degrade_stats is not None:
+                    degrade_stats.count_event("receiver", "tenant_shed")
+                wire_stats.record(codec, stages, samples=0, ok=False)
+                return (
+                    429,
+                    json.dumps({"reason": "tenant over ingest envelope", "tenant": dominant}).encode(),
+                    {"Retry-After": str(int(retry))},
+                )
         t0 = time.perf_counter()
         # striped shard-batch apply: one lock acquisition per touched
         # shard for the whole payload (binary keys are canonical out of
@@ -553,6 +612,11 @@ def start_ingest_server(
                     headers={"Retry-After": "1"},
                 )
                 return
+            if chaos is not None:
+                fault = chaos.perturb(path, raise_faults=False)
+                if fault is not None:
+                    self._send(fault.status, json.dumps({"reason": str(fault)}).encode())
+                    return
             length = int(self.headers.get("Content-Length", "0") or 0)
             if length > cap:
                 # reject BEFORE buffering: an oversized push must not
@@ -630,7 +694,7 @@ def start_ingest_server(
                 return  # pusher died mid-body; nothing to answer
             read_s = time.perf_counter() - t_read0
             try:
-                code, out = pool.run(
+                res = pool.run(
                     lambda: decode_apply(raw, codec, snappy_enc, arrived_at, read_s)
                 )
             except _PoolClosed:
@@ -645,13 +709,21 @@ def start_ingest_server(
             except _PoolBusy:
                 if degrade_stats is not None:
                     degrade_stats.count_event("receiver", "decode_shed")
+                if governor is not None:
+                    # pre-decode shed: no tenant can be KNOWN yet, but the
+                    # deepest-over-envelope tenant is the queue pressure's
+                    # overwhelmingly likely source — charge it so decode
+                    # sheds stay attributed
+                    blamed = governor.blame(time.monotonic())
+                    if blamed is not None:
+                        accounting.count_shed(blamed)
                 self._send(
                     429,
                     b'{"reason": "decode queue full"}',
                     headers={"Retry-After": "1"},
                 )
                 return
-            self._send(code, out)
+            self._send(res[0], res[1], headers=res[2] if len(res) > 2 else None)
 
         def do_GET(self):
             with inflight:
@@ -673,6 +745,10 @@ def start_ingest_server(
                 state["wire"] = wire_stats.snapshot()
                 if book is not None:
                     state["subscriptions"] = book.snapshot()
+                if tenancy is not None:
+                    from foremast_tpu_torch.tenant.collector import debug_tenants
+
+                    state["tenants"] = debug_tenants(tenancy, accounting, governor)
                 self._send(
                     200, json.dumps(state, default=str, indent=2).encode()
                 )

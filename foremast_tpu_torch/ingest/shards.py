@@ -1,10 +1,9 @@
 """Sharded, byte-budgeted resident-series store: the ring TSDB proper.
 
 The port's copy of the JAX package's `foremast_tpu/ingest/shards.py`,
-untenanted: per-tenant ring-bytes envelopes (`_RingTenancy` there) come
-with the tenant plane, ROADMAP.md Queue 1 item 6, and a store asked for
-tenancy raises `NotImplementedError` naming it. The mesh rebalance hook
-(`evict_unowned`) comes with the worker mesh, item 7.
+with its per-tenant ring-bytes envelopes (`_RingTenancy`). The mesh
+rebalance hook (`evict_unowned`) comes with the worker mesh, ROADMAP.md
+Queue 1 item 7.
 
 `RingStore` spreads series over N `RingShard`s by key hash (crc32 —
 deterministic across processes, unlike Python's randomized `hash`).
@@ -77,17 +76,54 @@ def _serving_span(ring, t0, t1, now, step, stale_seconds):
     return None, head, iv
 
 
+class _RingTenancy:
+    """One store's tenant view: the registry resolves a pushed key's
+    tenant (OUTSIDE any shard lock — the registry's cache lock is a peer
+    leaf), per-tenant ring-bytes envelopes divide evenly across shards
+    exactly like the global budget, and residency deltas + eviction
+    charges flush into the shared `TenantAccounting` ledger AFTER the
+    shard lock releases."""
+
+    def __init__(self, registry, shards: int):
+        from foremast_tpu_torch.tenant.accounting import accounting_for
+
+        self.registry = registry
+        self.accounting = accounting_for(registry)
+        self.shards = max(1, int(shards))
+
+    def tenant_of(self, key: str) -> str:
+        return self.registry.tenant_of_series(key)
+
+    def shard_envelope(self, tenant: str) -> int:
+        """The tenant's per-shard byte envelope slice; 0 = no envelope.
+        Lock-free (spec lookup reads an immutable dict), so it is safe
+        under a shard lock."""
+        rb = self.registry.spec(tenant).ring_bytes
+        return max(rb // self.shards, 1) if rb > 0 else 0
+
+    def flush(self, byte_deltas: dict, evictions: dict) -> None:
+        for tenant, delta in byte_deltas.items():
+            self.accounting.add_ring_bytes(tenant, delta)
+        for tenant, n in evictions.items():
+            self.accounting.count_eviction(tenant, n)
+
+
 class RingShard:
     """One lock's worth of series. All state behind `_lock`; the
     SeriesRing objects inside are only touched while holding it."""
 
-    def __init__(self, budget_bytes: int, max_points: int):
+    def __init__(self, budget_bytes: int, max_points: int, tenancy=None):
         self.budget_bytes = int(budget_bytes)
         self.max_points = int(max_points)
         self._lock = threading.Lock()
         self._series: OrderedDict[str, SeriesRing] = OrderedDict()
         self._bytes = 0
         self._counts = dict.fromkeys(_COUNT_KEYS, 0)
+        # tenant QoS view; None = untenanted, every path below keeps its
+        # zero-cost check
+        self._tenancy = tenancy
+        self._t_bytes: dict[str, int] = {}  # tenant -> resident bytes
+        self._t_of: dict[str, str] = {}  # resident key -> tenant
 
     def push(
         self,
@@ -126,8 +162,16 @@ class RingShard:
         still under the lock (the replay-order contract is per apply,
         not per acquisition)."""
         out = []
+        ten = self._tenancy
+        # tenant resolution OUTSIDE the shard lock (the registry's cache
+        # lock is a peer leaf, never nested under a shard's); residency
+        # deltas + eviction charges accumulate here and flush into the
+        # shared ledger after the lock releases
+        tenants = [ten.tenant_of(key) for key, _, _, _, _ in items] if ten is not None else None
+        byte_deltas: dict[str, int] = {}
+        evict_charges: dict[str, int] = {}
         with self._lock:
-            for key, times, values, start, end in items:
+            for j, (key, times, values, start, end) in enumerate(items):
                 ring = self._series.get(key)
                 prev = 0
                 if ring is None:
@@ -141,12 +185,34 @@ class RingShard:
                 self._bytes += ring.nbytes - prev
                 self._series.move_to_end(key)
                 self._counts["samples"] += n
+                if ten is not None:
+                    t = tenants[j]
+                    self._t_of[key] = t
+                    delta = ring.nbytes - prev
+                    if delta:
+                        self._t_bytes[t] = self._t_bytes.get(t, 0) + delta
+                        byte_deltas[t] = byte_deltas.get(t, 0) + delta
+                    # per-tenant envelope: a tenant past its ring-bytes
+                    # slice loses its OWN least-recently-used series
+                    # first, charged to itself — never another tenant's
+                    # residency, and never the series just pushed (one
+                    # series larger than the envelope must not thrash,
+                    # same rule as the global budget)
+                    env = ten.shard_envelope(t)
+                    if env:
+                        self._evict_tenant(t, env, key, byte_deltas, evict_charges)
                 while (
                     self._bytes > self.budget_bytes and len(self._series) > 1
                 ):
-                    _, old = self._series.popitem(last=False)
-                    self._bytes -= old.nbytes
-                    self._counts["evictions"] += 1
+                    if ten is not None:
+                        # global overflow: prefer an over-envelope
+                        # tenant's series, charge the pusher causing the
+                        # pressure
+                        self._evict_global(tenants[j], byte_deltas, evict_charges)
+                    else:
+                        _, old = self._series.popitem(last=False)
+                        self._bytes -= old.nbytes
+                        self._counts["evictions"] += 1
                 if journal is not None and (
                     n or start is not None or end is not None
                 ):
@@ -158,7 +224,50 @@ class RingShard:
                     # revisions restore stale.
                     journal(key, times, values, start, end)
                 out.append(n)
+        if ten is not None and (byte_deltas or evict_charges):
+            ten.flush(byte_deltas, evict_charges)
         return out
+
+    # -- tenant-aware eviction --------------------------------------------
+    # These helpers run ONLY from push_many's `with self._lock:` block:
+    # the lock is not reentrant, so they cannot retake it.
+
+    def _pop_series(self, key: str, byte_deltas: dict) -> None:
+        old = self._series.pop(key)
+        self._bytes -= old.nbytes
+        self._counts["evictions"] += 1
+        t = self._t_of.pop(key, None)
+        if t is not None:
+            left = self._t_bytes.get(t, 0) - old.nbytes
+            if left > 0:
+                self._t_bytes[t] = left
+            else:
+                self._t_bytes.pop(t, None)
+            byte_deltas[t] = byte_deltas.get(t, 0) - old.nbytes
+
+    def _evict_tenant(self, tenant: str, envelope: int, pushed_key: str, byte_deltas: dict,
+                      evict_charges: dict) -> None:
+        while self._t_bytes.get(tenant, 0) > envelope and len(self._series) > 1:
+            victim = next((k for k in self._series if k != pushed_key and self._t_of.get(k) == tenant), None)
+            if victim is None:
+                break
+            self._pop_series(victim, byte_deltas)
+            evict_charges[tenant] = evict_charges.get(tenant, 0) + 1
+
+    def _evict_global(self, causer: str, byte_deltas: dict, evict_charges: dict) -> None:
+        victim = None
+        for k in self._series:
+            t = self._t_of.get(k)
+            if t is None:
+                continue
+            env = self._tenancy.shard_envelope(t)
+            if env and self._t_bytes.get(t, 0) > env:
+                victim = k
+                break
+        if victim is None:
+            victim = next(iter(self._series))
+        self._pop_series(victim, byte_deltas)
+        evict_charges[causer] = evict_charges.get(causer, 0) + 1
 
     def query(
         self,
@@ -322,17 +431,16 @@ class RingStore:
         max_points: int = DEFAULT_MAX_POINTS,
         tenancy=None,
     ):
-        if tenancy is not None:
-            raise NotImplementedError(
-                "per-tenant ring envelopes (the tenant plane) are not "
-                "ported yet: ROADMAP.md Queue 1 item 6"
-            )
         shards = max(1, int(shards))
         self.budget_bytes = int(budget_bytes)
         self.stale_seconds = float(stale_seconds)
         self.max_points = int(max_points)
+        # tenant QoS plane: a TenantRegistry activates per-tenant
+        # ring-bytes envelopes + eviction attribution; None keeps the
+        # untenanted eviction loop byte-identical
+        self.tenancy = _RingTenancy(tenancy, shards) if tenancy is not None else None
         self._shards = tuple(
-            RingShard(max(self.budget_bytes // shards, 1), self.max_points)
+            RingShard(max(self.budget_bytes // shards, 1), self.max_points, tenancy=self.tenancy)
             for _ in range(shards)
         )
         self._lock = threading.Lock()
@@ -346,15 +454,11 @@ class RingStore:
 
     @staticmethod
     def from_env(env=None) -> "RingStore":
-        """The store the environment configures. `FOREMAST_TENANTS`
-        (the tenant plane) is refused, not ignored: a QoS envelope that
-        silently protects nothing is worse than a startup failure."""
+        """The store the environment configures; its tenancy is the
+        process-global registry (`FOREMAST_TENANTS`, `tenant.get_tenancy`)."""
+        from foremast_tpu_torch.tenant.registry import get_tenancy
+
         e = os.environ if env is None else env
-        if e.get("FOREMAST_TENANTS", ""):
-            raise NotImplementedError(
-                "FOREMAST_TENANTS: per-tenant ring envelopes (the tenant "
-                "plane) are not ported yet: ROADMAP.md Queue 1 item 6"
-            )
         return RingStore(
             budget_bytes=int(
                 e.get("FOREMAST_INGEST_BUDGET_BYTES", "")
@@ -368,6 +472,7 @@ class RingStore:
             max_points=int(
                 e.get("FOREMAST_INGEST_MAX_POINTS", "") or DEFAULT_MAX_POINTS
             ),
+            tenancy=get_tenancy(),
         )
 
     def _shard_index(self, key: str) -> int:

@@ -33,8 +33,13 @@ judges just the documents whose series the receiver saw pushed, through
 the same `_tick` body; a sweep whose claim can exceed
 `FOREMAST_SWEEP_SLICE_DOCS` runs SLICED (`_sweep_sliced`): bounded
 slices through a prefetch / dispatch / write pipeline, with a micro-tick
-preemption point between slices. Not here yet, each waiting for its own
-slice: tenancy (ROADMAP.md Queue 1 item 6) and the worker mesh (item 7).
+preemption point between slices.
+
+Tenancy (`FOREMAST_TENANTS`, `tenant.get_tenancy`): with two or more
+tenants the sweep pool serves slices deficit-weighted across tenants,
+every claim is charged to its documents' tenants, and the verdict-latency
+histogram carries each doc's bounded `tenant` label. Not here yet: the
+worker mesh (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -167,14 +172,9 @@ class _SweepPool:
     retires written slices. ``promote`` is how a pushed anomaly whose
     document is claimed but NOT yet fetched jumps the queue: its slice
     runs next, fetches post-arrival samples, and the sweep itself
-    delivers the verdict inside ~one slice. The tenant-fair slice order
-    (`tenancy=`) is ROADMAP.md Queue 1 item 6 and raises."""
+    delivers the verdict inside ~one slice."""
 
     def __init__(self, docs, tenancy=None):
-        if tenancy is not None:
-            raise NotImplementedError(
-                "the tenant-fair slice order (the tenant plane) is not ported yet: ROADMAP.md Queue 1 item 6"
-            )
         self._lock = threading.Lock()
         self._queue = collections.OrderedDict((d.id, d) for d in docs)
         self._keys: dict[str, list[str]] = {}
@@ -182,23 +182,62 @@ class _SweepPool:
             self._keys.setdefault(doc_route_key(d), []).append(d.id)
         self._front: collections.deque = collections.deque()
         self._inflight: dict[str, int] = {}
+        # Tenant-fair slice order: with >= 2 tenants configured, take()
+        # serves tenants deficit-weighted (promoted docs still jump
+        # everything — preemption latency beats fairness), so a whale
+        # tenant's large claim cannot push a quiet tenant's documents to
+        # the sweep's tail. With one (or zero) tenants self._drr stays
+        # None and take() is byte-identical to the untenanted queue order
+        # (the parity pin).
+        self._tenancy = tenancy if tenancy is not None and tenancy.fair else None
+        self._drr = None
+        self._tenant_of: dict[str, str] = {}
+        self._tqueues: dict[str, collections.OrderedDict] = {}
+        if self._tenancy is not None:
+            from foremast_tpu_torch.tenant.fairness import DeficitRoundRobin
+
+            self._drr = DeficitRoundRobin(self._tenancy.weights())
+            for d in docs:
+                t = self._tenancy.tenant_of_doc(d)
+                self._tenant_of[d.id] = t
+                self._tqueues.setdefault(t, collections.OrderedDict())[d.id] = d
 
     def __len__(self) -> int:
         with self._lock:
             return len(self._queue)
 
     def take(self, n: int) -> list:
-        """Next slice: promoted docs first, then claim order. Taken docs
-        enter the in-flight set until `done` retires them."""
+        """Next slice: promoted docs first, then claim order — or, with
+        tenant fairness active, deficit-weighted across tenants (claim
+        order preserved within a tenant). Taken docs enter the in-flight
+        set until `done` retires them."""
         out = []
         with self._lock:
             while self._front and len(out) < n:
                 doc = self._queue.pop(self._front.popleft(), None)
                 if doc is not None:
                     out.append(doc)
-            while self._queue and len(out) < n:
-                _, doc = self._queue.popitem(last=False)
-                out.append(doc)
+            if self._drr is None:
+                while self._queue and len(out) < n:
+                    _, doc = self._queue.popitem(last=False)
+                    out.append(doc)
+            else:
+                # promoted docs leave their tenant queues too
+                for doc in out:
+                    self._forget(doc.id)
+                need = n - len(out)
+                if need > 0 and self._queue:
+                    order = self._drr.pick({t: len(q) for t, q in self._tqueues.items()}, need)
+                    for t in order:
+                        tq = self._tqueues.get(t)
+                        if not tq:
+                            continue
+                        doc_id, doc = tq.popitem(last=False)
+                        if not tq:
+                            del self._tqueues[t]
+                        self._tenant_of.pop(doc_id, None)
+                        self._queue.pop(doc_id, None)
+                        out.append(doc)
             for doc in out:
                 rk = doc_route_key(doc)
                 ids = self._keys.get(rk)
@@ -212,6 +251,18 @@ class _SweepPool:
                 self._inflight[rk] = self._inflight.get(rk, 0) + 1
         return out
 
+    def _forget(self, doc_id: str) -> None:
+        """Drop one doc from its tenant queue. Runs ONLY from take()'s
+        `with self._lock:` block (the lock is not reentrant)."""
+        t = self._tenant_of.pop(doc_id, None)
+        if t is None:
+            return
+        tq = self._tqueues.get(t)
+        if tq is not None:
+            tq.pop(doc_id, None)
+            if not tq:
+                del self._tqueues[t]
+
     def drain(self) -> list:
         """Everything still pooled (deadline expiry, abort): one bulk
         release instead of judging over budget."""
@@ -219,6 +270,8 @@ class _SweepPool:
             out = list(self._queue.values())
             self._queue.clear()
             self._keys.clear()
+            self._tqueues.clear()
+            self._tenant_of.clear()
             return out
 
     def done(self, docs) -> None:
@@ -557,6 +610,25 @@ class BrainWorker:
         # True while a sliced sweep is in flight: pins _tick_claim_mono at
         # the sweep's claim instant (see _claim_cycle)
         self._sweep_active = False
+        # Tenant QoS plane (FOREMAST_TENANTS): tenant resolution for the
+        # verdict-latency histogram's bounded `tenant` label, per-tenant
+        # claim accounting, and — with >= 2 tenants configured —
+        # deficit-weighted fair slice ordering in the sweep pool. None
+        # keeps every path untenanted and byte-identical (the parity pin).
+        from foremast_tpu_torch.tenant.registry import get_tenancy
+
+        self._tenancy = get_tenancy()
+        self._tenant_acct = None
+        if self._tenancy is not None:
+            from foremast_tpu_torch.tenant.accounting import accounting_for
+            from foremast_tpu_torch.tenant.collector import register_collector
+
+            self._tenant_acct = accounting_for(self._tenancy)
+            # export the ledger on this worker's scrape registry (the
+            # receiver shares the same per-tenancy ledger, so its sheds
+            # ride along); idempotent across co-registered workers
+            if self.metrics is not None:
+                register_collector(getattr(self.metrics, "registry", None), self._tenant_acct)
 
     # -- preprocess: document -> MetricTasks ----------------------------
 
@@ -2008,8 +2080,9 @@ class BrainWorker:
         on `foremast_verdict_latency_seconds{path, tenant}`. Called at the
         write-back points of both tick paths; a write-behind-buffered
         verdict observes too (the verdict exists; its persistence is the
-        buffer's contract). `tenant` is the untenanted worker's constant
-        "default" until the tenant plane (ROADMAP.md Queue 1 item 6)."""
+        buffer's contract). `tenant` is the doc's tenant folded through
+        the registry's cardinality cap, or the constant "default" on an
+        untenanted worker."""
         led = self._ledger if led is None else led
         pending = led.pending
         if not pending or not docs:
@@ -2018,6 +2091,7 @@ class BrainWorker:
         observed = led.observed
         path = led.path
         now = time.time()
+        tenancy = self._tenancy
         for doc in docs:
             rk = doc_route_key(doc)
             stamp = pending.get(rk)
@@ -2025,7 +2099,11 @@ class BrainWorker:
                 continue
             observed.add(rk)
             if hist is not None:
-                hist.labels(path=path, tenant="default").observe(max(0.0, now - stamp))
+                # bounded-cardinality tenant attribution: configured
+                # tenants + up to FOREMAST_TENANT_LABEL_MAX observed values
+                # get their own label, the rest fold into `other`
+                tenant = tenancy.metric_tenant(tenancy.tenant_of_doc(doc)) if tenancy is not None else "default"
+                hist.labels(path=path, tenant=tenant).observe(max(0.0, now - stamp))
 
     def _micro_claim_filter(self, base, led: _TickLedger):
         """The micro-tick's claim restriction: only documents whose route
@@ -2108,7 +2186,7 @@ class BrainWorker:
                 self.metrics.tick_seconds.observe(time.perf_counter() - t0)
             return 0
 
-        pool = _SweepPool(docs)
+        pool = _SweepPool(docs, tenancy=self._tenancy)
         counters = {
             "slices": 0, "slow_docs": 0, "promoted": 0,
             "inflight_requeued": 0, "preempt_microticks": 0,
@@ -2407,12 +2485,23 @@ class BrainWorker:
             self._tick_claim_mono = time.monotonic()
         with span("worker.claim", stage="claim", limit=self.claim_limit):
             try:
-                return self.store.claim(
+                docs = self.store.claim(
                     self.worker_id,
                     self.config.max_stuck_seconds,
                     self.claim_limit,
                     **claim_kw,
                 )
+                if self._tenant_acct is not None and docs:
+                    # per-tenant claim attribution: counted at THE claim,
+                    # so sweep, sliced-sweep and micro-tick paths all
+                    # charge through one seam
+                    by_tenant: dict[str, int] = {}
+                    for d in docs:
+                        t = self._tenancy.tenant_of_doc(d)
+                        by_tenant[t] = by_tenant.get(t, 0) + 1
+                    for t, c in by_tenant.items():
+                        self._tenant_acct.count_claims(t, c)
+                return docs
             except Exception as e:
                 # a store outage must degrade to an idle tick, not kill
                 # the worker loop: nothing was claimed, nothing is owed,
@@ -2787,6 +2876,10 @@ class BrainWorker:
                 "last": dict(self._last_sweep) if self._last_sweep else None,
             },
             "degradation": self._degrade.debug_state(),
+            # tenant QoS plane (FOREMAST_TENANTS): envelope config + the
+            # per-tenant shed/eviction/claim/ring-byte attribution ledger;
+            # None when the worker runs untenanted
+            "tenants": self._debug_tenants(),
             # fit-journal and ring-snapshot counters; None when ephemeral
             "durability": (
                 {
@@ -2813,6 +2906,13 @@ class BrainWorker:
         if self.tracer is not None:
             state["trace"] = self.tracer.debug_state()
         return state
+
+    def _debug_tenants(self) -> dict | None:
+        if self._tenancy is None:
+            return None
+        from foremast_tpu_torch.tenant.collector import debug_tenants
+
+        return debug_tenants(self._tenancy, self._tenant_acct)
 
     def run(
         self,

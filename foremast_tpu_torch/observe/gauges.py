@@ -408,8 +408,11 @@ class WorkerMetrics:
         # stamp, on the RECEIVER's clock, to verdict write) by the tick
         # path that wrote it (micro = ingest-triggered micro-tick, sweep =
         # full tick catch-all), plus the micro-tick doc count. `tenant` is
-        # the constant `default` until the tenant plane (ROADMAP.md Queue 1
-        # item 6), as for an untenanted JAX worker
+        # bounded-cardinality: configured tenants + up to
+        # FOREMAST_TENANT_LABEL_MAX observed label values, everything past
+        # the cap folded into `other`; untenanted workers export one
+        # constant `default` series per path (worker._observe_verdicts
+        # owns the folding)
         self.verdict_latency = Histogram(
             "foremast_verdict_latency_seconds",
             "push receive-instant to verdict write, by judging path "

@@ -42,8 +42,9 @@ ownership probe runs BEFORE the lock is taken).
 
 The route keys are the JAX worker mesh's (`foremast_tpu/mesh/routing.py`
 `series_route_key` / `doc_route_key`, kept here as the port's copy; the
-mesh itself is ROADMAP.md Queue 1 item 7). The tenant-fair drain
-(`tenancy=`) is Queue 1 item 6 and raises `NotImplementedError`.
+mesh itself is ROADMAP.md Queue 1 item 7). With two or more tenants
+configured (`tenancy=`), `take` serves tenants deficit-weighted instead
+of strictly oldest-first.
 """
 
 from __future__ import annotations
@@ -159,10 +160,6 @@ class DirtySet:
         clock=time.time,
         tenancy=None,
     ):
-        if tenancy is not None:
-            raise NotImplementedError(
-                "the tenant-fair dirty drain (the tenant plane) is not ported yet: ROADMAP.md Queue 1 item 6"
-            )
         self.max_keys = max(1, int(max_keys))
         self.route_label = route_label
         self.owns = owns  # series-key predicate
@@ -170,23 +167,34 @@ class DirtySet:
         self._lock = threading.Lock()
         self._keys: OrderedDict[str, float] = OrderedDict()
         self._counts = dict.fromkeys(_EVENTS, 0)
+        # Tenant-fair drain: with >= 2 tenants configured, take() serves
+        # tenants deficit-weighted instead of strictly oldest-first, so a
+        # whale tenant's backlog cannot starve a quiet tenant's arrival.
+        # With one (or zero) tenants, tenancy stays None here and every
+        # path below is byte-identical to the untenanted drain (the
+        # parity pin).
+        self.tenancy = tenancy if tenancy is not None and tenancy.fair else None
+        self._tenants: dict[str, str] = {}
+        self._drr = None
+        if self.tenancy is not None:
+            from foremast_tpu_torch.tenant.fairness import DeficitRoundRobin
+
+            self._drr = DeficitRoundRobin(self.tenancy.weights())
 
     @staticmethod
     def from_env(route_label: str = DEFAULT_ROUTE_LABEL, owns=None, env=None):
-        """The set the environment configures. `FOREMAST_TENANTS` is
-        refused, not ignored, as `RingStore.from_env` refuses it."""
+        """The set the environment configures; its tenancy is the
+        process-global registry (`FOREMAST_TENANTS`, `tenant.get_tenancy`)."""
+        from foremast_tpu_torch.tenant.registry import get_tenancy
+
         e = os.environ if env is None else env
-        if e.get("FOREMAST_TENANTS", ""):
-            raise NotImplementedError(
-                "FOREMAST_TENANTS: the tenant-fair dirty drain (the tenant plane) is not ported yet: "
-                "ROADMAP.md Queue 1 item 6"
-            )
         return DirtySet(
             max_keys=_num(
                 e.get("FOREMAST_MICROTICK_DIRTY_MAX", ""), DEFAULT_DIRTY_MAX, int, "FOREMAST_MICROTICK_DIRTY_MAX"
             ),
             route_label=route_label,
             owns=owns,
+            tenancy=get_tenancy(),
         )
 
     def __len__(self) -> int:
@@ -206,10 +214,14 @@ class DirtySet:
             with self._lock:
                 self._counts["foreign"] += 1
             return False
-        self.mark(series_route_key(key, self.route_label), self._clock() if now is None else now)
+        # tenant resolution OUTSIDE the dirty lock too (the registry's
+        # cache lock is a peer leaf, never nested under this one)
+        tenant = self.tenancy.tenant_of_series(key) if self.tenancy is not None else None
+        self.mark(series_route_key(key, self.route_label), self._clock() if now is None else now, tenant=tenant)
         return True
 
-    def mark(self, route_key: str, now: float | None = None, requeue: bool = False) -> None:
+    def mark(self, route_key: str, now: float | None = None, requeue: bool = False,
+             tenant: str | None = None) -> None:
         """Insert keeping the EARLIEST stamp; evict the oldest past the
         cap. ``requeue=True`` is the worker giving back an arrival it
         could not attribute yet (released docs, claim brownout): counted
@@ -219,6 +231,8 @@ class DirtySet:
         if now is None:
             now = self._clock()
         with self._lock:
+            if tenant is not None:
+                self._tenants[route_key] = tenant
             cur = self._keys.get(route_key)
             if cur is not None:
                 if now < cur:
@@ -232,17 +246,43 @@ class DirtySet:
                 self._keys.move_to_end(route_key, last=False)
             self._counts["requeued" if requeue else "marked"] += 1
             while len(self._keys) > self.max_keys:
-                self._keys.popitem(last=False)
+                old, _ = self._keys.popitem(last=False)
+                self._tenants.pop(old, None)
                 self._counts["dropped"] += 1
 
     # -- draining (worker tick thread) ----------------------------------
 
     def take(self, limit: int) -> list[tuple[str, float]]:
-        """Pop up to `limit` entries as (key, stamp), oldest-marked
-        first."""
+        """Pop up to `limit` entries as (key, stamp): oldest-marked first,
+        and — when tenant fairness is active — deficit-weighted across
+        tenants so a whale's backlog cannot push a quiet tenant's arrival
+        past one drain. Within a tenant the order stays oldest-first; with
+        fairness off this is the plain FIFO pop."""
         with self._lock:
             n = min(max(0, int(limit)), len(self._keys))
-            return [self._keys.popitem(last=False) for _ in range(n)]
+            if self._drr is None or n == len(self._keys):
+                # fairness off, or draining everything anyway: plain FIFO
+                # (identical order when every key is served)
+                out = [self._keys.popitem(last=False) for _ in range(n)]
+            else:
+                # group pending keys by tenant (insertion order is
+                # preserved per tenant), then serve in DRR order
+                queues: dict[str, list[str]] = {}
+                for rk in self._keys:
+                    t = self._tenants.get(rk, "default")
+                    queues.setdefault(t, []).append(rk)
+                order = self._drr.pick({t: len(q) for t, q in queues.items()}, n)
+                out = []
+                for t in order:
+                    rk = queues[t].pop(0)
+                    out.append((rk, self._keys.pop(rk)))
+            # the tenant map survives a take so a worker requeue
+            # (mark(..., requeue=True)) keeps its attribution; prune
+            # entries for keys no longer pending once it bloats past
+            # twice the dirty cap
+            if len(self._tenants) > 2 * self.max_keys:
+                self._tenants = {rk: t for rk, t in self._tenants.items() if rk in self._keys}
+            return out
 
     def take_all(self) -> list[tuple[str, float]]:
         """Pop everything (the full sweep's catch-all drain)."""
@@ -268,7 +308,7 @@ class DirtySet:
                 "max_keys": self.max_keys,
                 "route_label": self.route_label,
                 "owned_only": self.owns is not None,
-                "tenant_fair": False,
+                "tenant_fair": self._drr is not None,
                 **self._counts,
             }
 

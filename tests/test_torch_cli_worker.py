@@ -9,7 +9,10 @@ takes the fleet's samples as a push on its receiver and judges from them
 with no GET to Prometheus at all, before and after a restart that
 restores the ring; with FOREMAST_MICROTICK_SECONDS as well, its
 receiver marks each push dirty and micro-ticks judge the pushed fleet
-between sweeps. Modes the port does not have are refused with
+between sweeps. Under `FOREMAST_CHAOS_PLAN` and `FOREMAST_TENANTS` it
+injects the plan's faults, degrades through them and still judges the
+fleet, with the chaos and tenant sections on `/debug/state` and their
+families on `/metrics`. Modes the port does not have are refused with
 `NotImplementedError`. Every subprocess has its own timeout of at most
 60 s."""
 
@@ -178,6 +181,65 @@ def test_unported_modes_are_refused(flag, env, item):
     _, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
     assert "NotImplementedError" in err and f"Queue 1 {item}" in err
+
+
+def test_chaos_plan_and_tenants_run(services, tmp_path):
+    """FOREMAST_CHAOS_PLAN is no longer refused: a seeded error rate on the
+    `prometheus` edge over its first 8 s (no fetch retries) releases
+    documents un-judged, later ticks judge the whole fleet to the JAX
+    worker's statuses, and the plan's injections, the breakers and the
+    tenant ledger (FOREMAST_TENANTS) show on /debug/state and /metrics.
+    Every release logs a line, so the worker's stderr goes to a file (a
+    pipe nobody reads would fill and block its logging)."""
+    import json
+    import urllib.request
+
+    es, es_url, prom, docs, want = services
+    es.load(docs)
+    gauge = _free_port()
+    plan = {"seed": 5, "rules": [{"edge": "prometheus", "duration": 8.0, "error_rate": 0.3},
+                                 {"edge": "transfer", "error_rate": 1.0}]}
+    tenants = {"default": {"weight": 1}, "acme": {"weight": 2, "arena_rows": 64}}
+    env = dict(os.environ, PYTHONPATH=str(ROOT), FOREMAST_CHAOS_PLAN=json.dumps(plan),
+               FOREMAST_TENANTS=json.dumps(tenants), FOREMAST_FETCH_RETRIES="0")
+    log_path = tmp_path / "worker.err"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "foremast_tpu_torch", "worker", "--device", "cpu", "--elastic-url", es_url,
+             "--gauge-port", str(gauge), "--poll", "0.2"],
+            cwd=str(ROOT), env=env, stdout=subprocess.DEVNULL, stderr=log, text=True,
+        )
+    try:
+        deadline = time.monotonic() + 60
+        while "worker started" not in log_path.read_text():
+            assert proc.poll() is None and time.monotonic() < deadline, log_path.read_text()[-4000:]
+            time.sleep(0.1)
+        got = None
+        while time.monotonic() < deadline:
+            srcs = es.sources()
+            if srcs and all(d.get("status") in TERMINAL_STATUSES for d in srcs.values()):
+                got = {k: {f: d.get(f) for f in FIELDS} for k, d in srcs.items()}
+                break
+            time.sleep(0.1)
+        state = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{gauge}/debug/state", timeout=10).read())
+        text = _scrape(gauge)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+    err = log_path.read_text()
+    assert rc == 0, err[-4000:]
+    assert "CHAOS PLAN ACTIVE" in err
+    assert got == want
+    chaos = state["degradation"]["chaos"]
+    assert chaos["seed"] == 5 and chaos["rules"] == 2
+    assert chaos["injections"].get("prometheus/connection", 0) > 0
+    assert "transfer/connection" not in chaos["injections"]  # no client asks for that edge yet
+    assert state["degradation"]["docs"].get("fetch_released", 0) > 0
+    assert set(state["tenants"]["registry"]["configured"]) == {"default", "acme"}
+    assert state["tenants"]["accounting"]["default"]["claims"] >= SERVICES
+    assert 'foremast_chaos_injections_total{edge="prometheus",kind="connection"}' in text
+    assert 'foremast_breaker_state{edge="prometheus"}' in text
+    assert 'foremast_tenant_claims_total{tenant="default"}' in text
 
 
 def test_microticks_are_ignored_without_ingest():

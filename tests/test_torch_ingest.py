@@ -286,14 +286,29 @@ def test_backfill_does_not_report_receiver_lag():
     assert s.stats()["receiver_lag_seconds"] == 30.0
 
 
-def test_store_refuses_tenancy():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        T.RingStore(tenancy=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        T.RingStore.from_env({"FOREMAST_TENANTS": '{"tenants": {}}'})
+def test_store_refuses_tenancy(monkeypatch):
+    """The tenant plane replaced the old refusal: a store given a registry,
+    or built from the env under `FOREMAST_TENANTS`, carries its per-tenant
+    envelopes; without one it stays untenanted. The env sizing knobs read
+    as before."""
+    from foremast_tpu_torch.tenant import TenantRegistry, TenantSpec
+    from foremast_tpu_torch.tenant import registry as treg
+
+    reg = TenantRegistry({"a": TenantSpec(name="a", ring_bytes=4096), "b": TenantSpec(name="b")})
+    assert T.RingStore(tenancy=reg, shards=2).tenancy.shard_envelope("a") == 2048
+    assert T.RingStore().tenancy is None
+    monkeypatch.setenv("FOREMAST_TENANTS", '{"tenants": {"a": {"ring_bytes": 4096}, "b": {}}}')
+    monkeypatch.setattr(treg, "_GLOBAL", None)
+    monkeypatch.setattr(treg, "_GLOBAL_SET", False)
+    env_store = T.RingStore.from_env({"FOREMAST_INGEST_SHARDS": "4"})
+    assert env_store.tenancy.registry.spec("a").ring_bytes == 4096
+    assert env_store.tenancy.shard_envelope("a") == 1024
+    monkeypatch.setattr(treg, "_GLOBAL", None)
+    monkeypatch.setattr(treg, "_GLOBAL_SET", True)
     s = T.RingStore.from_env({"FOREMAST_INGEST_SHARDS": "3", "FOREMAST_INGEST_BUDGET_BYTES": "4096",
                               "FOREMAST_INGEST_STALE_SECONDS": "60", "FOREMAST_INGEST_MAX_POINTS": "512"})
     assert (s.shard_count, s.budget_bytes, s.stale_seconds, s.max_points) == (3, 4096, 60.0, 512)
+    assert s.tenancy is None
 
 
 def test_shard_lock_concurrency_smoke():

@@ -123,11 +123,24 @@ def test_reactive_knob_parsing_tolerates_malformed_env(monkeypatch):
         assert mod.microtick_docs_from_env() == 256
         assert mod.sweep_slice_docs_from_env() == 2048
         assert mod.DirtySet.from_env().max_keys == 8192
+    # the tenant plane replaced the old refusal: under FOREMAST_TENANTS
+    # both packages' sets drain tenant-fair with the same weights, and a
+    # malformed envelope fails loudly on both
+    from foremast_tpu.tenant import registry as jreg
+    from foremast_tpu_torch.tenant import registry as treg
+
+    monkeypatch.setenv("FOREMAST_TENANTS", '{"a": {}, "b": {"weight": 2}}')
+    for reg_mod, mod in ((treg, tdirty), (jreg, jdirty)):
+        monkeypatch.setattr(reg_mod, "_GLOBAL", None)
+        monkeypatch.setattr(reg_mod, "_GLOBAL_SET", False)
+        d = mod.DirtySet.from_env()
+        assert d.tenancy.weights() == {"a": 1.0, "b": 2.0}
+        assert d.debug_state()["tenant_fair"] is True
     monkeypatch.setenv("FOREMAST_TENANTS", "a,b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        DirtySet.from_env()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        DirtySet(tenancy=object())
+    for reg_mod, mod in ((treg, tdirty), (jreg, jdirty)):
+        monkeypatch.setattr(reg_mod, "_GLOBAL_SET", False)
+        with pytest.raises(ValueError):
+            mod.DirtySet.from_env()
 
 
 def test_dirty_set_loses_no_arrival_under_concurrent_marks_and_takes():
