@@ -180,8 +180,36 @@ Phases; any failure exits non-zero:
      judges 256 pushed docs to (a)'s writes through a store outage, its
      receiver's /debug/state carries the tenants section and its stop
      record the plan's injections and the tenant ledger.
+ 11. the worker mesh (foremast_tpu_torch/mesh/), every member a BrainWorker
+     on the card over one shared in-memory store, with its own ring,
+     RingSource (a counting fallback behind it), receiver (router and
+     handoff wired) and MeshNode, over phase 6's 4,096 docs x 4 aliases
+     with `app` the route label; every arm's writes equal a single card
+     worker's on the same fleet: (a) three members partition the fleet
+     (rings loaded in process through RingStore.push: an HTTP bulk load of
+     166 M samples would not fit the time), cold then warm, no doc claimed
+     twice in a round, warm dispatches under set_sync_debug_mode("error");
+     (b) a fourth joins fenced and the others stream it its partition over
+     /api/v1/transfer: series, fits, bytes, seconds to active, and its
+     first tick makes 0 cold fits and 0 history reads; (c) one drains
+     while the others tick (a survivor's tick timed while the stream is
+     applied), then leaves, and the survivors refit nothing; (d) one dies
+     with its claims in flight, its `clock` chaos edge skewing its lease
+     past expiry: the survivors take the orphans over through the
+     stuck-claim CAS and refit them on the f32 route (masked_stats), held
+     to an f32 single worker; (e) three fresh members, a RoutingPusher
+     (FMW1 frames) pushes 512 docs' series to one seed: one cycle learns
+     every owner from the hints, the histories then land with 0 hints,
+     evict_unowned leaves each ring its own partition, and the members'
+     cold ticks write the pull path's writes with 0 fallback reads; (f) a
+     joiner behind a blackholed `transfer` edge activates at its 5 s
+     deadline and cold-refits what moved to it; (g) two `python3 -m
+     foremast_tpu_torch worker` processes with FOREMAST_MESH=1 and
+     FOREMAST_INGEST=1 judge 256 pushed docs together (both members on the
+     first receiver's /debug/state), and after SIGTERM the second drains
+     to the first, which judges the whole fleet on the warm path.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
-7b, 7c, 7d, 8b, 8c, 8d, 9, 10) and read just after its checked calls, so they
+7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phases
 6 and 9) only the f32 cold fit launches a kernel (masked_stats); the seasonal
 fits launch holt_winters_scan (Holt-Winters, and auto_univariate at m <=
@@ -197,6 +225,7 @@ short first call after a kernel change. `python3 chip_smoke.py
 `--tenants-only` phase 10 alone, with two arms more in 10(a) that part
 tenancy's costs: the same tenants without the arena envelope, and the
 arenas' host seconds of `assign` and `scatter` in each sweep.
+`--mesh-only` runs phase 11 alone.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -208,6 +237,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2725,6 +2755,9 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
         for srv in servers:
             srv.shutdown()
             srv.server_close()
+        # a later run in the same machine must not find this run's
+        # snapshots and stream bodies (PERF.md §7)
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4982,11 +5015,693 @@ def phase_tenants_and_chaos(dev, smi: str, costs: bool = False) -> dict:
     t2 = time.perf_counter()
     flood = ingest_envelopes(smi, t_now)
     t3 = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix="foremast-phase10-")
-    cli = tenant_cli_run(dev, docs[-CLI_TENANT_DOCS:], data, ref, workdir)
+    with tempfile.TemporaryDirectory(prefix="foremast-phase10-", ignore_cleanup_errors=True) as workdir:
+        cli = tenant_cli_run(dev, docs[-CLI_TENANT_DOCS:], data, ref, workdir)
     print(f"phase 10: seconds: (a)-(c) {t1 - t0:.1f}, (d) {t2 - t1:.1f}, (e) {t3 - t2:.1f}, "
           f"(f) {time.perf_counter() - t3:.1f}")
     return dict(sweeps=sweeps, chaos=chaos, flood=flood, cli_seconds=cli["seconds"])
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the worker mesh
+# ---------------------------------------------------------------------------
+
+MESH_DOCS = 4096  # phase 6's fleet, every series labelled with its doc's `app` (the route label)
+MESH_SLICE = 1024  # FOREMAST_SWEEP_SLICE_DOCS of the members: their claims sweep in slices
+MESH_LEASE = 600.0  # in-process leases: (d)'s death comes from the clock edge, not from a slow tick
+MESH_STUCK = 4.0  # the members' max_stuck_seconds: the window (d)'s orphaned claims wait out
+MESH_BUDGET_BYTES = 6 << 30  # per member ring: no eviction may turn a ring read into a fallback read
+MESH_DEADLINE = 120.0  # (b)-(c): the join deadline, never reached by a transfer that lands
+BLACKHOLE_DEADLINE = 5.0  # (f): the joiner's deadline under a blackholed transfer edge
+MESH_INGEST_DOCS = 512  # (e)
+MESH_PUSH_SERIES = 64  # (e): series per push_cycle call (one FMW1 body each, under the receiver's cap)
+MESH_CLI_DOCS = 256  # (g)
+
+
+class CountingSource:
+    """The fallback behind each member's ring: phase 6's in-memory series,
+    every read counted (a fallback history read is what the transferred
+    ring state must make unnecessary)."""
+
+    concurrent_fetch = False
+
+    def __init__(self, series: dict):
+        import threading
+
+        self.data = series
+        self.reads = 0
+        self._lock = threading.Lock()
+
+    def fetch(self, url: str):
+        with self._lock:
+            self.reads += 1
+        return self.data[url]
+
+
+def fleet_written(store) -> dict:
+    """Each fleet doc's (status, code, reason, anomaly_info), as phase 6
+    records it; the mesh's member records left out."""
+    from foremast_tpu_torch.mesh import MESH_APP
+
+    return {d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+            for d in store._docs.values() if d.app_name != MESH_APP}
+
+
+def mesh_seat(dev, store, data, wid: str, fenced: bool, n_docs: int, deadline: float = MESH_DEADLINE,
+              fallback=None):
+    """One member on the card: its own ring, RingSource over it with a
+    counting fallback, receiver (router and handoff wired), handoff plane,
+    MeshNode and BrainWorker (claims sliced at MESH_SLICE, each slice's
+    columnar dispatch under set_sync_debug_mode("error"), counted). Its
+    membership clock is a chaos plan's ``clock`` edge, skewed back by three
+    leases once `skew()` is called."""
+    import types
+
+    import torch
+
+    from foremast_tpu_torch.chaos import FaultPlan
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.ingest import RingSource, RingStore, start_ingest_server
+    from foremast_tpu_torch.jobs import BrainWorker
+    from foremast_tpu_torch.mesh import HandoffManager, Membership, MeshNode, MeshRouter
+
+    ring = RingStore(budget_bytes=MESH_BUDGET_BYTES)
+    handoff = HandoffManager(ring_store=ring, deadline_seconds=deadline)
+    plan_now = [0.0]
+    plan = FaultPlan(rules=({"edge": "clock", "after": 1e9, "skew_seconds": -3 * MESH_LEASE},),
+                     clock=lambda: plan_now[0]).activate()
+    mem = Membership(store, wid, lease_seconds=MESH_LEASE, clock=plan.edge("clock").clock())
+    router = MeshRouter(mem, refresh_seconds=0.0)
+    srv, _ = start_ingest_server(0, ring, host="127.0.0.1", router=router, handoff=handoff)
+    mem.ingest_address = f"127.0.0.1:{srv.server_address[1]}"
+    node = MeshNode(mem, router, ring_store=ring, handoff=handoff, join_fenced=fenced)
+    fallback = fallback if fallback is not None else CountingSource(data)
+    with slice_env(MESH_SLICE):
+        worker = BrainWorker(store, RingSource(ring, fallback=fallback),
+                             config=BrainConfig(max_cache_size=4 * n_docs + 64, max_stuck_seconds=MESH_STUCK),
+                             device=dev, claim_limit=n_docs + 16, worker_id=wid, mesh=node)
+    seat = types.SimpleNamespace(wid=wid, ring=ring, handoff=handoff, node=node, srv=srv, worker=worker,
+                                 fallback=fallback, dispatches=0, cold_rows=0, sent_bytes=0,
+                                 skew=lambda: plan_now.__setitem__(0, 2e9))
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        worker.warmup()
+    dispatch = worker._dispatch_uni
+
+    def strict_dispatch(packed):
+        seat.dispatches += 1
+        if not cuda:
+            return dispatch(packed)
+        torch.cuda.set_sync_debug_mode("error")  # the columnar dispatch must not synchronize
+        try:
+            return dispatch(packed)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    worker._dispatch_uni = strict_dispatch
+    fit_rows = worker._uni._fit_miss_rows
+
+    def counted_fit(miss, *a, **kw):
+        seat.cold_rows += len(miss)
+        return fit_rows(miss, *a, **kw)
+
+    worker._uni._fit_miss_rows = counted_fit
+    post = handoff._post
+
+    def counted_post(address, body):
+        seat.sent_bytes += len(body)
+        return post(address, body)
+
+    handoff._post = counted_post
+    return seat
+
+
+def mesh_store(docs):
+    """An in-memory store over `docs` whose claims are recorded: returns
+    (store, claims, fleet ids); `claims` collects (worker id, claimed ids)
+    per claim call and is cleared by its reader."""
+    from foremast_tpu_torch.jobs import Document, InMemoryStore
+
+    store = InMemoryStore()
+    for d in docs:
+        store.create(Document.from_json(d))
+    claims: list = []
+    orig_claim = store.claim
+
+    def recorded_claim(worker_id, max_stuck_seconds, limit=64, claim_filter=None):
+        got = orig_claim(worker_id, max_stuck_seconds, limit=limit, claim_filter=claim_filter)
+        claims.append((worker_id, [d.id for d in got]))
+        return got
+
+    store.claim = recorded_claim
+    return store, claims, {d["id"] for d in docs}
+
+
+def start_seats(seats) -> None:
+    """Register every seat, then refresh each router, so all see all."""
+    for s in seats:
+        s.node.start()
+    for s in seats:
+        s.node.router.refresh(force=True)
+
+
+def stop_seats(seats) -> None:
+    for s in seats:
+        s.worker.close()
+        s.srv.shutdown()
+        s.srv.server_close()
+
+
+def mesh_tick(seat) -> dict:
+    """One tick of a member, with what it cost: wall clock (after a device
+    sync), docs, cold-fit rows, fallback reads, columnar dispatches."""
+    rows, reads, disp = seat.cold_rows, seat.fallback.reads, seat.dispatches
+    sync_card()
+    t0 = time.perf_counter()
+    n = seat.worker.tick()
+    sync_card()
+    return dict(seconds=time.perf_counter() - t0, docs=n, cold_rows=seat.cold_rows - rows,
+                fallback_reads=seat.fallback.reads - reads, dispatches=seat.dispatches - disp)
+
+
+def mesh_round(label: str, seats: list, store, claims: list, want: dict, fleet_ids: set) -> dict:
+    """Every seat ticks once, in order: the claims must be disjoint and
+    cover the fleet, and every doc's writes must equal `want`."""
+    claims.clear()
+    ticks = {s.wid: mesh_tick(s) for s in seats}
+    ids = [i for _, got in claims for i in got]
+    check(len(ids) == len(set(ids)), f"11{label}: a doc was claimed twice in one round")
+    check(set(ids) == fleet_ids, f"11{label}: the round claimed {len(set(ids))} of {len(fleet_ids)} docs")
+    got = fleet_written(store)
+    diff = sorted(d for d in fleet_ids if got[d] != want[d])
+    check(not diff, f"11{label}: writes differ from the single worker's on {len(diff)} docs, e.g. "
+                    f"{diff[:1]}: {[got[d] for d in diff[:1]]} against {[want[d] for d in diff[:1]]}")
+    return ticks
+
+
+def tick_summary(ticks: dict) -> str:
+    return "; ".join(f"{w} {t['docs']} docs {t['seconds']:.3f} s (cold-fit rows {t['cold_rows']}, fallback reads "
+                     f"{t['fallback_reads']}, dispatches {t['dispatches']})" for w, t in ticks.items())
+
+
+def single_mesh_reference(dev, docs, data) -> dict:
+    """What one card worker writes on the fleet (pull, monolithic): cold,
+    then warm; with the seconds of each tick. A comparison: its launches
+    are taken back out of the counts."""
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs import BrainWorker
+    from foremast_tpu_torch.ops import kernels as K
+
+    counted = dict(K.LAUNCHES)  # a comparison: its launches do not count
+    store, _, _ = mesh_store(docs)
+    with slice_env(0):
+        worker = BrainWorker(store, array_source(data), config=BrainConfig(max_cache_size=4 * len(docs) + 64),
+                             device=dev, claim_limit=len(docs), worker_id="smoke-single")
+    try:
+        if torch.device(dev).type == "cuda":
+            worker.warmup()
+        out = {}
+        for name in ("cold", "warm"):
+            sync_card()
+            t0 = time.perf_counter()
+            check(worker.tick() == len(docs), f"the single worker's {name} tick lost docs")
+            sync_card()
+            out[name] = fleet_written(store)
+            out[f"{name}_s"] = time.perf_counter() - t0
+    finally:
+        worker.close()
+        K.LAUNCHES.update(counted)
+    return out
+
+
+def mesh_partition_arms(dev, docs, data, ref: dict) -> dict:
+    """(a)-(d) and (f) on one shared store: three members partition the
+    fleet, a fourth joins through the handoff, one drains, one dies, and a
+    fifth joins under a blackholed transfer edge."""
+    import threading
+
+    import torch
+
+    from foremast_tpu_torch.chaos import FaultPlan
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.jobs import Document
+    from foremast_tpu_torch.observe.spans import Tracer
+    from foremast_tpu_torch.ops import kernels as K
+
+    store, claims, fleet_ids = mesh_store(docs)
+    out: dict = {}
+    seats = {}
+    try:
+        # (a) three members bootstrap together (no one to hand off from),
+        # each ring loaded in process with the series it owns
+        t0 = time.perf_counter()
+        for k in range(3):
+            seats[f"m{k}"] = mesh_seat(dev, store, data, f"m{k}", False, len(docs))
+        start_seats(seats.values())
+        entries = push_entries(data)
+        t1 = time.perf_counter()
+        loaded = {w: 0 for w in seats}
+        router = seats["m0"].node.router
+        for key, t, v, start in entries:
+            owner = router.owner_of_series(key)
+            seats[owner].ring.push(key, t, v, start=start, record_lag=False)
+            loaded[owner] += len(t)
+        load_s = time.perf_counter() - t1
+        print(f"phase 11: (a) 3 members up in {t1 - t0:.1f} s (warmups included); {len(entries)} series, "
+              f"{sum(loaded.values())} samples loaded in process through RingStore.push in {load_s:.1f} s "
+              f"(HTTP bulk loads run at 0.6-1.5 M samples/s: PERF.md), by member {loaded}")
+        live = [seats[w] for w in ("m0", "m1", "m2")]
+        cold = mesh_round("(a) cold", live, store, claims, ref["cold"], fleet_ids)
+        warm = mesh_round("(a) warm", live, store, claims, ref["warm"], fleet_ids)
+        check(all(t["fallback_reads"] == 0 for t in (*cold.values(), *warm.values())),
+              "11(a): a member read history past its ring")
+        check(all(t["cold_rows"] == 0 and t["dispatches"] > 0 for t in warm.values()),
+              f"11(a): the warm round refit or never dispatched: {warm}")
+        print(f"phase 11: (a) cold round: {tick_summary(cold)}; single worker {ref['cold_s']:.3f} s")
+        print(f"phase 11: (a) warm round: {tick_summary(warm)}; single worker {ref['warm_s']:.3f} s; no doc claimed "
+              f"twice; claim filter {({w: dict(seats[w].node.claim_counts) for w in ('m0', 'm1', 'm2')})}")
+        out["a"] = dict(cold=cold, warm=warm)
+
+        # (b) a fourth member joins through the handoff
+        seats["m3"] = m3 = mesh_seat(dev, store, data, "m3", True, len(docs))
+        t_join = time.perf_counter()
+        m3.node.start()
+        check(m3.node.joining, "11(b): the joiner was not fenced")
+        for s in live:
+            s.node.on_tick()
+        for s in live:
+            check(s.node.wait_handoff_streams(MESH_DEADLINE), "11(b): a sender's stream did not finish")
+        streamed_s = time.perf_counter() - t_join
+        m3.node.on_tick()
+        check(m3.node.state == "active", f"11(b): the joiner did not activate: {m3.node.debug_state()['handoff']}")
+        active_s = time.perf_counter() - t_join
+        sent = [s.handoff.counters_snapshot() for s in live]
+        got = m3.handoff.counters_snapshot()
+        check(all(c["send"]["ok"] == 1 and c["send"]["failed"] == 0 for c in sent), f"11(b): sends {sent}")
+        series_sent = sum(c["series_sent"] for c in sent)
+        fits_sent = sum(c["fits_sent"] for c in sent)
+        check((got["series_received"], got["fits_received"]) == (series_sent, fits_sent) and fits_sent > 0,
+              f"11(b): received {got} against sent {series_sent} series / {fits_sent} fits")
+        m3.worker.tracer = Tracer(service="mesh-joiner")
+        join = mesh_round("(b) join", [m3, *live], store, claims, ref["warm"], fleet_ids)
+        tracer_stages = dict(m3.worker.tracer.last_stage_seconds)
+        j = join["m3"]
+        check(j["docs"] > 0 and j["cold_rows"] == 0 and j["fallback_reads"] == 0,
+              f"11(b): the joiner's first claims: {j}")
+        check(sum(m3.worker._cold_counts.values()) == 0, f"11(b): the joiner read histories {m3.worker._cold_counts}")
+        four = [seats[w] for w in ("m0", "m1", "m2", "m3")]
+        for s in four:
+            resident = {k for i in range(s.ring.shard_count) for k, *_ in s.ring.shard_state(i)}
+            check(all(s.node.router.owns_series(k) for k in resident), f"11(b): {s.wid} kept a foreign series")
+        print(f"phase 11: (b) planned join: {series_sent} series and {fits_sent} fits sent "
+              f"({sum(s.sent_bytes for s in live)} bytes in {sum(c['send']['ok'] for c in sent)} streams), all "
+              f"streams landed {streamed_s:.2f} s after the join, active {active_s:.2f} s after it; the joiner's "
+              f"first tick: {j['docs']} docs in {j['seconds']:.3f} s, 0 cold-fit rows, 0 fallback history reads, "
+              f"0 history reads; its spans {({k: round(v, 4) for k, v in tracer_stages.items()})}; the round: "
+              f"{tick_summary(join)}; rings hold only their own partitions after the senders' eviction")
+        out["b"] = dict(series=series_sent, fits=fits_sent, bytes=sum(s.sent_bytes for s in live),
+                        active_s=active_s, join=join, stages=tracer_stages)
+
+        # (c) m1 drains: it streams its state while the survivors tick
+        m1 = seats["m1"]
+        quiet = mesh_tick(seats["m0"])  # a survivor's tick with no stream, for comparison
+        before = {w: seats[w].handoff.counters_snapshot()["series_received"] for w in ("m0", "m2", "m3")}
+        drain_out: dict = {}
+        t_drain = time.perf_counter()
+        drain = threading.Thread(target=lambda: drain_out.update(m1.node.stream_drain()), name="smoke-drain")
+        drain.start()
+        claims.clear()
+        while not m1.node.draining:
+            time.sleep(0.001)
+        during = mesh_tick(seats["m0"])
+        streaming = drain.is_alive()
+        during_rest = {w: mesh_tick(seats[w]) for w in ("m1", "m2", "m3")}
+        drain.join(MESH_DEADLINE)
+        check(not drain.is_alive() and all(v == "ok" for v in drain_out["targets"].values()),
+              f"11(c): the drain stream: {drain_out}")
+        stream_s = time.perf_counter() - t_drain
+        ids = [i for _, got in claims for i in got]
+        check(len(ids) == len(set(ids)) == len(fleet_ids), "11(c): the round under the drain lost or doubled docs")
+        got = fleet_written(store)
+        check(all(got[i] == ref["warm"][i] for i in fleet_ids), "11(c): writes under the drain differ")
+        m1.node.drain()
+        survivors = [seats[w] for w in ("m0", "m2", "m3")]
+        after = mesh_round("(c) after the drain", survivors, store, claims, ref["warm"], fleet_ids)
+        check(all(t["cold_rows"] == 0 and t["fallback_reads"] == 0 for t in after.values()),
+              f"11(c): the survivors refit or read history: {after}")
+        moved = {w: seats[w].handoff.counters_snapshot()["series_received"] - before[w] for w in before}
+        print(f"phase 11: (c) planned drain of m1: {drain_out['targets']}, {m1.handoff.counters_snapshot()['series_sent']} "
+              f"series and {m1.handoff.counters_snapshot()['fits_sent']} fits in {stream_s:.2f} s "
+              f"({m1.sent_bytes} bytes), received by {moved}; a survivor's tick while the stream was applied "
+              f"{during['seconds']:.3f} s ({during['docs']} docs; stream {'still running' if streaming else 'done'} at "
+              f"its end) against {quiet['seconds']:.3f} s quiet; the draining member ticked on: "
+              f"{during_rest['m1']['docs']} docs; after it left: {tick_summary(after)}")
+        out["c"] = dict(during=during, quiet=quiet, after=after, stream_s=stream_s, streaming=streaming)
+
+        # (d) m2 dies: its claims stay in flight and its clock edge skews its
+        # lease past expiry; the survivors take the orphans over through the
+        # stuck-claim CAS and refit them cold on the f32 route
+        m2 = seats["m2"]
+        m2.node.on_tick()
+        orphans = {d.id for d in store.claim("m2", MESH_STUCK, limit=len(docs) + 16, claim_filter=m2.node.claim_filter)}
+        t_claim = time.perf_counter()
+        check(orphans, "11(d): the dying member claimed nothing")
+        m2.skew()
+        m2.node.membership.renew(force=True)  # its last record, stamped three leases back
+        survivors = [seats[w] for w in ("m0", "m3")]
+        f32 = f32_reference(dev, [d for d in docs if d["id"] in orphans], data)
+        time.sleep(max(0.0, t_claim + MESH_STUCK + 1.5 - time.perf_counter()))
+        want = {i: (f32["cold"][i] if i in orphans else ref["warm"][i]) for i in fleet_ids}
+        launched = K.LAUNCHES["masked_stats"]
+        scoring.set_bf16_delta(False)
+        try:
+            claims.clear()
+            death = {s.wid: mesh_tick(s) for s in survivors}
+        finally:
+            scoring.set_bf16_delta(None)
+        launched = K.LAUNCHES["masked_stats"] - launched
+        check(launched > 0 or torch.device(dev).type != "cuda", "11(d): the survivors' f32 refits never launched "
+                                                                 "masked_stats")
+        taken = {i for _, got in claims for i in got}
+        check(orphans <= taken, f"11(d): {len(orphans - taken)} orphans were not taken over")
+        got = fleet_written(store)
+        diff = sorted(i for i in fleet_ids if got[i] != want[i])
+        check(not diff, f"11(d): {len(diff)} docs differ from the single workers (f32 for the orphans), e.g. "
+                        f"{diff[:1]}: {[got[d] for d in diff[:1]]} against {[want[d] for d in diff[:1]]}")
+        check(sum(t["cold_rows"] for t in death.values()) >= len(orphans), f"11(d): the orphans' refits: {death}")
+        print(f"phase 11: (d) unplanned death of m2 with {len(orphans)} docs in flight: its lease read expired once "
+              f"its clock edge skewed it back {3 * MESH_LEASE:.0f} s; after the {MESH_STUCK:.0f} s stuck window the "
+              f"survivors took every orphan over and refit it on the f32 route ({launched} masked_stats launches): "
+              f"{tick_summary(death)}; writes equal "
+              f"an f32 single worker's for the orphans and the bf16 single worker's for the rest")
+        out["d"] = dict(orphans=len(orphans), death=death)
+
+        # (f) a joiner behind a blackholed transfer edge
+        plan = FaultPlan(rules=({"edge": "transfer", "error_rate": 1.0},), seed=CHAOS_SEED).activate()
+        for s in survivors:
+            s.handoff.chaos = plan.edge("transfer")
+            s.handoff.backoff_seconds = 0.05
+        seats["m4"] = m4 = mesh_seat(dev, store, data, "m4", True, len(docs), deadline=BLACKHOLE_DEADLINE)
+        f0 = {s.wid: s.handoff.counters_snapshot()["send"]["failed"] for s in survivors}
+        t_join = time.perf_counter()
+        m4.node.start()
+        check(m4.node.joining, "11(f): the joiner was not fenced")
+        while not m4.node.state == "active":
+            for s in survivors:
+                s.node.on_tick()
+            m4.node.on_tick()
+            check(time.perf_counter() - t_join < BLACKHOLE_DEADLINE + 30, "11(f): the joiner never activated")
+            time.sleep(0.05)
+        active_s = time.perf_counter() - t_join
+        for s in survivors:
+            check(s.node.wait_handoff_streams(60), "11(f): a blackholed stream never ended")
+        failed = {s.wid: s.handoff.counters_snapshot()["send"]["failed"] - f0[s.wid] for s in survivors}
+        check(all(v == 1 for v in failed.values()), f"11(f): failed sends {failed}")
+        moved_ids = {d["id"] for d in docs if m4.node.router.owns_doc(Document.from_json(d))}
+        want = {i: (ref["cold"][i] if i in moved_ids else f32["warm"][i] if i in orphans else ref["warm"][i])
+                for i in fleet_ids}
+        blackholed = mesh_round("(f) blackholed join", [m4, *survivors], store, claims, want, fleet_ids)
+        check(blackholed["m4"]["cold_rows"] > 0 and blackholed["m4"]["docs"] == len(moved_ids),
+              f"11(f): the joiner's first tick: {blackholed['m4']}")
+        for s in survivors:
+            s.handoff.chaos = None
+        print(f"phase 11: (f) blackholed transfer edge (error_rate 1.0): injections {plan.injections_snapshot()}, "
+              f"sends failed {failed}; the joiner went active {active_s:.2f} s after joining (deadline "
+              f"{BLACKHOLE_DEADLINE:.0f} s) and cold-refit the {len(moved_ids)} docs that moved to it: "
+              f"{tick_summary(blackholed)}; writes unchanged")
+        out["f"] = dict(active_s=active_s, blackholed=blackholed, moved=len(moved_ids))
+        return out
+    finally:
+        stop_seats(seats.values())
+
+
+def f32_reference(dev, docs, data) -> dict:
+    """A single card worker over `docs` on the f32 route
+    (FOREMAST_BF16_DELTA=0): cold, then warm."""
+    from foremast_tpu_torch.engine import scoring
+
+    scoring.set_bf16_delta(False)
+    try:
+        return single_mesh_reference(dev, docs, data)
+    finally:
+        scoring.set_bf16_delta(None)
+
+
+def frame_post(address, entries):
+    """A RoutingPusher transport that carries FMW1 frames, so 64
+    histories of 10,080 points fit the receiver's body cap (JSON would
+    not)."""
+    import urllib.request
+
+    from foremast_tpu_torch.ingest import BINARY_CONTENT_TYPE, encode_frame
+
+    body = encode_frame([(e["alias"], np.asarray(e["times"], np.int64), np.asarray(e["values"], np.float32),
+                          e.get("start")) for e in entries])
+    req = urllib.request.Request(f"http://{address}/api/v1/write", data=body, method="POST",
+                                 headers={"Content-Type": BINARY_CONTENT_TYPE})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def mesh_ingest_arm(dev, docs, data, ref: dict) -> dict:
+    """(e): three fresh members with empty rings; a RoutingPusher pushes
+    the docs' series to one seed member over HTTP. Cycle 1 sends the
+    current windows through the pusher as it is (its JSON POST) and learns
+    every owner from the hints; cycle 2 sends the full histories straight
+    to the owners, the same pusher with its transport swapped for FMW1
+    frames (`frame_post`: JSON histories would pass the body cap). After
+    evict_unowned each ring holds only its own partition, and the members'
+    cold ticks write what the pull path writes, with 0 fallback
+    requests."""
+    from foremast_tpu_torch.mesh import RoutingPusher
+
+    store, claims, fleet_ids = mesh_store(docs)
+    data = {u: data[u] for u in doc_urls(docs)}
+    seats = [mesh_seat(dev, store, data, f"e{k}", False, len(docs)) for k in range(3)]
+    try:
+        start_seats(seats)
+        entries = push_entries(data)
+        pusher = RoutingPusher([seats[0].node.membership.ingest_address], timeout=120, retries=0)
+        t0 = time.perf_counter()
+        first = pusher.push_cycle([(k, t[-FULL_TC:].tolist(), v[-FULL_TC:].tolist(), None) for k, t, v, _ in entries])
+        t1 = time.perf_counter()
+        pusher._post = frame_post  # cycle 2: the routes learned above, histories as frames
+        foreign = sum(1 for k, *_ in entries if not seats[0].node.router.owns_series(k))
+        check(first["errors"] == 0 and first["redirects"] == foreign > 0,
+              f"11(e): the first cycle learned {first['redirects']} routes for {foreign} foreign series")
+        redirects = samples = 0
+        for i in range(0, len(entries), MESH_PUSH_SERIES):
+            r = pusher.push_cycle(entries[i: i + MESH_PUSH_SERIES])
+            check(r["errors"] == 0, f"11(e): a push failed: {r}")
+            redirects += r["redirects"]
+            samples += r["accepted"]
+        push_s = time.perf_counter() - t1
+        check(redirects == 0, f"11(e): {redirects} hints after the first cycle: it did not converge")
+        evicted = {s.wid: s.ring.evict_unowned(s.node._retains) for s in seats}
+        for s in seats:
+            resident = {k for i in range(s.ring.shard_count) for k, *_ in s.ring.shard_state(i)}
+            owned = {k for k, *_ in entries if s.node.router.owns_series(k)}
+            check(resident == owned, f"11(e): {s.wid}'s ring holds {len(resident)} series, it owns {len(owned)}")
+        ticks = mesh_round("(e) pushed", seats, store, claims, ref, fleet_ids)
+        check(all(s.fallback.reads == 0 for s in seats), "11(e): a member asked the fallback")
+        print(f"phase 11: (e) routed ingest of {len(docs)} docs: cycle 1 ({len(entries)} current windows to one seed, "
+              f"RoutingPusher's JSON POST) in {t1 - t0:.2f} s learned {first['redirects']} routes from hints; cycle 2 ({samples} samples of full "
+              f"histories as FMW1 frames, {MESH_PUSH_SERIES} series a call) in {push_s:.1f} s landed with 0 hints; evict_unowned "
+              f"dropped {evicted} (cycle 1's foreign windows at the seed), each ring now holds exactly its partition; "
+              f"cold round {tick_summary(ticks)}; writes equal the pull path's, 0 fallback requests")
+        return dict(first=first, push_s=push_s, evicted=evicted, ticks=ticks)
+    finally:
+        stop_seats(seats)
+
+
+def mesh_cli_arm(dev, docs, data, ref: dict, workdir: str) -> dict:
+    """(g): two `python3 -m foremast_tpu_torch worker` processes with
+    FOREMAST_MESH=1 and FOREMAST_INGEST=1 on the one card, against the fake
+    Elasticsearch and Prometheus (tests/torch_fake_services.py). The
+    second joins through the first; the fleet's series are pushed to the
+    first, which hints the second's share, and go again to the second;
+    together they judge the fleet to the single worker's writes, and both
+    show on the first receiver's /debug/state. After SIGTERM the second
+    drains its state to the first and leaves, and the first judges the
+    whole fleet again with every tick on the warm path."""
+    import signal
+    import urllib.request
+
+    from foremast_tpu_torch.ingest import BINARY_CONTENT_TYPE, encode_frame
+    from foremast_tpu_torch.mesh import MESH_APP
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import FakeElasticsearch, FakePrometheus, rebase, serve_fake_es, serve_fake_prometheus
+
+    prom = FakePrometheus()
+    prom_srv, prom_url = serve_fake_prometheus(prom)
+    es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+    procs, logs = {}, {}
+    fleet_ids = {d["id"] for d in docs}
+
+    def fleet_es():
+        return {k: v for k, v in es_written(es.sources()).items() if k in fleet_ids}
+
+    def judged(base) -> bool:
+        with es.lock:
+            return all(es.writes[k] >= base.get(k, 0) + 2
+                       and es.docs[k]["_source"].get("status") not in ("initial", "preprocess_inprogress")
+                       for k in fleet_ids)
+
+    def state(port):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/state", timeout=30) as resp:
+            return json.loads(resp.read())
+
+    def wait(cond, what, timeout=CLI_TIMEOUT):
+        t0 = time.perf_counter()
+        while not cond():
+            for tag, p in procs.items():
+                if p.poll() is not None:
+                    print(open(logs[tag]).read()[-20000:], file=sys.stderr)
+                    check(False, f"11(g): CLI {tag} exited {p.returncode} while waiting for {what}")
+            check(time.perf_counter() - t0 < timeout, f"11(g): timed out waiting for {what}")
+            time.sleep(0.2)
+        return time.perf_counter() - t0
+
+    def records(tag, offset=0):
+        out = []
+        with open(logs[tag]) as fh:
+            fh.seek(offset)
+            for line in fh:
+                if line.startswith("{"):
+                    try:
+                        out.append(json.loads(line))
+                    except ValueError:
+                        pass
+        return out
+
+    try:
+        data = {u: data[u] for u in doc_urls(docs)}
+        rdocs, keyed = rebase(docs, data, "http://prom", prom_url)
+        prom.data = keyed  # the fallback, never asked
+        entries = push_entries(data)
+        ports = {"A": free_port(), "B": free_port()}
+        t0 = time.perf_counter()
+        for tag in ("A", "B"):
+            env = dict(os.environ, PYTHONPATH=ROOT, FOREMAST_MESH="1", FOREMAST_INGEST="1",
+                       FOREMAST_INGEST_PORT=str(ports[tag]), FOREMAST_MESH_ADVERTISE="127.0.0.1",
+                       FOREMAST_INGEST_BUDGET_BYTES=str(PUSH_BUDGET_BYTES), MAX_CACHE_SIZE=str(4 * len(docs) + 64))
+            logs[tag] = os.path.join(workdir, f"cli-mesh-{tag}.err")
+            with open(logs[tag], "w") as err:
+                procs[tag] = subprocess.Popen(
+                    [sys.executable, "-m", "foremast_tpu_torch", "worker", "--device", str(dev), "--elastic-url",
+                     es_url, "--claim-limit", str(DEPLOY_CLAIM), "--gauge-port", "0", "--poll", "0.2"],
+                    cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
+            wait(lambda tag=tag: any(r.get("msg") == "worker started" for r in records(tag)), f"{tag} to start")
+        started = {tag: next(r for r in records(tag) if r.get("msg") == "worker started") for tag in procs}
+        check(started["A"]["mesh_state"] == "active" and started["B"]["mesh_state"] == "joining",
+              f"11(g): start states {({t: r.get('mesh_state') for t, r in started.items()})}")
+        wait(lambda: sorted(state(ports["A"]).get("mesh", {}).get("members", {}).values()) == ["active", "active"],
+             "both members active on A's /debug/state")
+        members = state(ports["A"])["mesh"]
+        # push every series to A; A accepts all and hints B's share, which
+        # then goes to B
+        hints: dict = {}
+        t1 = time.perf_counter()
+        for i in range(0, len(entries), PUSH_BODY_SERIES):
+            req = urllib.request.Request(f"http://127.0.0.1:{ports['A']}/api/v1/write",
+                                         data=encode_frame(entries[i: i + PUSH_BODY_SERIES]), method="POST",
+                                         headers={"Content-Type": BINARY_CONTENT_TYPE})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                hints.update(json.loads(resp.read()).get("redirects") or {})
+        check(hints and set(hints.values()) == {f"127.0.0.1:{ports['B']}"}, f"11(g): hints {set(hints.values())}")
+        to_b = [e for e in entries if e[0] in hints]
+        push_s, pushed_b, _ = push_frames(f"http://127.0.0.1:{ports['B']}/api/v1/write", to_b)
+        push_s = time.perf_counter() - t1
+        base = dict(es.writes)
+        es.load(rdocs)
+        judge_s = wait(lambda: judged(base), "the two members to judge the fleet")
+        got = fleet_es()
+        # the re-check loop re-judges as it goes: a doc's last write is its
+        # cold or a warm one (which this fleet's single worker writes alike)
+        diff = sorted(i for i in fleet_ids if got[i] not in (ref["cold"][i], ref["warm"][i]))
+        check(not diff, f"11(g): the two CLIs' writes differ from the single worker's on {len(diff)} docs")
+        seats = {k: v for k, v in es.sources().items() if v.get("appName") == MESH_APP}
+        check(len(seats) == 2 and all(v["status"] == "mesh_member" for v in seats.values()), "11(g): member records")
+        # SIGTERM B: it drains its partition to A and leaves
+        offset = os.path.getsize(logs["A"])
+        t2 = time.perf_counter()
+        procs["B"].send_signal(signal.SIGTERM)
+        rc_b = procs["B"].wait(timeout=120)
+        drain_s = time.perf_counter() - t2
+        check(rc_b == 0, f"11(g): B exited {rc_b} on SIGTERM")
+        del procs["B"]
+        stop_b = [r for r in records("B") if r.get("msg") == "worker stopped"][-1]
+        wait(lambda: list(state(ports["A"])["mesh"]["members"]) == [members["worker_id"]], "B to leave A's view")
+        es.set_status(None)
+        base = dict(es.writes)
+        rejudge_s = wait(lambda: judged(base), "A to judge the whole fleet")
+        got = fleet_es()
+        diff = sorted(i for i in fleet_ids if got[i] != ref["warm"][i])
+        check(not diff, f"11(g): A's writes after the drain differ on {len(diff)} docs")
+        ticks = [r for r in records("A", offset) if r.get("msg") == "tick complete" and r.get("docs")]
+        check(ticks and all(r["fast_path"] == r["docs"] for r in ticks),
+              f"11(g): A refit after the drain: {[(r['docs'], r['fast_path']) for r in ticks if r['fast_path'] != r['docs']][:5]}")
+        a_state = state(ports["A"])
+        procs["A"].send_signal(signal.SIGTERM)
+        rc_a = procs["A"].wait(timeout=120)
+        check(rc_a == 0, f"11(g): A exited {rc_a} on SIGTERM")
+        del procs["A"]
+        stop_a = [r for r in records("A") if r.get("msg") == "worker stopped"][-1]
+        recv = a_state["handoff"]
+        check(recv["fits_received"] > 0 and recv["series_received"] > 0, f"11(g): A received {recv}")
+        check(sum(prom.requests.values()) == 0, f"11(g): the CLIs asked Prometheus {dict(prom.requests)}")
+        print(f"phase 11: (g) two CLI mesh workers (FOREMAST_MESH=1, FOREMAST_INGEST=1) on the card: B joined "
+              f"fenced behind A; A's receiver /debug/state showed members {members['members']}; {len(entries)} "
+              f"series pushed to A ({len(hints)} hinted to B, {pushed_b} samples re-pushed there) in {push_s:.1f} s; "
+              f"the fleet of {len(docs)} docs judged in {judge_s:.1f} s, writes equal the single worker's; B's "
+              f"SIGTERM drain {drain_s:.1f} s to exit 0 (sent {stop_b['mesh']['handoff']['series_sent']} series, "
+              f"{stop_b['mesh']['handoff']['fits_sent']} fits); A then judged the whole fleet in {rejudge_s:.1f} s, "
+              f"{sum(r['docs'] for r in ticks)} docs over {len(ticks)} ticks, every one on the warm path (0 cold "
+              f"refits); A received {recv['series_received']} series, {recv['fits_received']} fits; 0 Prometheus "
+              f"requests; A's claim filter {stop_a['mesh']['claim_docs']}; both exit 0; "
+              f"{time.perf_counter() - t0:.1f} s in all")
+        return dict(judge_s=judge_s, drain_s=drain_s, rejudge_s=rejudge_s)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for s in (prom_srv, es_srv):
+            s.shutdown()
+            s.server_close()
+
+
+def phase_mesh(dev, smi: str) -> dict:
+    """Phase 11: the worker mesh on the card, every member a BrainWorker on
+    `dev` over phase 6's fleet (labelled), each arm's writes held to a
+    single card worker's on the same fleet."""
+    import tempfile
+
+    t_now = int(time.time()) - 600  # settled histories, for the CLI's real clock too
+    t0 = time.perf_counter()
+    docs, data, _ = worker_fleet(MESH_DOCS, t_now, labelled=True)
+    ref = single_mesh_reference(dev, docs, data)
+    t1 = time.perf_counter()
+    same = sum(ref["cold"][i] == ref["warm"][i] for i in ref["cold"])
+    print(f"phase 11: fleet of {MESH_DOCS} docs x {len(ALIASES)} aliases (Th={FULL_TH}, Tc={FULL_TC}, half canaries, "
+          f"`app` the route label) and the single card worker's cold and warm ticks "
+          f"({ref['cold_s']:.3f} s, {ref['warm_s']:.3f} s; {same} of {len(docs)} docs written alike by both) in "
+          f"{t1 - t0:.1f} s; {smi}")
+    arms = mesh_partition_arms(dev, docs, data, ref)
+    t2 = time.perf_counter()
+    ids = [d["id"] for d in docs[:MESH_INGEST_DOCS]]
+    ingest = mesh_ingest_arm(dev, docs[:MESH_INGEST_DOCS], data, {i: ref["cold"][i] for i in ids})
+    t3 = time.perf_counter()
+    ids = [d["id"] for d in docs[:MESH_CLI_DOCS]]
+    with tempfile.TemporaryDirectory(prefix="foremast-phase11-", ignore_cleanup_errors=True) as workdir:
+        cli = mesh_cli_arm(dev, docs[:MESH_CLI_DOCS], data, {k: {i: ref[k][i] for i in ids} for k in ("cold", "warm")},
+                           workdir)
+    print(f"phase 11: seconds: fleet and single worker {t1 - t0:.1f}, (a)-(d) and (f) {t2 - t1:.1f}, (e) "
+          f"{t3 - t2:.1f}, (g) {time.perf_counter() - t3:.1f}")
+    return dict(arms=arms, ingest=ingest, cli=cli)
 
 
 def main() -> int:
@@ -5002,6 +5717,7 @@ def main() -> int:
     kernels_only = "--kernels-only" in sys.argv[1:]
     deployable_only = "--deployable-only" in sys.argv[1:]
     tenants_only = "--tenants-only" in sys.argv[1:]
+    mesh_only = "--mesh-only" in sys.argv[1:]
     # the seasonal model's f32 products must not round through TF32 (its
     # normal equations run in float64, which never does)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5035,6 +5751,13 @@ def main() -> int:
         docs, data, _ = worker_fleet(WORKER_DOCS, t_now)
         launched = phase_deployable_worker(dev, smi, fit_cache_fleet(FIT_FLEET)[0], (docs, data, t_now))
         print(f"chip_smoke: --deployable-only: phase 9 passed; its main path launched {launched}")
+        return 0
+    if mesh_only:
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        phase_mesh(dev, smi)
+        check(K.LAUNCHES["masked_stats"] > 0, "phase 11 never launched masked_stats")
+        print(f"chip_smoke: --mesh-only: phase 11 passed; its main path launched {dict(K.LAUNCHES)}")
         return 0
     if tenants_only:
         os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
@@ -5104,6 +5827,8 @@ def main() -> int:
     check(launched_deploy["masked_stats"] > 0, "the deployable worker (phase 9) never launched masked_stats")
     _, launched_tenants = path(phase_tenants_and_chaos, dev, smi)
     check(launched_tenants["masked_stats"] > 0, "the tenanted f32 cold sweep (phase 10) never launched masked_stats")
+    _, launched_mesh = path(phase_mesh, dev, smi)
+    check(launched_mesh["masked_stats"] > 0, "the mesh's f32 refit of orphans (phase 11 d) never launched masked_stats")
     paths = {
         "object path (phases 3-4)": launched_object,
         "fit-cache path (phase 5)": launched_fit_cache,
@@ -5116,6 +5841,7 @@ def main() -> int:
         "joint worker fleet tick (phase 8d)": launched_joint_worker,
         "deployable worker (phase 9, with the CLI's f32 run)": launched_deploy,
         "tenants and chaos (phase 10)": launched_tenants,
+        "worker mesh (phase 11)": launched_mesh,
     }
     print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}

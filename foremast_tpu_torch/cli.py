@@ -14,10 +14,14 @@ and fetches and cold fits read them before Prometheus; with
 `FOREMAST_MICROTICK_SECONDS` > 0 as well, the receiver marks each pushed
 series dirty and the worker judges just those documents in micro-ticks
 between its sweeps. `FOREMAST_CHAOS_PLAN` (inline JSON or `@path`)
-injects faults on the `store`, `prometheus` and `receiver` edges, and
-`FOREMAST_TENANTS` (inline JSON or `@path`) makes the tenant a scheduling
-and accounting dimension of the ring, the dirty set, the receiver and
-the worker.
+injects faults on the `store`, `prometheus`, `receiver`, `transfer` and
+`clock` edges, and `FOREMAST_TENANTS` (inline JSON or `@path`) makes the
+tenant a scheduling and accounting dimension of the ring, the dirty set,
+the receiver and the worker. `FOREMAST_MESH=1` seats the worker in a
+worker mesh over the shared store (`mesh/`): it claims only its
+partition, its receiver hints pushers at each series' owner, and with
+`FOREMAST_INGEST=1` a planned join or a SIGTERM moves ring and fit state
+to the new owners instead of leaving it to cold refits.
 
 The JAX CLI's other subcommands and its multi-device modes are not
 ported yet; each mode that would need them raises `NotImplementedError`
@@ -36,7 +40,6 @@ log = logging.getLogger("foremast_tpu_torch.cli")
 # env switches of JAX-only modes -> (what is missing, its ROADMAP.md
 # Queue 1 item); each is refused when it asks for the mode
 _UNPORTED_ENV = {
-    "FOREMAST_MESH": ("the worker mesh", "item 7"),
     "FOREMAST_LOCK_WITNESS": ("the lock-order witness", "item 8"),
     "FOREMAST_RECOMPILE_WITNESS": ("the recompile witness", "item 8"),
 }
@@ -54,7 +57,7 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise for every requested mode the port does not have."""
     if args.sharded:
         raise NotImplementedError(
-            "--sharded (the device mesh and pod mode) is not ported yet: ROADMAP.md Queue 1 item 7"
+            "--sharded (the device mesh, pod mode and a mesh of pods) is not ported yet: ROADMAP.md Queue 1 item 7"
         )
     for name, (what, item) in _UNPORTED_ENV.items():
         if os.environ.get(name, "0") not in ("", "0"):
@@ -92,7 +95,29 @@ def _make_store(elastic_url: str | None, chaos=None, breaker=None, stop=None):
     return store
 
 
-def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, chaos=None, degrade=None, dirty=None):
+def _mesh_member(store, worker_id: str, chaos_plan=None):
+    """The worker mesh's Membership and MeshRouter from the environment
+    (`FOREMAST_MESH_LEASE_SECONDS`, `_REPLICAS`, `_ROUTE_LABEL`). A chaos
+    plan's ``clock`` edge skews the clock this member stamps leases with
+    and reads its peers' by."""
+    from foremast_tpu_torch.mesh import Membership, MeshRouter
+
+    mesh_kw = {}
+    if chaos_plan is not None:
+        mesh_kw["clock"] = chaos_plan.edge("clock").clock()
+    membership = Membership(
+        store, worker_id, lease_seconds=float(os.environ.get("FOREMAST_MESH_LEASE_SECONDS", "") or "15"), **mesh_kw
+    )
+    router = MeshRouter(
+        membership,
+        replicas=_env_int("FOREMAST_MESH_REPLICAS", 64),
+        route_label=os.environ.get("FOREMAST_MESH_ROUTE_LABEL", "") or "app",
+    )
+    return membership, router
+
+
+def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, chaos=None, degrade=None, dirty=None,
+                  router=None, handoff=None):
     """FOREMAST_INGEST=1: wrap the pull source in the push plane's
     RingSource, so fetches and cold fits read resident ring columns and
     a miss falls back to `inner` (Prometheus) and backfills the ring,
@@ -102,7 +127,9 @@ def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, chaos
     (default 9009; 0 = no receiver, backfill only), and the
     foremast_ingest_* families join /metrics when a gauge port is live.
     `dirty` (reactive.DirtySet) makes the receiver mark each applied
-    series for the next micro-tick; `chaos` is the receiver's fault edge.
+    series for the next micro-tick; `chaos` is the receiver's fault edge;
+    `router` (mesh mode) makes it hint pushers at each series' owner and
+    `handoff` mounts the transfer endpoint on this ring.
     The ring and the receiver take the process's tenancy
     (`FOREMAST_TENANTS`) themselves.
     Returns (source, ring, receiver or None, snapshotter or None)."""
@@ -125,11 +152,16 @@ def _mount_ingest(inner, gauge_port: int, snapshot_dir: str | None = None, chaos
              "FOREMAST_ADMIT_MIN_COVERAGE_SECONDS; refinement %d docs/tick: FOREMAST_REFINE_DOCS_PER_TICK)",
              source.admit_floor, "" if inner is None else " [inert: fallback configured]",
              refine_docs_per_tick_from_env())
+    if handoff is not None:
+        # the handoff plane streams and applies THIS ring's series; the
+        # manager exists before the ring, so it is bound here
+        handoff.ring_store = ring
     port = _env_int("FOREMAST_INGEST_PORT", 9009)
     srv = None
-    if port:
-        srv, _ = start_ingest_server(port, ring, book=source.book, chaos=chaos,
-                                     degrade_stats=degrade.stats if degrade is not None else None, dirty=dirty)
+    if port or router is not None:
+        srv, _ = start_ingest_server(port, ring, book=source.book, router=router, chaos=chaos,
+                                     degrade_stats=degrade.stats if degrade is not None else None, handoff=handoff,
+                                     dirty=dirty)
     log.info("ingest plane ON: %d shards, budget %d bytes, staleness %.0f s, receiver %s; cold fits read "
              "ring columns first, misses fall back to Prometheus and backfill",
              ring.shard_count, ring.budget_bytes, ring.stale_seconds,
@@ -244,8 +276,22 @@ def cmd_worker(args: argparse.Namespace) -> int:
             )
             snap_dir = None
     if snap_dir:
+        # a restarted mesh member re-takes its seat: its ring never moves
         worker_id = _persistent_worker_id(snap_dir, worker_id)
     ingest_on = os.environ.get("FOREMAST_INGEST", "0") == "1"
+    mesh_on = os.environ.get("FOREMAST_MESH", "0") == "1"
+    membership = router = handoff = mesh_node = None
+    if mesh_on:
+        membership, router = _mesh_member(store, worker_id, chaos_plan)
+        # planned handoff: a joiner is fenced until the current owners
+        # stream it its partition, and SIGTERM drains instead of leaving
+        # state behind. It needs the receiver (the transfer endpoint), so
+        # it is wired only with FOREMAST_INGEST=1
+        if ingest_on and os.environ.get("FOREMAST_HANDOFF", "1") == "1":
+            from foremast_tpu_torch.mesh import HandoffManager
+
+            handoff = HandoffManager(route_label=router.route_label, chaos=_edge("transfer"),
+                                     breaker=degrade.breakers.get("transfer"))
     # the reactive plane: FOREMAST_MICROTICK_SECONDS > 0 turns pushed-sample
     # arrivals into micro-ticks. It needs the ingest receiver: arrivals are
     # what the receiver sees
@@ -259,13 +305,30 @@ def cmd_worker(args: argparse.Namespace) -> int:
               "staying tick-paced", file=sys.stderr)
         micro_seconds = 0.0
     if micro_seconds > 0:
-        dirty = DirtySet.from_env()
+        # with a mesh, pushes for series another member owns are counted
+        # foreign and never marked (that member's receiver marks them)
+        dirty = DirtySet.from_env(route_label=router.route_label if router is not None else "app",
+                                  owns=router.owns_series if router is not None else None)
         log.info("reactive plane ON: micro-ticks every %.3f s, %d dirty keys/tick, dirty-set cap %d",
                  micro_seconds, microtick_docs_from_env(), dirty.max_keys)
-    ingest_srv = snapshotter = None
+    ingest_srv = snapshotter = ring = None
     if ingest_on:
-        source, _, ingest_srv, snapshotter = _mount_ingest(source, args.gauge_port, snapshot_dir=snap_dir,
-                                                           chaos=_edge("receiver"), degrade=degrade, dirty=dirty)
+        source, ring, ingest_srv, snapshotter = _mount_ingest(source, args.gauge_port, snapshot_dir=snap_dir,
+                                                              chaos=_edge("receiver"), degrade=degrade, dirty=dirty,
+                                                              router=router, handoff=handoff)
+    if mesh_on:
+        from foremast_tpu_torch.mesh import MeshNode
+
+        if ingest_srv is not None:
+            # advertise where pushers and peers reach the receiver:
+            # FOREMAST_MESH_ADVERTISE (host or host:port) wins, the bound
+            # port fills the gap
+            import socket
+
+            adv_host, _, adv_port = (os.environ.get("FOREMAST_MESH_ADVERTISE") or "").partition(":")
+            membership.ingest_address = f"{adv_host or socket.gethostname()}:{adv_port or ingest_srv.server_address[1]}"
+        mesh_node = MeshNode(membership, router, ring_store=ring, handoff=handoff)
+        mesh_node.start()
 
     on_verdict = worker_metrics = None
     if args.gauge_port:
@@ -291,6 +354,7 @@ def cmd_worker(args: argparse.Namespace) -> int:
         degrade=degrade,
         metrics=worker_metrics,
         dirty=dirty,
+        mesh=mesh_node,
     )
     if snap_dir:
         # fit journals restore lazily (the first claim of each doc
@@ -315,6 +379,14 @@ def cmd_worker(args: argparse.Namespace) -> int:
         from foremast_tpu_torch.observe.spans import start_observe_server
 
         obs_srv, _ = start_observe_server(args.gauge_port, state_fn=worker.debug_state, max_port_tries=32)
+        if mesh_node is not None:
+            from foremast_tpu_torch.mesh import MeshCollector
+
+            REGISTRY.register(MeshCollector(mesh_node))
+            # co-hosted members auto-increment past a busy port: publish
+            # the one this worker got
+            mesh_node.membership.observe_port = obs_srv.server_address[1]
+            mesh_node.membership.renew(force=True)
 
         # breaker states, degraded-doc counters and injected-fault counts
         # ride the same scrape port (the worker registered the tenant
@@ -357,12 +429,31 @@ def cmd_worker(args: argparse.Namespace) -> int:
     ctx_log(log, logging.INFO, "worker started", worker_id=worker_id, device=str(worker.judge.device),
             claim_limit=args.claim_limit, snapshot_dir=snap_dir, native=native_ok,
             chaos_rules=len(chaos_plan.rules) if chaos_plan is not None else 0,
+            mesh_state=mesh_node.state if mesh_node is not None else None,
             tenants=sorted(tenancy.specs) if tenancy is not None else None)
+    stop_fn = stop_event.is_set
+    if mesh_node is not None and mesh_node.handoff is not None:
+        # planned shutdown: on the stop signal, stream this partition to
+        # the post-drain owners on a side thread while the loop KEEPS
+        # TICKING (a draining member judges its partition to the end); the
+        # loop exits once the stream landed or failed, and the finally
+        # block's drain() then only leaves
+        drain_box: list = [None]
+
+        def stop_fn() -> bool:
+            if not stop_event.is_set():
+                return False
+            t = drain_box[0]
+            if t is None:
+                t = drain_box[0] = threading.Thread(target=mesh_node.stream_drain, name="handoff-drain", daemon=True)
+                t.start()
+            return not t.is_alive()
+
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     loop_failed = False
     try:
-        worker.run(poll_seconds=args.poll, stop=stop_event.is_set, after_tick=after_tick)
+        worker.run(poll_seconds=args.poll, stop=stop_fn, after_tick=after_tick)
     except BaseException:
         loop_failed = True
         raise
@@ -378,6 +469,17 @@ def cmd_worker(args: argparse.Namespace) -> int:
         if obs_srv is not None:
             obs_srv.shutdown()
             obs_srv.server_close()
+        if mesh_node is not None:
+            # drain when the handoff plane is wired (the stream ran under
+            # the loop, so this only leaves); otherwise leave at once, so
+            # peers take the partition without waiting out the lease
+            try:
+                if mesh_node.handoff is not None and not loop_failed:
+                    mesh_node.drain()
+                else:
+                    mesh_node.close()
+            except Exception as e:  # noqa: BLE001 - see loop_failed
+                log.warning("mesh drain/leave failed: %s", e)
         if ingest_srv is not None:
             # bounded drain: in-flight pushes finish (or are abandoned as
             # daemon threads), the listen port frees at once
@@ -410,7 +512,8 @@ def cmd_worker(args: argparse.Namespace) -> int:
         ctx_log(log, logging.INFO, "worker stopped", worker_id=worker_id,
                 kernel_launches={k: v for k, v in kernels.LAUNCHES.items() if v},
                 chaos_injections=(chaos_plan.debug_state()["injections"] if chaos_plan is not None else None),
-                tenants=(worker._debug_tenants()["accounting"] if tenancy is not None else None))
+                tenants=(worker._debug_tenants()["accounting"] if tenancy is not None else None),
+                mesh=(mesh_node.debug_state() if mesh_node is not None else None))
         if snap_lock is not None:
             snap_lock.close()
     return 0

@@ -74,10 +74,14 @@ answers an injected fault as its HTTP status, and `tenancy`
 after decode, shedding the flooding tenant's batches with 429 +
 Retry-After while every other tenant's pushes pass.
 
-The JAX receiver's hooks of the worker mesh are left out of
-`start_ingest_server`'s signature: the mesh router and the peer-to-peer
-transfer endpoint (`router`, `handoff`: ROADMAP.md Queue 1 item 7). The
-CLI refuses the mesh.
+Worker mesh: with a `router` (mesh.MeshRouter) wired, a push for a
+series another member owns is accepted into this ring AND answered with
+the owner's address in the response's `redirects` map, so a mesh-aware
+pusher lands on the owner from its next cycle. With a `handoff`
+(mesh.HandoffManager) wired, `POST /api/v1/transfer` takes the crc-framed
+state a draining member or a joiner's current owners stream here; the
+body cap and the inflight shed apply to it as to pushes, and without a
+handoff plane the path answers 404.
 """
 
 from __future__ import annotations
@@ -103,6 +107,9 @@ from foremast_tpu_torch.ingest.wire import (
 log = logging.getLogger("foremast_tpu_torch.ingest")
 
 WRITE_PATH = "/api/v1/write"
+# peer-to-peer planned-handoff endpoint (mesh/handoff.py): crc-framed
+# transfer batches from a draining member or a joiner's current owners
+TRANSFER_PATH = "/api/v1/transfer"
 DEFAULT_MAX_BODY_BYTES = 8 * 1024 * 1024
 # decoded-size ceiling for the binary path: the snappy preamble / frame
 # header DECLARES the decoded size, and anything past this cap is 413'd
@@ -397,10 +404,12 @@ def start_ingest_server(
     store: RingStore,
     host: str = "0.0.0.0",
     book=None,
+    router=None,
     max_body_bytes: int | None = None,
     max_inflight: int | None = None,
     chaos=None,
     degrade_stats=None,
+    handoff=None,
     dirty=None,
     decode_workers: int | None = None,
     max_decoded_bytes: int | None = None,
@@ -408,6 +417,16 @@ def start_ingest_server(
 ):
     """Serve the push plane; returns (server, thread). Port 0 binds an
     ephemeral port (tests) — read it back from server.server_address.
+
+    `router` (mesh.MeshRouter, optional): pushes for series another mesh
+    member owns are accepted into the local ring (lossless during
+    convergence; the rebalance eviction reclaims them) AND answered with
+    the owner's advertised address in the response's `redirects` map.
+
+    `handoff` (mesh.HandoffManager, optional): mounts ``POST
+    /api/v1/transfer`` (404 without it); planned scale events stream ring
+    series and fit entries here. The body cap and the inflight shed apply
+    to transfers exactly as to pushes.
 
     `max_body_bytes` caps request bodies (413 past it); None reads
     `FOREMAST_INGEST_MAX_BODY_BYTES` (default 8 MiB).
@@ -545,6 +564,12 @@ def start_ingest_server(
                     {"Retry-After": str(int(retry))},
                 )
         t0 = time.perf_counter()
+        redirects: dict[str, str] = {}
+        if router is not None:
+            for key, _ts, _vs, _start in entries:
+                hint = router.redirect_hint(key)
+                if hint is not None:
+                    redirects[key] = hint
         # striped shard-batch apply: one lock acquisition per touched
         # shard for the whole payload (binary keys are canonical out of
         # decode_frame's interning; JSON keys canonicalize in-store)
@@ -560,6 +585,8 @@ def start_ingest_server(
         stages["apply"] = time.perf_counter() - t0
         wire_stats.record(codec, stages, samples=accepted, ok=True)
         body = {"accepted_samples": accepted, "series": len(entries)}
+        if redirects:
+            body["redirects"] = redirects
         return 200, json.dumps(body).encode()
 
     class Handler(BaseHTTPRequestHandler):
@@ -597,8 +624,11 @@ def start_ingest_server(
             # must charge for
             arrived_at = time.time()
             path = self.path.split("?", 1)[0]
-            if path != WRITE_PATH:
+            if path not in (WRITE_PATH, TRANSFER_PATH):
                 self._send(404, b'{"reason": "not found"}')
+                return
+            if path == TRANSFER_PATH and handoff is None:
+                self._send(404, b'{"reason": "no handoff plane"}')
                 return
             # shed BEFORE reading the body: under overload the cheapest
             # possible answer, and the pusher's buffer (not our heap)
@@ -657,7 +687,7 @@ def start_ingest_server(
             snappy_enc = enc == "snappy"
             peek = b""
             t_read0 = time.perf_counter()
-            if snappy_enc or codec == "binary":
+            if path == WRITE_PATH and (snappy_enc or codec == "binary"):
                 # snappy bomb guard: the DECLARED decoded size lives in
                 # the first bytes (snappy varint preamble / FMW1 frame
                 # header) — peek it and 413 before reading the rest of
@@ -693,6 +723,16 @@ def start_ingest_server(
             except OSError:
                 return  # pusher died mid-body; nothing to answer
             read_s = time.perf_counter() - t_read0
+            if path == TRANSFER_PATH:
+                # crc-framed peer transfer: the handoff plane applies it
+                # (damage degrades per record) and reports what landed
+                try:
+                    code, body = handoff.apply_transfer(raw)
+                except Exception as e:  # noqa: BLE001 - answer, don't die
+                    log.exception("handoff transfer application failed")
+                    code, body = 500, {"reason": str(e)}
+                self._send(code, json.dumps(body).encode())
+                return
             try:
                 res = pool.run(
                     lambda: decode_apply(raw, codec, snappy_enc, arrived_at, read_s)
@@ -749,6 +789,17 @@ def start_ingest_server(
                     from foremast_tpu_torch.tenant.collector import debug_tenants
 
                     state["tenants"] = debug_tenants(tenancy, accounting, governor)
+                if router is not None:
+                    # the member's view of the mesh, for hosts that serve no
+                    # gauge port (no prometheus_client): who is live in which
+                    # state, and this receiver's hint traffic
+                    state["mesh"] = {
+                        "worker_id": router.self_id,
+                        "members": {m.worker_id: m.state for m in router.members()},
+                        **router.counters,
+                    }
+                if handoff is not None:
+                    state["handoff"] = handoff.debug_state()
                 self._send(
                     200, json.dumps(state, default=str, indent=2).encode()
                 )

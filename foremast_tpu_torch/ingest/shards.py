@@ -1,9 +1,10 @@
 """Sharded, byte-budgeted resident-series store: the ring TSDB proper.
 
 The port's copy of the JAX package's `foremast_tpu/ingest/shards.py`,
-with its per-tenant ring-bytes envelopes (`_RingTenancy`). The mesh
-rebalance hook (`evict_unowned`) comes with the worker mesh, ROADMAP.md
-Queue 1 item 7.
+with its per-tenant ring-bytes envelopes (`_RingTenancy`) and the worker
+mesh's rebalance hook (`evict_unowned`: a member drops the series a
+healed ring gave to another member; `mesh/node.py` calls it on a
+membership change).
 
 `RingStore` spreads series over N `RingShard`s by key hash (crc32 —
 deterministic across processes, unlike Python's randomized `hash`).
@@ -229,8 +230,9 @@ class RingShard:
         return out
 
     # -- tenant-aware eviction --------------------------------------------
-    # These helpers run ONLY from push_many's `with self._lock:` block:
-    # the lock is not reentrant, so they cannot retake it.
+    # These helpers run ONLY inside a `with self._lock:` block (push_many's;
+    # `_pop_series` evict_unowned's too): the lock is not reentrant, so
+    # they cannot retake it.
 
     def _pop_series(self, key: str, byte_deltas: dict) -> None:
         old = self._series.pop(key)
@@ -384,6 +386,27 @@ class RingShard:
                 lo = hd[0] if t0 is None else max(t0, hd[0])
                 return "partial", ring.count_window(lo, t1), hd
             return None, 0, None
+
+    def evict_unowned(self, owns) -> int:
+        """Drop every resident series the predicate disowns: the mesh
+        rebalance hook (a healed ring moved these keys to another member,
+        and keeping their columns would spend this worker's budget on
+        series it will not be asked for again). Under tenancy the residency
+        moves, but a rebalance is no tenant's pressure: nothing is charged
+        as a tenant eviction."""
+        byte_deltas: dict[str, int] = {}
+        with self._lock:
+            doomed = [k for k in self._series if not owns(k)]
+            for k in doomed:
+                if self._tenancy is not None:
+                    self._pop_series(k, byte_deltas)
+                else:
+                    old = self._series.pop(k)
+                    self._bytes -= old.nbytes
+                    self._counts["evictions"] += 1
+        if self._tenancy is not None and byte_deltas:
+            self._tenancy.flush(byte_deltas, {})
+        return len(doomed)
 
     def snapshot_state(self) -> list[tuple]:
         """Consistent copy of every resident series for the snapshot
@@ -622,6 +645,11 @@ class RingStore:
         return self._shard(key).coverage(
             key, t0, t1, now, step, self.stale_seconds
         )
+
+    def evict_unowned(self, owns) -> int:
+        """Drop resident series `owns(key)` rejects (mesh rebalance);
+        returns how many were evicted across all shards."""
+        return sum(s.evict_unowned(owns) for s in self._shards)
 
     def stats(self) -> dict:
         out = {"series": 0, "bytes": 0}

@@ -112,6 +112,13 @@ class JobStore:
         """Open (non-terminal) document count — the queue-depth varz."""
         return len(self.list_open())
 
+    def list_app(self, app_name: str) -> list[Document]:
+        """Every open document of one app: mesh membership discovery (the
+        member records share one app). Stores with a server-side query
+        override it, because a fleet-sized list_open page can starve out a
+        handful of member records."""
+        return [d for d in self.list_open() if d.app_name == app_name]
+
 
 def _is_claimable(doc: Document, now: float, max_stuck: float) -> bool:
     if doc.status in (STATUS_INITIAL, STATUS_PREPROCESS_COMPLETED):
@@ -185,6 +192,12 @@ class InMemoryStore(JobStore):
     def list_open(self):
         with self._lock:
             return [d for d in self._docs.values() if d.status not in TERMINAL_STATUSES]
+
+    def list_app(self, app_name: str) -> list[Document]:
+        # one filtered pass, not list_open(): the router refreshes
+        # membership every few seconds against a fleet-sized store
+        with self._lock:
+            return [d for d in self._docs.values() if d.app_name == app_name and d.status not in TERMINAL_STATUSES]
 
 
 # Explicit mapping for the `documents` index. The claim query depends on

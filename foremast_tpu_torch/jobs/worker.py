@@ -38,8 +38,12 @@ preemption point between slices.
 Tenancy (`FOREMAST_TENANTS`, `tenant.get_tenancy`): with two or more
 tenants the sweep pool serves slices deficit-weighted across tenants,
 every claim is charged to its documents' tenants, and the verdict-latency
-histogram carries each doc's bounded `tenant` label. Not here yet: the
-worker mesh (ROADMAP.md Queue 1 item 7).
+histogram carries each doc's bounded `tenant` label.
+
+The worker mesh (`mesh=`, a `mesh.MeshNode`): every claim cycle renews
+the member's lease and refreshes its rings, the claim takes only the
+member's partition, and a planned join or drain moves the fit caches with
+the partition (`attach_handoff`).
 """
 
 from __future__ import annotations
@@ -433,6 +437,7 @@ class BrainWorker:
         degrade: Degradation | None = None,
         metrics=None,  # observe.gauges.WorkerMetrics (optional)
         dirty=None,  # reactive.DirtySet (optional: the micro-tick plane)
+        mesh=None,  # mesh.MeshNode (optional: fleet partitioning)
     ):
         """`band_mode` controls how much of the model band each verdict
         carries back from the device: "last" (default — only the final
@@ -594,10 +599,12 @@ class BrainWorker:
         # stamp map; every judged doc whose route key is pending observes
         # the push->verdict latency (foremast_verdict_latency_seconds).
         self.dirty = dirty
-        # the base claim filter (doc -> bool): the mesh's partition filter
-        # once ROADMAP.md Queue 1 item 7 sets it, None until then; a
+        # Worker mesh (mesh/node.py): every claim cycle renews this worker's
+        # lease and refreshes its rings, and the base claim filter (doc ->
+        # bool) is the mesh's partition filter, None without a mesh; a
         # micro-tick's dirty-key restriction composes with it
-        self.claim_filter = None
+        self.mesh = mesh
+        self.claim_filter = mesh.claim_filter if mesh is not None else None
         self.microtick_seconds = microtick_seconds_from_env()
         self.microtick_docs = microtick_docs_from_env()
         self._ledger = _TickLedger("sweep")
@@ -629,6 +636,10 @@ class BrainWorker:
             # ride along); idempotent across co-registered workers
             if self.metrics is not None:
                 register_collector(getattr(self.metrics, "registry", None), self._tenant_acct)
+        # a mesh node carrying a handoff plane moves this worker's fit
+        # caches with its partition on planned scale events
+        if mesh is not None and getattr(mesh, "handoff", None) is not None:
+            self.attach_handoff(mesh.handoff)
 
     # -- preprocess: document -> MetricTasks ----------------------------
 
@@ -1049,6 +1060,24 @@ class BrainWorker:
             log.info("fit persistence: restored %s from %s (lazy rehydration)", restored, directory)
         return restored
 
+    def attach_handoff(self, handoff) -> None:
+        """Register this worker's fit caches with the mesh handoff plane:
+        the caches `enable_fit_persistence` journals, because what must
+        survive a restart and what must move with a partition are the same
+        state (the univariate fits and their gap anchors, the refine book,
+        the joint entries and their warm metadata). The device arena is not
+        transferred: it rehydrates row by row from the moved fits on the new
+        owner's first claim."""
+        handoff.register_caches(
+            {
+                "fits": self._fit_cache,
+                "gaps": self._gap_meta,
+                "refine": self._refine_book,
+                "joint": self._mvj.cache,
+                "jmeta": self._mvj.joint_meta,
+            }
+        )
+
     def attach_ring_snapshotter(self, snapshotter) -> None:
         """Expose an ingest.snapshot.RingSnapshotter on /debug/state
         and fold its cadence into the tick loop (`_maybe_persist`)."""
@@ -1084,11 +1113,11 @@ class BrainWorker:
         book = self._refine_book
         if not len(book) or self._ring_hist is None:
             return 0
-        if getattr(self, "mesh", None) is not None and getattr(self.mesh, "draining", False):
-            # a draining mesh member streams its fits to the new owners; an
-            # invalidation now would hand them a hole. The port has no
-            # worker mesh yet (ROADMAP.md Queue 1 item 7), so this never
-            # fires
+        if self.mesh is not None and getattr(self.mesh, "draining", False):
+            # a draining mesh member streams its fits to the new owners: an
+            # invalidation now would hand them a hole to cold-refit. The
+            # refine book moves with the handoff, so the new owner resumes
+            # the pacing instead
             return 0
         probe = getattr(self.source, "hist_coverage", None)
         if probe is None:
@@ -2470,6 +2499,10 @@ class BrainWorker:
         degrading a transient store failure to an empty cycle with the
         pending arrivals requeued un-spent."""
         claim_kw = {}
+        if self.mesh is not None:
+            # idle ticks renew too: the lease must outlive quiet fleets
+            # (lease and refresh timing run on the mesh's own clocks)
+            self.mesh.on_tick()
         if self.claim_filter is not None:
             claim_kw["claim_filter"] = self.claim_filter
         if micro is not None:
@@ -2880,6 +2913,10 @@ class BrainWorker:
             # per-tenant shed/eviction/claim/ring-byte attribution ledger;
             # None when the worker runs untenanted
             "tenants": self._debug_tenants(),
+            # worker mesh (FOREMAST_MESH=1): live members with their states
+            # and lease ages, claim-filter counts, redirect hints and the
+            # handoff plane; None without a mesh
+            "mesh": self.mesh.debug_state() if self.mesh is not None else None,
             # fit-journal and ring-snapshot counters; None when ephemeral
             "durability": (
                 {

@@ -40,9 +40,9 @@ Thread-safety: receiver handler threads mark while the worker's tick
 thread takes and requeues; everything sits behind one leaf lock (the
 ownership probe runs BEFORE the lock is taken).
 
-The route keys are the JAX worker mesh's (`foremast_tpu/mesh/routing.py`
-`series_route_key` / `doc_route_key`, kept here as the port's copy; the
-mesh itself is ROADMAP.md Queue 1 item 7). With two or more tenants
+The route keys are the worker mesh's (`series_route_key` /
+`doc_route_key`, which `mesh/routing.py` re-exports); the CLI wires the
+mesh router's `owns_series` as the ``owns`` predicate. With two or more tenants
 configured (`tenancy=`), `take` serves tenants deficit-weighted instead
 of strictly oldest-first.
 """

@@ -12,12 +12,13 @@ same plan gives both workers the same statuses: a store outage over a
 warm tick's writes goes to write-behind and replays exactly once (the
 sliced sweep's writer thread included), a seeded Prometheus error rate
 releases documents without making them terminal, and the receiver
-answers the rule's status.
-
-The JAX cases of the ``transfer`` and ``clock`` edges (planned handoff
-and mesh membership, ROADMAP.md Queue 1 item 7) and of ``kube`` (the
-watch plane, item 8) have no port counterpart yet: a plan naming them
-parses and its rules count nothing."""
+answers the rule's status. On the mesh's two edges, a blackholed
+``transfer`` abandons the handoff with JAX's injections and counters and
+the joiner activates at its deadline, the edge's breaker fails fast once
+open, and a ``clock`` skew moves lease expiry as it does in the JAX
+package. The JAX cases of ``kube`` (the watch plane, ROADMAP.md Queue 1
+item 8) have no port counterpart yet: a plan naming it parses and its
+rules count nothing."""
 
 from __future__ import annotations
 
@@ -209,8 +210,7 @@ def test_chaos_from_env_inline_file_and_unset(tmp_path, monkeypatch):
                 mod.chaos_from_env({"FOREMAST_CHAOS_PLAN": raw})
 
 
-@pytest.mark.parametrize("edge,item", [("transfer", "item 7"), ("clock", "item 7"), ("kube", "item 8")],
-                         ids=["transfer-item7", "clock-item7", "kube-item8"])
+@pytest.mark.parametrize("edge,item", [("kube", "item 8")], ids=["kube-item8"])
 def test_unwired_edges_parse_and_count_nothing(edge, item):
     """The port wires no client to these edges yet (`item`): a plan that
     names them parses, and a worker tick under it injects nothing."""
@@ -224,6 +224,117 @@ def test_unwired_edges_parse_and_count_nothing(edge, item):
     assert plan.injections_snapshot() == {}
     assert w.debug_state()["degradation"]["chaos"]["rules"] == 1
     w.close()
+
+
+MESH = {"jax": "foremast_tpu.mesh", "port": "foremast_tpu_torch.mesh"}
+
+
+def _mesh(name: str):
+    import importlib
+
+    return importlib.import_module(MESH[name])
+
+
+class _OneFit:
+    def persistable_snapshot(self):
+        return {("ma", 0, "appA|m0|http://x"): {"mu": 1.0}}
+
+
+class _ToJoiner:
+    def transfer_target(self, route_key):
+        return "w-j"
+
+
+def test_blackholed_transfer_degrades_to_cold_refit_not_deadlock():
+    """`tests/test_chaos.py`'s blackholed transfer through both packages: the
+    handoff is abandoned and counted (never wedged), the same faults are
+    injected call for call, the backoff sleeps between them, and the fenced
+    joiner activates at its deadline."""
+    out = {}
+    for name, pkg in PACKAGES.items():
+        mesh = _mesh(name)
+        plan = pkg.FaultPlan(rules=({"edge": "transfer", "error_rate": 1.0, "kind": "timeout"},), seed=77
+                             ).activate(now=0.0)
+        degrade = pkg.Degradation(chaos_plan=plan)
+        t = [1000.0]
+        slept = []
+        h = mesh.HandoffManager(deadline_seconds=30.0, retries=1, backoff_seconds=0.1, chaos=plan.edge("transfer"),
+                                breaker=degrade.breakers.get("transfer"), clock=lambda t=t: t[0],
+                                sleep=slept.append, rng=__import__("random").Random(5))
+        h.register_caches({"fits": _OneFit()})
+        ok = h.send_to(mesh.MemberRecord(worker_id="w-j", ingest_address="127.0.0.1:1"), _ToJoiner(), "w-s")
+        h2 = mesh.HandoffManager(deadline_seconds=30.0, clock=lambda t=t: t[0])
+        h2.begin_join({"w-s"})
+        fenced = h2.join_ready({"w-s"})
+        t[0] = 1031.0
+        out[name] = (ok, h.counters_snapshot(), plan.injections_snapshot(), slept, fenced, h2.join_ready({"w-s"}),
+                     degrade.debug_state()["breakers"]["transfer"]["state"])
+    assert out["port"] == out["jax"]
+    ok, counters, injected, slept, fenced, ready, _ = out["port"]
+    assert ok is False and counters["send"] == {"ok": 0, "failed": 1, "rejected": 0}
+    assert injected.get(("transfer", "timeout"), 0) >= 1 and slept
+    assert fenced is False and ready is True
+
+
+def test_transfer_breaker_fails_fast_once_open():
+    br = T.CircuitBreaker("transfer", failure_threshold=2, open_seconds=60.0)
+    h = _mesh("port").HandoffManager(deadline_seconds=5.0, retries=0, backoff_seconds=0.0, breaker=br,
+                                     sleep=lambda s: None)
+    h.register_caches({"fits": _OneFit()})
+    rec = _mesh("port").MemberRecord(worker_id="w-j", ingest_address="127.0.0.1:1")
+    calls = [0]
+
+    def refused(address, body):
+        br.allow()
+        calls[0] += 1
+        try:
+            raise ConnectionRefusedError("no receiver")
+        except Exception:
+            br.record_failure()
+            raise
+
+    h._post = refused
+    assert h.send_to(rec, _ToJoiner(), "w-s") is False
+    assert h.send_to(rec, _ToJoiner(), "w-s") is False
+    assert br.state == "open"
+    before = calls[0]
+    assert h.send_to(rec, _ToJoiner(), "w-s") is False
+    assert calls[0] == before and h.counters_snapshot()["send"]["failed"] == 3
+
+
+def test_membership_lease_under_clock_skew_matches_jax():
+    """The ``clock`` edge's skewed clock as a mesh member's: a renewing
+    member stays live to a reader skewed by under 2/3 of the lease, a
+    member whose clock is skewed back past its lease looks dead, and the
+    JAX package decides every step alike."""
+    from foremast_tpu.jobs.store import InMemoryStore as JaxStore
+    from foremast_tpu_torch.jobs.store import InMemoryStore as PortStore
+
+    stores = {"jax": JaxStore, "port": PortStore}
+    lease = 12.0
+    seen = {}
+    for name, pkg in PACKAGES.items():
+        mesh = _mesh(name)
+        now = [0.0]
+        wall = [1000.0]
+        plan = pkg.FaultPlan(rules=({"edge": "clock", "after": 20.0, "duration": 30.0, "skew_seconds": -7.5},
+                                    {"edge": "clock", "after": 60.0, "skew_seconds": -13.0}),
+                             clock=lambda now=now: now[0]).activate()
+        skewed = plan.edge("clock").clock(base=lambda wall=wall: wall[0])
+        store = stores[name]()
+        member = mesh.Membership(store, "w-m", lease_seconds=lease, clock=skewed)
+        member.join()
+        steps = []
+        for _ in range(40):
+            now[0] += 2.0
+            wall[0] += 2.0
+            member.renew()
+            steps.append([m.worker_id for m in mesh.live_members(store, now=wall[0])])
+        seen[name] = steps
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][5] == ["w-m"]  # before any skew
+    assert all(s == ["w-m"] for s in seen["port"][10:25])  # 7.5 s back: under 2/3 of the lease
+    assert seen["port"][-1] == []  # 13 s back: past the lease, the member reads as dead
 
 
 def test_degradation_debug_state_chaos_section():

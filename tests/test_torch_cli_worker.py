@@ -12,7 +12,8 @@ receiver marks each push dirty and micro-ticks judge the pushed fleet
 between sweeps. Under `FOREMAST_CHAOS_PLAN` and `FOREMAST_TENANTS` it
 injects the plan's faults, degrades through them and still judges the
 fleet, with the chaos and tenant sections on `/debug/state` and their
-families on `/metrics`. Modes the port does not have are refused with
+families on `/metrics`. With `FOREMAST_MESH=1` it seats itself in the
+worker mesh and shows it on `/debug/state`. Modes the port does not have are refused with
 `NotImplementedError`. Every subprocess has its own timeout of at most
 60 s."""
 
@@ -170,17 +171,74 @@ def test_connect_deadline_exits_loudly(tmp_path):
     "flag,env,item",
     [
         (["--sharded"], {}, "item 7"),
-        ([], {"FOREMAST_MESH": "1"}, "item 7"),
         ([], {"FOREMAST_LOCK_WITNESS": "1"}, "item 8"),
         ([], {"FOREMAST_RECOMPILE_WITNESS": "1"}, "item 8"),
     ],
-    ids=["sharded", "mesh", "lock_witness", "recompile_witness"],
+    ids=["sharded", "lock_witness", "recompile_witness"],
 )
 def test_unported_modes_are_refused(flag, env, item):
     proc = _start(["--device", "cpu", "--gauge-port", "0", *flag], env)
     _, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
     assert "NotImplementedError" in err and f"Queue 1 {item}" in err
+
+
+def test_mesh_worker_joins_claims_and_shows_the_mesh(services, tmp_path):
+    """FOREMAST_MESH=1 is no longer refused: the worker takes a seat in the
+    store (a `mesh::<id>` member record), claims its partition (the whole
+    fleet, alone) to the JAX worker's statuses, shows the mesh section on
+    /debug/state, and leaves its seat on SIGTERM."""
+    import json
+    import urllib.request
+
+    es, es_url, prom, docs, want = services
+    es.load(docs)
+    gauge = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), FOREMAST_MESH="1", FOREMAST_MESH_LEASE_SECONDS="30",
+               FOREMAST_MESH_ROUTE_LABEL="app")
+    log_path = tmp_path / "worker.err"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "foremast_tpu_torch", "worker", "--device", "cpu", "--elastic-url", es_url,
+             "--gauge-port", str(gauge), "--poll", "0.2"],
+            cwd=str(ROOT), env=env, stdout=subprocess.DEVNULL, stderr=log, text=True,
+        )
+    try:
+        deadline = time.monotonic() + 60
+        got = None
+        while time.monotonic() < deadline and proc.poll() is None:
+            fleet = {k: d for k, d in es.sources().items() if d.get("appName") != "__foremast_mesh__"}
+            if fleet and all(d.get("status") in TERMINAL_STATUSES for d in fleet.values()):
+                got = {k: {f: d.get(f) for f in FIELDS} for k, d in fleet.items()}
+                break
+            time.sleep(0.1)
+        while True:
+            # the router re-lists members every 2 s: the record the worker
+            # renewed with its observe port shows on the next refresh
+            state = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{gauge}/debug/state", timeout=10).read())
+            if state["mesh"]["members"][0]["observe_port"] == gauge or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        text = _scrape(gauge)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+    err = log_path.read_text()
+    seats = {k: d for k, d in es.sources().items() if d.get("appName") == "__foremast_mesh__"}
+    with es.lock:  # the module's other tests share this fake index
+        for k in seats:
+            es.docs.pop(k)
+    assert rc == 0, err[-4000:]
+    assert got == want, err[-4000:]
+    mesh = state["mesh"]
+    assert mesh["state"] == "active" and mesh["live_members"] == 1 and mesh["route_label"] == "app"
+    assert mesh["members"][0]["worker_id"] == mesh["worker_id"] == state["worker_id"]
+    assert mesh["members"][0]["observe_port"] == gauge
+    assert mesh["claim_docs"]["owned"] >= SERVICES and mesh["claim_docs"]["skipped"] == 0
+    assert mesh["handoff"] is None  # no receiver, no transfer endpoint: no handoff plane
+    assert 'foremast_mesh_members{state="active"} 1.0' in text
+    assert [d["status"] for d in seats.values()] == ["mesh_left"]  # a clean leave on SIGTERM
+    assert json.loads(next(iter(seats.values()))["currentConfig"])["workerId"] == mesh["worker_id"]
 
 
 def test_chaos_plan_and_tenants_run(services, tmp_path):
@@ -233,7 +291,7 @@ def test_chaos_plan_and_tenants_run(services, tmp_path):
     chaos = state["degradation"]["chaos"]
     assert chaos["seed"] == 5 and chaos["rules"] == 2
     assert chaos["injections"].get("prometheus/connection", 0) > 0
-    assert "transfer/connection" not in chaos["injections"]  # no client asks for that edge yet
+    assert "transfer/connection" not in chaos["injections"]  # no mesh here: nothing asks for that edge
     assert state["degradation"]["docs"].get("fetch_released", 0) > 0
     assert set(state["tenants"]["registry"]["configured"]) == {"default", "acme"}
     assert state["tenants"]["accounting"]["default"]["claims"] >= SERVICES

@@ -323,18 +323,14 @@ class _StubMesh:
 
 def test_micro_tick_composes_with_a_base_claim_filter():
     """A dirty key whose doc the base claim filter rejects is never
-    claimed, and its arrival is dropped as unattributed, not leaked: the
-    port's plain `claim_filter` composes as the JAX worker's mesh
-    partition filter does."""
+    claimed, and its arrival is dropped as unattributed, not leaked: both
+    workers compose their mesh's partition filter with the dirty-key
+    restriction alike."""
     got = []
     for pkg, cls in (("jax", JaxDirty), ("port", DirtySet)):
         store, ring, keys, _, _ = push_fleet(pkg, 2)
         dirty = cls()
-        if pkg == "jax":
-            w = _worker(pkg, store, ring, 2, dirty=dirty, mesh=_StubMesh({"app0"}))
-        else:
-            w = _worker(pkg, store, ring, 2, dirty=dirty)
-            w.claim_filter = lambda d: d.app_name != "app0"  # the mesh's filter, once item 7 sets it
+        w = _worker(pkg, store, ring, 2, dirty=dirty, mesh=_StubMesh({"app0"}))
         dirty.mark_series(keys[0], now=NOW)
         dirty.mark_series(keys[1], now=NOW)
         assert w.micro_tick(now=NOW + 150) == 1

@@ -228,8 +228,8 @@ def test_refinement_settles_without_growth():
 
 def _lose_series(ring, key) -> None:
     """The ring loses one series, as a rebalance or budget eviction drops
-    it (JAX's `RingStore.evict_unowned`; the port's mesh hook is ROADMAP.md
-    Queue 1 item 7)."""
+    it (`RingStore.evict_unowned` in both packages, the mesh's rebalance
+    hook)."""
     shard = ring._shard(key)
     with shard._lock:
         old = shard._series.pop(key)
