@@ -208,8 +208,31 @@ Phases; any failure exits non-zero:
      FOREMAST_INGEST=1 judge 256 pushed docs together (both members on the
      first receiver's /debug/state), and after SIGTERM the second drains
      to the first, which judges the whole fleet on the warm path.
+ 12. the device mesh of one process (foremast_tpu_torch/parallel/): on
+     one card the mesh is the card listed 4 times (a one-card mesh; its
+     times are the per-block overhead on one card, not the scaling of
+     several cards): (a) phase 6's fleet (4,096 docs x 4 aliases) through
+     a sharded-arena mesh worker, a replicated-arena one
+     (FOREMAST_ARENA_SHARDED=0) and the single-device worker, phase 6's
+     ticks (cold, warm, spiked warm, f32 cold of 1,024 docs): writes,
+     hook bands and fit-key sets equal in bytes, every sharded arena 4
+     blocks of capacity/4 rows, the f32 cold tick's masked_stats
+     launches 4x the single worker's; padded-row fraction, placement and
+     fetch seconds and bytes, each tick beside the single worker's; (b)
+     ShardedJudge.judge without a fit cache on 4,096 tasks (ma_judgment)
+     and a bf16-delta batch placed by it (ma_judgment_bf16_delta), equal
+     to the single judge, one launch a block; (c) the sharded worker's
+     warm columnar dispatch behind a busy kernel under
+     set_sync_debug_mode("error"), its device operations beside the
+     single device's; (d) 256 joint docs (bivariate and LSTM, m=1440)
+     through the sharded joint arenas, writes equal the single worker's
+     given the trained entries; (e) score_time_sharded over a 1 x 4 mesh
+     at B=4,096, Th=40,320 (moving_average_all, phase_means at m=1440)
+     against scoring.score and fit_forecast + score_from_state on one
+     device, sharded_ewma against ewma_levels. With more than one card,
+     (a) and (c) run again over every card.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
-7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11) and read just after its checked calls, so they
+7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11, 12) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phases
 6 and 9) only the f32 cold fit launches a kernel (masked_stats); the seasonal
 fits launch holt_winters_scan (Holt-Winters, and auto_univariate at m <=
@@ -225,7 +248,7 @@ short first call after a kernel change. `python3 chip_smoke.py
 `--tenants-only` phase 10 alone, with two arms more in 10(a) that part
 tenancy's costs: the same tenants without the arena envelope, and the
 arenas' host seconds of `assign` and `scatter` in each sweep.
-`--mesh-only` runs phase 11 alone.
+`--mesh-only` runs phase 11 alone, `--device-mesh-only` phase 12 alone.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -848,7 +871,7 @@ def run_fit_cache_ticks(judge, tasks, cur, base, n_f32: int) -> dict:
         if cuda:
             torch.cuda.set_sync_debug_mode(0)
     out["dispatch_s"] = time.perf_counter() - t0
-    out["done_at_return"] = pending.dev.event.query() if cuda else True
+    out["done_at_return"] = pending.dev.done()
     box = []
     waiter = threading.Thread(target=lambda: box.append(pending.wait()))
     waiter.start()
@@ -1139,7 +1162,7 @@ def slice_env(n: int | None):
 
 
 def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: bool = True,
-                     slice_docs: int | None = 0, hook=None) -> dict:
+                     slice_docs: int | None = 0, hook=None, device_mesh=None) -> dict:
     """On one port worker over its own store (copies of `docs`) and
     source: (a) cold tick, (b) warm tick, (c) warm tick with the last 3
     latency points of every 16th doc spiked; then (d) the f32 cold tick of
@@ -1150,7 +1173,10 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
     FOREMAST_SWEEP_SLICE_DOCS for the workers (None: unset, the default
     2,048; 0: the monolithic tick); a sliced worker on the card dispatches
     its columnar programs under set_sync_debug_mode("error"). `hook(worker,
-    store)`, if given, runs on the main worker before its first tick."""
+    store)`, if given, runs on the main worker before its first tick.
+    `device_mesh` is the workers' (phase 12 passes a mesh, or None for
+    the single-device judge). Each tick records the kernel launches it
+    made."""
     import gc
 
     import torch
@@ -1158,6 +1184,7 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
     from foremast_tpu_torch.config import BrainConfig
     from foremast_tpu_torch.engine import scoring
     from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.ops import kernels as K
 
     cuda = torch.device(device).type == "cuda"
 
@@ -1173,7 +1200,7 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
         with slice_env(slice_docs):
             worker = BrainWorker(
                 store, array_source(data), config=cfg, device=device,
-                claim_limit=len(doc_json), worker_id=f"smoke-{device}", tracer=tr,
+                claim_limit=len(doc_json), worker_id=f"smoke-{device}", tracer=tr, device_mesh=device_mesh,
             )
         return worker, store
 
@@ -1233,6 +1260,7 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
         calls.clear()
         host.clear()
         versions = (w._fit_cache.version, w._uni.device_state_counters()["misses"])
+        launches = dict(K.LAUNCHES)
         gc_acc[0] = 0.0
         sync()
         gc.callbacks.append(gc_timer)
@@ -1250,6 +1278,7 @@ def run_worker_ticks(device, docs, data, latency, t_now: int, tracer=None, f32: 
             scattered=w._uni.device_state_counters()["misses"] - versions[1],
             stages=dict(tracer.last_stage_seconds) if tracer is not None and w is worker else None,
             fast=dict(w._fast_kinds), sweep=dict(w._last_sweep) if w._last_sweep else None,
+            launched={k: K.LAUNCHES[k] - v for k, v in launches.items()},
         )
 
     tick("a", t_now + 150)
@@ -4238,7 +4267,7 @@ def phase_joint_worker(dev, smi: str) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode(0)
         dispatch_s = time.perf_counter() - t1
-        done = pending.dev.event.query()
+        done = pending.dev.done()
         flags = pending.wait()
         busy_ms = busy[0].elapsed_time(busy[1])
         check(not done and dispatch_s * 1e3 < busy_ms,
@@ -4266,9 +4295,10 @@ def phase_joint_worker(dev, smi: str) -> dict:
     return {"seconds": {k: out[k]["seconds"] for k in "abc"}, "fleet": (docs, data, t_now)}
 
 
-def joint_worker(doc_json, data, device, tracer=None):
+def joint_worker(doc_json, data, device, tracer=None, device_mesh=None):
     """A BrainWorker under `auto` (threshold 4.0) over a fresh in-memory
-    store of `doc_json`, fetching from the in-memory series `data`."""
+    store of `doc_json`, fetching from the in-memory series `data`, its
+    judge over `device_mesh`."""
     import dataclasses
 
     from foremast_tpu_torch.config import BrainConfig
@@ -4290,7 +4320,7 @@ def joint_worker(doc_json, data, device, tracer=None):
     cfg = BrainConfig(algorithm="auto", max_cache_size=4 * len(doc_json) + 64)
     cfg = dataclasses.replace(cfg, anomaly=dataclasses.replace(cfg.anomaly, threshold=4.0))
     return BrainWorker(store, ArraySource(data), config=cfg, device=device, claim_limit=len(doc_json),
-                       worker_id=f"joint-{device}", tracer=tracer), store
+                       worker_id=f"joint-{device}", tracer=tracer, device_mesh=device_mesh), store
 
 
 def profile_joint_cold_tick(dev, fleet, top: int = 10) -> None:
@@ -5704,6 +5734,525 @@ def phase_mesh(dev, smi: str) -> dict:
     return dict(arms=arms, ingest=ingest, cli=cli)
 
 
+# -- phase 12: the device mesh of one process -----------------------------------
+
+MESH_BLOCKS = 4  # data-axis blocks of phase 12's meshes (the one card listed 4 times)
+MESH_WORKER_DOCS = WORKER_DOCS  # (a): phase 6's fleet, 4,096 docs x 4 aliases
+MESH_OBJ_TASKS = FLEET  # (b): 4,096 tasks on the object path
+MESH_JOINT_DOCS = 256  # (d): 128 bivariate + 128 LSTM docs at m=1440
+CP_B, CP_TH = 4096, 40320  # (e): 28 days at 1-minute steps, over a 1 x 4 mesh
+CP_EWMA_B = 512  # (e): rows of sharded_ewma against ewma_levels
+CP_TOL = {"upper": 1e-4, "season": 2e-4, "level": 2e-4, "scale": 2e-3, "ewma": 2e-4}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The launches inside are a single-device reference's, not the mesh
+    path's: the counts are restored after (a check inside still reads
+    its own deltas)."""
+    from foremast_tpu_torch.ops import kernels as K
+
+    saved = dict(K.LAUNCHES)
+    try:
+        yield
+    finally:
+        K.LAUNCHES.update(saved)
+
+
+def card_ops(fn):
+    """(fn(), device operations it issued): aten calls that are not views
+    (each one kernel or copy at most), plus the hand-written kernels'
+    launches. An upper bound of the launches of a dispatch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from foremast_tpu_torch.ops import kernels as K
+
+    n = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not getattr(func, "is_view", False):
+                n[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    before = dict(K.LAUNCHES)
+    with Count():
+        out = fn()
+    return out, n[0] + sum(K.LAUNCHES[k] - v for k, v in before.items())
+
+
+def mesh_recorder(rec: dict):
+    """`run_worker_ticks` hook: keep the worker, record every verdict's
+    bands as bytes (on_verdict), and every columnar dispatch's call."""
+
+    def hook(worker, store):
+        rec["worker"] = worker
+        bands = rec["bands"] = []
+        calls = rec["calls"] = []
+
+        def on_verdict(doc, verdicts):
+            bands.extend(
+                (doc.id, v.alias, int(v.verdict), tuple(v.anomaly_pairs),
+                 np.asarray(v.upper, np.float32).tobytes(), np.asarray(v.lower, np.float32).tobytes())
+                for v in verdicts
+            )
+
+        worker.on_verdict = on_verdict
+        orig = worker._uni.judge_columnar_async
+        worker._uni.judge_columnar_async = lambda *a, **kw: calls.append((a, kw)) or orig(*a, **kw)
+
+    return hook
+
+
+def mesh_worker_arm(dev, mesh, docs, data, latency, t_now: int, single=None) -> dict:
+    """12(a): the sharded-arena worker and the replicated one over `mesh`,
+    and (unless given) the single-device worker, through phase 6's ticks;
+    writes, hook bands and fit-key sets equal in bytes, arena blocks of
+    capacity / n_data rows, f32 cold masked_stats launches n_data times
+    the single worker's."""
+    import torch
+
+    from foremast_tpu_torch.models.cache import is_pad_fit_key
+    from foremast_tpu_torch.parallel import mesh as meshlib
+    from foremast_tpu_torch.parallel.mesh import Blocks, tree_leaves
+
+    n = mesh.shape["data"]
+    runs = {}
+    arms = [("sharded", mesh, "1"), ("replicated", mesh, "0")]
+    if single is None:
+        arms.append(("single", None, "1"))
+    else:
+        runs["single"] = single
+    for name, m, sharded in arms:
+        os.environ["FOREMAST_ARENA_SHARDED"] = sharded
+        rec = {}
+        try:
+            with uncounted() if m is None else contextlib.nullcontext():
+                ticks = run_worker_ticks(dev, docs, data, latency, t_now, hook=mesh_recorder(rec), device_mesh=m)
+        finally:
+            os.environ.pop("FOREMAST_ARENA_SHARDED", None)
+        w = rec.pop("worker")
+        rec["fit_keys"] = sorted(repr(k) for k in w._fit_cache._d if not is_pad_fit_key(k))
+        rec["mesh"] = w._device_mesh_state()
+        rec["arenas"] = [(a.shards, a.cap, a.cap_s, [[p.shape[0] for p in leaf.parts] if isinstance(leaf, Blocks)
+                          else [leaf.shape[0]] for leaf in tree_leaves(a.state)]) for a in w._uni._arenas.values()]
+        rec["judge"] = w._uni
+        rec["ticks"] = ticks
+        runs[name] = rec
+    ref = runs["single"]
+    for name in ("sharded", "replicated"):
+        got = runs[name]
+        for t in "abcd":
+            diff = [k for k, v in ref["ticks"][t]["written"].items() if got["ticks"][t]["written"].get(k) != v]
+            check(not diff, f"12(a) {name} tick ({t}): {len(diff)} docs differ from the single worker, e.g. {diff[:2]}")
+        check(sorted(got["bands"]) == sorted(ref["bands"]), f"12(a) {name}: the hook verdicts or bands differ")
+        check(got["fit_keys"] == ref["fit_keys"], f"12(a) {name}: the fit-cache keys differ")
+        ms = got["ticks"]["d"]["launched"]["masked_stats"]
+        want = n * ref["ticks"]["d"]["launched"]["masked_stats"]
+        check((ms == want and ms > 0) or torch.device(dev).type == "cpu",
+              f"12(a) {name}: the f32 cold tick launched masked_stats {ms} times, want {want}")
+        check(got["mesh"] is not None and got["mesh"]["pad_rows_total"] >= 0 and got["mesh"]["place_calls"] > 0,
+              f"12(a) {name}: no device-mesh state {got['mesh']}")
+    # block i's part is its device's buffer: the device's blocks of
+    # capacity/n rows each, end to end (all n on a one-card mesh)
+    _, part, _ = meshlib.device_slots(mesh.data_devices)
+    held = [part.count(p) for p in part]
+    for shards, cap, cap_s, leaves in runs["sharded"]["arenas"]:
+        check(shards == n and cap == n * cap_s and all(parts == [k * cap_s for k in held] for parts in leaves),
+              f"12(a) a sharded arena is not {n} blocks of capacity/{n} rows: {cap}, {cap_s}, {leaves[:2]}")
+    for shards, cap, _, leaves in runs["replicated"]["arenas"]:
+        check(shards == 1 and all(parts == [cap] * n for parts in leaves),
+              f"12(a) a replicated arena is not a whole replica per device: {cap}, {leaves[:2]}")
+    spiked = ref["ticks"]["spiked"]
+    unhealthy = [k for k, v in ref["ticks"]["c"]["written"].items() if json.loads(v)[0] == "completed_unhealth"]
+    check(sorted(unhealthy) == sorted(spiked), f"12(a) the spiked tick flagged {len(unhealthy)} docs, want "
+                                                f"{len(spiked)}")
+    return runs
+
+
+def report_worker_arm(label: str, runs: dict, smi: str) -> None:
+    ref = runs["single"]["ticks"]
+    for name in ("sharded", "replicated"):
+        r = runs[name]
+        dm = r["mesh"]
+        print(f"phase 12: (a) {label}, {name} arena: ticks (cold, warm, spiked warm, f32 cold of {F32_DOCS} docs) "
+              + ", ".join(f"{r['ticks'][t]['seconds']:.3f} s (single {ref[t]['seconds']:.3f})" for t in "abcd")
+              + f"; padded-row fraction {dm['padded_row_fraction']}, place {dm['place_seconds']} s / "
+              f"{dm['place_bytes']} B in {dm['place_calls']} calls, fetch {dm['fetch_seconds']} s / "
+              f"{dm['fetch_bytes']} B; arena {dm['arena_layout']}, {dm['arena_capacity_rows']} rows "
+              f"(blocks x rows a block: {[(a[0], a[2]) for a in r['arenas']]}), {dm['arena_replica_bytes']} B a "
+              f"block; f32 cold masked_stats launches "
+              f"{r['ticks']['d']['launched']['masked_stats']} (single {ref['d']['launched']['masked_stats']}) "
+              f"on {'; '.join(smi.splitlines())}")
+
+
+def mesh_dispatch_arm(dev, label: str, runs: dict) -> dict:
+    """12(c): the sharded worker's warm columnar dispatches (each bucket
+    of its last tick: the plain one and the canary one with the rank
+    tests) again, behind a busy kernel under
+    set_sync_debug_mode("error"), the results equal to the synchronous
+    call's; their device operations beside the single worker's same
+    calls."""
+    import torch
+
+    cuda = torch.device(dev).type == "cuda"
+    out = {}
+    for name in ("sharded", "single"):
+        rec = runs[name]
+        for bucket, (a, kw) in (("plain", _bucket_call(rec, False)), ("canary", _bucket_call(rec, True))):
+            with uncounted() if name == "single" else contextlib.nullcontext():
+                out[(name, bucket)] = _dispatch_checked(rec["judge"], a, kw, cuda, f"12(c) {name} {bucket}")
+    # the launch queue is a device's: its share of the operations must
+    # stay well under ~1,000 (one call a device: the total over its cards)
+    cards = len({str(d) for d in runs["sharded"]["judge"].mesh.data_devices})
+    lines = []
+    for bucket in ("plain", "canary"):
+        s, p = out[("sharded", bucket)], out[("single", bucket)]
+        check(s["ops"] / cards < 1000,
+              f"12(c): the sharded {bucket} dispatch issued {s['ops']} device operations over {cards} device(s)")
+        lines.append(
+            f"{bucket} bucket ({s['rows']} rows): {s['ops']} device operations over {cards} device(s) (single "
+            f"device {p['ops']})"
+            + (f", behind a {s['busy_ms']:.1f} ms busy kernel returned after {s['dispatch_s'] * 1e3:.3f} ms (single "
+               f"{p['dispatch_s'] * 1e3:.3f} ms; on an idle stream {s['idle_s'] * 1e3:.3f} / {p['idle_s'] * 1e3:.3f} "
+               f"ms)" if cuda else "")
+        )
+    print(f"phase 12: (c) {label}, the warm columnar dispatches: " + "; ".join(lines)
+          + ("; under set_sync_debug_mode(\"error\"), results equal the synchronous calls'" if cuda else ""))
+    return out
+
+
+def _bucket_call(rec: dict, canary: bool):
+    """The last columnar call of a worker's run for one bucket."""
+    calls = [c for c in rec["calls"] if (c[1].get("base_values") is not None) == canary]
+    check(calls, f"12(c): no {'canary' if canary else 'plain'} columnar call was recorded")
+    return calls[-1]
+
+
+def _dispatch_checked(judge, a, kw, cuda: bool, what: str) -> dict:
+    """One columnar dispatch counted (device operations), then again
+    behind a busy kernel under set_sync_debug_mode("error")."""
+    import torch
+
+    want = judge.judge_columnar(*a, **kw)
+    pending, ops = card_ops(lambda: judge.judge_columnar_async(*a, **kw))
+    pending.wait()
+    row = dict(rows=a[0].shape[0], ops=ops)
+    if cuda:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        judge.judge_columnar_async(*a, **kw).wait()
+        row["idle_s"] = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        busy = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        busy[0].record()
+        torch.cuda._sleep(BUSY_CYCLES)
+        busy[1].record()
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = judge.judge_columnar_async(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        row["dispatch_s"] = time.perf_counter() - t1
+        row["done"] = pending.dev.done()
+        got = pending.wait()
+        row["busy_ms"] = busy[0].elapsed_time(busy[1])
+        check(not row["done"] and row["dispatch_s"] * 1e3 < row["busy_ms"],
+              f"{what}: the dispatch waited for the device ({row})")
+        for g, w in zip(got, want):
+            check((g is None and w is None) or np.array_equal(g, w), f"{what}: the async results differ")
+    return row
+
+
+def mesh_object_arm(dev, mesh) -> dict:
+    """12(b): ShardedJudge.judge with no fit cache on MESH_OBJ_TASKS tasks
+    (f32 histories: ma_judgment), and the bf16-delta judgment of a
+    throughput batch placed by the same judge (ma_judgment_bf16_delta),
+    each against the single judge: equal verdicts, bands equal in bytes,
+    one launch per block."""
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.engine.judge import HealthJudge
+    from foremast_tpu_torch.ops import kernels as K
+    from foremast_tpu_torch.parallel import ShardedJudge, per_block, throughput_batch
+
+    n = mesh.shape["data"]
+    cuda = torch.device(dev).type == "cuda"
+    tasks, spiked = fleet_tasks(MESH_OBJ_TASKS)
+    out = {}
+    for name, judge in (("sharded", ShardedJudge(BrainConfig(), mesh=mesh)), ("single", HealthJudge(BrainConfig(),
+                                                                                                      device=dev))):
+        with uncounted() if name == "single" else contextlib.nullcontext():
+            before = K.LAUNCHES["ma_judgment"]
+            t1 = time.perf_counter()
+            vs = judge.judge(tasks)
+            out[name] = dict(verdicts=vs, seconds=time.perf_counter() - t1,
+                             launches=K.LAUNCHES["ma_judgment"] - before)
+    same_verdicts(out["sharded"]["verdicts"], out["single"]["verdicts"], "12(b) f32")
+    for g, w in zip(out["sharded"]["verdicts"], out["single"]["verdicts"]):
+        check(g.upper.tobytes() == w.upper.tobytes(), f"12(b): the band of {g.job_id} differs in bytes")
+    flagged = [i for i, v in enumerate(out["sharded"]["verdicts"]) if v.verdict == 1]
+    check(out["sharded"]["launches"] == n * out["single"]["launches"] or not cuda,
+          f"12(b): ma_judgment launched {out['sharded']['launches']} times, single {out['single']['launches']}")
+    judge = ShardedJudge(BrainConfig(), mesh=mesh)
+    batch = throughput_batch(MESH_OBJ_TASKS, FULL_TH, FULL_TC, device=dev)
+    slim, anchor, delta = scoring.make_bf16_delta_batch(batch)
+    before = K.LAUNCHES["ma_judgment_bf16_delta"]
+    res = per_block(scoring.score_bf16_delta, *judge._place((slim, anchor, delta)))
+    l16 = K.LAUNCHES["ma_judgment_bf16_delta"] - before
+    with uncounted():
+        ref = scoring.score_bf16_delta(slim, anchor, delta)
+        l16_single = K.LAUNCHES["ma_judgment_bf16_delta"] - before - l16
+    for field in ("verdict", "anomalies", "upper", "lower", "p_value"):
+        check(torch.equal(getattr(res, field).gather(dev), getattr(ref, field)), f"12(b) bf16-delta: {field} differs")
+    check(l16 == n * l16_single or not cuda, f"12(b): ma_judgment_bf16_delta launched {l16}, single {l16_single}")
+    print(f"phase 12: (b) ShardedJudge.judge (no fit cache, f32) of {MESH_OBJ_TASKS} tasks: verdicts, pairs and bands "
+          f"equal the single judge's ({len(flagged)} flagged, {int(spiked.sum())} spiked), "
+          f"{out['sharded']['seconds']:.3f} s (single "
+          f"{out['single']['seconds']:.3f} s), ma_judgment launches {out['sharded']['launches']} (single "
+          f"{out['single']['launches']}); the bf16-delta judgment placed by the same judge equals the single one bit "
+          f"for bit, ma_judgment_bf16_delta launches {l16} (single {l16_single})")
+    return dict(f32=out["sharded"]["launches"], bf16=l16)
+
+
+def mesh_joint_arm(dev, mesh, t_now: int) -> dict:
+    """12(d): the joint fleet (bivariate and LSTM docs at m=1440) through
+    the sharded joint arenas: a mesh worker and the single-device worker
+    given its trained LSTM entries, cold, warm and spiked warm ticks;
+    every doc's writes equal, the warm ticks on the joint columnar path
+    with 0 trainings, exactly the spiked docs flagged (as 8(d) checks)."""
+    import torch
+
+    from foremast_tpu_torch.ops import kernels as K
+
+    n_docs = MESH_JOINT_DOCS
+    docs, data = joint_worker_fleet(n_docs, t_now)
+    gw, gstore = joint_worker(docs, data, dev, device_mesh=mesh)
+    sw, sstore = joint_worker(docs, data, dev, device_mesh=None)
+    gw.judge.lstm_steps = sw.judge.lstm_steps = 20
+
+    def written(store):
+        return {d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+                for d in store._docs.values()}
+
+    out = {}
+
+    def tick(name, now):
+        launches = dict(K.LAUNCHES)
+        versions = gw._mvj.cache.version
+        t1 = time.perf_counter()
+        n = gw.tick(now=now)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launched = {k: K.LAUNCHES[k] - v for k, v in launches.items()}
+        if name == "a":
+            for key, entry in gw._mvj.cache.snapshot().items():
+                if key[0] == "lstm":
+                    sw._mvj.cache.put(key, entry)
+        t1 = time.perf_counter()
+        with uncounted():
+            sn = sw.tick(now=now)
+        out[name] = dict(docs=n, single_docs=sn, seconds=seconds, single_seconds=time.perf_counter() - t1,
+                         written=written(gstore), single_written=written(sstore), launched=launched,
+                         fast=dict(gw._fast_kinds), refit=gw._mvj.cache.version != versions)
+
+    tick("a", t_now + 150)
+    tick("b", t_now + 200)
+    spiked = [i for i in range(n_docs) if i % 16 in (5, 12)]
+    for w in (gw, sw):
+        for i in spiked:
+            f = 4 if i % 2 else 2
+            for m in range(f):
+                url = f"http://prom/cur?q=m{m}:app{i}&step=60"
+                ct, cv = w.source.data[url]
+                v = cv.copy()
+                v[-3:] += 0.6 if (f == 4 or m == 0) else -0.6
+                w.source.data[url] = (ct, v)
+    tick("c", t_now + 250)
+    for name in "abc":
+        t = out[name]
+        diff = [k for k, v in t["single_written"].items() if t["written"][k] != v]
+        check(not diff and t["docs"] == t["single_docs"], f"12(d) ({name}): {len(diff)} docs differ, e.g. {diff[:2]}")
+
+    def unhealthy(t):
+        return {int(k[4:]) for k, v in t["written"].items() if json.loads(v)[0] == "completed_unhealth"}
+
+    alarms = unhealthy(out["a"])
+    check(unhealthy(out["c"]) == alarms | set(spiked), "12(d) (c) did not flag exactly the spiked docs")
+    for name in "bc":
+        t = out[name]
+        check(not t["refit"] and t["launched"]["lstm_ae_backward"] == 0
+              and (t["launched"]["lstm_ae_forward"] > 0 or torch.device(dev).type == "cpu"),
+              f"12(d) ({name}): the warm tick trained, or never scored on the card: {t['launched']}")
+        check(t["fast"]["bivariate"] > 0 and t["fast"]["lstm"] > 0, f"12(d) ({name}): kinds {t['fast']}")
+    arenas = list(gw._mvj._joint_arenas.values())
+    n = mesh.shape["data"]
+    check(arenas and all(a.shards == n and a.cap == n * a.cap_s for a in arenas), "12(d): the joint arenas are not "
+                                                                                    "sharded")
+    print(f"phase 12: (d) joint fleet of {n_docs} docs (m={SEASON}): cold / warm / spiked warm "
+          + ", ".join(f"{out[t]['seconds']:.3f} s (single {out[t]['single_seconds']:.3f})" for t in "abc")
+          + f"; writes equal the single-device worker's (its LSTM entries carried); {len(alarms)} cold false alarms; "
+          f"(c) flagged exactly the spiked open docs; joint arenas {[(a.cap, a.cap_s) for a in arenas]}")
+    return out
+
+
+def mesh_context_arm(dev, devices) -> dict:
+    """12(e): context parallelism over a 1 x MESH_BLOCKS mesh: CP_B rows
+    at CP_TH steps (28 days of 1-minute steps, a burst each day) with
+    gaps, judged by score_time_sharded for moving_average_all and
+    phase_means (m=1440), held to scoring.score and to fit_forecast +
+    score_from_state on one device; sharded_ewma held to ewma_levels."""
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.ops.forecasters import ewma_levels
+    from foremast_tpu_torch.ops.windows import MetricWindows
+    from foremast_tpu_torch.parallel import make_mesh, score_time_sharded, sharded_ewma, sharded_phase_means
+
+    mesh = make_mesh(n_data=1, n_model=MESH_BLOCKS, devices=devices)
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, th, tc, m = CP_B, CP_TH, FULL_TC, SEASON
+    # a daily burst half a day away from the current window's phases
+    burst = max(2, m // 24)
+
+    def daily(steps):
+        return 2.0 * (((steps % m) >= m // 2) & ((steps % m) < m // 2 + burst)).float()
+
+    t = torch.arange(th, device=dev)
+    hv = 5.0 + daily(t) + 0.1 * torch.randn((b, th), generator=g, device=dev)
+    hm = torch.rand((b, th), generator=g, device=dev) > 0.02
+    tcur = th + torch.arange(tc, device=dev)
+    cv = 5.0 + daily(tcur) + 0.02 * torch.randn((b, tc), generator=g, device=dev)
+    spiked = torch.arange(b, device=dev) % 16 == 5
+    cv[spiked, tc // 2] += 3.0
+    zeros = torch.zeros((b, tc), device=dev)
+    batch = scoring.ScoreBatch(
+        historical=MetricWindows(values=hv, mask=hm, times=None),
+        current=MetricWindows(values=cv, mask=torch.ones((b, tc), dtype=torch.bool, device=dev), times=None),
+        baseline=MetricWindows(values=zeros, mask=zeros.bool(), times=None),
+        threshold=torch.full((b,), 4.0, device=dev),
+        bound=torch.full((b,), 1, dtype=torch.int32, device=dev),
+        min_lower_bound=torch.zeros(b, device=dev),
+        min_points=torch.full((b,), 10, dtype=torch.int32, device=dev),
+    )
+    cfg = BrainConfig(season_steps=m)
+    out = {}
+
+    def timed(fn):
+        sync()
+        t1 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t1
+
+    def same(res, ref, tol, what):
+        for field in ("verdict", "anomalies"):
+            check(torch.equal(res_field(res, field), getattr(ref, field)), f"12(e) {what}: {field} differs")
+        err = float((res_field(res, "upper") - ref.upper).abs().max())
+        check(err <= tol * (1 + float(ref.upper.abs().max())), f"12(e) {what}: upper off by {err}")
+        return err
+
+    def res_field(res, field):
+        return getattr(res, field).gather(dev)
+
+    with uncounted():
+        ref, ref_s = timed(lambda: scoring.score(batch))
+    res, res_s = timed(lambda: score_time_sharded(batch, mesh, cfg))
+    out["ma"] = dict(err=same(res, ref, CP_TOL["upper"], "moving_average_all"), seconds=res_s, single_seconds=ref_s,
+                     flagged=int((res_field(res, "verdict") == 1).sum()))
+    check(torch.equal(res_field(res, "verdict") == 1, spiked), "12(e) moving_average_all: not the spiked rows")
+
+    def single_pm():
+        fc = scoring.fit_forecast(hv, hm, algorithm="phase_means", season_length=m)
+        return fc, scoring.score_from_state(batch, fc.level, fc.trend, fc.season, fc.season_phase, fc.scale,
+                                            hm.sum(-1, dtype=torch.int32))
+
+    with uncounted():
+        (fc, ref), ref_s = timed(single_pm)
+    res, res_s = timed(lambda: score_time_sharded(batch, mesh, cfg, algorithm="phase_means"))
+    season, level, trend, scale, phase, n_hist = sharded_phase_means(hv, hm, m, mesh)
+    errs = {}
+    for what, got, want in (("season", season, fc.season), ("level", level, fc.level), ("scale", scale, fc.scale)):
+        got = got.gather(dev)
+        errs[what] = float(((got - want).abs() / (1 + want.abs())).max())
+        check(errs[what] <= CP_TOL[what], f"12(e) phase_means {what}: relative error {errs[what]}")
+    check(torch.equal(phase.gather(dev), fc.season_phase), "12(e) phase_means: season phase differs")
+    check(torch.equal(n_hist.gather(dev), hm.sum(-1, dtype=torch.int32)), "12(e) phase_means: n_hist differs")
+    out["pm"] = dict(err=same(res, ref, CP_TOL["upper"], "phase_means"), seconds=res_s, single_seconds=ref_s,
+                     state=errs, flagged=int((res_field(res, "verdict") == 1).sum()))
+    check(torch.equal(res_field(res, "verdict") == 1, spiked), "12(e) phase_means: not the spiked rows")
+    rows = slice(0, CP_EWMA_B)
+    with uncounted():
+        want, ref_s = timed(lambda: ewma_levels(hv[rows], hm[rows], 0.3))
+    got, res_s = timed(lambda: sharded_ewma(hv[rows], hm[rows], 0.3, mesh))
+    err = float((got.gather(dev) - want).abs().max())
+    check(err <= CP_TOL["ewma"] * (1 + float(want.abs().max())), f"12(e) sharded_ewma off by {err}")
+    out["ewma"] = dict(err=err, seconds=res_s, single_seconds=ref_s)
+    print(f"phase 12: (e) context parallelism over a 1 x {MESH_BLOCKS} mesh ({devices[0]}), B={b}, Th={th} "
+          f"({b * th * 5 / 1e9:.2f} GB of f32 values and mask), m={m}: moving_average_all {out['ma']['seconds']:.3f} s "
+          f"(single {out['ma']['single_seconds']:.3f} s), upper off by {out['ma']['err']:.2e}; phase_means "
+          f"{out['pm']['seconds']:.3f} s (single {out['pm']['single_seconds']:.3f} s), state {errs}, upper off by "
+          f"{out['pm']['err']:.2e}; verdicts and flags equal, {out['pm']['flagged']} spiked rows flagged; sharded_ewma "
+          f"of {CP_EWMA_B} rows {out['ewma']['seconds']:.3f} s (ewma_levels {out['ewma']['single_seconds']:.3f} s), "
+          f"off by {err:.2e}")
+    return out
+
+
+def phase_device_mesh(dev, smi: str) -> dict:
+    """Phase 12: the device mesh of one process. On one card the mesh is
+    the card listed MESH_BLOCKS times (a one-card mesh: its times are the
+    per-block overhead on one card, not the scaling of several); with
+    more than one card, (a) and (c) run again over every card."""
+    import torch
+
+    from foremast_tpu_torch.parallel import mesh as meshlib
+
+    os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
+    cuda = torch.device(dev).type == "cuda"
+    card = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device(dev)
+    devices = [card] * MESH_BLOCKS
+    mesh = meshlib.make_mesh(n_data=MESH_BLOCKS, devices=devices)
+    label = f"one-card mesh ({card} listed {MESH_BLOCKS} times)"
+    t_now = int(time.time())
+    t0 = time.perf_counter()
+    docs, data, latency = worker_fleet(MESH_WORKER_DOCS, t_now)
+    runs = mesh_worker_arm(dev, mesh, docs, data, latency, t_now)
+    report_worker_arm(label, runs, smi)
+    t1 = time.perf_counter()
+    obj = mesh_object_arm(dev, mesh)
+    t2 = time.perf_counter()
+    dispatch = mesh_dispatch_arm(dev, label, runs)
+    t3 = time.perf_counter()
+    joint = mesh_joint_arm(dev, mesh, t_now)
+    t4 = time.perf_counter()
+    context = mesh_context_arm(dev, devices)
+    t5 = time.perf_counter()
+    n_cards = torch.cuda.device_count() if cuda else 1
+    if n_cards > 1:
+        cards = meshlib.make_mesh(devices=meshlib.local_devices())
+        label = f"mesh over every card ({n_cards})"
+        multi = mesh_worker_arm(dev, cards, docs, data, latency, t_now, single=runs["single"])
+        report_worker_arm(label, multi, smi)
+        mesh_dispatch_arm(dev, label, multi)
+    else:
+        print(f"phase 12: ran over one card ({card}, torch.cuda.device_count() = {n_cards}): no copy between cards "
+              f"and no launch on a card other than the current one was exercised")
+    print(f"phase 12: seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, "
+          f"(e) {t5 - t4:.1f}, more cards {time.perf_counter() - t5:.1f}")
+    return dict(runs=runs, obj=obj, dispatch=dispatch, joint=joint, context=context)
+
+
 def main() -> int:
     import torch
 
@@ -5718,10 +6267,14 @@ def main() -> int:
     deployable_only = "--deployable-only" in sys.argv[1:]
     tenants_only = "--tenants-only" in sys.argv[1:]
     mesh_only = "--mesh-only" in sys.argv[1:]
+    device_mesh_only = "--device-mesh-only" in sys.argv[1:]
     # the seasonal model's f32 products must not round through TF32 (its
     # normal equations run in float64, which never does)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    # every worker of phases 3-11 (and the CLI runs they start) judges on
+    # one card whatever the host holds; phase 12 passes its meshes itself
+    os.environ["FOREMAST_DEVICE_MESH"] = "off"
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5758,6 +6311,14 @@ def main() -> int:
         phase_mesh(dev, smi)
         check(K.LAUNCHES["masked_stats"] > 0, "phase 11 never launched masked_stats")
         print(f"chip_smoke: --mesh-only: phase 11 passed; its main path launched {dict(K.LAUNCHES)}")
+        return 0
+    if device_mesh_only:
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        phase_device_mesh(dev, smi)
+        for kname in ("masked_stats", "ma_judgment", "ma_judgment_bf16_delta", "lstm_ae_forward"):
+            check(K.LAUNCHES[kname] > 0, f"phase 12 never launched {kname}")
+        print(f"chip_smoke: --device-mesh-only: phase 12 passed; its main path launched {dict(K.LAUNCHES)}")
         return 0
     if tenants_only:
         os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
@@ -5829,6 +6390,9 @@ def main() -> int:
     check(launched_tenants["masked_stats"] > 0, "the tenanted f32 cold sweep (phase 10) never launched masked_stats")
     _, launched_mesh = path(phase_mesh, dev, smi)
     check(launched_mesh["masked_stats"] > 0, "the mesh's f32 refit of orphans (phase 11 d) never launched masked_stats")
+    _, launched_device_mesh = path(phase_device_mesh, dev, smi)
+    for kname in ("masked_stats", "ma_judgment", "ma_judgment_bf16_delta", "lstm_ae_forward"):
+        check(launched_device_mesh[kname] > 0, f"the device mesh (phase 12) never launched {kname}")
     paths = {
         "object path (phases 3-4)": launched_object,
         "fit-cache path (phase 5)": launched_fit_cache,
@@ -5842,6 +6406,7 @@ def main() -> int:
         "deployable worker (phase 9, with the CLI's f32 run)": launched_deploy,
         "tenants and chaos (phase 10)": launched_tenants,
         "worker mesh (phase 11)": launched_mesh,
+        "device mesh (phase 12)": launched_device_mesh,
     }
     print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}

@@ -53,12 +53,20 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+# the env that would make the JAX package's --sharded start a pod (its
+# init_distributed): several processes, which the port does not have yet
+_POD_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES")
+
+
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise for every requested mode the port does not have."""
     if args.sharded:
-        raise NotImplementedError(
-            "--sharded (the device mesh, pod mode and a mesh of pods) is not ported yet: ROADMAP.md Queue 1 item 7"
-        )
+        pod = [name for name in _POD_ENV if os.environ.get(name)]
+        if pod:
+            raise NotImplementedError(
+                f"--sharded with {', '.join(pod)} set asks for pod mode (a mesh over several processes), "
+                "which is not ported yet: ROADMAP.md Queue 1 item 7, pod mode"
+            )
     for name, (what, item) in _UNPORTED_ENV.items():
         if os.environ.get(name, "0") not in ("", "0"):
             raise NotImplementedError(f"{name}={os.environ[name]}: {what} is not ported yet: ROADMAP.md Queue 1 {item}")
@@ -188,6 +196,20 @@ def _persistent_worker_id(snap_dir: str, minted: str) -> str:
         pass
     atomic_write(path, minted.encode())
     return minted
+
+
+def _sharded_mesh(device: str):
+    """--sharded: the judge over the all-local mesh — every card of this
+    process (`make_global_mesh`), or the one CPU device with --device
+    cpu. Without the flag the worker resolves FOREMAST_DEVICE_MESH and
+    FOREMAST_DEVICE_MESH_MODEL (`parallel.mesh.worker_device_mesh`)."""
+    import torch
+
+    from foremast_tpu_torch.parallel import mesh as meshlib
+
+    if torch.device(device).type == "cuda":
+        return meshlib.make_global_mesh()
+    return meshlib.make_mesh(devices=[device])
 
 
 def cmd_worker(args: argparse.Namespace) -> int:
@@ -347,6 +369,7 @@ def cmd_worker(args: argparse.Namespace) -> int:
         source,
         config=config,
         device=args.device,
+        device_mesh=_sharded_mesh(args.device) if args.sharded else "env",
         worker_id=worker_id,
         claim_limit=args.claim_limit,
         on_verdict=on_verdict,
@@ -541,7 +564,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--sharded",
         action="store_true",
-        help="score over a device mesh (not ported yet: refused)",
+        help="score over the all-local device mesh (every card of this process); refused when "
+        "JAX_COORDINATOR_ADDRESS or JAX_NUM_PROCESSES asks for pod mode (not ported yet)",
     )
     p.add_argument(
         "--model-cache-dir",

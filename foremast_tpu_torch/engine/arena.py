@@ -30,8 +30,18 @@ same row maps; no device tensor is read. Untenanted, or one tenant
 without an envelope, the placement is byte-identical to an untenanted
 arena's.
 
-Single device only: `shards > 1` (the data-axis-sharded arena) is not
-ported (ROADMAP.md Queue 1 item 7, 'Multi-GPU').
+Over a device mesh (`sharding`, a `parallel.mesh.Placement`), every state
+tensor is a `parallel.mesh.Blocks` whose block i is the buffer of block
+i's device. With `shards > 1` the row space splits over the data axis
+into [cap_s, ...] shard blocks (global row g = shard * cap_s + local), a
+device's buffer holding its shards' blocks end to end (one block a card
+on distinct cards; all of them on a mesh that lists one card several
+times), and `assign` places position i of a B-row batch only in shard
+i // (B / shards) — the batch's own block — so the warm gather never
+crosses a device (`_assign_sharded`, the JAX arena's block placement
+rule, row maps and migrations unchanged; `device_rows` turns a global
+row into its device buffer's). Replicated (`FOREMAST_ARENA_SHARDED=0`),
+each device holds a whole copy and every scatter writes all of them.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import torch
 
 from foremast_tpu_torch.engine.scoring import tile_season
 from foremast_tpu_torch.ops.windows import resolve_device, to_device
+from foremast_tpu_torch.parallel.mesh import device_slots, stack_blocks, tree_map
 
 log = logging.getLogger("foremast_tpu_torch.arena")
 
@@ -176,18 +187,22 @@ class RowArena:
     """Row-assignment machinery of a device state arena: byte-budgeted
     capacity with pow2 auto-grow toward the hard cap, approximate-LRU
     recycling, hit/miss/eviction counters, and per-call transient-row
-    aging. Subclasses own the device layout via `_alloc` / `_grow` and
+    aging. Subclasses make one device's rows (`_alloc_on`) and own
     their own `scatter`.
 
     Not thread-safe by design: an arena belongs to one judge's dispatch
-    thread; the ModelCache is the layer other threads see."""
+    thread; the ModelCache is the layer other threads see.
 
-    def __init__(self, row_bytes: int, max_bytes: int | None = None, shards: int = 1):
-        if int(shards) > 1:
-            raise NotImplementedError(
-                "the data-axis-sharded arena is not ported to torch yet: "
-                "ROADMAP.md Queue 1, 'Multi-GPU'"
-            )
+    `sharding` (a mesh `Placement`, None for the subclass's one device)
+    places the device buffers over a mesh's data axis: block-sharded
+    when `shards` > 1 (byte budgets are then PER SHARD, so capacity
+    scales with the mesh), a replica per device otherwise."""
+
+    def __init__(self, row_bytes: int, max_bytes: int | None = None, shards: int = 1, sharding=None):
+        self.sharding = sharding
+        self.shards = max(int(shards), 1)
+        if self.shards > 1 and (sharding is None or len(sharding.mesh.data_devices) != self.shards):
+            raise ValueError(f"a {self.shards}-shard arena needs a mesh with {self.shards} data-axis devices")
         self.row_bytes = max(int(row_bytes), 1)
         budget = _arena_bytes() if max_bytes is None else max_bytes
         self.max_rows = min(_MAX_ROWS, max(budget // self.row_bytes, 8))
@@ -195,22 +210,27 @@ class RowArena:
         # hard cap (one log per growth); only past hard_rows does
         # assign() refuse
         self.hard_rows = min(_MAX_ROWS, max(_arena_max_bytes() // self.row_bytes, 8))
-        self.cap = 0
+        self.cap = 0  # TOTAL rows (= shards * cap_s when sharded)
+        self.cap_s = 0  # per-shard rows (== cap when shards == 1)
         self.state = None  # layout owned by the subclass
+        self._parts: list = []  # per-device buffers behind `state`
         self.rows: dict = {}  # fit key -> row index
         self.row_key: list = []  # row index -> fit key | None
         # fit key -> the host entry OBJECT its row was scattered from
         # (kept by TreeArena's callers, which detect a refreshed entry by
         # identity); evictions prune it
         self.row_entry: dict = {}
-        self.free: list[int] = []  # unassigned row indices
+        self.free: list[int] = []  # unassigned row indices (shards == 1)
+        # sharded: per-shard free lists of LOCAL indices (stable across
+        # growth; global ones renumber)
+        self._free_s: list[list[int]] = [[] for _ in range(self.shards)]
         self._transients: list[int] = []  # last call's unkeyed rows
         self.stamp = np.zeros(0, np.int64)  # per-row last-use tick
         self.tick = 0
         self.hits = 0
         self.misses = 0  # rows scattered (new or refreshed)
         self.evictions = 0
-        self.shard_moves = 0  # always 0 on one device
+        self.shard_moves = 0  # rows migrated between shards (sharded)
         # resident rows held by batch-padding keys: subtracted from
         # rows_live; their hits and misses are never counted
         self.pad_live = 0
@@ -218,15 +238,83 @@ class RowArena:
         # tenants or an arena_rows envelope (the parity pin above)
         self._qos = _ArenaTenancy.build()
 
-    # -- layout hooks (subclass-owned) ------------------------------------
+    # -- layout (the subclass makes one device's rows) ---------------------
+
+    def _alloc_on(self, rows: int, dev: torch.device):
+        """Fresh all-zero state of `rows` rows on `dev`."""
+        raise NotImplementedError
+
+    def _slots(self) -> tuple[list, list, list]:
+        """(each device part's device, each data-axis block's part, its
+        rank among its part's blocks): one part per distinct device."""
+        if self.sharding is None:
+            return [self.device], [0], [0]
+        return device_slots(self.sharding.mesh.data_devices)
+
+    def _compose(self):
+        """`state` from the device parts: the one device's tree, or a tree
+        of `Blocks` whose block i is block i's device buffer (the blocks
+        a device holds share it)."""
+        if self.sharding is None:
+            return self._parts[0]
+        _, part, _ = self._slots()
+        return stack_blocks([self._parts[p] for p in part], replicated=self.shards == 1)
 
     def _alloc(self, cap: int):
-        """Fresh all-zero state for `cap` rows."""
-        raise NotImplementedError
+        """Fresh all-zero state for `cap` rows: on the one device; or, over
+        a mesh, one buffer a device — its k shard blocks of cap / shards
+        rows end to end, or a whole replica."""
+        devs, part, _ = self._slots()
+        per = cap // self.shards if self.shards > 1 else cap
+        self._parts = [
+            self._alloc_on(per * (part.count(p) if self.shards > 1 else 1), d) for p, d in enumerate(devs)
+        ]
+        return self._compose()
 
     def _grow(self, pad: int):
-        """`self.state` extended by `pad` zero rows."""
-        raise NotImplementedError
+        """`state` with `pad` zero rows more a block: at the end of the
+        buffer, or, sharded, at the end of each of its shard blocks (rows
+        keep their block)."""
+        _, part, _ = self._slots()
+
+        def grow(a, k):
+            tail = a.shape[1:]
+            blocks = a.reshape(k, a.shape[0] // k, *tail)
+            zeros = torch.zeros((k, pad, *tail), dtype=a.dtype, device=a.device)
+            return torch.cat([blocks, zeros], dim=1).reshape(-1, *tail)
+
+        ks = [part.count(p) if self.shards > 1 else 1 for p in range(len(self._parts))]
+        self._parts = [tree_map(lambda a, k=k: grow(a, k), t) for t, k in zip(self._parts, ks)]
+        return self._compose()
+
+    def device_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Global rows as rows of their device's buffer: a shard's block
+        starts at its rank among its device's blocks times cap_s (its
+        local row where each device holds one block)."""
+        rows = np.asarray(rows, np.int64)
+        if self.shards == 1:
+            return rows
+        _, _, rank = self._slots()
+        shard = rows // self.cap_s
+        return np.asarray(rank, np.int64)[shard] * self.cap_s + rows % self.cap_s
+
+    def _targets(self, rows: np.ndarray):
+        """(part, positions, rows of that part's buffer) for each device
+        buffer a scatter to global `rows` writes: the one device, every
+        replica, or each device holding one of the rows' shards."""
+        devs, part, _ = self._slots()
+        if self.shards == 1:
+            return [(p, np.arange(len(rows)), rows) for p in range(len(devs))]
+        of = np.asarray(part, np.int64)[rows // self.cap_s]
+        local = self.device_rows(rows)
+        out = []
+        for p in np.unique(of).tolist():
+            sel = np.nonzero(of == p)[0]
+            out.append((p, sel, local[sel]))
+        return out
+
+    def _part_device(self, p) -> torch.device:
+        return self._slots()[0][p]
 
     # -- memory ----------------------------------------------------------
 
@@ -261,6 +349,58 @@ class RowArena:
         self.stamp = np.concatenate([self.stamp, np.full(pad, -1, np.int64)])
         self.free.extend(range(self.cap, new_cap))
         self.cap = new_cap
+        self.cap_s = new_cap
+        return True
+
+    def _ensure_capacity_sharded(self, need_s: int) -> bool:
+        """Sharded-mode `_ensure_capacity`: `need_s` is the PER-SHARD row
+        count this call must host. The same soft-budget auto-grow and
+        hard-cap refusal, per shard. Growth pads each block at its end
+        on its device, so no row leaves its shard; the global indices of
+        the host maps renumber (g = shard * cap_s + local)."""
+        if need_s > self.max_rows:
+            if need_s > self.hard_rows:
+                return False
+            self.max_rows = min(self.hard_rows, _pow2(need_s))
+            log.warning(
+                "sharded arena grown past FOREMAST_ARENA_BYTES soft budget: %d rows/shard x %d shards x %d B "
+                "= %.0f MB aggregate; set FOREMAST_ARENA_BYTES>=%d to silence",
+                need_s,
+                self.shards,
+                self.row_bytes,
+                need_s * self.shards * self.row_bytes / 1e6,
+                need_s * self.row_bytes,
+            )
+        if need_s <= self.cap_s:
+            return True
+        new_s = min(self.max_rows, max(_pow2(need_s), max(self._min_rows() // self.shards, 8)))
+        old_s = self.cap_s
+        if self.state is None:
+            self.state = self._alloc(self.shards * new_s)
+        else:
+            self.state = self._grow(new_s - old_s)
+        if old_s:
+
+            def remap(g: int) -> int:
+                return (g // old_s) * new_s + (g % old_s)
+
+            self.rows = {k: remap(g) for k, g in self.rows.items()}
+            new_keys: list = [None] * (self.shards * new_s)
+            for g, k in enumerate(self.row_key):
+                if k is not None:
+                    new_keys[remap(g)] = k
+            self.row_key = new_keys
+            st = np.full((self.shards, new_s), -1, np.int64)
+            st[:, :old_s] = self.stamp.reshape(self.shards, old_s)
+            self.stamp = st.ravel()
+            self._transients = [remap(g) for g in self._transients]
+        else:
+            self.row_key = [None] * (self.shards * new_s)
+            self.stamp = np.full(self.shards * new_s, -1, np.int64)
+        for fl in self._free_s:
+            fl.extend(range(old_s, new_s))
+        self.cap_s = new_s
+        self.cap = self.shards * new_s
         return True
 
     def _min_rows(self) -> int:
@@ -270,12 +410,15 @@ class RowArena:
     def clear(self) -> None:
         """Release device buffers and all row assignments."""
         self.cap = 0
+        self.cap_s = 0
         self.state = None
+        self._parts = []
         self.rows.clear()
         self.row_entry.clear()
         self.row_key = []
         self.stamp = np.zeros(0, np.int64)
         self.free = []
+        self._free_s = [[] for _ in range(self.shards)]
         self._transients = []
         self.pad_live = 0
         if self._qos is not None:
@@ -323,7 +466,12 @@ class RowArena:
         carry stamp == tick and are never eviction candidates; last
         call's transient rows are aged to stamp -1 up front, making them
         the preferred recycling pool. With tenancy, an over-envelope
-        tenant recycles its own least-recent row first (`_ArenaTenancy`)."""
+        tenant recycles its own least-recent row first (`_ArenaTenancy`).
+
+        Sharded arenas (`shards` > 1) route to `_assign_sharded`: the
+        same surface, each position's row in its data-axis block."""
+        if self.shards > 1:
+            return self._assign_sharded(keys, force, n_real)
         for r in self._transients:
             if self.row_key[r] is None:
                 self.stamp[r] = -1
@@ -472,9 +620,212 @@ class RowArena:
             self._qos.flush()
         return rows, scatter
 
+    def _assign_sharded(self, keys, force, n_real: int | None = None) -> tuple[np.ndarray, list[int]] | None:
+        """`assign` under the data-axis block placement rule: position i
+        of a B-row batch lives in shard i // (B / shards) and its row
+        must belong to that shard's block, so the warm gather never
+        crosses a device. As in the JAX arena:
+
+          * a key whose position moved to another block since its last
+            call MIGRATES — old row freed, a fresh row scattered in the
+            new shard (`shard_moves` counts these);
+          * a key already claimed by one position this call and ALSO at
+            a position of another shard scores that position from a
+            transient row;
+          * ALL growth happens before rows are handed out (growing
+            renumbers global indices), using the 8-call idle window of
+            the replicated path's backstop.
+
+        One departure: after that growth the JAX arena reads the key map
+        from before the renumbering; this one reads the new map, so no
+        row is ever handed to two keys."""
+        n = len(keys)
+        nr = n if n_real is None else n_real
+        shards = self.shards
+        if n % shards:
+            log.warning(
+                "sharded arena assign: batch of %d rows is not a multiple of %d shards — stacked fallback",
+                n,
+                shards,
+            )
+            return None
+        for r in self._transients:
+            if self.row_key[r] is None:
+                self.stamp[r] = -1
+        self._transients.clear()
+        self.tick += 1
+        per = n // shards
+        if not self._ensure_capacity_sharded(per):
+            return None
+        getrow = self.rows.get
+
+        def sweep() -> np.ndarray:
+            return np.fromiter(((getrow(k, -1) if k is not None else -1) for k in keys), np.int64, count=n)
+
+        rows = sweep()
+        shard_of = np.repeat(np.arange(shards, dtype=np.int64), per)
+        hit = (rows >= 0) & ((rows // self.cap_s) == shard_of)
+        miss_shard = shard_of[~hit]
+        if len(miss_shard):
+            counts = np.bincount(miss_shard, minlength=shards)
+            st2 = self.stamp.reshape(shards, self.cap_s)
+            idle = ((st2 >= 0) & (st2 < self.tick - 8)).sum(axis=1)
+            free_n = np.asarray([len(f) for f in self._free_s])
+            short = int((counts - idle - free_n).max())
+            if short > 0 and self.cap_s + short <= self.hard_rows:
+                self._ensure_capacity_sharded(self.cap_s + short)
+                # growth renumbered every global index into a NEW map:
+                # read that one from here on. (The JAX arena keeps reading
+                # the old map, and can then hand one row to two keys:
+                # ROADMAP.md Queue 3.)
+                getrow = self.rows.get
+                rows = sweep()
+                hit = (rows >= 0) & ((rows // self.cap_s) == shard_of)
+        if hit.any():
+            self.stamp[rows[hit]] = self.tick
+        nhits = int(hit[:nr].sum())
+        scatter: list[int] = []
+        if force:
+            for i in force:
+                if hit[i]:
+                    scatter.append(i)
+            nhits -= len(scatter)
+            self.misses += len(scatter)
+        self.hits += nhits
+        alloc = np.nonzero(~hit)[0]
+        if len(alloc):
+            claimed = {keys[i] for i in np.nonzero(hit)[0] if keys[i] is not None}
+            qos = self._qos
+            cap_s = self.cap_s
+            order_s: list = [None] * shards
+            oi_s = [0] * shards
+            own_order_s: list = [None] * shards  # global rows, LRU first
+            own_from: dict = {}  # (shard, tenant) -> next own-row walk start
+            for i in alloc.tolist():
+                k = keys[i]
+                s = int(shard_of[i])
+                base = s * cap_s
+                transient = k is None
+                if k is not None:
+                    g = getrow(k, -1)
+                    if g >= 0:
+                        if g // cap_s == s:
+                            # duplicate key later in the batch: reuse the
+                            # row its first occurrence just claimed
+                            rows[i] = g
+                            continue
+                        if k in claimed:
+                            # the key's row belongs to another position
+                            # this call: score this one from a transient
+                            transient = True
+                        else:
+                            # block membership changed since last call:
+                            # migrate the row to this position's shard
+                            self.row_key[g] = None
+                            self.stamp[g] = -1
+                            self._free_s[g // cap_s].append(g % cap_s)
+                            del self.rows[k]
+                            self.row_entry.pop(k, None)
+                            self.shard_moves += 1
+                            if _is_pad_key(k):
+                                self.pad_live -= 1
+                            if qos is not None:
+                                # migration, not pressure: nobody is charged
+                                qos.note_drop(k)
+                tenant = None
+                if qos is not None and not transient and not _is_pad_key(k):
+                    tenant = qos.tenant_of(k)
+                if tenant is not None and qos.over(tenant):
+                    # arena_rows envelope, block-local: the over-budget
+                    # tenant recycles its own least-recent row in THIS
+                    # position's shard, charged to it
+                    if own_order_s[s] is None:
+                        own_order_s[s] = (base + np.argsort(self.stamp[base : base + cap_s], kind="stable")).tolist()
+                    rv, own_from[(s, tenant)] = self._own_victim(
+                        own_order_s[s], tenant, own_from.get((s, tenant), 0)
+                    )
+                    if rv >= 0:
+                        old = self.row_key[rv]
+                        del self.rows[old]
+                        self.row_entry.pop(old, None)
+                        self.evictions += 1
+                        qos.note_drop(old)
+                        qos.charge(tenant)
+                        self.rows[k] = rv
+                        self.row_key[rv] = k
+                        claimed.add(k)
+                        qos.note_assign(k, tenant)
+                        self.stamp[rv] = self.tick
+                        rows[i] = rv
+                        scatter.append(i)
+                        if i < nr:
+                            self.misses += 1
+                        continue
+                freel = self._free_s[s]
+                if freel:
+                    r = base + freel.pop()
+                else:
+                    if order_s[s] is None:
+                        order_s[s] = np.argsort(self.stamp[base : base + cap_s], kind="stable")
+                    order = order_s[s]
+                    oi = oi_s[s]
+                    while True:
+                        if oi >= len(order):
+                            # unreachable: cap_s >= per and at most `per`
+                            # rows of a shard carry this call's stamp
+                            raise RuntimeError(
+                                "sharded arena assign invariant violated: no evictable row in shard "
+                                f"{s} (per={per}, cap_s={cap_s})"
+                            )
+                        r = base + int(order[oi])
+                        oi += 1
+                        if self.stamp[r] != self.tick:
+                            break
+                    oi_s[s] = oi
+                    old = self.row_key[r]
+                    if old is not None:
+                        del self.rows[old]
+                        self.row_entry.pop(old, None)
+                        self.evictions += 1
+                        if _is_pad_key(old):
+                            self.pad_live -= 1
+                        if qos is not None:
+                            qos.note_drop(old)
+                            if tenant is not None:
+                                qos.charge(tenant)
+                if transient:
+                    self.row_key[r] = None
+                    self._transients.append(r)
+                else:
+                    self.rows[k] = r
+                    self.row_key[r] = k
+                    claimed.add(k)
+                    if i >= nr:
+                        self.pad_live += 1
+                    if tenant is not None:
+                        qos.note_assign(k, tenant)
+                self.stamp[r] = self.tick
+                rows[i] = r
+                scatter.append(i)
+                if i < nr:
+                    self.misses += 1
+        if self._qos is not None:
+            self._qos.flush()
+        return rows, scatter
+
     def device_bytes(self) -> int:
-        """Device-memory footprint of this arena's buffers."""
-        return self.cap * self.row_bytes
+        """Device-memory footprint of this arena's buffers on ONE device:
+        the whole capacity on one device or a replica, one shard's block
+        when sharded (times the device count: the shard sum)."""
+        return (self.cap // self.shards) * self.row_bytes
+
+    def total_device_bytes(self) -> int:
+        """Device-memory footprint of this arena's buffers on every device
+        that holds one (one buffer a distinct data-axis device): the
+        shard sum when sharded, a replica a device when replicated."""
+        if self.shards > 1:
+            return self.cap * self.row_bytes
+        return len(self._slots()[0]) * self.device_bytes()
 
     def counters(self) -> dict:
         return {
@@ -499,13 +850,14 @@ class StateArena(RowArena):
         max_bytes: int | None = None,
         shards: int = 1,
         device="cuda",
+        sharding=None,
     ):
         self.m = max(int(season_len), 1)
         self.device = resolve_device(device)
-        super().__init__(_row_bytes(self.m), max_bytes=max_bytes, shards=shards)
+        super().__init__(_row_bytes(self.m), max_bytes=max_bytes, shards=shards, sharding=sharding)
 
-    def _alloc(self, cap: int):
-        f32, i32, dev = torch.float32, torch.int32, self.device
+    def _alloc_on(self, cap: int, dev: torch.device):
+        f32, i32 = torch.float32, torch.int32
         return (
             torch.zeros(cap, dtype=f32, device=dev),
             torch.zeros(cap, dtype=f32, device=dev),
@@ -513,12 +865,6 @@ class StateArena(RowArena):
             torch.zeros(cap, dtype=i32, device=dev),
             torch.zeros(cap, dtype=f32, device=dev),
             torch.zeros(cap, dtype=i32, device=dev),
-        )
-
-    def _grow(self, pad: int):
-        return tuple(
-            torch.cat([s, torch.zeros((pad, *s.shape[1:]), dtype=s.dtype, device=s.device)])
-            for s in self.state
         )
 
     # -- data movement ---------------------------------------------------
@@ -531,7 +877,9 @@ class StateArena(RowArena):
         as ONE [k, 6 + m] 32-bit host buffer (row index, the five
         scalars, the tiled season; integer columns bit-cast), one
         host-to-device copy, then one indexed in-place copy per state
-        tensor. Duplicate positions carry identical rows."""
+        tensor. Duplicate positions carry identical rows. Over a mesh the
+        same happens once per device part a row lands on (each replica,
+        or the shard holding it, with its local row)."""
         k = len(positions)
         if k == 0:
             return
@@ -539,23 +887,26 @@ class StateArena(RowArena):
         packed = np.empty((k, 6 + m), np.float32)
         as_int = packed.view(np.int32)
         picked = [entries[i] for i in positions]
-        as_int[:, 0] = np.asarray(rows, np.int64)[positions]
+        glob = np.asarray(rows, np.int64)[positions]
         packed[:, 1] = [e[0] for e in picked]
         packed[:, 2] = [e[1] for e in picked]
         as_int[:, 3] = [e[3] for e in picked]
         packed[:, 4] = [e[4] for e in picked]
         as_int[:, 5] = [e[5] for e in picked]
         packed[:, 6:] = np.stack([tile_season(np.asarray(e[2], np.float32), m) for e in picked])
-        dev = to_device(packed, self.device)
-        ints = dev.view(torch.int32)
-        idx = ints[:, 0].long()
-        lvl, tr, se, ph, sc, nh = self.state
-        lvl.index_copy_(0, idx, dev[:, 1])
-        tr.index_copy_(0, idx, dev[:, 2])
-        ph.index_copy_(0, idx, ints[:, 3])
-        sc.index_copy_(0, idx, dev[:, 4])
-        nh.index_copy_(0, idx, ints[:, 5])
-        se.index_copy_(0, idx, dev[:, 6:])
+        for p, sel, local in self._targets(glob):
+            part = packed[sel]
+            part.view(np.int32)[:, 0] = local
+            dev = to_device(part, self._part_device(p))
+            ints = dev.view(torch.int32)
+            idx = ints[:, 0].long()
+            lvl, tr, se, ph, sc, nh = self._parts[p]
+            lvl.index_copy_(0, idx, dev[:, 1])
+            tr.index_copy_(0, idx, dev[:, 2])
+            ph.index_copy_(0, idx, ints[:, 3])
+            sc.index_copy_(0, idx, dev[:, 4])
+            nh.index_copy_(0, idx, ints[:, 5])
+            se.index_copy_(0, idx, dev[:, 6:])
 
     def counters(self) -> dict:
         out = super().counters()
@@ -577,47 +928,42 @@ class TreeArena(RowArena):
     inside the joint programs (`index_select` with a [B] row index).
     Budget, pow2 growth, LRU and counters are `RowArena`'s."""
 
-    def __init__(self, template, max_bytes: int | None = None, shards: int = 1, device="cuda"):
+    def __init__(self, template, max_bytes: int | None = None, shards: int = 1, device="cuda", sharding=None):
         self.template = template
         self.device = resolve_device(device)
         row_bytes = sum(
             int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
             for shape, dtype in _tree_leaves(template)
         )
-        super().__init__(row_bytes or 1, max_bytes=max_bytes, shards=shards)
+        super().__init__(row_bytes or 1, max_bytes=max_bytes, shards=shards, sharding=sharding)
 
     def _min_rows(self) -> int:
         # joint rows are fat (an F=4 LSTM-AE row is ~60 KB): a small floor
         return 64
 
-    def _alloc(self, cap: int):
-        dev = self.device
+    def _alloc_on(self, cap: int, dev: torch.device):
         return tree_map_leaves(lambda leaf: torch.zeros((cap, *leaf[0]), dtype=leaf[1], device=dev), self.template)
-
-    def _grow(self, pad: int):
-        return tree_map_leaves(
-            lambda s, leaf: torch.cat([s, torch.zeros((pad, *leaf[0]), dtype=leaf[1], device=s.device)]),
-            self.state,
-            self.template,
-        )
 
     def scatter(self, rows: np.ndarray, positions: list[int], entries) -> None:
         """Upload (re)fitted row trees into their rows: entries[i] is a
         tree of host numpy leaves shaped as the template's rows (callers
         tile season buffers beforehand). One host-to-device copy and one
-        indexed in-place copy per leaf."""
+        indexed in-place copy per leaf, on each device part the rows land
+        on."""
         if not positions:
             return
-        dev = self.device
-        idx = to_device(np.asarray(rows, np.int64)[positions], dev)
-        picked = [entries[i] for i in positions]
+        glob = np.asarray(rows, np.int64)[positions]
+        for p, sel, local in self._targets(glob):
+            dev = self._part_device(p)
+            idx = to_device(local, dev)
+            picked = [entries[positions[j]] for j in sel.tolist()]
 
-        def put(state, *leaves):
-            host = np.stack([np.asarray(x) for x in leaves])
-            state.index_copy_(0, idx, to_device(host, dev).to(state.dtype))
-            return state
+            def put(state, *leaves):
+                host = np.stack([np.asarray(x) for x in leaves])
+                state.index_copy_(0, idx, to_device(host, dev).to(state.dtype))
+                return state
 
-        tree_map_leaves(put, self.state, *picked)
+            tree_map_leaves(put, self._parts[p], *picked)
 
 
 def _is_pair(x) -> bool:

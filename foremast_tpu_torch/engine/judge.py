@@ -19,6 +19,10 @@ Two paths, as in the JAX package's `engine/judge.py`:
     `ColumnarPending.wait()` half synchronizes one event and unpacks.
 
 Every device-to-host transfer of a result is ONE copy (`_HostCopy`).
+Operands reach the device through the placement hooks (`_place`,
+`_place_cols`) and results leave through `_fetch`; `parallel.
+ShardedJudge` overrides them to split every batch over a device mesh,
+where each program then runs once a block (`parallel.mesh.per_block`).
 The stages — fit, arena_assemble, score, decode — are `observe.spans`
 spans, as in the JAX judge, so a worker tick's breakdown attributes them.
 """
@@ -37,7 +41,9 @@ from foremast_tpu_torch.config import BrainConfig
 from foremast_tpu_torch.engine import scoring
 from foremast_tpu_torch.engine.arena import StateArena, _arena_bytes
 from foremast_tpu_torch.observe.spans import span
-from foremast_tpu_torch.ops.windows import MetricWindows, resolve_device, to_device
+from foremast_tpu_torch.ops.windows import MetricWindows, resolve_device
+from foremast_tpu_torch.parallel import mesh as meshlib
+from foremast_tpu_torch.parallel.mesh import Blocks, Fill, per_block
 
 log = logging.getLogger("foremast_tpu_torch.judge")
 
@@ -239,6 +245,19 @@ _NP_DTYPES = {
 }
 
 
+def _pack_bytes(tensors):
+    """[B, bytes] uint8 of result tensors with leading axis [B], and the
+    (numpy dtype, tail shape, bytes) layout to unpack it."""
+    b = tensors[0].shape[0]
+    parts, layout = [], []
+    for t in tensors:
+        tail = tuple(t.shape[1:])
+        u8 = t.contiguous().reshape(b, int(np.prod(tail, dtype=np.int64))).view(torch.uint8)
+        parts.append(u8)
+        layout.append((_NP_DTYPES[t.dtype], tail, u8.shape[1]))
+    return torch.cat(parts, dim=1), layout
+
+
 class _HostCopy:
     """Result tensors (leading axis [B]) on their way to the host, as ONE
     copy: packed bytewise into a [B, bytes] uint8 buffer. For CUDA
@@ -246,31 +265,62 @@ class _HostCopy:
     this result alone, with an event recorded after it, so the caller
     returns before the device finishes; `wait()` synchronizes that event
     (from any thread) and unpacks. For CPU tensors `wait()` just
-    unpacks."""
+    unpacks.
 
-    __slots__ = ("buf", "layout", "event")
+    Results sharded over a mesh's data axis (`Blocks`) land in the same
+    one host buffer: each block is packed on its device and copied
+    non-blocking into its rows, one event per block on that device's
+    current stream."""
+
+    __slots__ = ("buf", "layout", "events")
 
     def __init__(self, tensors):
-        b = tensors[0].shape[0]
-        parts, self.layout = [], []
-        for t in tensors:
-            tail = tuple(t.shape[1:])
-            u8 = t.contiguous().reshape(b, int(np.prod(tail, dtype=np.int64))).view(torch.uint8)
-            parts.append(u8)
-            self.layout.append((_NP_DTYPES[t.dtype], tail, u8.shape[1]))
-        packed = torch.cat(parts, dim=1)
-        self.event = None
+        self.events = []
+        if isinstance(tensors[0], Blocks):
+            self._init_blocks(tensors)
+            return
+        packed, self.layout = _pack_bytes(tensors)
         if packed.is_cuda:
             self.buf = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
             self.buf.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            event = torch.cuda.Event()
+            event.record()
+            self.events.append(event)
         else:
             self.buf = packed
 
+    def _init_blocks(self, tensors) -> None:
+        # one packing and one copy a run of blocks on one device
+        packed = []
+        for lo, hi in meshlib.device_runs(tensors[0].devices):
+            with meshlib.device_scope(tensors[0].parts[lo].device):
+                got, self.layout = _pack_bytes([meshlib.join_rows(t.parts[lo:hi]) for t in tensors])
+            packed.append(got)
+        if not packed[0].is_cuda:
+            self.buf = torch.cat(packed)
+            return
+        rows = sum(p.shape[0] for p in packed)
+        self.buf = torch.empty((rows, packed[0].shape[1]), dtype=torch.uint8, pin_memory=True)
+        r0 = 0
+        for p in packed:
+            with torch.cuda.device(p.device):
+                self.buf[r0 : r0 + p.shape[0]].copy_(p, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(p.device))
+            self.events.append(event)
+            r0 += p.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return self.buf.numel()
+
+    def done(self) -> bool:
+        """Whether every copy has landed (never blocks)."""
+        return all(event.query() for event in self.events)
+
     def wait(self) -> tuple[np.ndarray, ...]:
-        if self.event is not None:
-            self.event.synchronize()
+        for event in self.events:
+            event.synchronize()
         host = self.buf.numpy()
         out, off = [], 0
         for dtype, tail, nbytes in self.layout:
@@ -307,6 +357,14 @@ def _pack_hist_bf16_host(series, length: int, pin: bool = False):
     else:
         anchor, _, lens = packed
     return anchor, delta, lens
+
+
+def _zero_windows(rows: int, length: int) -> MetricWindows:
+    """All-masked [rows, length] windows, made on the device they land
+    on (`Fill`): an absent baseline, or the history of a cached tick."""
+    return MetricWindows(
+        values=Fill((rows, length), 0.0, torch.float32), mask=Fill((rows, length), False, torch.bool), times=None
+    )
 
 
 # Columnar-path padding: a zero terminal-state entry (n_hist=0 =>
@@ -395,6 +453,45 @@ class HealthJudge:
                 out[i] = v
         return [v for v in out if v is not None]
 
+    # -- placement hooks (parallel.ShardedJudge overrides them) -----------
+
+    def _place(self, tree):
+        """Device placement of a tree of host operands (a ScoreBatch, or
+        a tuple with one): numpy and CPU tensors uploaded to the judge's
+        device (pinned, non-blocking), `Fill` constants made there. A
+        ShardedJudge splits every leaf's leading axis over its mesh."""
+        return meshlib.place(tree, self.device)
+
+    def _place_cols(self, *arrays):
+        """Placement of bare leading-axis-[B] operands (row indices, gap
+        steps, fit uploads, the joint programs' buffers): one upload
+        each here; a ShardedJudge splits them over its mesh."""
+        return tuple(meshlib.place(a, self.device) for a in arrays)
+
+    def _batch_multiple(self) -> int:
+        """Every dispatched batch's leading axis is a multiple of this: 1
+        here, the data-axis size on a ShardedJudge (fully masked pad
+        rows make up the difference)."""
+        return 1
+
+    def _arena_sharding(self):
+        """Placement of arena device buffers: None (the judge's device)
+        here; a ShardedJudge's mesh placement, data-axis block-sharded
+        or replicated (FOREMAST_ARENA_SHARDED=0)."""
+        return None
+
+    def _arena_shards(self) -> int:
+        """Data-axis blocks the arena row space splits into: 1 here; a
+        ShardedJudge's data-axis size, so each device hosts exactly its
+        batch block's rows."""
+        return 1
+
+    def _fetch(self, tree) -> tuple[np.ndarray, ...]:
+        """Result tensors to the host: ONE copy (`_HostCopy`), or the
+        wait of one already started; a ShardedJudge times it."""
+        copy = tree if isinstance(tree, _HostCopy) else _HostCopy(tree)
+        return copy.wait()
+
     # -- device state ----------------------------------------------------
 
     def _arena_for(self, m_need: int):
@@ -410,7 +507,9 @@ class HealthJudge:
         if arena is None or arena.m < m_need:
             if arena is not None:
                 self._retire_counters(arena)
-            arena = StateArena(m_need, device=self.device)
+            arena = StateArena(
+                m_need, device=self.device, sharding=self._arena_sharding(), shards=self._arena_shards()
+            )
             self._arenas[key] = arena
         return arena
 
@@ -481,11 +580,7 @@ class HealthJudge:
         # on warm ticks show the fit cache doing its job
         with span("judge.fit", stage="fit", rows=len(tasks), misses=len(miss), device=True):
             self._fit_miss_rows(miss, tasks, keys, entries, th)
-        gap = (
-            to_device(_gap_steps(tasks), self.device)
-            if cfg.algorithm in GAP_SENSITIVE_FITS
-            else None
-        )
+        gap = self._place_cols(_gap_steps(tasks))[0] if cfg.algorithm in GAP_SENSITIVE_FITS else None
         pw = self._pairwise_kwargs(cfg.pairwise.algorithm)
         return self._arena_score(batch, keys, entries, miss, gap, pw)
 
@@ -501,24 +596,24 @@ class HealthJudge:
         reconstructs f32 values on the device (`fit_forecast_bf16_delta`).
         With the gate off it ships f32 values + masks to
         `scoring.fit_forecast`. Each chunk's state comes back in ONE
-        device-to-host copy."""
+        device-to-host copy. On a ShardedJudge a chunk (rounded to the
+        data axis) fits block by block, one block a device."""
         cfg = self.config
-        dev = self.device
+        pin = self.device.type == "cuda"
         bf16_fit = scoring.bf16_delta_enabled()
         ma_fit = cfg.algorithm == "moving_average_all"
         zero_season = np.zeros(1, np.float32)
+        mult = self._batch_multiple()
         for c0 in range(0, len(miss), _FIT_CHUNK):
             chunk = miss[c0 : c0 + _FIT_CHUNK]
-            rows = bucket_length(len(chunk))
+            rows = meshlib.pad_to_multiple(bucket_length(len(chunk)), mult)
             pad = [chunk[0]] * (rows - len(chunk))  # repeat a real row
             ragged = [(tasks[i].hist_times, tasks[i].hist_values) for i in chunk + pad]
             puts = []
             if bf16_fit and ma_fit:
-                anchor, delta, lens = _pack_hist_bf16_host(ragged, th, pin=dev.type == "cuda")
-                level, scale, nh = _fetch(
-                    scoring.fit_ma_from_bf16_delta(
-                        to_device(anchor, dev), to_device(delta, dev), to_device(lens, dev)
-                    )
+                anchor, delta, lens = _pack_hist_bf16_host(ragged, th, pin=pin)
+                level, scale, nh = self._fetch(
+                    per_block(scoring.fit_ma_from_bf16_delta, *self._place_cols(anchor, delta, lens))
                 )
                 for j, i in enumerate(chunk):
                     entry = (float(level[j]), 0.0, zero_season, 0, float(scale[j]), int(nh[j]))
@@ -527,25 +622,27 @@ class HealthJudge:
                         puts.append((keys[i], entry))
             else:
                 if bf16_fit:
-                    anchor, delta, lens = _pack_hist_bf16_host(ragged, th, pin=dev.type == "cuda")
-                    n_hist = to_device(lens, dev)
-                    fc = scoring.fit_forecast_bf16_delta(
-                        to_device(anchor, dev),
-                        to_device(delta, dev),
+                    anchor, delta, n_hist = self._place_cols(*_pack_hist_bf16_host(ragged, th, pin=pin))
+                    fc = per_block(
+                        scoring.fit_forecast_bf16_delta,
+                        anchor,
+                        delta,
                         n_hist,
                         algorithm=cfg.algorithm,
                         season_length=cfg.season_steps,
                     )
                 else:
-                    hist = MetricWindows.from_ragged(ragged, th, dev, device_times=False)
-                    fc = scoring.fit_forecast(
-                        hist.values,
-                        hist.mask,
+                    hist = MetricWindows.from_ragged(ragged, th, "cpu", device_times=False)
+                    values, mask = self._place_cols(hist.values, hist.mask)
+                    fc = per_block(
+                        scoring.fit_forecast,
+                        values,
+                        mask,
                         algorithm=cfg.algorithm,
                         season_length=cfg.season_steps,
                     )
-                    n_hist = hist.count().to(torch.int32)
-                level, trend, season, phase, scale, nh = _fetch(
+                    n_hist = per_block(lambda m: m.sum(dim=-1, dtype=torch.int32), mask)
+                level, trend, season, phase, scale, nh = self._fetch(
                     (fc.level, fc.trend, fc.season, fc.season_phase, fc.scale, n_hist)
                 )
                 for j, i in enumerate(chunk):
@@ -563,7 +660,7 @@ class HealthJudge:
             if puts:
                 self.fit_cache.put_many(puts)
 
-    def _arena_score(self, batch, keys, entries, force, gap, pw, n_real=None):
+    def _arena_score(self, batch, keys, entries, force, gap, pw, n_real=None, merge=False):
         """Arena-gathered judgment shared by the object and columnar
         paths: assign rows, widen-rebuild if a scattered row carries a
         longer season buffer than the arena was built for, scatter the
@@ -588,12 +685,12 @@ class HealthJudge:
                         arena.scatter(assigned[0], assigned[1], entries)
             if assigned is not None:
                 with span("judge.score", stage="score", rows=len(keys), device=True):
-                    return scoring.score_from_arena(
-                        batch,
-                        *arena.state,
-                        to_device(assigned[0], self.device),
-                        gap_steps=gap,
-                        **pw,
+                    # rows of each device's own arena buffer (a sharded
+                    # arena's row of position i lies on i's device),
+                    # placed like every other [B] operand
+                    (rows_dev,) = self._place_cols(arena.device_rows(assigned[0]))
+                    return per_block(
+                        scoring.score_from_arena, batch, *arena.state, rows_dev, gap_steps=gap, merge=merge, **pw
                     )
             # a fleet living on this path re-pays its whole state upload
             # every tick, which must never be silent
@@ -612,7 +709,6 @@ class HealthJudge:
     def _stacked_score(self, batch, entries, gap, pw):
         """One-off host stack + upload of terminal state (the no-arena
         path: FOREMAST_ARENA_BYTES=0 or a batch over the byte budget)."""
-        dev = self.device
         m = max(len(e[2]) for e in entries)
         stacked = (
             np.asarray([e[0] for e in entries], np.float32),
@@ -622,9 +718,7 @@ class HealthJudge:
             np.asarray([e[4] for e in entries], np.float32),
             np.asarray([e[5] for e in entries], np.int32),
         )
-        return scoring.score_from_state(
-            batch, *(to_device(x, dev) for x in stacked), gap_steps=gap, **pw
-        )
+        return per_block(scoring.score_from_state, batch, *self._place_cols(*stacked), gap_steps=gap, **pw)
 
     # -- the columnar warm path ------------------------------------------
 
@@ -698,10 +792,15 @@ class HealthJudge:
         stay on one thread in slice order. `wait()` touches no arena
         state and may run on another thread."""
         cfg = self.config
-        dev = self.device
         b0, tc = values.shape
         pairwise = base_values is not None
         rows_b = bucket_length(b0)
+        # data-axis rounding on top of the pow2 bucket: a sharded judge
+        # needs B divisible by its data axis (already true past 8 rows
+        # for a power-of-two axis)
+        mult = self._batch_multiple()
+        if mult > 1 and rows_b % mult:
+            rows_b += mult - rows_b % mult
         self.batch_rows_total += rows_b
         self.pad_rows_total += rows_b - b0
         if rows_b != b0:
@@ -712,7 +811,16 @@ class HealthJudge:
             thr = np.concatenate([thr, np.ones(pad, np.float32)])
             bound = np.concatenate([bound, np.ones(pad, np.int32)])
             mlb = np.concatenate([mlb, np.zeros(pad, np.float32)])
-            keys = list(keys) + [_PAD_COL_KEY] * pad
+            shards = self._arena_shards()
+            if shards > 1:
+                # shard-qualified pad keys: the tail's pad positions land
+                # in whichever data-axis block b0 puts them, so one
+                # stable pad row PER BLOCK keeps warm ticks scatter-free
+                # where one shared key would migrate between blocks
+                per = rows_b // shards
+                keys = list(keys) + [f"{_PAD_COL_KEY}@{(b0 + j) // per}" for j in range(pad)]
+            else:
+                keys = list(keys) + [_PAD_COL_KEY] * pad
             entries = list(entries) + [_PAD_ENTRY] * pad
             if gap_steps is not None:
                 gap_steps = np.concatenate([gap_steps, np.zeros(pad, np.int32)])
@@ -723,56 +831,55 @@ class HealthJudge:
                 base_mask = np.concatenate([base_mask, np.zeros((pad, tc), bool)])
         if pairwise:
             base = MetricWindows(
-                values=to_device(np.asarray(base_values, np.float32), dev),
-                mask=to_device(np.asarray(base_mask, bool), dev),
-                times=None,
+                values=np.asarray(base_values, np.float32), mask=np.asarray(base_mask, bool), times=None
             )
         else:
-            base = MetricWindows(
-                values=torch.zeros((rows_b, tc), dtype=torch.float32, device=dev),
-                mask=torch.zeros((rows_b, tc), dtype=torch.bool, device=dev),
-                times=None,
-            )
+            base = _zero_windows(rows_b, tc)
         batch = scoring.ScoreBatch(
-            historical=MetricWindows(
-                values=torch.zeros((rows_b, 0), dtype=torch.float32, device=dev),
-                mask=torch.zeros((rows_b, 0), dtype=torch.bool, device=dev),
-                times=None,
-            ),
-            current=MetricWindows(
-                values=to_device(np.asarray(values, np.float32), dev),
-                mask=to_device(np.asarray(mask, bool), dev),
-                times=None,
-            ),
+            historical=_zero_windows(rows_b, 0),
+            current=MetricWindows(values=np.asarray(values, np.float32), mask=np.asarray(mask, bool), times=None),
             baseline=base,
-            threshold=to_device(np.asarray(thr, np.float32), dev),
-            bound=to_device(np.asarray(bound, np.int32), dev),
-            min_lower_bound=to_device(np.asarray(mlb, np.float32), dev),
-            min_points=torch.full((rows_b,), cfg.min_historical_points, dtype=torch.int32, device=dev),
+            threshold=np.asarray(thr, np.float32),
+            bound=np.asarray(bound, np.int32),
+            min_lower_bound=np.asarray(mlb, np.float32),
+            min_points=Fill((rows_b,), cfg.min_historical_points, torch.int32),
+        )
+        band_last = with_bands and self.band_mode != "full"
+        # ONE placement of every host operand (one upload a leaf, split
+        # over the mesh on a ShardedJudge)
+        batch, gap, nidx_dev = self._place(
+            (
+                batch,
+                None if gap_steps is None else np.asarray(gap_steps, np.int32),
+                np.asarray(nidx, np.int64) if band_last else None,
+            )
         )
         # Two variants: the baseline-less bucket proves no baselines
         # exist, so PAIRWISE_NONE judges without the rank tests (an
         # empty baseline gates every test off anyway: identical
         # verdicts); the canary bucket runs the configured tests.
         pw = self._pairwise_kwargs(cfg.pairwise.algorithm if pairwise else scoring.PAIRWISE_NONE)
-        gap = None if gap_steps is None else to_device(np.asarray(gap_steps, np.int32), dev)
-        res = self._arena_score(batch, keys, entries, (), gap, pw, b0)
+        # the warm dispatch runs ONE call a device over a mesh (the
+        # blocks a device holds batched): its launches do not grow with
+        # the blocks, and stay under the launch queue's depth
+        res = self._arena_score(batch, keys, entries, (), gap, pw, b0, merge=True)
         v, a = res.verdict, res.anomalies
-        if with_bands and self.band_mode == "full":
+        if with_bands and not band_last:
             if pairwise:
-                out = _compact_full_pair(v, a, res.upper, res.lower, res.p_value, res.dist_differs)
+                out = per_block(_compact_full_pair, v, a, res.upper, res.lower, res.p_value, res.dist_differs, merge=True)
             else:
-                out = _compact_full_nopair(v, a, res.upper, res.lower)
+                out = per_block(_compact_full_nopair, v, a, res.upper, res.lower, merge=True)
         elif with_bands:
-            nidx_dev = to_device(np.asarray(nidx, np.int64), dev)
             if pairwise:
-                out = _compact_result(v, a, res.upper, res.lower, res.p_value, res.dist_differs, nidx_dev)
+                out = per_block(
+                    _compact_result, v, a, res.upper, res.lower, res.p_value, res.dist_differs, nidx_dev, merge=True
+                )
             else:
-                out = _compact_result_nopair(v, a, res.upper, res.lower, nidx_dev)
+                out = per_block(_compact_result_nopair, v, a, res.upper, res.lower, nidx_dev, merge=True)
         elif pairwise:
-            out = _compact_min_pair(v, a, res.p_value, res.dist_differs)
+            out = per_block(_compact_min_pair, v, a, res.p_value, res.dist_differs, merge=True)
         else:
-            out = _compact_min(v, a)
+            out = per_block(_compact_min, v, a, merge=True)
         return ColumnarPending(self, _HostCopy(out), b0, tc, rows_b, with_bands, pairwise)
 
     def _columnar_wait(self, pending: "ColumnarPending"):
@@ -781,7 +888,7 @@ class HealthJudge:
         b0, tc = pending.b0, pending.tc
         ps = differs = None
         with span("judge.decode", stage="decode", rows=pending.rows, device=True):
-            got = pending.dev.wait()
+            got = self._fetch(pending.dev)
         if pending.with_bands and pending.pairwise:
             v8, packed, ub, lb, ps, differs = got
             ub, lb = ub[:b0], lb[:b0]
@@ -805,20 +912,18 @@ class HealthJudge:
         self, tasks: list[MetricTask], th: int, tc: int
     ) -> list[MetricVerdict]:
         cfg = self.config
-        dev = self.device
         b = len(tasks)
         use_cache = self.fit_cache is not None
+        # host operands, placed once below (uploaded, or split over the
+        # mesh on a ShardedJudge)
         cur = MetricWindows.from_ragged(
-            [(t.cur_times, t.cur_values) for t in tasks], tc, dev, device_times=False
+            [(t.cur_times, t.cur_values) for t in tasks], tc, "cpu", device_times=False
         )
         if all(t.base_values is None for t in tasks):
             # baseline-less bucket: an all-masked baseline fails every
-            # pairwise min-points gate, so ship zeros at the same shape
-            base = MetricWindows(
-                values=torch.zeros((b, tc), dtype=torch.float32, device=dev),
-                mask=torch.zeros((b, tc), dtype=torch.bool, device=dev),
-                times=None,
-            )
+            # pairwise min-points gate, so zeros at the same shape, made
+            # on the device
+            base = _zero_windows(b, tc)
         else:
             empty = (np.zeros(0, np.int64), np.zeros(0, np.float32))
             base = MetricWindows.from_ragged(
@@ -827,41 +932,38 @@ class HealthJudge:
                     for t in tasks
                 ],
                 tc,
-                dev,
+                "cpu",
                 device_times=False,
             )
         if use_cache:
             # the cached path packs and uploads histories only for
             # cache-miss rows; a fully warm tick ships zero history bytes
-            hist = MetricWindows(
-                values=torch.zeros((b, 0), dtype=torch.float32, device=dev),
-                mask=torch.zeros((b, 0), dtype=torch.bool, device=dev),
-                times=None,
-            )
+            hist = _zero_windows(b, 0)
         else:
             hist = MetricWindows.from_ragged(
-                [(t.hist_times, t.hist_values) for t in tasks], th, dev, device_times=False
+                [(t.hist_times, t.hist_values) for t in tasks], th, "cpu", device_times=False
             )
         thr, bound, mlb = cfg.anomaly.gather([t.metric_type for t in tasks])
-        batch = scoring.ScoreBatch(
-            historical=hist,
-            current=cur,
-            baseline=base,
-            threshold=torch.from_numpy(thr).to(dev),
-            bound=torch.from_numpy(bound).to(dev),
-            min_lower_bound=torch.from_numpy(mlb).to(dev),
-            min_points=torch.full(
-                (b,), cfg.min_historical_points, dtype=torch.int32, device=dev
-            ),
+        batch = self._place(
+            scoring.ScoreBatch(
+                historical=hist,
+                current=cur,
+                baseline=base,
+                threshold=thr,
+                bound=bound,
+                min_lower_bound=mlb,
+                min_points=Fill((b,), cfg.min_historical_points, torch.int32),
+            )
         )
         if use_cache:
             res = self._score_with_fit_cache(batch, tasks, th)
         else:
             with span("judge.score", stage="score", rows=len(tasks), device=True):
-                res = scoring.score(
+                res = per_block(
+                    scoring.score,
                     batch,
                     gap_steps=(
-                        torch.from_numpy(_gap_steps(tasks)).to(dev)
+                        self._place_cols(_gap_steps(tasks))[0]
                         if cfg.algorithm in GAP_SENSITIVE_FITS
                         else None
                     ),
@@ -885,21 +987,22 @@ class HealthJudge:
                 np.int64,
                 count=len(tasks),
             )
-            verdicts, packed, ub, lb, ps, differs = _fetch(
-                _compact_result(
+            verdicts, packed, ub, lb, ps, differs = self._fetch(
+                per_block(
+                    _compact_result,
                     res.verdict,
                     res.anomalies,
                     res.upper,
                     res.lower,
                     res.p_value,
                     res.dist_differs,
-                    torch.from_numpy(nidx).to(self.device),
+                    self._place_cols(nidx)[0],
                 )
             )
             anoms = np.unpackbits(packed, axis=1, count=tc)
             uppers = lowers = None
         else:
-            verdicts, anoms, uppers, lowers, ps, differs = _fetch(
+            verdicts, anoms, uppers, lowers, ps, differs = self._fetch(
                 (
                     res.verdict,
                     res.anomalies,

@@ -22,8 +22,15 @@ kernels) and kept in a bounded `ModelCache` with their residual-MVN
 state; the cache entries hold host numpy leaves. Warm re-checks score
 joint docs columnar from a device `TreeArena` (`joint_columnar`).
 
-Single device only: the JAX package's `*_sharded` programs and joint
-placement hooks are not ported (ROADMAP.md Queue 1, 'Multi-GPU').
+Over a device mesh (the univariate judge a `parallel.ShardedJudge`), the
+joint columnar buffers split over its data axis through its placement
+hook (`_place_joint`), the joint `TreeArena`s split their row space the
+same way (`_joint_sharding`, `_joint_shards`), and the from-rows
+programs (`lstm_joint_score_from_rows`, `models.bivariate.
+detect_bivariate_from_rows`) run block by block (`parallel.mesh.
+per_block`) against each device's own rows (`arena.device_rows`). The object
+paths (cold fits, training) stay on the judge's device, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -77,6 +84,8 @@ from foremast_tpu_torch.models.residual_mvn import (
 from foremast_tpu_torch.observe.spans import span
 from foremast_tpu_torch.ops.forecasters import Forecast
 from foremast_tpu_torch.ops.windows import MetricWindows, resolve_device, to_device
+from foremast_tpu_torch.parallel import mesh as meshlib
+from foremast_tpu_torch.parallel.mesh import Fill, per_block
 
 log = logging.getLogger("foremast_tpu_torch.multivariate")
 
@@ -825,6 +834,28 @@ class MultivariateJudge:
             "valid": ((), torch.bool),
         }
 
+    # -- placement over the univariate judge's mesh --------------------
+
+    def _joint_sharding(self):
+        return self.univariate._arena_sharding()
+
+    def _joint_shards(self) -> int:
+        """Row-space shard count of the joint arenas: the univariate
+        judge's, so joint warm gathers stay on their devices too."""
+        return self.univariate._arena_shards()
+
+    def _joint_multiple(self) -> int:
+        """Joint batch leading-axis multiple: the univariate judge's (a
+        ShardedJudge's data-axis size)."""
+        return self.univariate._batch_multiple()
+
+    def _place_joint(self, *arrays):
+        """Leading-axis placement of joint columnar buffers through the
+        univariate judge's `_place_cols` (one upload each on a plain
+        judge; split over the mesh, with its partition assert, on a
+        ShardedJudge)."""
+        return self.univariate._place_cols(*arrays)
+
     def _joint_arena_for(self, mode: str, f: int, m_need: int):
         """The (mode, f) TreeArena, season buffers at least m_need wide.
         Widening rebuilds empty (host cache entries re-scatter lazily).
@@ -837,7 +868,9 @@ class MultivariateJudge:
             if arena is not None:
                 self._retire_joint(arena)
             template = self._bi_template() if mode == "bivariate" else self._lstm_template(f, m_need)
-            arena = TreeArena(template, device=self.device)
+            arena = TreeArena(
+                template, device=self.device, sharding=self._joint_sharding(), shards=self._joint_shards()
+            )
             arena.season_m = m_need
             self._joint_arenas[key] = arena
         return arena
@@ -885,28 +918,41 @@ class MultivariateJudge:
         rows, uploads (pinned, non-blocking), queues the from-rows program
         and the one copy of its flags to host memory, and returns without
         synchronizing: the cutoffs are computed on the host first. The
-        batch axis is pow2-padded (dup of row 0, mask all-False: flags
-        all-False, dropped on the decode)."""
+        batch axis is pow2-padded (and rounded to the mesh's data axis;
+        dup of row 0, mask all-False: flags all-False, dropped on the
+        decode)."""
         s0, f, tcb = cur.shape
-        dev = self.device
         thr = float(self.config.anomaly.rule_for(None).threshold)
         m_need = 1 if mode == "bivariate" else max(e[3][2].shape[-1] for e in entries)
         arena = self._joint_arena_for(mode, f, m_need)
+        # the sharded arena must see the PADDED position list: a row's
+        # block is a function of position // (sb / shards)
         sb = bucket_length(s0)
+        mult = self._joint_multiple()
+        if mult > 1 and sb % mult:
+            sb += mult - sb % mult
         rows = None
         state = None
         if arena is not None:
             re_ = arena.row_entry
             force = [i for i, (k, e) in enumerate(zip(keys, entries)) if re_.get(k) is not None and re_.get(k) is not e]
+            keys_a, entries_a = keys, entries
+            if arena.shards > 1 and sb != s0:
+                # shard-qualified pad keys: one stable pad row per
+                # data-axis block (a shared key would migrate between
+                # blocks as s0 changes); their masks are all-False
+                per = sb // arena.shards
+                keys_a = list(keys) + [f"__pad__joint__@{(s0 + j) // per}" for j in range(sb - s0)]
+                entries_a = list(entries) + [entries[0]] * (sb - s0)
             with span("judge.arena_assemble", stage="arena_assemble", rows=s0, device=True):
-                assigned = arena.assign(keys, force, s0)
+                assigned = arena.assign(keys_a, force, s0)
                 if assigned is not None:
                     rows_idx, scat = assigned
                     if scat:
-                        trees = [None] * len(entries)
+                        trees = [None] * len(entries_a)
                         for i in scat:
-                            trees[i] = self._row_tree(mode, entries[i], arena.season_m)
-                            re_[keys[i]] = entries[i]
+                            trees[i] = self._row_tree(mode, entries_a[i], arena.season_m)
+                            re_[keys_a[i]] = entries_a[i]
                         arena.scatter(rows_idx, scat, trees)
                     state = arena.state
                     rows = rows_idx
@@ -922,7 +968,9 @@ class MultivariateJudge:
                     mode,
                 )
             trees = [self._row_tree(mode, e, m_need) for e in entries]
-            state = tree_map_leaves(lambda *ls: to_device(np.stack([np.asarray(x) for x in ls]), dev), *trees)
+            host = tree_map_leaves(lambda *ls: np.stack([np.asarray(x) for x in ls]), *trees)
+            mesh = getattr(self.univariate, "mesh", None)
+            state = meshlib.place(host, self.device) if mesh is None else meshlib.replicate(host, mesh)
             rows = np.arange(s0, dtype=np.int64)
         self.batch_rows_total += sb
         self.pad_rows_total += sb - s0
@@ -930,20 +978,28 @@ class MultivariateJudge:
             pad = sb - s0
             cur = np.concatenate([cur, np.zeros((pad, f, tcb), np.float32)])
             mask = np.concatenate([mask, np.zeros((pad, tcb), bool)])
-            rows = np.concatenate([rows, np.full(pad, rows[0], rows.dtype)])
+            if len(rows) != sb:
+                rows = np.concatenate([rows, np.full(pad, rows[0], rows.dtype)])
             if gaps is not None:
                 gaps = np.concatenate([gaps, np.zeros(pad, np.int32)])
-        rows_d = to_device(np.asarray(rows, np.int64), dev)
+        # sharded arena: LOCAL (per-block) row indices, through the same
+        # placement as the batch buffers; the stacked fallback (state is
+        # not arena.state) keeps global rows against replicas
+        sharded = arena is not None and arena.shards > 1 and state is arena.state
+        rows = np.asarray(rows, np.int64)
+        (rows_d,) = self._place_joint(arena.device_rows(rows) if sharded else rows)
         with span("judge.score", stage="score", rows=sb, device=True):
             if mode == "bivariate":
-                flags = detect_bivariate_from_rows(
-                    state["mean"],
-                    state["cov"],
-                    rows_d,
-                    to_device(np.ascontiguousarray(cur[:, 0]), dev),
-                    to_device(np.ascontiguousarray(cur[:, 1]), dev),
-                    to_device(mask, dev),
-                    torch.full((sb,), thr, dtype=torch.float32, device=dev),
+                operands = self._place_joint(
+                    np.ascontiguousarray(cur[:, 0]),
+                    np.ascontiguousarray(cur[:, 1]),
+                    mask,
+                    Fill((sb,), thr, torch.float32),
+                )
+                # one call a device over a mesh (the blocks a device holds
+                # batched), as the univariate warm dispatch
+                flags = per_block(
+                    detect_bivariate_from_rows, state["mean"], state["cov"], rows_d, *operands, merge=True
                 )
             else:
                 thr_arr = np.full(sb, thr, np.float32)
@@ -952,16 +1008,15 @@ class MultivariateJudge:
                     np.asarray([e[2] for e in entries] + [1.0] * (sb - s0)),
                     thr_arr,
                 )
-                flags = lstm_joint_score_from_rows(
-                    state,
-                    rows_d,
-                    to_device(np.ascontiguousarray(cur.transpose(0, 2, 1))[:, None], dev),
-                    to_device(mask, dev),
-                    to_device(cut, dev),
-                    torch.full((sb,), chi2_quantile(thr, f), dtype=torch.float32, device=dev),
-                    torch.full((sb,), chi2_quantile(thr + MVN_CONFIRM_MARGIN, f), dtype=torch.float32, device=dev),
-                    to_device(gaps if gaps is not None else np.zeros(sb, np.int32), dev),
+                operands = self._place_joint(
+                    np.ascontiguousarray(cur.transpose(0, 2, 1))[:, None],
+                    mask,
+                    cut,
+                    Fill((sb,), chi2_quantile(thr, f), torch.float32),
+                    Fill((sb,), chi2_quantile(thr + MVN_CONFIRM_MARGIN, f), torch.float32),
+                    gaps if gaps is not None else Fill((sb,), 0, torch.int32),
                 )
+                flags = per_block(lstm_joint_score_from_rows, state, rows_d, *operands, merge=True)
             pending = JointPending(_HostCopy((flags,)), s0)
         return pending
 

@@ -283,6 +283,11 @@ def _judgment_tail(
     )
 
 
+# the public name of the judgment tail (the context-parallel scorer,
+# `parallel.seqparallel.score_time_sharded`, ends in it)
+judgment_tail = _judgment_tail
+
+
 def _kernel_result(p, differs, judged) -> ScoreResult:
     verdict, anomalies, upper, lower = judged
     return ScoreResult(

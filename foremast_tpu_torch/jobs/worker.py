@@ -438,12 +438,21 @@ class BrainWorker:
         metrics=None,  # observe.gauges.WorkerMetrics (optional)
         dirty=None,  # reactive.DirtySet (optional: the micro-tick plane)
         mesh=None,  # mesh.MeshNode (optional: fleet partitioning)
+        device_mesh="env",  # parallel.Mesh | None | "env"
     ):
         """`band_mode` controls how much of the model band each verdict
         carries back from the device: "last" (default — only the final
         band point, what a gauge exporter publishes) or "full" (whole
         [Tc] band per metric, for on_verdict hooks that consume the band
-        shape)."""
+        shape).
+
+        `device_mesh`: the univariate judge spans a device mesh of this
+        process — a `parallel.Mesh`, None for the single-device judge,
+        or "env" (default) to resolve FOREMAST_DEVICE_MESH ("auto" = all
+        local cards; one card, or a worker on the CPU, resolves to the
+        single-device judge). Placement, not semantics: batches split
+        their leading axis, arenas their row space, and every cache,
+        admission and degradation contract is unchanged."""
         self.store = store
         self.source = source
         self.config = config or BrainConfig()
@@ -451,7 +460,14 @@ class BrainWorker:
         # MultivariateJudge dispatches by metric count (1 -> univariate,
         # 2 -> bivariate normal, 3+ -> LSTM-AE hybrid, per the selector)
         # and delegates univariate jobs to its HealthJudge, `_uni`
-        self.judge = MultivariateJudge(self.config, device=device)
+        univariate = None
+        if device_mesh is not None:
+            from foremast_tpu_torch.parallel.batch import sharded_univariate
+
+            univariate = sharded_univariate(
+                self.config, mesh=None if isinstance(device_mesh, str) else device_mesh, device=device
+            )
+        self.judge = MultivariateJudge(self.config, univariate=univariate, device=device)
         self._uni = self.judge.univariate
         self._uni.band_mode = band_mode
         self.worker_id = worker_id or f"brain-{uuid.uuid4().hex[:8]}"
@@ -2811,6 +2827,10 @@ class BrainWorker:
                 ctx_log(log, logging.DEBUG, "micro-tick complete", docs=n_docs, seconds=round(seconds, 4))
             return
         self._maybe_persist()
+        if self.metrics is not None and hasattr(self.metrics, "observe_device_mesh"):
+            dm = self._device_mesh_state()
+            if dm is not None:
+                self.metrics.observe_device_mesh(dm)
         self._last_tick = {
             "at": time.time(),
             "docs": n_docs,
@@ -2825,6 +2845,36 @@ class BrainWorker:
             fast_path=n_fast,
             seconds=round(seconds, 4),
         )
+
+    def _device_mesh_state(self) -> dict | None:
+        """The /debug/state `device_mesh` section: mesh shape, padded rows
+        across the univariate AND joint columnar dispatches, arena device
+        accounting and the placement / result-fetch counters. None when
+        the judge is single-device.
+
+        `arena_replica_bytes` is PER-DEVICE arena bytes in either layout
+        (one replica when replicated, one row-space block when sharded);
+        `arena_total_device_bytes` is the bytes of every distinct
+        data-axis device's buffer: the replication tax when
+        FOREMAST_ARENA_SHARDED=0, one logical copy (the shard sum) by
+        default. A device listed several times holds one buffer, and a
+        model-axis device none."""
+        uni = self._uni
+        if not hasattr(uni, "mesh_debug"):
+            return None
+        out = uni.mesh_debug()
+        rows = out["batch_rows_total"] + self._mvj.batch_rows_total
+        pads = out["pad_rows_total"] + self._mvj.pad_rows_total
+        out["batch_rows_total"] = rows
+        out["pad_rows_total"] = pads
+        out["padded_row_fraction"] = round(pads / rows, 4) if rows else None
+        arenas = list(uni._arenas.values()) + list(self._mvj._joint_arenas.values())
+        replica = sum(a.device_bytes() for a in arenas)
+        out["arena_layout"] = "sharded" if uni._arena_shards() > 1 else "replicated"
+        out["arena_capacity_rows"] = sum(a.cap for a in arenas)
+        out["arena_replica_bytes"] = replica
+        out["arena_total_device_bytes"] = sum(a.total_device_bytes() for a in arenas)
+        return out
 
     def debug_state(self) -> dict:
         """The worker's varz: queue depth, cache occupancy, arena
@@ -2886,6 +2936,8 @@ class BrainWorker:
             # the joint models' device arena (TreeArena rows)
             "joint_arena": self._mvj.joint_state_counters(),
             "fast_path_docs": dict(self._fast_kinds),
+            # the judge's device mesh (None on a single-device judge)
+            "device_mesh": self._device_mesh_state(),
             "columnar_pad": (
                 {
                     "batch_rows_total": rows,

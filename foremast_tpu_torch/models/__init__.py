@@ -17,3 +17,11 @@ register_model("seasonal", fit_seasonal)
 register_model("prophet", fit_seasonal)  # documented substitution, see seasonal.py
 # hourly seasonality variant (60 steps at the 60 s PromQL step)
 register_model("seasonal_hourly", partial(fit_seasonal, period=60, order=2))
+
+
+def lstm_ae_shardings(mesh, params, opt_state):
+    """`lstm_ae.shardings` at the detector's hidden width (the JAX
+    package's `models.lstm_ae_shardings`)."""
+    from foremast_tpu_torch.models.lstm_ae import LSTMAEConfig, shardings
+
+    return shardings(mesh, params, opt_state, LSTMAEConfig().hidden)

@@ -205,6 +205,25 @@ def fit_many(
     return params, mean_e, std_e, stacked
 
 
+def shardings(mesh, params: AEParams, opt_state: AdamState, hidden: int):
+    """Placements of stacked params / Adam state on a (data, model) mesh:
+    the leading service axis over `data`, everything else whole.
+
+    The JAX package also splits each 4H gate axis over `model`. The
+    port's LSTM-AE kernels keep a model's whole 4H gate row in one warp
+    (each lane's 4 gate columns of w_h in registers), so the gate axis
+    stays on its card: `model` replicates the parameters. Placement
+    only — results are unchanged (ROADMAP.md Queue 3)."""
+    from foremast_tpu_torch.parallel import mesh as meshlib
+
+    del hidden  # the gate axis is never split here
+
+    def spec(leaf):
+        return meshlib.data_sharding(mesh, leaf.ndim) if isinstance(leaf, torch.Tensor) else None
+
+    return tree_map(spec, params), AdamState(opt_state.count, [spec(m) for m in opt_state.mu], [spec(v) for v in opt_state.nu])
+
+
 def ae_cutoff(err_mean, err_std, threshold) -> np.ndarray:
     """Quantile-matched reconstruction-error cutoff, [S] (host-side).
 

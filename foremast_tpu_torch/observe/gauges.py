@@ -16,8 +16,7 @@ spelling.
 `prometheus_client` is imported when a class is built, never when this
 module is imported (the card's machine may not have it). Only families
 with a producer are registered: those of planes the port does not have
-yet (sliced sweeps, refinement, micro-ticks, the device mesh) come with
-them.
+yet come with them.
 
 The ingest plane's families are custom collectors that read their
 planes' own counters at scrape time, with the JAX package's names, types
@@ -281,10 +280,13 @@ class WorkerMetrics:
             refinement of short-history fits and its backlog
         foremast_verdict_latency_seconds{path,tenant},
         foremast_microtick_docs_total — the reactive plane
+        foremast_device_mesh_devices, foremast_device_mesh_rows_total
+            {kind}, foremast_device_mesh_arena_bytes,
+            foremast_device_mesh_transfer_{seconds,bytes}_total{leg} —
+            the judge's device mesh (fed only by a mesh worker)
 
     The families, types and labels are the JAX worker's, and only those
-    that this worker feeds. The JAX worker's device-mesh families come
-    with the device mesh (ROADMAP.md Queue 1 item 7).
+    that this worker feeds.
     """
 
     def __init__(self, registry=None):
@@ -428,6 +430,50 @@ class WorkerMetrics:
             "documents judged by ingest-triggered micro-ticks",
             registry=reg,
         )
+        # device mesh (BrainWorker._device_mesh_state): shape, padded
+        # rows (bucket + data-axis rounding), arena device bytes
+        # (per-device bytes x device count — the shard sum under the
+        # default sharded layout), and the placement / result-fetch legs
+        self.mesh_devices = Gauge(
+            "foremast_device_mesh_devices",
+            "devices in the judge's (data x model) mesh (1 family "
+            "absent = single-device judge)",
+            registry=reg,
+        )
+        self.mesh_rows = Counter(
+            "foremast_device_mesh_rows_total",
+            "columnar batch rows dispatched over the mesh, real vs "
+            "padding (bucket + data-axis rounding)",
+            ["kind"],
+            registry=reg,
+        )
+        self.mesh_arena_bytes = Gauge(
+            "foremast_device_mesh_arena_bytes",
+            "state-arena device bytes across the mesh (each distinct "
+            "data-axis device's buffer once: a replica each, or its "
+            "shard blocks)",
+            registry=reg,
+        )
+        self.mesh_transfer_seconds = Counter(
+            "foremast_device_mesh_transfer_seconds_total",
+            "host<->device transfer wall-clock on the sharded judge, "
+            "by leg (h2d = NamedSharding placement, gather = sharded-"
+            "result fetch incl. the deferred device execution it waits "
+            "on)",
+            ["leg"],
+            registry=reg,
+        )
+        self.mesh_transfer_bytes = Counter(
+            "foremast_device_mesh_transfer_bytes_total",
+            "bytes moved by the sharded judge's host<->device legs",
+            ["leg"],
+            registry=reg,
+        )
+        self._mesh_last = {
+            "rows_real": 0, "rows_pad": 0,
+            "h2d_s": 0.0, "h2d_b": 0,
+            "gather_s": 0.0, "gather_b": 0,
+        }
 
     def observe_pipeline(self, stats, path: str = "slow") -> None:
         """Feed one ChunkPipeline run's stats (jobs/pipeline.py
@@ -457,6 +503,37 @@ class WorkerMetrics:
     def observe_doc(self, status: str, n_windows: int) -> None:
         self.jobs.labels(status=status).inc()
         self.windows.inc(n_windows)
+
+    def observe_device_mesh(self, state: dict) -> None:
+        """Feed the worker's cumulative device_mesh varz section
+        (BrainWorker._device_mesh_state); deltas keep the counters
+        monotone, and a negative delta (a new judge) clamps to zero."""
+        self.mesh_devices.set(state.get("devices", 1))
+        self.mesh_arena_bytes.set(state.get("arena_total_device_bytes", 0))
+        last = self._mesh_last
+        pad = state.get("pad_rows_total", 0)
+        real = state.get("batch_rows_total", 0) - pad
+        cur = {
+            "rows_real": real,
+            "rows_pad": pad,
+            "h2d_s": state.get("place_seconds", 0.0),
+            "h2d_b": state.get("place_bytes", 0),
+            "gather_s": state.get("fetch_seconds", 0.0),
+            "gather_b": state.get("fetch_bytes", 0),
+        }
+        sinks = {
+            "rows_real": (self.mesh_rows, {"kind": "real"}),
+            "rows_pad": (self.mesh_rows, {"kind": "pad"}),
+            "h2d_s": (self.mesh_transfer_seconds, {"leg": "h2d"}),
+            "h2d_b": (self.mesh_transfer_bytes, {"leg": "h2d"}),
+            "gather_s": (self.mesh_transfer_seconds, {"leg": "gather"}),
+            "gather_b": (self.mesh_transfer_bytes, {"leg": "gather"}),
+        }
+        for k, (family, labels) in sinks.items():
+            delta = cur[k] - last[k]
+            if delta > 0:
+                family.labels(**labels).inc(delta)
+            last[k] = cur[k]
 
     def observe_arena(self, counters: dict) -> None:
         """Feed cumulative judge.device_state_counters(); deltas are

@@ -42,8 +42,8 @@ scores through two more:
                                them into the weight gradients).
 
 A wrapper given CPU tensors runs the plain version beside it; given CUDA
-tensors it launches the kernel on the current stream or raises. Each
-launch adds one to `LAUNCHES[name]`.
+tensors it launches the kernel on their card's current stream or raises.
+Each launch adds one to `LAUNCHES[name]`.
 """
 
 from __future__ import annotations
@@ -110,12 +110,15 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name: str, *args) -> None:
-    """Call the C entry point `fm_<name>` on the current stream; raise if
-    it returns a CUDA error."""
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point `fm_<name>` on `device` — the operands'
+    card, made current for the call — and on that card's current
+    stream; raise if it returns a CUDA error. (The current device's
+    stream would be another card's when a mesh block lives elsewhere.)"""
     lib = _build.library(name)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, f"fm_{name}")(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"fm_{name}")(*args, stream)
     if err != 0:
         msg = lib.fm_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
@@ -181,6 +184,7 @@ def masked_stats(
     cnt, mean, std = (torch.empty(b, dtype=torch.float32, device=values.device) for _ in range(3))
     _launch(
         "masked_stats",
+        values.device,
         values.data_ptr(), mask.data_ptr(),
         cnt.data_ptr(), mean.data_ptr(), std.data_ptr(),
         b, t,
@@ -247,6 +251,7 @@ def ma_judgment(
     lower = torch.empty((b, tc), dtype=torch.float32, device=dev)
     _launch(
         "ma_judgment",
+        dev,
         hist_values.data_ptr(), hist_mask.data_ptr(),
         cur_values.data_ptr(), cur_mask.data_ptr(),
         thr.data_ptr(), bnd.data_ptr(), mlb.data_ptr(), mnp.data_ptr(),
@@ -324,6 +329,7 @@ def ma_judgment_bf16_delta(
     lower = torch.empty((b, tc), dtype=torch.float32, device=dev)
     _launch(
         "ma_judgment_bf16_delta",
+        dev,
         anchor.data_ptr(), delta.data_ptr(), lens.data_ptr(),
         cur_values.data_ptr(), cur_mask.data_ptr(),
         thr.data_ptr(), bnd.data_ptr(), mlb.data_ptr(), mnp.data_ptr(),
@@ -499,6 +505,7 @@ def holt_winters_scan(
     pred = torch.empty((b, t_len), dtype=torch.float32, device=dev) if want_pred else None
     _launch(
         "holt_winters_scan",
+        dev,
         values.data_ptr(), mask.data_ptr(), lv.data_ptr(), init_level.data_ptr(),
         init_season.data_ptr(), params.data_ptr(), level.data_ptr(), trend.data_ptr(), season.data_ptr(),
         sse.data_ptr(), None if pred is None else pred.data_ptr(),
@@ -565,6 +572,7 @@ def holt_scan(values: torch.Tensor, mask: torch.Tensor, alpha, beta):
     pred = torch.empty((b, t_len), dtype=torch.float32, device=dev)
     _launch(
         "holt_scan",
+        dev,
         values.data_ptr(), mask.data_ptr(), lv.data_ptr(), a.data_ptr(), bt.data_ptr(),
         level.data_ptr(), trend.data_ptr(), pred.data_ptr(), b, t_len,
     )
@@ -702,6 +710,7 @@ def lstm_ae_forward(leaves, x: torch.Tensor, mask: torch.Tensor, rows=None, save
     ewx, ewh, eb, _dwx, dwh, db, wout, bout = leaves
     _launch(
         "lstm_ae_forward",
+        dev,
         ewx.data_ptr(), ewh.data_ptr(), eb.data_ptr(), dwh.data_ptr(), db.data_ptr(),
         wout.data_ptr(), bout.data_ptr(), None if rows is None else rows.data_ptr(),
         x.data_ptr(), mask.data_ptr(), err.data_ptr(), None if act is None else act.data_ptr(),
@@ -748,6 +757,7 @@ def _lstm_ae_backward_cuda(leaves, x, mask, act, grad_err, scratch=None, parts: 
     )
     _launch(
         "lstm_ae_backward",
+        dev,
         ewh.data_ptr(), dwh.data_ptr(), wout.data_ptr(), bout.data_ptr(),
         x.data_ptr(), mask.data_ptr(), act.data_ptr(), grad_err.data_ptr(),
         d_gates.data_ptr(), d_out.data_ptr(),

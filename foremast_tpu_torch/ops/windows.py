@@ -37,6 +37,8 @@ def to_device(x: np.ndarray | torch.Tensor, dev: torch.device) -> torch.Tensor:
     t = x.contiguous() if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
     if dev.type == "cpu":
         return t.clone()
+    if dev.type != "cuda":
+        return t.to(dev)
     return t.pin_memory().to(dev, non_blocking=True)
 
 

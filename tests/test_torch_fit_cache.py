@@ -339,10 +339,22 @@ def test_model_cache_matches_jax_semantics(tmp_path):
 
 def test_arena_without_device_needs_cuda():
     """The arena, like the judge, defaults to the card and refuses to
-    fall back to the CPU."""
+    fall back to the CPU. A sharded arena needs a mesh whose data axis
+    has one device a shard; over one, each device holds one buffer of
+    its shards' [cap_s, ...] blocks (here both blocks on the CPU)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
         StateArena(1)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(ValueError, match="2 data-axis devices"):
         StateArena(1, shards=2, device="cpu")
+    from foremast_tpu_torch.parallel import mesh as meshlib
+
+    mesh = meshlib.make_mesh(n_data=2, devices=["cpu"] * 2)
+    arena = StateArena(3, shards=2, device="cpu", sharding=meshlib.data_sharding(mesh, 1))
+    rows, scat = arena.assign(["a", "b", "c", "d"], [], 4)
+    assert [int(r) // arena.cap_s for r in rows] == [0, 0, 1, 1] and scat == [0, 1, 2, 3]
+    parts = arena.state[2].parts
+    assert parts[0] is parts[1] and parts[0].shape == (2 * arena.cap_s, 3)
+    assert list(arena.device_rows(rows)) == list(rows)  # one device: its buffer's rows are the global ones
+    assert arena.device_bytes() == arena.cap_s * arena.row_bytes

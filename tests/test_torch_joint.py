@@ -513,7 +513,8 @@ def test_canary_threshold_lowering_matches_jax():
 def test_tree_arena_bookkeeping():
     """Rows scatter by key, re-used keys hit, a replaced entry is forced,
     the row gather returns what was scattered, growth keeps rows, and
-    the counters follow RowArena's; sharding still raises."""
+    the counters follow RowArena's; sharded over a mesh, each leaf is one
+    block a device and a scattered row reads back from its block."""
     judge = mv.MultivariateJudge(BrainConfig(algorithm="auto"), device="cpu")
     tmpl = judge._lstm_template(3, 4)
     arena = TreeArena(tmpl, device="cpu")
@@ -543,8 +544,17 @@ def test_tree_arena_bookkeeping():
     before = arena.state["rmu"].clone()
     arena._ensure_capacity(100)  # pow2 growth keeps every row
     assert arena.cap == 128 and torch.equal(arena.state["rmu"][:64], before)
-    with pytest.raises(NotImplementedError):
-        TreeArena(tmpl, shards=2, device="cpu")
+    from foremast_tpu_torch.parallel import mesh as meshlib
+
+    mesh = meshlib.make_mesh(n_data=2, devices=["cpu"] * 2)
+    sharded = TreeArena(tmpl, shards=2, device="cpu", sharding=meshlib.data_sharding(mesh, 1))
+    rows, scat = sharded.assign(keys[:4], [], 4)
+    sharded.scatter(rows, scat, trees[:4])
+    w_h = sharded.state["ae"].enc.w_h
+    assert w_h.parts[0] is w_h.parts[1] and w_h.parts[0].shape[0] == 2 * sharded.cap_s  # the CPU's buffer
+    for i, (r, d) in enumerate(zip(rows, sharded.device_rows(rows))):
+        assert int(r) // sharded.cap_s == i // 2
+        np.testing.assert_array_equal(w_h.parts[i // 2][d].numpy(), trees[i]["ae"].enc.w_h)
 
 
 def test_joint_arena_fallback_and_budget():

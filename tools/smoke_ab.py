@@ -2,14 +2,19 @@
 """Run one `chip_smoke.py` mode in two checkouts on one card, in turn.
 
     python3 tools/smoke_ab.py --parent DIR [--order parent,this,this,parent] -- --deployable-only
+    python3 tools/smoke_ab.py --parent DIR --worker-paths
 
 Each run is `python3 chip_smoke.py <args>` from the root of its checkout
 (`this` is the checkout holding this script), one process after the
 other, so a drift of the card or its host shows as a spread between the
-runs of one variant. Each run's output goes to
+runs of one variant. With `--worker-paths` a run instead builds the
+kernels and runs only phases 5 and 6 (the single-device fit-cache judge
+and worker fleet), through that checkout's own `chip_smoke` functions,
+so two checkouts' smokes need no common flag. Each run's output goes to
 `chiprun_out/smoke_ab_<n>_<variant>.log`. From each log the script reads
-the wall clock of the run and the seconds that phase 9 prints for its
-parts:
+the wall clock of the run, the seconds of each tick of phases 5 and 6
+(`p5a` ... `p6d`: their (a) to (d) lines), and the seconds that phase 9
+prints for its parts:
 
   encode      the fake Prometheus encoding its answers (set-up, host only);
   pack_native phase 9(c)'s native packing of one cold chunk (host only);
@@ -44,6 +49,23 @@ PARTS = (
     ("cli_push_restart", re.compile(r"^phase 9: \(d\) with FOREMAST_INGEST=1: .* judged the reset fleet in ([\d.]+) s")),
 )
 PASS = re.compile(r"^phase 9: \(b\) (.+) pass: \d+ ticks, ([\d.]+) s")
+TICK = re.compile(r"^phase ([56]): \(([a-d])\) .*: ([\d.]+) s = [\d.]+ (?:windows|docs)/s")
+WORKER_PATHS = """
+import os, subprocess, sys, torch
+sys.path.insert(0, os.getcwd())
+os.environ["FOREMAST_DEVICE_MESH"] = "off"
+import chip_smoke as S
+from foremast_tpu_torch.ops import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+name = torch.cuda.get_device_name(0)
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+peak = S.PEAK_BYTES[next((k for k in S.PEAK_BYTES if k in name), "HBM3")]
+print(f"phase 1: kernels built in {_build.build_all():.1f} s")
+fit_cache = S.phase_fit_cache(dev, peak)
+S.phase_worker(dev, smi, fit_cache["seconds"]["c"])
+"""
 
 
 def read_parts(log: str) -> dict:
@@ -52,6 +74,10 @@ def read_parts(log: str) -> dict:
         m = PASS.match(line)
         if m:
             out[f"{m.group(1)} pass"] = float(m.group(2))
+            continue
+        m = TICK.match(line)
+        if m:
+            out[f"p{m.group(1)}{m.group(2)}"] = float(m.group(3))
             continue
         for name, rx in PARTS:
             m = rx.match(line)
@@ -65,6 +91,7 @@ def main() -> int:
     ap.add_argument("--parent", required=True, help="root of the other checkout")
     ap.add_argument("--order", default="parent,this,this,parent")
     ap.add_argument("--timeout", type=float, default=900.0, help="seconds a run may take")
+    ap.add_argument("--worker-paths", action="store_true", help="run only phases 5 and 6 in each checkout")
     ap.add_argument("smoke_args", nargs="*", help="arguments of chip_smoke.py")
     args = ap.parse_args()
     roots = {"parent": os.path.abspath(args.parent), "this": THIS}
@@ -73,7 +100,8 @@ def main() -> int:
     runs = []
     for n, variant in enumerate(args.order.split(",")):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "chip_smoke.py", *args.smoke_args], cwd=roots[variant],
+        cmd = ["-c", WORKER_PATHS] if args.worker_paths else ["chip_smoke.py", *args.smoke_args]
+        proc = subprocess.run([sys.executable, *cmd], cwd=roots[variant],
                               capture_output=True, text=True, timeout=args.timeout)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
