@@ -231,8 +231,41 @@ Phases; any failure exits non-zero:
      against scoring.score and fit_forecast + score_from_state on one
      device, sharded_ewma against ewma_levels. With more than one card,
      (a) and (c) run again over every card.
+ 13. the control loop (the gateway, the watch plane and the worker): one
+     release wave of 256 Deployments over 8 namespaces on
+     tests/fake_kube_server.py (real HTTP), each rolling v1 -> v2 with
+     old and new pods, 4 monitored metrics of 7-day histories (Th=10,080;
+     every one of the 1,024 its own) on the fake Prometheus, every 2nd
+     app's new pods 0.1 sigma above the band on two metrics and the
+     others' closest point 0.1 sigma below it, the monitors' remediation
+     alternating AutoRollback / AutoPause; the gateway is `python3 -m
+     foremast_tpu_torch serve` over the fake Elasticsearch, the watch
+     plane (`WatchPlane` over `HttpKube`) and a BrainWorker on the card
+     run in this process on a stepped clock:
+     (a) rollout -> Barrelman -> one job per Deployment through the
+     gateway -> the worker's ticks -> the controller's polls -> rollback
+     or pause, then the same loop with a CPU worker: every job's
+     (status, code, reason, anomaly) and every verdict's (verdict,
+     flagged points) equal, every band within 1e-4 and the cold bands
+     within 1e-4 of their float64 value, every monitor's (phase,
+     remediation taken, anomaly, job) and every Deployment's (image,
+     paused) equal, no plane step failed and none was repeated; wall
+     clock from rollout to the last terminal monitor, tick and poll
+     times, the gateway's requests by route (its /metrics); (b) the same
+     card loop with FOREMAST_BF16_DELTA=0 (masked_stats), against (a)'s
+     CPU loop; (c) the streaming informer (FOREMAST_WATCH_STREAM's path)
+     with one torn stream and one 410, the stream alone making one job
+     per rollout, and, in the same run, (d) a 0.2 error rate on the kube
+     edge's read paths (the watch's connects among them), with retries
+     and the breaker, every failed plane step an injected fault: equal
+     to (a); one job per rollout in every arm; (e), after the timed
+     arms, `score --device cuda` on a spike, a normal and an untraced
+     request as processes (exit 0, 0, 1, answers equal to the CPU's),
+     beside them `watch` / `unwatch` / `watch ghost` (exit 0, 0, 1) and
+     `watch-plane` under a kube chaos plan until its monitors exist,
+     then SIGTERM (exit 0).
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
-7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11, 12) and read just after its checked calls, so they
+7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11, 12, 13) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phases
 6 and 9) only the f32 cold fit launches a kernel (masked_stats); the seasonal
 fits launch holt_winters_scan (Holt-Winters, and auto_univariate at m <=
@@ -248,7 +281,8 @@ short first call after a kernel change. `python3 chip_smoke.py
 `--tenants-only` phase 10 alone, with two arms more in 10(a) that part
 tenancy's costs: the same tenants without the arena envelope, and the
 arenas' host seconds of `assign` and `scatter` in each sweep.
-`--mesh-only` runs phase 11 alone, `--device-mesh-only` phase 12 alone.
+`--mesh-only` runs phase 11 alone, `--device-mesh-only` phase 12 alone,
+`--control-loop-only` phase 13 alone.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -266,6 +300,7 @@ import subprocess
 import sys
 import time
 import urllib.parse
+import urllib.request
 
 import numpy as np
 
@@ -6253,6 +6288,691 @@ def phase_device_mesh(dev, smi: str) -> dict:
     return dict(runs=runs, obj=obj, dispatch=dispatch, joint=joint, context=context)
 
 
+# -- phase 13: the control loop -------------------------------------------------
+
+CL_NAMESPACES = 8
+CL_APPS = 256  # one release wave: 32 Deployments a namespace
+CL_PODS = 2  # pods of each ReplicaSet: old (v1) and new (v2)
+CL_METRICS = {a: f"http_server_requests_{a}" for a in ALIASES}  # alias -> recording-rule metric
+CL_HIST_POOL = 64  # seeded 7-day rows on a 1/64 grid; app i adds i/64 to its rows, so its 4 histories are its own
+CL_MARGIN = 0.1  # in sigma: the spiked apps' points this far above the band, the others' closest this far below
+CL_BAND_TOL = 1e-4  # absolute, on bands of 1.2-5.2: card against CPU, and the cold bands against float64
+CL_POLLS = 6  # plane steps of a fault-free arm: prime, rollout, t1+140, t1+671 and the two closing resyncs
+CL_TIMEOUT = 90.0  # seconds for a CLI process of (e)
+CL_CHAOS = {"seed": 13, "rules": [  # (d): 0.2 on every read-only path of the kube edge
+    {"edge": "kube", "op": op, "error_rate": 0.2, "kind": kind}
+    for op, kind in (("/apis/apps/v1/deployments", "connection"), ("/replicasets", "timeout"),
+                     ("/pods", "connection"), ("/deploymentmetadatas/", "timeout"),
+                     ("/apis/deployment.foremast.ai/v1alpha1/deploymentmonitors", "connection"))
+]}
+
+
+def cl_app(i: int) -> tuple[str, str]:
+    """(namespace, app) of the fleet's i-th Deployment."""
+    return f"team-{i % CL_NAMESPACES}", f"svc-{i:03d}"
+
+
+def cl_remediation(i: int) -> str:
+    """Apps i % 4 == 0 or 1 roll back, 2 or 3 pause; the even ones spike."""
+    return "AutoRollback" if i % 4 < 2 else "AutoPause"
+
+
+class SteppedClock:
+    """The plane's clock, stepped by the arm's loop."""
+
+    def __init__(self, t: float):
+        self.t = float(t)
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def control_loop_fleet(t1: int, seed: int = 29) -> dict:
+    """One release wave: 256 Deployments over 8 namespaces rolling from v1
+    to v2 at `t1`, each with its DeploymentMetadata (4 monitored metrics)
+    and its DeploymentMonitor (the remediation option set), its v1
+    ReplicaSet and pods, and the v2 ReplicaSet and pods of the rollout.
+    Series: each app's 4 histories (7 days at 60 s, the settled range the
+    worker fits) are 4 rows of a seeded pool on a 1/64 grid (so the bf16
+    deltas are exact) plus the app's own offset i/64, and the new pods'
+    11-point current window (Barrelman's 600 s window plus the 60 s
+    latency offset) is a slow wave at the same offset. On latency and
+    error5xx, the upper band moving_average_all gives at the metric
+    type's threshold (mean + thr std, ddof 0; thr 10 and 2), taken here
+    in float64, places the current points: 3 of them CL_MARGIN std above
+    it for the even apps, one CL_MARGIN std below it for the odd ones, so
+    a band wrong by a tenth of a std flips a verdict. Endpoints are
+    filled in by `cl_seed`."""
+    from foremast_tpu_torch.config import BrainConfig
+
+    rules = BrainConfig().anomaly
+    rng = np.random.default_rng(seed)
+    ht = t1 - 86_400 * 7 + 60 * np.arange(FULL_TH, dtype=np.int64)
+    ct = t1 + 60 + 60 * np.arange(11, dtype=np.int64)
+    pool = np.round(64 * rng.normal(1.0, 0.1, (CL_HIST_POOL, FULL_TH))).astype(np.int64)
+    wave = 1.0 + 0.05 * np.sin(np.arange(11) / 3.0)
+    apps = []
+    for i in range(CL_APPS):
+        ns, app = cl_app(i)
+        spike = i % 2 == 0
+        hist, cur, upper = {}, {}, {}
+        for k, x in enumerate(ALIASES):
+            codes = pool[(i * len(ALIASES) + k) % CL_HIST_POOL] + i
+            v = codes / 64.0
+            mu, sd = float(v.mean()), float(v.std())
+            upper[x] = mu + rules.rule_for(x).threshold * sd
+            c = wave + i / 64.0
+            if x in ("latency", "error5xx"):
+                if spike:
+                    c[4:7] = upper[x] + CL_MARGIN * sd
+                else:
+                    c[5] = upper[x] - CL_MARGIN * sd
+            hist[x], cur[x] = codes, c.astype(np.float32)
+        apps.append(dict(
+            i=i, ns=ns, app=app, uid=f"dep-{ns}-{app}", spike=spike, option=cl_remediation(i),
+            hist=hist, cur=cur, upper=upper,
+            old_pods=[f"{app}-v1-{k}" for k in range(CL_PODS)], new_pods=[f"{app}-v2-{k}" for k in range(CL_PODS)],
+        ))
+    return dict(t1=t1, ht=ht, ct=ct, apps=apps)
+
+
+def cl_deployment(a: dict, version: int) -> dict:
+    return {
+        "apiVersion": "apps/v1", "kind": "Deployment",
+        "metadata": {"name": a["app"], "namespace": a["ns"], "uid": a["uid"], "labels": {"app": a["app"]},
+                     "annotations": {"deployment.kubernetes.io/revision": str(version)}},
+        "spec": {"replicas": CL_PODS, "template": {
+            "metadata": {"labels": {"app": a["app"]}},
+            "spec": {"containers": [{"name": "main", "image": f"{a['app']}:v{version}"}]}}},
+    }
+
+
+def cl_replicaset(a: dict, version: int) -> dict:
+    name = f"{a['app']}-v{version}"
+    return {
+        "metadata": {"name": name, "namespace": a["ns"], "uid": f"rs-{a['ns']}-{name}",
+                     "annotations": {"deployment.kubernetes.io/revision": str(version)},
+                     "ownerReferences": [{"uid": a["uid"]}]},
+        "spec": {"replicas": CL_PODS, "template": {
+            "metadata": {"labels": {"app": a["app"], "pod-template-hash": name}},
+            "spec": {"containers": [{"name": "main", "image": f"{a['app']}:v{version}"}]}}},
+        "status": {"replicas": CL_PODS},
+    }
+
+
+def cl_pods(a: dict, version: int) -> list:
+    rs_uid = f"rs-{a['ns']}-{a['app']}-v{version}"
+    names = a["old_pods"] if version == 1 else a["new_pods"]
+    return [{"metadata": {"name": n, "namespace": a["ns"], "uid": f"pod-{a['ns']}-{n}",
+                          "ownerReferences": [{"uid": rs_uid}]}} for n in names]
+
+
+def cl_seed(srv, fleet: dict, gateway_url: str, prom_url: str) -> None:
+    """The cluster before the rollout: namespaces, one DeploymentMetadata
+    and one DeploymentMonitor (remediation option set) per app, v1
+    Deployments, ReplicaSets and pods."""
+    from foremast_tpu_torch.watch.crds import (DeploymentMetadata, DeploymentMonitor, MonitoredMetric,
+                                               Remediation)
+
+    st = srv.state
+    st.watch_cap = 1 << 20  # the streaming arm's 410s are injected, never compaction's
+    for k in range(CL_NAMESPACES):
+        st.put("namespaces", "", {"metadata": {"name": f"team-{k}", "annotations": {}}})
+    for a in fleet["apps"]:
+        md = DeploymentMetadata(
+            name=a["app"], namespace=a["ns"], analyst_endpoint=gateway_url + "/v1/healthcheck/",
+            metrics_endpoint=prom_url + "/api/v1/",
+            monitoring=[MonitoredMetric(CL_METRICS[x], metric_type=x, metric_alias=x) for x in ALIASES],
+        )
+        st.put("deploymentmetadatas", a["ns"], md.to_json())
+        mon = DeploymentMonitor(name=a["app"], namespace=a["ns"], selector={"app": a["app"]},
+                                remediation=Remediation(option=a["option"]))
+        st.put("deploymentmonitors", a["ns"], mon.to_json())
+        st.put("deployments", a["ns"], cl_deployment(a, 1))
+        st.put("replicasets", a["ns"], cl_replicaset(a, 1))
+        for pod in cl_pods(a, 1):
+            st.put("pods", a["ns"], pod)
+
+
+def cl_rollout(srv, fleet: dict) -> None:
+    """Every Deployment of the wave goes to v2 while its v1 pods still run."""
+    for a in fleet["apps"]:
+        srv.state.put("replicasets", a["ns"], cl_replicaset(a, 2))
+        for pod in cl_pods(a, 2):
+            srv.state.put("pods", a["ns"], pod)
+        srv.state.put("deployments", a["ns"], cl_deployment(a, 2))
+
+
+def cl_prometheus(fleet: dict):
+    """The fake Prometheus for the wave: every query Barrelman builds for
+    the rollout at t1 (`pods_query` / `app_query` over its windows)
+    answered by its series under its exact URL, every body encoded up
+    front."""
+    from foremast_tpu_torch.metrics.promql import app_query, pods_query
+    from torch_fake_services import FakePrometheus
+
+    fake = FakePrometheus()
+    t1, ht, ct = fleet["t1"], fleet["ht"], fleet["ct"]
+
+    def key(q, start, end):
+        return f"/api/v1/query_range?query={urllib.parse.quote(q, safe='')}&start={start}&end={end}&step=60"
+
+    for a in fleet["apps"]:
+        for x in ALIASES:
+            fake.put_grid(key(app_query(CL_METRICS[x], a["ns"], a["app"]), t1 - 86_400 * 7, t1), ht, a["hist"][x])
+            fake.set_series(key(pods_query(CL_METRICS[x], a["ns"], a["new_pods"]), t1 + 60, t1 + 660),
+                            (ct, a["cur"][x]))
+    return fake
+
+
+def recording_source(record: dict):
+    """The worker's PrometheusSource, recording every answer: later arms
+    replay the record (`replay_record`), so each arm after (a) times its
+    judging rather than the fake Prometheus' JSON."""
+    from foremast_tpu_torch.metrics.source import PrometheusSource
+
+    class RecordingSource(PrometheusSource):
+        def fetch(self, url):
+            out = super().fetch(url)
+            record[url] = out
+            return out
+
+    return RecordingSource()
+
+
+def replay_record(record: dict):
+    from foremast_tpu_torch.metrics.source import MetricSource
+
+    class ReplayRecord(MetricSource):
+        concurrent_fetch = False
+
+        def fetch(self, url):
+            return record[url]  # a URL (a) never fetched fails the arm
+
+    return ReplayRecord()
+
+
+def gateway_requests(url: str) -> dict:
+    """The gateway's requests by route pattern (all codes), from the
+    foremast_service_requests_total samples on its /metrics."""
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    out: dict = {}
+    for m in re.finditer(r'^foremast_service_requests_total\{(.*)\} (\S+)$', text, re.M):
+        route = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1)))["route"]
+        out[route] = out.get(route, 0) + int(float(m.group(2)))
+    return out
+
+
+def cl_snapshot(srv, es, bands: dict) -> dict:
+    """The loop's outcome: each job's (status, code, reason, anomaly),
+    each verdict's (verdict, flagged points, band) by tick, each
+    monitor's (phase, remediation taken, anomaly, job), each
+    Deployment's (image, paused)."""
+    from foremast_tpu_torch.watch.crds import DeploymentMonitor
+
+    monitors = {}
+    for (ns, name), obj in srv.state.objects["deploymentmonitors"].items():
+        m = DeploymentMonitor.from_json(obj)
+        monitors[f"{ns}/{name}"] = json.dumps(
+            [m.status.phase, m.status.remediation_taken, m.status.anomaly, m.status.job_id], sort_keys=True)
+    deps = {}
+    for (ns, name), obj in srv.state.objects["deployments"].items():
+        deps[f"{ns}/{name}"] = (obj["spec"]["template"]["spec"]["containers"][0]["image"],
+                                bool(obj["spec"].get("paused", False)))
+    return dict(docs=es_written(es.sources()), monitors=monitors, deployments=deps, bands=bands)
+
+
+def cl_terminal(srv) -> int:
+    from foremast_tpu_torch.watch.crds import DeploymentMonitor
+
+    return sum(DeploymentMonitor.from_json(o).status.phase in ("Healthy", "Unhealthy")
+               for o in srv.state.objects["deploymentmonitors"].values())
+
+
+def cl_arm(label: str, dev, fleet: dict, es, es_url: str, gateway_url: str, prom_url: str, source,
+           stream: bool = False, chaos_plan=None, retries=None) -> dict:
+    """One run of the loop over a fresh fake API server and an emptied
+    fake index: prime the plane, roll the wave out, then the plane's
+    steps and the worker's ticks on a stepped clock (t1: the plane's
+    resync sees the rollout and Barrelman POSTs a job per Deployment to
+    the gateway; t1+130: first tick, the histories settled (the worker's
+    120 s), so the cold fits go into the fit cache and the state arena;
+    t1+140: the poll remediates the anomalies; t1+661: tick past the
+    window, warm (the columnar path, no history fetched); t1+671: the
+    poll takes the healthy ones to Healthy; two more resyncs see the
+    rollback patches). Every verdict is recorded through the worker's
+    on_verdict hook (verdict, flagged points, the band's last point).
+    A plane step that raises is recorded and the loop steps on, as
+    WatchPlane.run does; without a chaos plan no step may fail and the
+    wave must end in CL_POLLS steps, with one every step may fail only
+    by an injected fault. `stream` primes and delivers the rollout
+    through the streaming informer with one torn stream and one 410
+    armed, and the stream alone must make one job per rollout. Returns
+    the snapshot and the arm's timings."""
+    from foremast_tpu_torch.chaos import CircuitBreaker, InjectedFault
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs import BrainWorker
+    from foremast_tpu_torch.jobs.store import ElasticsearchStore
+    from foremast_tpu_torch.observe.spans import Tracer
+    from foremast_tpu_torch.watch.kubeapi import HttpKube
+    from foremast_tpu_torch.watch.plane import WatchPlane
+
+    from fake_kube_server import FakeKubeServer
+
+    t1 = fleet["t1"]
+    with es.lock:
+        es.docs.clear()
+        es.writes.clear()
+    with FakeKubeServer() as srv:
+        cl_seed(srv, fleet, gateway_url, prom_url)
+        breaker = CircuitBreaker("kube") if chaos_plan is not None else None
+        kube = HttpKube(base_url=srv.url, retries=retries, backoff_seconds=0.01,
+                        chaos=chaos_plan.edge("kube") if chaos_plan is not None else None, breaker=breaker)
+        clock = SteppedClock(t1 - 60)
+        plane = WatchPlane(kube, own_namespace="foremast", clock=clock, sleep=lambda s: None,
+                           tracer=Tracer(service="controller"), stream=stream)
+        bands: dict = {}
+        at = [0]  # the tick being judged, seconds after t1
+
+        def on_verdict(doc, verdicts):
+            for v in verdicts:
+                bands[(at[0], doc.id, v.alias)] = (int(v.verdict), list(v.anomaly_pairs),
+                                                   float(np.asarray(v.upper).reshape(-1)[-1]),
+                                                   float(np.asarray(v.lower).reshape(-1)[-1]))
+
+        worker = BrainWorker(ElasticsearchStore(es_url), source, config=BrainConfig(), device=dev,
+                             claim_limit=CL_APPS, worker_id=f"phase13-{label}", on_verdict=on_verdict)
+        polls, ticks, step_errors = [], [], []
+
+        def step(t: float) -> None:
+            """WatchPlane.run's step: resync and poll; a failure is
+            recorded and the next step retries."""
+            clock.t = t
+            t0 = time.perf_counter()
+            try:
+                plane.informer.resync()
+            except Exception as e:  # noqa: BLE001 - run() logs and steps again; the arm checks the record
+                step_errors.append(("resync", e))
+            t_poll = time.perf_counter()
+            try:
+                plane.controller.tick()
+            except Exception as e:  # noqa: BLE001 - run() logs and steps again; the arm checks the record
+                step_errors.append(("poll", e))
+            polls.append((t - t1, time.perf_counter() - t_poll, t_poll - t0))
+
+        def tick(t: float) -> None:
+            at[0] = int(t - t1)
+            t0 = time.perf_counter()
+            n = worker.tick(now=t)
+            sync_card()
+            ticks.append((t - t1, n, time.perf_counter() - t0))
+
+        try:
+            step(t1 - 60)  # prime: the informer's first list, every monitor exists already
+            base = gateway_requests(gateway_url)
+            t_roll = time.perf_counter()
+            cl_rollout(srv, fleet)
+            informer, streamed = {}, None
+            if stream:
+                clock.t = t1
+                srv.state.add_watch_fault(disconnect=True, after_events=CL_APPS // 3)
+                srv.state.add_watch_fault(gone=True)
+                for _ in range(12):  # a faulted connect returns at once
+                    plane.informer.consume(1.0, stall_margin=1.0)
+                    if len(es.docs) >= CL_APPS and plane.informer.counts["restart_gone"]:
+                        break
+                informer = dict(plane.informer.counts)
+                with es.lock:
+                    streamed = len(es.docs)
+                step(t1 + 1)
+            else:
+                step(t1)
+            created_s = time.perf_counter() - t_roll
+            tick(t1 + 130)
+            step(t1 + 140)
+            tick(t1 + 661)
+            t = t1 + 671
+            step(t)
+            while cl_terminal(srv) < CL_APPS and t < t1 + 671 + 600:
+                t += 30  # only faults leave monitors behind; the plane's next steps take them
+                tick(t)
+                step(t)
+            done_s = time.perf_counter() - t_roll
+            terminal = cl_terminal(srv)
+            for extra in (30, 60):  # the resyncs that see the rollback patches
+                step(t + extra)
+            reqs = gateway_requests(gateway_url)
+            requests = {k: reqs.get(k, 0) - base.get(k, 0) for k in reqs if reqs.get(k, 0) - base.get(k, 0)}
+            snap = cl_snapshot(srv, es, bands)
+        finally:
+            worker.close()
+    failed = [f"{where}: {e.edge}/{e.kind}" if isinstance(e, InjectedFault) else f"{where}: {type(e).__name__}: {e}"
+              for where, e in step_errors]
+    check(all(isinstance(e, InjectedFault) for _, e in step_errors),
+          f"phase 13 ({label}): plane steps failed on other than an injected fault: {failed}")
+    if chaos_plan is None:
+        check(not step_errors and len(polls) == CL_POLLS,
+              f"phase 13 ({label}): {len(polls)} plane steps (want {CL_POLLS}), failed: {failed}")
+    if stream:
+        check(streamed == CL_APPS, f"phase 13 ({label}): the stream alone made {streamed} jobs for {CL_APPS} rollouts")
+    check(terminal == CL_APPS, f"phase 13 ({label}): {CL_APPS - terminal} monitors never reached a terminal phase")
+    check(len(snap["docs"]) == CL_APPS, f"phase 13 ({label}): {len(snap['docs'])} jobs for {CL_APPS} rollouts")
+    creates = requests.get("/v1/healthcheck/create", 0)
+    check(creates == CL_APPS, f"phase 13 ({label}): {creates} creates for {CL_APPS} rollouts (one job each)")
+    return dict(snap=snap, created_s=created_s, done_s=done_s, ticks=ticks, polls=polls, requests=requests,
+                informer=informer, step_errors=failed,
+                breaker=breaker.debug_state() if breaker is not None else None)
+
+
+def cl_expected(fleet: dict, snap: dict, label: str) -> float:
+    """The wave's outcome by construction: spiked apps Unhealthy and
+    remediated (rolled back to v1 or paused), the others Healthy; each
+    metric's cold verdict as its current points were placed, and its
+    cold band within CL_BAND_TOL of the float64 band."""
+    from foremast_tpu_torch.jobs.models import STATUS_COMPLETED_HEALTH, STATUS_COMPLETED_UNHEALTH
+
+    docs = {json.loads(v)[0] for v in snap["docs"].values()}
+    check(docs <= {STATUS_COMPLETED_HEALTH, STATUS_COMPLETED_UNHEALTH}, f"phase 13 ({label}): job statuses {docs}")
+    worst = 0.0
+    for a in fleet["apps"]:
+        key = f"{a['ns']}/{a['app']}"
+        phase, taken, anomaly, job = json.loads(snap["monitors"][key])
+        image, paused = snap["deployments"][key]
+        want_image = f"{a['app']}:v1" if a["spike"] and a["option"] == "AutoRollback" else f"{a['app']}:v2"
+        ok = (phase == ("Unhealthy" if a["spike"] else "Healthy") and taken == a["spike"] and bool(job)
+              and bool(anomaly) == a["spike"] and image == want_image
+              and paused == (a["spike"] and a["option"] == "AutoPause"))
+        check(ok, f"phase 13 ({label}): {key} ended {phase}, remediated={taken}, image {image}, paused={paused}")
+        for x in ALIASES:
+            band = snap["bands"].get((130, job, x))
+            check(band is not None, f"phase 13 ({label}): no cold verdict for {key} {x}")
+            want = int(a["spike"] and x in ("latency", "error5xx"))
+            check(band[0] == want, f"phase 13 ({label}): {key} {x}: verdict {band[0]}, placed as {want}")
+            worst = max(worst, abs(band[2] - a["upper"][x]))
+    check(worst <= CL_BAND_TOL, f"phase 13 ({label}): a cold band is {worst:.3g} off its float64 value")
+    return worst
+
+
+def cl_same(got: dict, want: dict, what: str) -> float:
+    """Docs, monitors and Deployments equal; the same verdicts with the
+    same flagged points at every tick, each band within CL_BAND_TOL.
+    Returns the largest band difference."""
+    for part in ("docs", "monitors", "deployments"):
+        bad = [k for k in want[part] if got[part].get(k) != want[part][k]]
+        check(not bad and set(got[part]) == set(want[part]),
+              f"phase 13: {what}: {len(bad)} {part} differ, e.g. {bad[:2]}")
+    g, w = got["bands"], want["bands"]
+    check(set(g) == set(w), f"phase 13: {what}: verdicts for {len(set(g) ^ set(w))} (tick, job, metric) differ")
+    bad = [k for k in w if g[k][:2] != w[k][:2]]
+    check(not bad, f"phase 13: {what}: {len(bad)} verdicts or flagged points differ, e.g. {bad[:2]}")
+    worst = max((max(abs(g[k][2] - w[k][2]), abs(g[k][3] - w[k][3])) for k in w), default=0.0)
+    check(worst <= CL_BAND_TOL, f"phase 13: {what}: bands differ by up to {worst:.3g}")
+    return worst
+
+
+def cl_report(label: str, run: dict, smi: str) -> None:
+    ticks = ", ".join(f"t1+{int(t)} s: {n} docs in {s:.3f} s" for t, n, s in run["ticks"])
+    polls = [p for _, p, _ in run["polls"]]
+    print(f"phase 13: ({label}) rollout -> {CL_APPS} jobs in {run['created_s']:.3f} s, rollout -> last monitor "
+          f"terminal {run['done_s']:.3f} s; worker ticks [{ticks}]; plane steps {len(polls)}, controller poll "
+          f"median {statistics.median(polls):.3f} s, max {max(polls):.3f} s; gateway requests by route "
+          f"{run['requests']}; {smi}")
+
+
+def cl_score_request(workdir: str) -> str:
+    """The request of tests/test_cli.py's score cases (one alias)."""
+    def mq(query):
+        return {"dataSourceType": "prometheus", "parameters": {
+            "endpoint": "http://prometheus:9090/api/v1/", "query": query,
+            "start": "1600000000", "end": "1600000600", "step": "60"}}
+
+    req = {"appName": "demo-app", "startTime": "2020-09-13T12:26:40Z", "endTime": "2020-09-13T12:36:40Z",
+           "strategy": "canary", "metrics": {"current": {"error4xx": mq("cur:error4xx")},
+                                             "baseline": {"error4xx": mq("base:error4xx")},
+                                             "historical": {"error4xx": mq("hist:error4xx")}}}
+    path = os.path.join(workdir, "request.json")
+    with open(path, "w") as f:
+        json.dump(req, f)
+    return path
+
+
+def cl_start(args: list, workdir: str, tag: str, env_extra=None) -> tuple:
+    """`python -m foremast_tpu_torch <args>` started in the background,
+    stdout and stderr to files of `workdir`."""
+    out_path, err_path = os.path.join(workdir, f"{tag}.out"), os.path.join(workdir, f"{tag}.err")
+    env = dict(os.environ, PYTHONPATH=ROOT, **(env_extra or {}))
+    out, err = open(out_path, "w"), open(err_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "foremast_tpu_torch", *args], cwd=ROOT, env=env, stdout=out,
+                            stderr=err)
+    return proc, out, err, out_path, err_path
+
+
+def cl_finish(started: tuple, timeout: float = CL_TIMEOUT) -> tuple:
+    """(exit code, stdout, stderr) of a started process, killed at `timeout`."""
+    proc, out, err, out_path, err_path = started
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out.close()
+    err.close()
+    return rc, open(out_path).read(), open(err_path).read()
+
+
+def cl_subcommands(dev, workdir: str) -> dict:
+    """(e): `score` on the card as three processes started together,
+    beside them watch / unwatch and watch-plane for a bounded time, each
+    against what it needs; every process's exit code and output checked.
+    It runs after the timed arms, so no process of it shares the card or
+    the host with them."""
+    import signal
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    from foremast_tpu_torch.cli import main as port_main
+    from foremast_tpu_torch.watch.crds import DeploymentMonitor, MonitorStatus
+    from foremast_tpu_torch.watch.kubeapi import HttpKube
+
+    from fake_kube_server import FakeKubeServer
+
+    out = {}
+    t_e = time.perf_counter()
+    req = cl_score_request(workdir)
+    data = os.path.join(ROOT, "tests", "data")
+    spike, normal = os.path.join(data, "demo_canary_spike.csv"), os.path.join(data, "demo_canary_normal.csv")
+    score_args = [["score", "--request", req, "--current", f"error4xx={cur}", "--baseline",
+                   f"error4xx={normal}", "--historical", f"error4xx={normal}"] for cur in (spike, normal)]
+    score_args.append(["score", "--request", req])
+    score_procs = [cl_start(args + ["--device", dev.type], workdir, f"score-{k}") for k, args in enumerate(score_args)]
+    try:
+        # watch / unwatch against the fake API server
+        t0 = time.perf_counter()
+        with FakeKubeServer() as srv:
+            HttpKube(base_url=srv.url).upsert_monitor(DeploymentMonitor(
+                name="shop", namespace="prod", status=MonitorStatus(job_id="job-42", phase="Running")))
+            rcs = []
+            for verb, name, want in (("watch", "shop", True), ("unwatch", "shop", False), ("watch", "ghost", None)):
+                rc, stdout, stderr = cl_finish(cl_start([verb, name, "-n", "prod", "--api-server", srv.url],
+                                                        workdir, f"{verb}-{name}"))
+                rcs.append(rc)
+                if want is not None:
+                    mon = HttpKube(base_url=srv.url).get_monitor("prod", "shop")
+                    check(rc == 0 and mon.continuous is want and "Job: job-42" in stdout,
+                          f"phase 13: (e) {verb} {name}: rc {rc}, continuous {mon.continuous}, out {stdout!r}")
+            check(rcs == [0, 0, 1], f"phase 13: (e) watch / unwatch / watch ghost exited {rcs}")
+        out["watch, unwatch, watch ghost"] = rcs
+        watch_s = time.perf_counter() - t0
+        # watch-plane for a bounded time, chaos on its kube edge, then SIGTERM
+        t0 = time.perf_counter()
+        with FakeKubeServer() as srv:
+            deps = 32
+            for k in range(CL_NAMESPACES):
+                srv.state.put("namespaces", "", {"metadata": {"name": f"team-{k}", "annotations": {}}})
+            for i in range(deps):
+                a = dict(ns=cl_app(i)[0], app=cl_app(i)[1], uid=f"dep-{i}")
+                srv.state.put("deployments", a["ns"], cl_deployment(a, 1))
+            # seed 12 faults the plane's first list; its retry lists again
+            plan = json.dumps({"seed": 12, "rules": [{"edge": "kube", "op": "/apis/apps/v1/deployments",
+                                                      "error_rate": 0.2}]})
+            started = cl_start(["watch-plane", "--api-server", srv.url, "--namespace", "foremast"], workdir,
+                               "watch-plane", {"FOREMAST_CHAOS_PLAN": plan})
+            deadline = time.perf_counter() + CL_TIMEOUT
+            while len(srv.state.objects["deploymentmonitors"]) < deps and time.perf_counter() < deadline:
+                if started[0].poll() is not None:
+                    break
+                time.sleep(0.2)
+            made = len(srv.state.objects["deploymentmonitors"])
+            up_s = time.perf_counter() - t0
+            started[0].send_signal(signal.SIGTERM)
+            rc, stdout, stderr = cl_finish(started, timeout=30)
+        stopped = [json.loads(ln) for ln in stderr.splitlines() if ln.startswith("{") and "watch plane stopped" in ln]
+        if rc != 0 or made < deps or not stopped:
+            print(f"phase 13: (e) watch-plane stderr:\n{stderr[-4000:]}", file=sys.stderr)
+        check(made == deps, f"phase 13: (e) watch-plane made {made} of {deps} monitors")
+        check(rc == 0 and stopped, f"phase 13: (e) watch-plane exited {rc} on SIGTERM")
+        check(sum((stopped[0].get("chaos_injections") or {}).values()) >= 1,
+              f"phase 13: (e) watch-plane's kube edge injected nothing: {stopped[0]}")
+        out["watch-plane"] = dict(rc=rc, monitors=made, seconds_to_monitors=round(up_s, 3),
+                                  injections=stopped[0].get("chaos_injections"))
+        plane_s = time.perf_counter() - t0
+        # score on the card, held to the port's score on the CPU (plain versions)
+        for (tag, want_rc, want_status), started, args in zip(
+                (("spike", 0, "anomaly"), ("normal", 0, "success"), ("no traces", 1, None)), score_procs, score_args):
+            rc, stdout, stderr = cl_finish(started)
+            if rc != want_rc:
+                print(f"phase 13: (e) score {tag} stderr:\n{stderr[-4000:]}", file=sys.stderr)
+            check(rc == want_rc,
+                  f"phase 13: (e) score --device {dev.type} on the {tag} request exited {rc}, not {want_rc}")
+            got = json.loads(stdout)
+            buf = StringIO()
+            with redirect_stdout(buf):
+                cpu_rc = port_main(args + ["--device", "cpu"])
+            check(cpu_rc == rc and json.loads(buf.getvalue()) == got,
+                  f"phase 13: (e) score {tag}: the card's answer differs from the CPU's")
+            if want_status is not None:
+                check(got["status"] == want_status, f"phase 13: (e) score {tag}: status {got['status']}")
+            out[f"score {tag}"] = (rc, got["status"])
+    finally:
+        for started in score_procs:
+            if started[0].poll() is None:
+                started[0].kill()
+                started[0].wait()
+    print(f"phase 13: (e) subcommands as processes: {out}; seconds: watch / unwatch {watch_s:.1f}, watch-plane "
+          f"{plane_s:.1f}, (e) in all {time.perf_counter() - t_e:.1f} (the three score processes, started "
+          f"together, ran beside the others and were then held to the CPU's answers)")
+    return out
+
+
+def phase_control_loop(dev, smi: str) -> dict:
+    """Phase 13: the control loop (gateway, watch plane, worker on `dev`)
+    over one release wave, its arms held to the same loop with a CPU
+    worker, and the subcommands as processes."""
+    import signal
+    import tempfile
+
+    from foremast_tpu_torch.chaos import FaultPlan
+    from foremast_tpu_torch.ops import kernels as K
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import serve_fake_es, serve_fake_prometheus
+
+    t_phase = time.perf_counter()
+    t1 = (int(time.time()) // 60) * 60 - 3600
+    cpu = "cpu"
+    with tempfile.TemporaryDirectory(prefix="foremast-phase13-", ignore_cleanup_errors=True) as workdir:
+        es_srv, es, es_url = serve_fake_es()
+        port = free_port()
+        gateway_url = f"http://127.0.0.1:{port}"
+        gw = cl_start(["serve", "--host", "127.0.0.1", "--port", str(port), "--elastic-url", es_url], workdir,
+                      "gateway")
+        prom_srv = None
+        try:
+            fleet = control_loop_fleet(t1)  # while the gateway starts
+            prom = cl_prometheus(fleet)
+            prom_srv, prom_url = serve_fake_prometheus(prom)
+            deadline = time.perf_counter() + CL_TIMEOUT
+            while True:
+                try:
+                    with urllib.request.urlopen(gateway_url + "/healthz", timeout=5) as r:
+                        if json.loads(r.read())["store_ok"]:
+                            break
+                except OSError:
+                    pass
+                check(gw[0].poll() is None and time.perf_counter() < deadline,
+                      f"phase 13: the gateway did not come up:\n{open(gw[4]).read()[-4000:]}")
+                time.sleep(0.2)
+            setup_s = time.perf_counter() - t_phase
+            record: dict = {}
+            args = (fleet, es, es_url, gateway_url, prom_url)
+            # (a) the loop with the worker on the card, then on the CPU
+            a_card = cl_arm("a card", dev, *args, source=recording_source(record))
+            prom_requests = sum(prom.requests.values())
+            a_cpu = cl_arm("a cpu", cpu, *args, source=replay_record(record))
+            a_float64 = cl_expected(fleet, a_card["snap"], "a card")
+            cl_expected(fleet, a_cpu["snap"], "a cpu")
+            a_diff = cl_same(a_card["snap"], a_cpu["snap"], "(a) the card's loop against the CPU's")
+            cl_report("a card", a_card, smi)
+            cl_report("a cpu", a_cpu, smi)
+            # (b) the f32 cold route (masked_stats) on the card, against (a)'s CPU loop
+            saved = os.environ.get("FOREMAST_BF16_DELTA")
+            os.environ["FOREMAST_BF16_DELTA"] = "0"
+            try:
+                before = dict(K.LAUNCHES)
+                b_card = cl_arm("b card", dev, *args, source=replay_record(record))
+                b_launches = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES if K.LAUNCHES[k] - before[k]}
+            finally:
+                os.environ.pop("FOREMAST_BF16_DELTA")
+                if saved is not None:
+                    os.environ["FOREMAST_BF16_DELTA"] = saved
+            if dev.type == "cuda":
+                check(b_launches.get("masked_stats", 0) > 0, "phase 13 (b): the f32 route never launched masked_stats")
+            b_float64 = cl_expected(fleet, b_card["snap"], "b card")
+            b_diff = cl_same(b_card["snap"], a_cpu["snap"], "(b) the card's f32 loop against (a)'s CPU loop")
+            cl_report("b card", b_card, smi)
+            print(f"phase 13: (b) FOREMAST_BF16_DELTA=0: launches {b_launches}")
+            # (c) the streaming informer with one torn stream and one 410,
+            # and (d) the kube chaos edge, in one arm (their checks are
+            # independent; one loop of HTTP traffic keeps the phase short)
+            plan = FaultPlan.from_json(CL_CHAOS).activate()
+            cd_card = cl_arm("c+d card", dev, *args, source=replay_record(record), stream=True, chaos_plan=plan,
+                             retries=6)
+            cd_diff = cl_same(cd_card["snap"], a_cpu["snap"], "(c, d) the streaming loop under kube faults against "
+                                                              "(a)'s CPU loop")
+            check(cd_card["informer"].get("restart_gone", 0) >= 1, f"phase 13 (c): no 410: {cd_card['informer']}")
+            injected = plan.debug_state()["injections"]
+            check(sum(injected.values()) > 0, "phase 13 (d): the kube edge injected nothing")
+            cl_report("c+d card", cd_card, smi)
+            print(f"phase 13: (c) streaming informer counts {cd_card['informer']}, the stream alone made "
+                  f"{CL_APPS} jobs; (d) kube edge at error_rate 0.2 on its read paths (the watch's connects "
+                  f"included): injections {injected}, breaker {cd_card['breaker']}, plane steps "
+                  f"{len(cd_card['polls'])} (fault-free: {CL_POLLS}), failed {len(cd_card['step_errors'])}, every "
+                  f"one an injected fault: {cd_card['step_errors']}")
+            print(f"phase 13: bands (the band's last point of every verdict): card against CPU within "
+                  f"{max(a_diff, b_diff, cd_diff):.3g} ((a) {a_diff:.3g}, (b) {b_diff:.3g}, (c+d) {cd_diff:.3g}); "
+                  f"cold bands against float64 within {max(a_float64, b_float64):.3g} (tolerance {CL_BAND_TOL})")
+            loop_s = time.perf_counter() - t_phase - setup_s
+            # (e) the subcommands as processes
+            sub = cl_subcommands(dev, workdir)
+        finally:
+            gw[0].send_signal(signal.SIGTERM)
+            gw_rc, _, gw_err = cl_finish(gw, timeout=30)
+            es_srv.shutdown()
+            es_srv.server_close()
+            if prom_srv is not None:
+                prom_srv.shutdown()
+                prom_srv.server_close()
+        check(gw_rc == 0, f"phase 13: the gateway exited {gw_rc} on SIGTERM:\n{gw_err[-4000:]}")
+    print(f"phase 13: fleet {CL_APPS} Deployments over {CL_NAMESPACES} namespaces x {len(ALIASES)} metrics "
+          f"(Th={FULL_TH}, every history its own, 11-point current windows, every 2nd app {CL_MARGIN} sigma above "
+          f"its band and the others {CL_MARGIN} sigma below, remediation alternating rollback / pause); fake "
+          f"Prometheus requests {prom_requests} in (a); seconds: set-up {setup_s:.1f}, arms (a)-(d) {loop_s:.1f}, "
+          f"phase {time.perf_counter() - t_phase:.1f}")
+    return dict(a=a_card, b=b_card, cd=cd_card, e=sub, b_launches=b_launches)
+
+
 def main() -> int:
     import torch
 
@@ -6268,6 +6988,7 @@ def main() -> int:
     tenants_only = "--tenants-only" in sys.argv[1:]
     mesh_only = "--mesh-only" in sys.argv[1:]
     device_mesh_only = "--device-mesh-only" in sys.argv[1:]
+    control_loop_only = "--control-loop-only" in sys.argv[1:]
     # the seasonal model's f32 products must not round through TF32 (its
     # normal equations run in float64, which never does)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6292,6 +7013,11 @@ def main() -> int:
     print(f"phase 1: memory peak used for bounds: {peak_bytes / 1e12:.2f} TB/s ({peak_key} part); max SM clock "
           f"{sm_clock_hz / 1e9:.3f} GHz; torch.backends.cuda.matmul.allow_tf32 = "
           f"{torch.backends.cuda.matmul.allow_tf32}")
+    import importlib.util
+
+    print("phase 1: optional packages on this host (the port needs none of them): " + ", ".join(
+        f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("aiohttp", "yaml", "requests", "prometheus_client")))
     build_s = _build.build_all()
     print(f"phase 1: kernels built in {build_s:.1f} s")
     for kname in KERNEL_FILES:
@@ -6319,6 +7045,13 @@ def main() -> int:
         for kname in ("masked_stats", "ma_judgment", "ma_judgment_bf16_delta", "lstm_ae_forward"):
             check(K.LAUNCHES[kname] > 0, f"phase 12 never launched {kname}")
         print(f"chip_smoke: --device-mesh-only: phase 12 passed; its main path launched {dict(K.LAUNCHES)}")
+        return 0
+    if control_loop_only:
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        phase_control_loop(dev, smi)
+        check(K.LAUNCHES["masked_stats"] > 0, "phase 13 never launched masked_stats")
+        print(f"chip_smoke: --control-loop-only: phase 13 passed; its main path launched {dict(K.LAUNCHES)}")
         return 0
     if tenants_only:
         os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
@@ -6393,6 +7126,8 @@ def main() -> int:
     _, launched_device_mesh = path(phase_device_mesh, dev, smi)
     for kname in ("masked_stats", "ma_judgment", "ma_judgment_bf16_delta", "lstm_ae_forward"):
         check(launched_device_mesh[kname] > 0, f"the device mesh (phase 12) never launched {kname}")
+    _, launched_control_loop = path(phase_control_loop, dev, smi)
+    check(launched_control_loop["masked_stats"] > 0, "the control loop's f32 arm (phase 13 b) never launched masked_stats")
     paths = {
         "object path (phases 3-4)": launched_object,
         "fit-cache path (phase 5)": launched_fit_cache,
@@ -6407,6 +7142,7 @@ def main() -> int:
         "tenants and chaos (phase 10)": launched_tenants,
         "worker mesh (phase 11)": launched_mesh,
         "device mesh (phase 12)": launched_device_mesh,
+        "control loop (phase 13)": launched_control_loop,
     }
     print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}

@@ -20,12 +20,16 @@ Layers:
               the seasonal (Prophet-substitute) model, the joint models
   parallel/   synthetic fixed-shape batches for throughput runs
   jobs/       the job store (in memory or Elasticsearch over HTTP), the
-              chunk pipeline and the brain worker
+              request converter, the chunk pipeline and the brain worker
+  service/    the REST job gateway (standard-library HTTP server)
+  watch/      the Kubernetes control loop: CRDs, the kube API (in memory
+              or over HTTP), barrelman, the status poller and remediation
   metrics/    the config codec, Prometheus and in-memory metric sources
   ingest/     crc-framed record logs under the fit journals
   observe/    spans, JSON logs, Prometheus gauges and the /metrics server
   native.py   the host packing library (ops/csrc/windowpack.cpp, g++)
-  cli.py      `python -m foremast_tpu_torch worker`
+  cli.py      `python -m foremast_tpu_torch score | serve | worker | watch |
+              unwatch | watch-plane`
   interop.py  JAX-side state (numpy leaves) -> the port's tensors
 """
 

@@ -3,8 +3,8 @@
 * **Injection** (`plan.py`): a seeded `FaultPlan` (latency, error rate,
   blackhole, status, clock skew) threaded through one interception seam
   in each dependency client the port has: `PrometheusSource`,
-  `ElasticsearchStore` (through `guard.py`'s `GuardedSession`) and the
-  ingest receiver. Activated by `FOREMAST_CHAOS_PLAN` (off in production:
+  `ElasticsearchStore` (through `guard.py`'s `GuardedSession`), the
+  ingest receiver, the mesh handoff and the watch plane's `HttpKube`. Activated by `FOREMAST_CHAOS_PLAN` (off in production:
   every seam is a `None` check) or injected directly in tests.
 * **Degradation** (`breaker.py`, `degrade.py`): the shared circuit
   breaker, transient classification, the write-behind buffer, tick

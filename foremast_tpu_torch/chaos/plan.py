@@ -3,14 +3,15 @@
 
 A `FaultPlan` is a list of `FaultRule`s, each scoped to one dependency
 EDGE and optionally to a time window relative to plan activation. The
-port's worker wires five edges: ``store`` (`ElasticsearchStore`'s
+port wires six edges: the worker's ``store`` (`ElasticsearchStore`'s
 guarded session), ``prometheus`` (`PrometheusSource`'s request choke
 point), ``receiver`` (the ingest receiver's handler, which answers a
 fault as its HTTP status), ``transfer`` (the mesh handoff's POST,
 `mesh.HandoffManager`) and ``clock`` (the skewed clock mesh membership
-stamps and reads leases by, `EdgeChaos.clock()`). A plan may name any
-other edge (``kube`` comes with the watch plane, ROADMAP.md Queue 1 item
-8): it parses, and its rules count nothing until a client asks for it. Clients hold an `EdgeChaos` view and call
+stamps and reads leases by, `EdgeChaos.clock()`), and the watch plane's
+``kube`` (`watch.kubeapi.HttpKube`'s request and watch choke points,
+wired by `watch-plane`). A plan may name any other edge: it parses, and
+its rules count nothing until a client asks for it. Clients hold an `EdgeChaos` view and call
 ``perturb(op)`` at their single request choke point; with no plan
 attached (`chaos is None`, the production default) the seam is a plain
 attribute check and nothing else.

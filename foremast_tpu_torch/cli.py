@@ -1,31 +1,49 @@
-"""Command line of the port: `python -m foremast_tpu_torch worker`.
+"""Command line of the port: `python -m foremast_tpu_torch <command>`.
 
-The single-worker arm of the JAX package's `cmd_worker`
-(`foremast_tpu/cli.py`), with the same flags, defaults and environment:
-the deployed `foremast-brain` container's loop. It dials Elasticsearch
-(`--elastic-url`, else `ELASTIC_URL` / `ES_ENDPOINT`; in-memory without
-any) for jobs and Prometheus for series, judges on the card (`--device`,
-default `cuda`; `cpu` runs every kernel's plain version), journals its
-fits under `FOREMAST_SNAPSHOT_DIR` so a restart is warm, and serves
-`/metrics`, `/healthz` and `/debug/state` on `--gauge-port`. With
-`FOREMAST_INGEST=1` it also mounts the push-based ingest plane: a
-remote-write receiver on `FOREMAST_INGEST_PORT` fills resident rings,
-and fetches and cold fits read them before Prometheus; with
-`FOREMAST_MICROTICK_SECONDS` > 0 as well, the receiver marks each pushed
-series dirty and the worker judges just those documents in micro-ticks
-between its sweeps. `FOREMAST_CHAOS_PLAN` (inline JSON or `@path`)
-injects faults on the `store`, `prometheus`, `receiver`, `transfer` and
-`clock` edges, and `FOREMAST_TENANTS` (inline JSON or `@path`) makes the
-tenant a scheduling and accounting dimension of the ring, the dirty set,
-the receiver and the worker. `FOREMAST_MESH=1` seats the worker in a
-worker mesh over the shared store (`mesh/`): it claims only its
-partition, its receiver hints pushers at each series' owner, and with
-`FOREMAST_INGEST=1` a planned join or a SIGTERM moves ring and fit state
-to the new owners instead of leaving it to cold refits.
+The JAX package's CLI (`foremast_tpu/cli.py`) with the same flags,
+defaults, environment and exit codes, for these commands:
 
-The JAX CLI's other subcommands and its multi-device modes are not
-ported yet; each mode that would need them raises `NotImplementedError`
-naming its ROADMAP.md Queue 1 item instead of running something else.
+  score        one-shot health judgment of an ApplicationHealthAnalyzeRequest
+               JSON: request -> windows -> the batched judgment on the card
+               (`--device`, default `cuda`; it raises without a card, and
+               `cpu` runs every kernel's plain version) -> the reference's
+               wire-format response; exit 0 when the metrics were judged
+               (healthy or anomaly), 1 otherwise
+  serve        the REST job gateway on :8099 (foremast-service equivalent),
+               on the standard library's HTTP server
+  worker       the scoring worker loop (brain equivalent)
+  watch        / unwatch: toggle continuous monitoring on a
+               DeploymentMonitor through the API server (kubectl-watch
+               parity); exit 1 when the monitor does not exist
+  watch-plane  the Kubernetes controller loop: deployment watcher, status
+               poller and remediation (rollback or pause), with
+               `FOREMAST_WATCH_STREAM=1` for the streaming informer
+
+`worker` dials Elasticsearch (`--elastic-url`, else `ELASTIC_URL` /
+`ES_ENDPOINT`; in-memory without any) for jobs and Prometheus for series,
+judges on the card (`--device`, as `score`), journals its fits under
+`FOREMAST_SNAPSHOT_DIR` so a restart is warm, and serves `/metrics`,
+`/healthz` and `/debug/state` on `--gauge-port`. With `FOREMAST_INGEST=1`
+it also mounts the push-based ingest plane: a remote-write receiver on
+`FOREMAST_INGEST_PORT` fills resident rings, and fetches and cold fits
+read them before Prometheus; with `FOREMAST_MICROTICK_SECONDS` > 0 as
+well, the receiver marks each pushed series dirty and the worker judges
+just those documents in micro-ticks between its sweeps.
+`FOREMAST_CHAOS_PLAN` (inline JSON or `@path`) injects faults on the
+`store`, `prometheus`, `receiver`, `transfer` and `clock` edges of the
+worker and on the `kube` edge of `watch-plane`, and `FOREMAST_TENANTS`
+(inline JSON or `@path`) makes the tenant a scheduling and accounting
+dimension of the ring, the dirty set, the receiver and the worker.
+`FOREMAST_MESH=1` seats the worker in a worker mesh over the shared store
+(`mesh/`): it claims only its partition, its receiver hints pushers at
+each series' owner, and with `FOREMAST_INGEST=1` a planned join or a
+SIGTERM moves ring and fit state to the new owners instead of leaving it
+to cold refits.
+
+The JAX CLI's `ui` and `rules` commands and its pod mode are not ported
+yet; each mode that would need what is missing raises
+`NotImplementedError` naming its ROADMAP.md Queue 1 item instead of
+running something else.
 """
 
 from __future__ import annotations
@@ -210,6 +228,234 @@ def _sharded_mesh(device: str):
     if torch.device(device).type == "cuda":
         return meshlib.make_global_mesh()
     return meshlib.make_mesh(devices=[device])
+
+
+def _add_score(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("score", help="one-shot health judgment of a request JSON")
+    p.set_defaults(fn=cmd_score)
+    p.add_argument("--request", required=True, help="path to ApplicationHealthAnalyzeRequest JSON ('-' for stdin)")
+    p.add_argument("--current", action="append", default=[], metavar="ALIAS=CSV",
+                   help="replay trace for the current window of ALIAS")
+    p.add_argument("--baseline", action="append", default=[], metavar="ALIAS=CSV")
+    p.add_argument("--historical", action="append", default=[], metavar="ALIAS=CSV")
+    p.add_argument("--prometheus", action="store_true", help="fetch real query_range URLs instead of replay traces")
+    p.add_argument(
+        "--follow",
+        action="store_true",
+        help="keep re-checking until the job reaches a terminal status (the reference's incremental re-check "
+        "loop); default judges once and finalizes",
+    )
+    p.add_argument("--poll", type=float, default=5.0, help="--follow poll seconds")
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device the judge runs on (cuda by default; it raises without a card; cpu runs the kernels' "
+        "plain versions)",
+    )
+
+
+def _parse_assignments(pairs: list[str], flag: str) -> dict[str, str]:
+    out = {}
+    for pair in pairs:
+        alias, sep, path = pair.partition("=")
+        if not sep or not alias or not path:
+            raise SystemExit(f"{flag} expects ALIAS=CSV, got {pair!r}")
+        out[alias] = path
+    return out
+
+
+def cmd_score(args: argparse.Namespace) -> int:
+    import json
+    import time
+    from urllib.parse import unquote
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs.convert import request_to_document
+    from foremast_tpu_torch.jobs.models import (
+        STATUS_COMPLETED_HEALTH,
+        STATUS_COMPLETED_UNHEALTH,
+        TERMINAL_STATUSES,
+        AnalyzeRequest,
+        document_response,
+    )
+    from foremast_tpu_torch.jobs.store import InMemoryStore, parse_time
+    from foremast_tpu_torch.jobs.worker import BrainWorker
+    from foremast_tpu_torch.metrics.promql import decode_config
+    from foremast_tpu_torch.metrics.source import PrometheusSource, ReplaySource
+    from foremast_tpu_torch.ops.windows import resolve_device
+
+    resolve_device(args.device)  # a missing card fails before any work
+    raw = sys.stdin.read() if args.request == "-" else open(args.request).read()
+    req = AnalyzeRequest.from_json(json.loads(raw))
+    doc = request_to_document(req)
+
+    if args.prometheus:
+        source = PrometheusSource()
+    else:
+        # replay traces are keyed by exact query URL: current/baseline/
+        # historical configs for the same alias differ only in their URLs,
+        # so route each category's URL to its own trace
+        source = ReplaySource()
+        for flag, config in (
+            ("--current", doc.current_config),
+            ("--baseline", doc.baseline_config),
+            ("--historical", doc.historical_config),
+        ):
+            assignments = _parse_assignments(getattr(args, flag[2:]), flag)
+            urls = decode_config(config)
+            for alias, path in assignments.items():
+                if alias not in urls:
+                    raise SystemExit(
+                        f"{flag} {alias}: no such alias in the request's "
+                        f"{flag[2:]} metrics (have: {sorted(urls) or 'none'})"
+                    )
+                # ReplaySource matches patterns against the *unquoted* URL
+                source.register_csv(unquote(urls[alias]), path)
+
+    store = InMemoryStore()
+    doc, _ = store.create(doc)
+    # the worker loop's env-var config surface (the reference brain is
+    # configured entirely through env, foremast-brain/README.md:20-38)
+    worker = BrainWorker(store, source, config=BrainConfig.from_env(), device=args.device, claim_limit=1)
+    try:
+        if args.follow:
+            while store.get(doc.id).status not in TERMINAL_STATUSES:
+                worker.tick()
+                if store.get(doc.id).status in TERMINAL_STATUSES:
+                    break
+                time.sleep(args.poll)
+        else:
+            # one-shot: clamp "now" past endTime so a healthy window finalizes
+            end = parse_time(doc.end_time)
+            worker.tick(now=max(time.time(), end + 1))
+    finally:
+        worker.close()
+
+    final = store.get(doc.id)
+    json.dump(document_response(final), sys.stdout, indent=2)
+    print()
+    # exit 0 only when the judgment actually evaluated the metrics
+    # (healthy OR anomaly); preprocess_failed / abort / completed_unknown
+    # mean no judgment was made, which must fail a CI gate
+    return 0 if final.status in (STATUS_COMPLETED_HEALTH, STATUS_COMPLETED_UNHEALTH) else 1
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    from foremast_tpu_torch.observe.logs import setup_logging
+    from foremast_tpu_torch.observe.spans import Tracer
+    from foremast_tpu_torch.service.app import serve
+
+    setup_logging()
+    store = _make_store(args.elastic_url)
+    serve(
+        host=args.host,
+        port=args.port,
+        store=store,
+        query_endpoint=args.query_endpoint,
+        # per-request spans + the /debug/state trace section; the ring
+        # buffer dump is gated by FOREMAST_TRACE_DIR as everywhere
+        tracer=Tracer(service="service"),
+    )
+    return 0
+
+
+def _toggle_continuous(args: argparse.Namespace, value: bool) -> int:
+    from foremast_tpu_torch.watch.kubeapi import HttpKube, NotFound
+
+    kube = HttpKube(base_url=args.api_server)
+    try:
+        # merge-patch only spec.continuous (what the reference plugin's
+        # `kubectl patch --type=merge` does) so concurrent spec/status
+        # writers are never reverted
+        monitor = kube.patch_monitor(args.namespace, args.name, {"spec": {"continuous": value}})
+    except NotFound:
+        print(f"deploymentmonitor {args.namespace}/{args.name} not found", file=sys.stderr)
+        return 1
+    verb = "watching" if value else "no longer watching"
+    print(f"Foremast is {verb} application {args.name}")
+    print(f"Job: {monitor.status.job_id}")
+    return 0
+
+
+def cmd_watch(args: argparse.Namespace) -> int:
+    return _toggle_continuous(args, True)
+
+
+def cmd_unwatch(args: argparse.Namespace) -> int:
+    return _toggle_continuous(args, False)
+
+
+def cmd_watch_plane(args: argparse.Namespace) -> int:
+    """Run the deployed watch-plane controller (barrelman equivalent)
+    until SIGTERM or SIGINT."""
+    import signal
+    import threading
+
+    if args.gauge_port:
+        try:
+            import prometheus_client  # noqa: F401
+        except ImportError:
+            raise SystemExit(
+                f"--gauge-port {args.gauge_port} needs the prometheus_client package, which this host "
+                "lacks; install it or pass --gauge-port 0"
+            ) from None
+
+    from foremast_tpu_torch.chaos import Degradation, chaos_from_env
+    from foremast_tpu_torch.observe.logs import ctx_log, setup_logging
+    from foremast_tpu_torch.observe.spans import Tracer
+    from foremast_tpu_torch.watch.kubeapi import HttpKube
+    from foremast_tpu_torch.watch.plane import WatchPlane
+
+    setup_logging()
+    # the controller's one dependency edge gets the chaos seam and breaker
+    # the worker's clients carry: a FOREMAST_CHAOS_PLAN rule on edge
+    # "kube" injects here, and a dead API server fails fast once the
+    # breaker opens instead of stalling every poll
+    chaos_plan = chaos_from_env()
+    degrade = Degradation.from_env(chaos_plan=chaos_plan)
+    kube = HttpKube(
+        base_url=args.api_server,
+        chaos=chaos_plan.edge("kube") if chaos_plan is not None else None,
+        breaker=degrade.breakers.get("kube"),
+    )
+    stop_event = threading.Event()
+    try:
+        signal.signal(signal.SIGTERM, lambda s, f: stop_event.set())
+        signal.signal(signal.SIGINT, lambda s, f: stop_event.set())
+    except ValueError:
+        pass  # not the main thread (embedded use); rely on the caller
+    plane = WatchPlane(
+        kube,
+        own_namespace=args.namespace or os.environ.get("NAMESPACE", "foremast"),
+        tracer=Tracer(service="controller"),
+        # the poll loop's pause wakes at once on the stop signal
+        sleep=stop_event.wait,
+    )
+    obs_srv = None
+    if args.gauge_port:
+        # the transition counter and poll-stage histogram register on the
+        # default registry; this server is what makes them scrapeable
+        from prometheus_client import REGISTRY
+
+        from foremast_tpu_torch.chaos import ChaosCollector
+        from foremast_tpu_torch.observe.spans import start_observe_server
+
+        REGISTRY.register(ChaosCollector(degrade))
+        obs_srv, _ = start_observe_server(args.gauge_port, state_fn=plane.debug_state)
+    ctx_log(log, logging.INFO, "watch plane started", api_server=kube.base_url, stream=plane.stream,
+            chaos_rules=len(chaos_plan.rules) if chaos_plan is not None else 0)
+    try:
+        plane.run(stop=stop_event.is_set)
+    finally:
+        if obs_srv is not None:
+            obs_srv.shutdown()
+            obs_srv.server_close()
+        # what the run injected and its breaker did, for hosts without the
+        # gauge port's /debug/state (no prometheus_client)
+        ctx_log(log, logging.INFO, "watch plane stopped",
+                chaos_injections=(chaos_plan.debug_state()["injections"] if chaos_plan is not None else None),
+                breakers=degrade.breakers.debug_state(),
+                stream=(plane.informer.debug_state() if plane.stream else None))
+    return 0
 
 
 def cmd_worker(args: argparse.Namespace) -> int:
@@ -543,8 +789,20 @@ def cmd_worker(args: argparse.Namespace) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="foremast_tpu_torch", description=__doc__.split("\n\n")[0])
+    parser = argparse.ArgumentParser(prog="foremast_tpu_torch", description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
+    # each parser carries its handler via set_defaults(fn=...)
+    _add_score(sub)
+
+    p = sub.add_parser("serve", help="REST job gateway on :8099")
+    p.set_defaults(fn=cmd_serve)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8099)
+    p.add_argument("--elastic-url", default=None, help="Elasticsearch backend (ELASTIC_URL parity); default in-memory")
+    p.add_argument("--query-endpoint", default=None,
+                   help="upstream Prometheus for /api/v1 proxy (QUERY_SERVICE_ENDPOINT)")
+
     p = sub.add_parser("worker", help="scoring worker loop (brain)")
     p.set_defaults(fn=cmd_worker)
     p.add_argument(
@@ -584,6 +842,28 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=8000,
         help="/metrics, /healthz and /debug/state exposition port (0 disables)",
+    )
+
+    for name, fn, helptext in (
+        ("watch", cmd_watch, "enable continuous monitoring (kubectl-watch parity)"),
+        ("unwatch", cmd_unwatch, "disable continuous monitoring"),
+    ):
+        p = sub.add_parser(name, help=helptext)
+        p.set_defaults(fn=fn)
+        p.add_argument("name", help="DeploymentMonitor name (the app)")
+        p.add_argument("--namespace", "-n", default="default")
+        p.add_argument("--api-server", default=None, help="API server URL (default in-cluster)")
+
+    p = sub.add_parser("watch-plane", help="K8s controller loop: deployment watcher + status poller + remediation")
+    p.set_defaults(fn=cmd_watch_plane)
+    p.add_argument("--api-server", default=None, help="API server URL (default in-cluster)")
+    p.add_argument("--namespace", default=None, help="controller's own namespace (NAMESPACE downward-API parity)")
+    p.add_argument(
+        "--gauge-port",
+        type=int,
+        default=0,
+        help="controller metrics/varz exposition port (0 disables; pick a port distinct from the worker's :8000 "
+        "when co-hosted)",
     )
     return parser
 

@@ -1,5 +1,9 @@
 """Job plane: wire models, idempotent ids, the in-memory store, the chunk
-pipeline and the brain worker."""
+pipeline and the brain worker.
+
+The worker (and with it torch) is imported on first use of `BrainWorker`
+or `infer_metric_type`, so the gateway and the watch plane, which use
+only the wire models, the converter and the store, start without torch."""
 
 from foremast_tpu_torch.jobs.models import (
     CLAIMABLE_STATUSES,
@@ -23,7 +27,6 @@ from foremast_tpu_torch.jobs.models import (
     status_to_external,
 )
 from foremast_tpu_torch.jobs.store import InMemoryStore, JobStore, now_rfc3339, parse_time
-from foremast_tpu_torch.jobs.worker import BrainWorker, infer_metric_type
 
 __all__ = [
     "CLAIMABLE_STATUSES",
@@ -52,3 +55,11 @@ __all__ = [
     "BrainWorker",
     "infer_metric_type",
 ]
+
+
+def __getattr__(name: str):
+    if name in ("BrainWorker", "infer_metric_type"):
+        from foremast_tpu_torch.jobs import worker
+
+        return getattr(worker, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -424,9 +424,32 @@ def _shared_family(registry, name: str, make):
         return fam
 
 
-def counter(name: str, documentation: str, labels=(), registry=None):
-    from prometheus_client import Counter
+class _NullCounter:
+    """What `counter` returns on a host without prometheus_client: it
+    takes every `labels(...).inc()` and counts nothing."""
 
+    def labels(self, *args, **kwargs) -> "_NullCounter":
+        return self
+
+    def inc(self, amount: float = 1.0) -> None:
+        pass
+
+
+_NULL_COUNTER = _NullCounter()
+
+
+def counter(name: str, documentation: str, labels=(), registry=None):
+    """The shared Counter family `name` on `registry` (default: the
+    process registry). On a host without prometheus_client, where no
+    registry can have been built, a counter that counts nothing, so the
+    gateway and the watch plane start there all the same; the gateway's
+    /metrics says what is missing."""
+    try:
+        from prometheus_client import Counter
+    except ImportError:
+        if registry is not None:
+            raise
+        return _NULL_COUNTER
     return _shared_family(registry, name, lambda reg: Counter(name, documentation, list(labels), registry=reg))
 
 

@@ -16,9 +16,9 @@ answers the rule's status. On the mesh's two edges, a blackholed
 ``transfer`` abandons the handoff with JAX's injections and counters and
 the joiner activates at its deadline, the edge's breaker fails fast once
 open, and a ``clock`` skew moves lease expiry as it does in the JAX
-package. The JAX cases of ``kube`` (the watch plane, ROADMAP.md Queue 1
-item 8) have no port counterpart yet: a plan naming it parses and its
-rules count nothing."""
+package. On the watch plane's ``kube`` edge, the same plan makes the
+same fault decisions on both packages' `HttpKube` and counts the same
+injections."""
 
 from __future__ import annotations
 
@@ -210,20 +210,51 @@ def test_chaos_from_env_inline_file_and_unset(tmp_path, monkeypatch):
                 mod.chaos_from_env({"FOREMAST_CHAOS_PLAN": raw})
 
 
-@pytest.mark.parametrize("edge,item", [("kube", "item 8")], ids=["kube-item8"])
-def test_unwired_edges_parse_and_count_nothing(edge, item):
-    """The port wires no client to these edges yet (`item`): a plan that
-    names them parses, and a worker tick under it injects nothing."""
-    plan = T.FaultPlan.from_json({"seed": 1, "rules": [{"edge": edge, "error_rate": 1.0}]}).activate()
-    store, source, _ = build_mixed_fleet(2, 128, 30, NOW, seed=0)
-    from tests.torch_workers import PortArraySource, port_store
+def test_kube_edge_injects_on_httpkube_and_counts_as_jax():
+    """The ``kube`` edge is wired on the port's `HttpKube` (the watch
+    plane's one dependency client, `watch-plane`'s ``chaos=``): the same
+    plan makes the same fault decisions on both packages' clients against
+    a live fake API server, counts the same injections by (edge, kind),
+    and drives the edge's breaker alike; a plan on another edge injects
+    nothing there."""
+    import importlib
 
-    w = BrainWorker(port_store(store), PortArraySource(source.data), config=BrainConfig(), device="cpu",
-                    claim_limit=4, degrade=T.Degradation(chaos_plan=plan))
-    assert w.tick(now=NOW + 150) == 2
-    assert plan.injections_snapshot() == {}
-    assert w.debug_state()["degradation"]["chaos"]["rules"] == 1
-    w.close()
+    from tests.fake_kube_server import FakeKubeServer
+
+    plan_json = {"seed": 5, "rules": [{"edge": "kube", "error_rate": 0.4, "kind": "connection"},
+                                      {"edge": "kube", "op": "deploymentmonitors", "kind": "timeout",
+                                       "error_rate": 0.3}]}
+    seen = {}
+    for name, pkg in PACKAGES.items():
+        kubeapi = importlib.import_module(f"{pkg.__name__.split('.')[0]}.watch.kubeapi")
+        plan = pkg.FaultPlan.from_json(plan_json).activate()
+        # a stepped clock: one second a call, so the breaker opens, cools
+        # down and probes on the same calls in both packages
+        tick = [0.0]
+        breaker = pkg.CircuitBreaker("kube", failure_threshold=2, open_seconds=2.5, clock=lambda: tick[0])
+        with FakeKubeServer() as srv:
+            srv.state.put("namespaces", "", {"metadata": {"name": "prod"}})
+            kube = kubeapi.HttpKube(base_url=srv.url, retries=0, backoff_seconds=0.0, chaos=plan.edge("kube"),
+                                    breaker=breaker)
+            outcomes = []
+            for i in range(16):
+                call = kube.list_namespaces if i % 2 else (lambda: kube.list_monitors("prod"))
+                try:
+                    outcomes.append(len(call()))
+                except OSError as e:
+                    outcomes.append(type(e).__name__)
+                tick[0] += 1.0
+            requests = len(srv.state.requests)
+        other = pkg.FaultPlan.from_json({"seed": 5, "rules": [{"edge": "store", "error_rate": 1.0}]}).activate()
+        with FakeKubeServer() as srv:
+            kubeapi.HttpKube(base_url=srv.url, retries=0, chaos=other.edge("kube")).list_namespaces()
+        seen[name] = (outcomes, plan.injections_snapshot(), requests, other.injections_snapshot(),
+                      breaker.debug_state())
+    assert seen["port"] == seen["jax"]
+    outcomes, injections, requests, elsewhere, breaker_state = seen["port"]
+    assert set(injections) == {("kube", "connection"), ("kube", "timeout")}
+    assert "BreakerOpen" in outcomes and breaker_state["transitions"].get("open", 0) >= 1
+    assert requests == outcomes.count(0) + outcomes.count(1) and elsewhere == {}
 
 
 MESH = {"jax": "foremast_tpu.mesh", "port": "foremast_tpu_torch.mesh"}

@@ -3,8 +3,10 @@
 (the host quantiles the JAX package takes from scipy are
 `torch.special.ndtri` and `ops/quantiles.py` here, Adam is written out,
 bf16 goes through torch),
-and no module of the port imports `requests` or `prometheus_client` when
-it is imported (the card's machine has neither).
+and no module of the port imports `requests`, `prometheus_client`,
+`aiohttp` or `yaml` when it is imported (the card's machine lacks the
+first two, and no record shows it has the other two: the gateway and the
+watch plane serve and call with the standard library).
 
 `tests/torch_fake_services.py`, the fake Elasticsearch and Prometheus
 that `chip_smoke.py` serves on the card's machine, is held to the same
@@ -13,6 +15,7 @@ hooks, no PYTHONPATH), because this test process has JAX loaded
 already."""
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -30,10 +33,13 @@ names.append("torch_fake_services")
 for name in names:
     importlib.import_module(name)
 assert "foremast_tpu_torch.cli" in names and "foremast_tpu_torch.__main__" in names
+for name in ("jobs.convert", "service.app", "watch.crds", "watch.kubeapi", "watch.analyst", "watch.barrelman",
+             "watch.controller", "watch.plane", "reactive.watchstream"):
+    assert "foremast_tpu_torch." + name in names, name
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "foremast_tpu", "scipy", "optax", "ml_dtypes", "requests",
-                           "prometheus_client")
+                           "prometheus_client", "aiohttp", "yaml")
 )
 print(len(names), bad)
 """
@@ -70,3 +76,68 @@ def test_no_source_of_the_port_imports_jax():
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "foremast_tpu", "scipy", "optax", "ml_dtypes"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+_CONTROL_PLANE = """
+import sys
+sys.path.insert(0, {root!r})
+for name in ("foremast_tpu_torch.cli", "foremast_tpu_torch.service.app", "foremast_tpu_torch.watch.plane",
+             "foremast_tpu_torch.reactive.watchstream", "foremast_tpu_torch.jobs.convert"):
+    __import__(name)
+print("torch" in sys.modules)
+"""
+
+
+def test_gateway_and_watch_plane_start_without_torch():
+    """`serve`, `watch`, `unwatch` and `watch-plane` never touch the card:
+    their modules import no torch (the jobs package loads its worker on
+    first use), so the controller and gateway processes start fast."""
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", _CONTROL_PLANE.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT),
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
+_NO_PROMETHEUS_CLIENT = """
+import json, sys
+sys.path.insert(0, {root!r})
+sys.modules["prometheus_client"] = None  # `import prometheus_client` raises ImportError
+from foremast_tpu_torch.cli import main
+from foremast_tpu_torch.jobs.store import InMemoryStore
+from foremast_tpu_torch.service.app import Gateway
+from foremast_tpu_torch.watch.kubeapi import HttpKube, InMemoryKube
+from foremast_tpu_torch.watch.plane import WatchPlane
+
+body = {{"appName": "shop", "startTime": "2020-09-13T12:26:40Z", "endTime": "2020-09-13T12:36:40Z",
+        "strategy": "rollover", "metrics": {{"current": {{"latency": {{"dataSourceType": "prometheus", "parameters": {{
+            "endpoint": "http://prometheus:9090/api/v1/", "query": "q", "start": "1", "end": "2", "step": "60"}}}}}}}}}}
+g = Gateway(store=InMemoryStore())
+codes = [g.handle("POST", "/v1/healthcheck/create", json.dumps(body).encode()).status]
+codes += [g.handle("GET", path).status for path in ("/healthz", "/debug/state", "/metrics")]
+kube = InMemoryKube()
+kube.add_namespace("prod")
+plane = WatchPlane(kube, clock=lambda: 1000.0, sleep=lambda s: None)
+plane.step()
+streaming = WatchPlane(HttpKube(base_url="http://127.0.0.1:9"), stream=True).stream
+try:
+    main(["watch-plane", "--api-server", "http://127.0.0.1:9", "--gauge-port", "9100"])
+    refused = ""
+except SystemExit as e:
+    refused = str(e)
+print(json.dumps([codes, streaming, "prometheus_client" in refused]))
+"""
+
+
+def test_gateway_and_watch_plane_run_without_prometheus_client():
+    """On a host without prometheus_client the gateway answers (its
+    request counter counts nothing and /metrics answers 501), both watch
+    planes are built and step, and `watch-plane --gauge-port` is refused
+    by name, as `worker`'s is."""
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", _NO_PROMETHEUS_CLIENT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT),
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[200, 200, 200, 501], True, True]

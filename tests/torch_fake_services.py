@@ -9,10 +9,13 @@ terms / bool / range / sort, `_bulk` with per-item CAS, `_count`), with
 the mapping-strict query checks of `tests/test_es_store.py`'s `FakeES`.
 `FakePrometheus` answers `GET <path>?<query>` with the series registered
 under that exact path and query, as a `matrix` result of string values,
-and counts requests by path.
+and counts requests by path. `put_grid` registers a series of values on
+a grid, encoded from a table of the grid's values (phase 13's fleet of
+1,024 distinct histories, under the URLs the watch plane's Barrelman
+builds).
 
-Used by the port's CLI worker test and by `chip_smoke.py` phase 9; the
-port's HTTP store and source are the clients."""
+Used by the port's CLI worker test and by `chip_smoke.py` phases 9 and
+13; the port's HTTP store and source are the clients."""
 
 from __future__ import annotations
 
@@ -211,6 +214,25 @@ class FakePrometheus:
         self.lock = threading.Lock()
         self._pre: dict = {}
         self._bodies: dict[str, bytes] = {}
+
+    def put_grid(self, key: str, t, codes, denom: int = 64) -> None:
+        """Answer `key` with the series (t, codes / denom): integer codes
+        on a 1/denom grid, encoded from a table of the grid's values (a
+        fleet of distinct rows encodes in a fraction of `body`'s time).
+        The bytes equal `body`'s for that series."""
+        codes = np.asarray(codes, np.int64)
+        self.data[key] = (t, (codes / denom).astype(np.float32))
+        if self.split != 1 or not len(codes):
+            self._bodies[key] = self.body(key)
+            return
+        lo = int(codes.min())
+        table = [repr(k / denom) + '"],' for k in range(lo, int(codes.max()) + 1)]
+        parts = [None] * (2 * len(codes))
+        parts[0::2] = self._prefixes(t)
+        parts[1::2] = [table[k - lo] for k in codes.tolist()]
+        pts = "".join(parts)[:-1]
+        self._bodies[key] = ('{"status":"success","data":{"resultType":"matrix","result":[{"metric":{"series":"0"},'
+                             '"values":[' + pts + "]}]}}").encode()
 
     def prepare(self) -> None:
         self._bodies = {key: self.body(key) for key in self.data}
