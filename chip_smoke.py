@@ -264,8 +264,35 @@ Phases; any failure exits non-zero:
      beside them `watch` / `unwatch` / `watch ghost` (exit 0, 0, 1) and
      `watch-plane` under a kube chaos plan until its monitors exist,
      then SIGTERM (exit 0).
+ 14. the dashboard and demo loop: the demo runbook of
+     tests/test_system_e2e.py over 256 demo apps (8 namespaces), each a
+     Deployment with its own DeploymentMetadata monitoring error5xx, its
+     own 7-day history (Th=10,080) and its own scale and offset on the
+     demo traces (tests/data/demo_canary_*.csv), every 2nd v2 replaying
+     the spike trace and a quarter of the apps with a point 0.1 sigma
+     across or short of the band: WatchPlane over InMemoryKube,
+     LocalAnalyst over an in-memory store, a BrainWorker ticking every
+     60 s through the current window on a stepped clock.
+     (a) the runbook with the worker on the card, with the default route
+     and with FOREMAST_BF16_DELTA=0 (masked_stats): every spiked app
+     Unhealthy and rolled back to v1, every other Healthy, each first
+     verdict and its flagged points as placed; (b) each against the same
+     runbook with a CPU worker: monitors, images, jobs, events, verdicts
+     and flagged points equal at every tick, bands within 1e-5
+     (bf16-delta) and 1e-4 (f32); no step, tick or resync failed and no
+     module logged a warning; (c) the card worker's BrainGauges scraped
+     into the fake Prometheus after each tick, proxied by `python3 -m
+     foremast_tpu_torch serve --query-endpoint`, charted by a `ui`
+     process for each of 8 apps: the anomaly dots on the worker's
+     flagged points at their measured values, the band points the
+     published bands, the body equal to the CPU arm's (bands within
+     1e-5); one `ui --demo` panel; (d) `rules` as a process prints the
+     manifest's YAML, and `rule_expr` resolves every series the
+     runbook's queries and panels use. Seconds per arm, rollout -> first
+     verdict and rollout -> last terminal monitor, with the card's name
+     and power limit.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
-7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11, 12, 13) and read just after its checked calls, so they
+7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11, 12, 13, 14) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phases
 6 and 9) only the f32 cold fit launches a kernel (masked_stats); the seasonal
 fits launch holt_winters_scan (Holt-Winters, and auto_univariate at m <=
@@ -282,7 +309,7 @@ short first call after a kernel change. `python3 chip_smoke.py
 tenancy's costs: the same tenants without the arena envelope, and the
 arenas' host seconds of `assign` and `scatter` in each sweep.
 `--mesh-only` runs phase 11 alone, `--device-mesh-only` phase 12 alone,
-`--control-loop-only` phase 13 alone.
+`--control-loop-only` phase 13 alone, `--dashboard-only` phase 14 alone.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -292,6 +319,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import re
 import shutil
@@ -6973,6 +7001,550 @@ def phase_control_loop(dev, smi: str) -> dict:
     return dict(a=a_card, b=b_card, cd=cd_card, e=sub, b_launches=b_launches)
 
 
+# -- phase 14: the dashboard and demo loop --------------------------------------
+
+DB_APPS = 256  # demo apps, each a Deployment with its own DeploymentMetadata
+DB_NAMESPACES = 8
+DB_METRIC = "http_server_requests_error_5xx"  # the 5XX Errors panel's base family
+DB_ALIAS = "error5xx"
+DB_MARGIN = 0.1  # in sigma: the edge apps' point this far above (spiked) or below (others) the band
+DB_STEP = 15  # seconds between the current window's points, the dashboard's default step
+DB_TAIL = 120  # history points (60 s apart) put into the scrape store for the dashboard
+DB_PANEL_APPS = 8  # apps whose panel is read through a `ui` process each
+DB_BAND_TOL = {"bf16": 1e-5, "f32": 1e-4}  # card against CPU, as tests/test_kernels.py
+DB_TIMEOUT = 60.0  # seconds for a `ui` / `rules` / gateway process to answer
+
+
+def demo_trace(name: str) -> np.ndarray:
+    """The demo's per-minute error-rate trace (tests/data), as float64."""
+    with open(os.path.join(ROOT, "tests", "data", f"demo_canary_{name}.csv")) as f:
+        return np.array([float(ln.split(",")[1]) for ln in f if ln.strip()])
+
+
+def db_app(i: int) -> tuple[str, str]:
+    """(namespace, app) of the fleet's i-th demo app."""
+    return f"demo-{i % DB_NAMESPACES}", f"demo-{i:03d}"
+
+
+def dashboard_fleet(t1: int, n: int | None = None, seed: int = 41, th: int | None = None) -> dict:
+    """The demo runbook's fleet: `n` demo apps rolling v1 -> v2 at t1,
+    every even one's v2 replaying the spike trace (tests/data/
+    demo_canary_spike.csv) and the others the normal trace, each app
+    with its own scale s and offset o on the trace (s * trace + o) and
+    its own 7-day history at 60 s (Th points, ending at t1 - 60: error
+    rates s * N(0.3, 0.25) + o on a 1/64 grid, so the bf16 deltas are
+    exact). The current window's points are DB_STEP s apart from t1 + 45
+    (the spike trace's 42 end at t1 + 660), so the spike trace's first
+    spike lands at t1 + 60, the first tick. Apps i % 4 == 1 have their highest point DB_MARGIN sigma
+    below the error5xx band (mean + 2 std, ddof 0, in float64) and apps
+    i % 4 == 2 their first point DB_MARGIN sigma above it: a band wrong
+    by a tenth of a sigma flips a verdict or an anomaly point. `flagged`
+    is what the first tick (t1 + 60) must flag, by construction."""
+    thr = 2.0  # config.py's error5xx rule: upper band at 2 std
+    th = FULL_TH if th is None else th
+    n = DB_APPS if n is None else n
+    rng = np.random.default_rng(seed)
+    ht = t1 - 60 * th + 60 * np.arange(th, dtype=np.int64)
+    traces = {True: demo_trace("spike"), False: demo_trace("normal")}
+    apps = []
+    for i in range(n):
+        ns, app = db_app(i)
+        spike = i % 2 == 0
+        s, o = 0.5 + 1.5 * rng.random(), int(rng.integers(0, 128)) / 64
+        codes = np.maximum(np.round(64 * (s * rng.normal(0.3, 0.25, th) + o)), 0).astype(np.int64)
+        v = codes / 64.0
+        mu, sd = float(v.mean()), float(v.std())
+        upper = mu + thr * sd
+        tr = traces[spike]
+        ct = t1 + 45 + DB_STEP * np.arange(len(tr), dtype=np.int64)
+        cur = (s * tr + o).astype(np.float32)
+        if i % 4 == 1:
+            cur[int(np.argmax(cur))] = upper - DB_MARGIN * sd
+        elif i % 4 == 2:
+            cur[0] = upper + DB_MARGIN * sd
+        first = ct <= t1 + 60
+        flagged = [(int(t), float(x)) for t, x in zip(ct[first], cur[first]) if float(x) > upper]
+        later = [float(x) for x in cur[~first]] if not spike else []
+        assert all(x < upper - 0.05 * sd for x in cur[first] if float(x) <= upper) and all(
+            x < upper - 0.05 * sd for x in later), f"{app}: a point unplaced near the band"
+        assert bool(flagged) == spike
+        apps.append(dict(i=i, ns=ns, app=app, uid=f"dep-{ns}-{app}", spike=spike, scale=s, offset=o,
+                         hist=v.astype(np.float32), ct=ct, cur=cur, upper=upper, sd=sd, flagged=flagged))
+    return dict(t1=t1, ht=ht, apps=apps)
+
+
+def db_modules():
+    """The port's modules the runbook drives (tests pass the JAX
+    package's, under the same names, to drive the same runbook)."""
+    import types
+
+    from foremast_tpu_torch import config
+    from foremast_tpu_torch.jobs import store
+    from foremast_tpu_torch.metrics import promql, source
+    from foremast_tpu_torch.observe import gauges
+    from foremast_tpu_torch.watch import analyst, crds, kubeapi, plane
+
+    return types.SimpleNamespace(config=config, store=store, promql=promql, source=source, gauges=gauges,
+                                 analyst=analyst, crds=crds, kubeapi=kubeapi, plane=plane,
+                                 logger="foremast_tpu_torch")
+
+
+def db_source(mods, fleet: dict, clock):
+    """The fleet's series as the worker fetches them: each app's history
+    under its per-app query, its new pods' current window under theirs,
+    served up to the runbook's clock (the points that exist by then)."""
+    hist, cur = {}, {}
+    for a in fleet["apps"]:
+        hist[mods.promql.app_query(DB_METRIC, a["ns"], a["app"])] = (fleet["ht"], a["hist"])
+        cur[mods.promql.pods_query(DB_METRIC, a["ns"], [f"{a['app']}-v2-0"])] = (a["ct"], a["cur"])
+
+    class ClockedReplay(mods.source.MetricSource):
+        concurrent_fetch = False
+
+        def fetch(self, url):
+            q = urllib.parse.parse_qs(urllib.parse.urlsplit(url).query).get("query", [""])[0]
+            if q in hist:
+                return hist[q]
+            if q in cur:
+                t, v = cur[q]
+                k = int(np.searchsorted(t, clock(), side="right"))
+                return t[:k], v[:k]
+            return np.zeros(0, np.int64), np.zeros(0, np.float32)
+
+    return ClockedReplay()
+
+
+def db_kube(mods, fleet: dict):
+    """The kube fake before the rollout: a namespace per team, each app's
+    DeploymentMetadata (error5xx on the 5XX Errors panel's family), its
+    v1 and v2 ReplicaSets and one pod each, its v1 Deployment."""
+    crds = mods.crds
+    kube = mods.kubeapi.InMemoryKube()
+    for k in range(DB_NAMESPACES):
+        kube.add_namespace(f"demo-{k}")
+    for a in fleet["apps"]:
+        ns, app = a["ns"], a["app"]
+        kube.add_metadata(crds.DeploymentMetadata(
+            name=app, namespace=ns, analyst_endpoint="local://", metrics_endpoint="http://prom:9090/",
+            monitoring=[crds.MonitoredMetric(DB_METRIC, metric_type=DB_ALIAS, metric_alias=DB_ALIAS)]))
+        for version in (1, 2):
+            rs = f"{app}-v{version}"
+            kube.add_replicaset({
+                "metadata": {"name": rs, "namespace": ns, "uid": f"rs-{ns}-{rs}",
+                             "annotations": {"deployment.kubernetes.io/revision": str(version)},
+                             "ownerReferences": [{"uid": a["uid"]}]},
+                "spec": {"replicas": 1, "template": {
+                    "metadata": {"labels": {"app": app, "pod-template-hash": rs}},
+                    "spec": {"containers": [{"name": "main", "image": f"{app}:v{version}"}]}}},
+                "status": {"replicas": 1}})
+            kube.add_pod({"metadata": {"name": f"{rs}-0", "namespace": ns, "uid": f"pod-{ns}-{rs}-0",
+                                       "ownerReferences": [{"uid": f"rs-{ns}-{rs}"}]}})
+        kube.deployments[(ns, app)] = db_deployment(a, 1)
+    return kube
+
+
+def db_deployment(a: dict, version: int) -> dict:
+    """An app's Deployment at `version` (one replica: its ReplicaSet's pod)."""
+    return {
+        "metadata": {"name": a["app"], "namespace": a["ns"], "uid": a["uid"], "labels": {"app": a["app"]},
+                     "annotations": {"deployment.kubernetes.io/revision": str(version)},
+                     "resourceVersion": str(version)},
+        "spec": {"template": {"metadata": {"labels": {"app": a["app"]}},
+                              "spec": {"containers": [{"name": "main", "image": f"{a['app']}:v{version}",
+                                                       "env": []}]}}},
+    }
+
+
+class _Recorder(logging.Handler):
+    """Every WARNING or worse a package logs during an arm."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records: list = []
+
+    def emit(self, record):
+        self.records.append(f"{record.name}: {record.getMessage()}")
+
+
+def db_arm(label: str, fleet: dict, make_worker, mods=None, scrape_into=None) -> dict:
+    """The demo runbook over the fleet (tests/test_system_e2e.py's, at
+    fleet size): the plane primes on v1 and creates each app's monitor
+    (AutoRollback), v2 rolls out and Barrelman starts one job per app
+    through LocalAnalyst over an in-memory store, then the worker made
+    by `make_worker(store, source, on_verdict)` ticks every 60 s through
+    the current window (t1 + 60 ... t1 + 660, the points served up to
+    each tick) and once past it, the plane stepping 5 s after each tick;
+    spiked jobs go Unhealthy at their first tick and are rolled back,
+    the others end Healthy. The worker's BrainGauges (through
+    `make_verdict_hook`) are scraped into `scrape_into` (a
+    FakePrometheus) after each tick. No plane step, controller tick,
+    resync or tick may fail, and no module of the package may log a
+    warning. Returns the snapshot and timings."""
+    from prometheus_client import CollectorRegistry, generate_latest
+
+    mods = mods or db_modules()
+    t1 = fleet["t1"]
+    clock = SteppedClock(t1 - 60)
+    kube = db_kube(mods, fleet)
+    store = mods.store.InMemoryStore()
+    registry = CollectorRegistry()
+    publish = mods.gauges.make_verdict_hook(mods.gauges.BrainGauges(registry=registry))
+    verdicts: dict = {}
+    at = [0]
+
+    def on_verdict(doc, vs):
+        for v in vs:
+            up, lo = np.asarray(v.upper).reshape(-1), np.asarray(v.lower).reshape(-1)
+            verdicts[(at[0], doc.app_name, v.alias)] = (
+                int(v.verdict), [float(x) for x in v.anomaly_pairs],
+                float(up[-1]) if len(up) else None, float(lo[-1]) if len(lo) else None)
+        publish(doc, vs)
+
+    plane = mods.plane.WatchPlane(kube, clock=clock, sleep=lambda s: None, registry=CollectorRegistry(),
+                                  analyst_factory=lambda ep: mods.analyst.LocalAnalyst(store))
+    worker = make_worker(store, db_source(mods, fleet, clock), on_verdict)
+    rec = _Recorder()
+    logging.getLogger(mods.logger).addHandler(rec)
+    n = len(fleet["apps"])
+    ticks, first_verdict_s, done_s = [], None, None
+    try:
+        plane.step()  # prime: a monitor for each v1 Deployment
+        for a in fleet["apps"]:
+            mon = kube.get_monitor(a["ns"], a["app"])
+            mon.remediation = mods.crds.Remediation(option=mods.crds.RemediationOption.AUTO_ROLLBACK)
+            kube.upsert_monitor(mon)
+        clock.t = t1
+        t_roll = time.perf_counter()
+        for a in fleet["apps"]:
+            kube.deployments[(a["ns"], a["app"])] = db_deployment(a, 2)
+        plane.step()  # Barrelman: one job per rollout
+        t = t1 + 60
+        while True:
+            clock.t = t
+            at[0] = int(t - t1)
+            t0 = time.perf_counter()
+            judged = worker.tick(now=t)
+            sync_card()
+            ticks.append((int(t - t1), judged, time.perf_counter() - t0))
+            if first_verdict_s is None and verdicts:
+                first_verdict_s = time.perf_counter() - t_roll
+            if scrape_into is not None:
+                scrape_into.scrape(generate_latest(registry).decode(), t)
+            clock.t = t + 5
+            plane.step(now=t + 5)
+            if terminal_monitors(mods, kube, fleet) == n:
+                done_s = time.perf_counter() - t_roll
+                break
+            if t >= t1 + 661 + 600:
+                break
+            t = t + 60 if t < t1 + 660 else (t1 + 661 if t == t1 + 660 else t + 60)
+        for extra in (30, 60):  # the resyncs that see the rollback patches
+            clock.t = t + extra
+            plane.step(now=t + extra)
+    finally:
+        logging.getLogger(mods.logger).removeHandler(rec)
+        close = getattr(worker, "close", None)
+        if close is not None:
+            close()
+    if done_s is None:
+        stuck = [(a["app"], kube.get_monitor(a["ns"], a["app"]).status.phase) for a in fleet["apps"]]
+        check(False, f"phase 14 ({label}): {n - terminal_monitors(mods, kube, fleet)} monitors never reached a "
+                     f"terminal phase: {stuck[:6]}, warnings {rec.records[:3]}")
+    check(not rec.records, f"phase 14 ({label}): the loop logged {len(rec.records)} warnings: {rec.records[:3]}")
+    snap = db_snapshot(mods, kube, store, fleet, verdicts)
+    check(len(snap["docs"]) == n, f"phase 14 ({label}): {len(snap['docs'])} jobs for {n} rollouts")
+    return dict(snap=snap, ticks=ticks, first_verdict_s=first_verdict_s, done_s=done_s)
+
+
+def terminal_monitors(mods, kube, fleet) -> int:
+    phases = (mods.crds.MonitorPhase.HEALTHY, mods.crds.MonitorPhase.UNHEALTHY)
+    return sum(kube.get_monitor(a["ns"], a["app"]).status.phase in phases for a in fleet["apps"])
+
+
+def db_snapshot(mods, kube, store, fleet: dict, verdicts: dict) -> dict:
+    """Each app's monitor (phase, remediation taken, anomaly), its
+    Deployment's image, its job's (status, code, reason, anomaly) and
+    every verdict by (tick, app)."""
+    monitors, images, docs = {}, {}, {}
+    for a in fleet["apps"]:
+        key = (a["ns"], a["app"])
+        m = kube.get_monitor(*key)
+        monitors[key] = json.dumps([m.status.phase, m.status.remediation_taken, m.status.anomaly], sort_keys=True)
+        images[key] = kube.get_deployment(*key)["spec"]["template"]["spec"]["containers"][0]["image"]
+        d = store.get(m.status.job_id)
+        if d is not None:
+            docs[key] = json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+    events = sorted((e["reason"], e.get("involvedObject", {}).get("name", "")) for e in kube.events)
+    return dict(monitors=monitors, images=images, docs=docs, verdicts=verdicts, events=events)
+
+
+def db_expected(fleet: dict, snap: dict, label: str, tol: float) -> float:
+    """The runbook's outcome by construction: spiked apps Unhealthy and
+    rolled back to v1, the others Healthy on v2; the first tick's
+    verdict and flagged points as placed; every band within `tol` of
+    the float64 band. Returns the largest band error."""
+    worst = 0.0
+    for a in fleet["apps"]:
+        key = (a["ns"], a["app"])
+        phase, taken, anomaly = json.loads(snap["monitors"][key])
+        image = snap["images"][key]
+        ok = (phase == ("Unhealthy" if a["spike"] else "Healthy") and bool(taken) == a["spike"]
+              and bool(anomaly) == a["spike"] and image == f"{a['app']}:v{1 if a['spike'] else 2}")
+        check(ok, f"phase 14 ({label}): {key} ended {phase}, remediated={taken}, image {image}")
+        first = snap["verdicts"].get((60, a["app"], DB_ALIAS))
+        check(first is not None, f"phase 14 ({label}): no verdict at the first tick for {key}")
+        want = [x for tv in a["flagged"] for x in tv]
+        check(first[0] == int(a["spike"]) and first[1] == want,
+              f"phase 14 ({label}): {key}: verdict {first[0]} flagging {first[1]}, placed {want}")
+        for (tick, app, _), v in snap["verdicts"].items():
+            if app == a["app"]:
+                worst = max(worst, abs(v[2] - a["upper"]))
+                if a["spike"]:
+                    check(tick == 60, f"phase 14 ({label}): {key} judged again at t1+{tick} after its anomaly")
+    check(worst <= tol, f"phase 14 ({label}): a band is {worst:.3g} off its float64 value (tolerance {tol})")
+    return worst
+
+
+def db_same(got: dict, want: dict, what: str, tol: float) -> float:
+    """Monitors, images, jobs and events equal; the same verdicts with
+    the same flagged points at every tick, each band within `tol`.
+    Returns the largest band difference."""
+    for part in ("monitors", "images", "docs"):
+        bad = [k for k in want[part] if got[part].get(k) != want[part][k]]
+        check(not bad and set(got[part]) == set(want[part]), f"phase 14: {what}: {part} differ, e.g. {bad[:2]}")
+    check(got["events"] == want["events"], f"phase 14: {what}: the events differ")
+    g, w = got["verdicts"], want["verdicts"]
+    check(set(g) == set(w), f"phase 14: {what}: verdicts for {len(set(g) ^ set(w))} (tick, app) differ")
+    bad = [k for k in w if g[k][:2] != w[k][:2]]
+    check(not bad, f"phase 14: {what}: {len(bad)} verdicts or flagged points differ, e.g. {bad[:2]}")
+    worst = max((max(abs(g[k][2] - w[k][2]), abs(g[k][3] - w[k][3])) for k in w), default=0.0)
+    check(worst <= tol, f"phase 14: {what}: bands differ by up to {worst:.3g} (tolerance {tol})")
+    return worst
+
+
+def db_base_samples(prom, fleet: dict) -> None:
+    """The measured per-app series the panels chart: each app's last
+    DB_TAIL history points and its current window."""
+    for a in fleet["apps"]:
+        labels = {"namespace": a["ns"], "app": a["app"]}
+        prom.put_samples(f"namespace_app_per_pod:{DB_METRIC}", labels, fleet["ht"][-DB_TAIL:],
+                         a["hist"][-DB_TAIL:].astype(np.float64))
+        prom.put_samples(f"namespace_app_per_pod:{DB_METRIC}", labels, a["ct"], a["cur"].astype(np.float64))
+
+
+def db_panel_query(fleet: dict) -> str:
+    """The 5XX Errors panel over [t1 - 900, t1 + 900] at the default step."""
+    return f"/api/v1/panel?i=0&end={fleet['t1'] + 900}&window=1800&step={DB_STEP}"
+
+
+def db_panel_check(body: dict, a: dict, snap: dict, label: str) -> None:
+    """One app's panel against the worker: the anomaly dot where the
+    worker's last flagged point is, at its measured value; the band
+    points equal to the bands the worker published for the app."""
+    pairs = [v[1] for k, v in snap["verdicts"].items() if k[1] == a["app"] and v[1]]
+    if a["spike"]:
+        t_last, v_last = pairs[0][-2], pairs[0][-1]
+        want = [{"t": t_last, "v": v_last}]
+        check(body["anomalyJoined"] == want,
+              f"phase 14 (c, {label}): {a['app']}'s dots {body['anomalyJoined']}, the worker flagged {want}")
+        check({d["v"] for d in body["anomaly"]} == {v_last},
+              f"phase 14 (c, {label}): {a['app']}'s anomaly gauge reads {body['anomaly'][:2]}")
+    else:
+        check(body["anomalyJoined"] == [] and body["anomaly"] == [],
+              f"phase 14 (c, {label}): {a['app']} has dots {body['anomalyJoined']} but no anomaly")
+    for side, col in (("upper", 2), ("lower", 3)):
+        published = {v[col] for k, v in snap["verdicts"].items() if k[1] == a["app"]}
+        got = {d["v"] for d in body[side]}
+        check(got == published, f"phase 14 (c, {label}): {a['app']}'s {side} band {sorted(got)[:3]} is not what "
+                                f"the worker published, {sorted(published)[:3]}")
+    base = {d["t"]: d["v"] for d in body["base"]}
+    for t, v in zip(a["ct"].tolist(), a["cur"].tolist()):
+        check(base.get(float(t)) == v, f"phase 14 (c, {label}): {a['app']}'s base curve at {t} is {base.get(t)}")
+
+
+def db_processes(workdir: str, gateway_url: str, fleet: dict) -> list:
+    """One `ui` process for each of the first DB_PANEL_APPS apps, and one
+    in --demo mode: (started, url, app or None)."""
+    out = []
+    for k in range(DB_PANEL_APPS + 1):
+        port = free_port()
+        if k < DB_PANEL_APPS:
+            a = fleet["apps"][k]
+            args = ["ui", "--host", "127.0.0.1", "--port", str(port), "--service-endpoint", gateway_url,
+                    "--namespace", a["ns"], "--app", a["app"]]
+        else:
+            a, args = None, ["ui", "--host", "127.0.0.1", "--port", str(port), "--demo"]
+        out.append((cl_start(args, workdir, f"ui-{k}"), f"http://127.0.0.1:{port}", a))
+    return out
+
+
+def http_json(url: str, timeout: float = 30.0):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def wait_up(started: tuple, url: str, what: str) -> None:
+    deadline = time.perf_counter() + DB_TIMEOUT
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=5) as r:
+                if r.status == 200:
+                    return
+        except OSError:
+            pass
+        check(started[0].poll() is None and time.perf_counter() < deadline,
+              f"phase 14: {what} did not come up:\n{open(started[4]).read()[-4000:]}")
+        time.sleep(0.1)
+
+
+def phase_dashboard(dev, smi: str) -> dict:
+    """Phase 14: the demo runbook (WatchPlane over the kube fake,
+    LocalAnalyst over the store, BrainWorker) over DB_APPS demo apps on
+    the card, once with the default route and once with
+    FOREMAST_BF16_DELTA=0, each against the same runbook with a CPU
+    worker; the card worker's gauges scraped into the fake Prometheus
+    and charted by `ui` processes through a `serve --query-endpoint`
+    gateway; `rules` as a process."""
+    import signal
+    import tempfile
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine.scoring import set_bf16_delta
+    from foremast_tpu_torch.jobs import BrainWorker
+    from foremast_tpu_torch.metrics.rules import prometheus_rule_manifest, rule_expr, to_yaml
+    from foremast_tpu_torch.ops import kernels as K
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import FakePrometheus, serve_fake_prometheus
+
+    t_phase = time.perf_counter()
+    t1 = (int(time.time()) // 60) * 60 - 86_400
+    check(BrainConfig().anomaly.rule_for(DB_ALIAS).threshold == 2.0, "phase 14: the error5xx band is not 2 std")
+    with tempfile.TemporaryDirectory(prefix="foremast-phase14-", ignore_cleanup_errors=True) as workdir:
+        prom = FakePrometheus()
+        prom_srv, prom_url = serve_fake_prometheus(prom)
+        gw_port = free_port()
+        gateway_url = f"http://127.0.0.1:{gw_port}"
+        # every process starts now, before the timed arms; none imports torch
+        gw = cl_start(["serve", "--host", "127.0.0.1", "--port", str(gw_port), "--query-endpoint", prom_url],
+                      workdir, "gateway")
+        rules_proc = cl_start(["rules"], workdir, "rules")
+        fleet = dashboard_fleet(t1)
+        uis = db_processes(workdir, gateway_url, fleet)
+        try:
+            wait_up(gw, gateway_url + "/healthz", "the gateway")
+            for started, url, _ in uis:
+                wait_up(started, url + "/healthz", "a ui process")
+            setup_s = time.perf_counter() - t_phase
+
+            def worker_on(device, label):
+                return lambda store, source, hook: BrainWorker(store, source, config=BrainConfig(), device=device,
+                                                               claim_limit=DB_APPS, worker_id=f"phase14-{label}",
+                                                               on_verdict=hook)
+
+            runs, seconds, launches, scraped = {}, {}, {}, {}
+            for route, bf16 in (("bf16", None), ("f32", False)):
+                set_bf16_delta(bf16)
+                try:
+                    # the default route's gauges are charted in (c)
+                    card_prom = scraped.setdefault("card", FakePrometheus()) if route == "bf16" else None
+                    before = dict(K.LAUNCHES)
+                    t0 = time.perf_counter()
+                    runs[f"card {route}"] = db_arm(f"card {route}", fleet, worker_on(dev, f"card-{route}"),
+                                                   scrape_into=card_prom)
+                    seconds[f"card {route}"] = time.perf_counter() - t0
+                    launches[route] = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES if K.LAUNCHES[k] != before[k]}
+                    cpu_prom = scraped.setdefault("cpu", FakePrometheus()) if route == "bf16" else None
+                    t0 = time.perf_counter()
+                    runs[f"cpu {route}"] = db_arm(f"cpu {route}", fleet, worker_on("cpu", f"cpu-{route}"),
+                                                  scrape_into=cpu_prom)
+                    seconds[f"cpu {route}"] = time.perf_counter() - t0
+                finally:
+                    set_bf16_delta(None)
+            diffs, float64 = {}, {}
+            for route in ("bf16", "f32"):
+                tol = DB_BAND_TOL[route]
+                for side in ("card", "cpu"):
+                    float64[f"{side} {route}"] = db_expected(fleet, runs[f"{side} {route}"]["snap"],
+                                                             f"{side} {route}", max(tol, 1e-4))
+                diffs[route] = db_same(runs[f"card {route}"]["snap"], runs[f"cpu {route}"]["snap"],
+                                       f"(b) the card's {route} runbook against the CPU's", tol)
+            if dev.type == "cuda":
+                check(launches["f32"].get("masked_stats", 0) > 0,
+                      "phase 14 (a): the f32 route never launched masked_stats")
+            for label, run in runs.items():
+                ticks = ", ".join(f"t1+{t} s: {n} docs in {s:.3f} s" for t, n, s in run["ticks"])
+                print(f"phase 14: ({label}) {seconds[label]:.3f} s; rollout -> first verdict "
+                      f"{run['first_verdict_s']:.3f} s, rollout -> last terminal monitor {run['done_s']:.3f} s; "
+                      f"worker ticks [{ticks}]; {smi}")
+            print(f"phase 14: (a) launches, default route {launches['bf16']}, FOREMAST_BF16_DELTA=0 "
+                  f"{launches['f32']}; (b) card against CPU: bands within {diffs['bf16']:.3g} (bf16-delta, "
+                  f"tolerance {DB_BAND_TOL['bf16']}) and {diffs['f32']:.3g} (f32, tolerance {DB_BAND_TOL['f32']}); "
+                  f"against float64 within {max(float64.values()):.3g}")
+            # (c) the dashboard: the card arm's gauges, then the CPU arm's, behind the one fake Prometheus
+            t0 = time.perf_counter()
+            bodies = {}
+            for side in ("card", "cpu"):
+                with prom.lock:
+                    prom.samples = dict(scraped[side].samples)
+                db_base_samples(prom, fleet)
+                for started, url, a in uis[:DB_PANEL_APPS]:
+                    status, body = http_json(url + db_panel_query(fleet))
+                    check(status == 200, f"phase 14 (c): {a['app']}'s panel answered {status}")
+                    db_panel_check(body, a, runs[f"{side} bf16"]["snap"], side)
+                    bodies[(side, a["app"])] = body
+            band_diff = 0.0
+            for started, url, a in uis[:DB_PANEL_APPS]:
+                c, p = bodies[("card", a["app"])], bodies[("cpu", a["app"])]
+                for key in ("base", "anomaly", "anomalyJoined"):
+                    check(c[key] == p[key], f"phase 14 (c): {a['app']}'s {key} differs between the card and the CPU")
+                for key in ("upper", "lower"):
+                    check([d["t"] for d in c[key]] == [d["t"] for d in p[key]],
+                          f"phase 14 (c): {a['app']}'s {key} points differ between the card and the CPU")
+                    band_diff = max([band_diff] + [abs(x["v"] - y["v"]) for x, y in zip(c[key], p[key])])
+            check(band_diff <= DB_BAND_TOL["bf16"], f"phase 14 (c): the card's panel bands are {band_diff:.3g} off "
+                                                    "the CPU's")
+            same_bytes = sum(bodies[("card", a["app"])] == bodies[("cpu", a["app"])] for _, _, a in uis[:DB_PANEL_APPS])
+            status, demo = http_json(uis[-1][1] + "/api/v1/panel?i=0&end=7200")
+            check(status == 200 and demo["base"] and demo["anomalyJoined"]
+                  and {d["t"] for d in demo["anomalyJoined"]} <= {d["t"] for d in demo["base"]},
+                  "phase 14 (c): the --demo panel has no base curve or no dots on it")
+            spiked = sum(a["spike"] for _, _, a in uis[:DB_PANEL_APPS])
+            dash_s = time.perf_counter() - t0
+            print(f"phase 14: (c) {DB_PANEL_APPS} `ui` processes through the gateway's query proxy: {spiked} spiked "
+                  f"apps' dots on the worker's flagged points, every band point a published band, "
+                  f"{DB_PANEL_APPS - spiked} clean apps without dots; card and CPU bodies equal but for bands within "
+                  f"{band_diff:.3g} ({same_bytes} of {DB_PANEL_APPS} equal outright); the --demo panel "
+                  f"{len(demo['anomalyJoined'])} dots; {dash_s:.3f} s; {smi}")
+            # (d) rules
+            rc, stdout, stderr = cl_finish(rules_proc, timeout=DB_TIMEOUT)
+            check(rc == 0 and stdout == to_yaml(prometheus_rule_manifest()),
+                  f"phase 14 (d): `rules` exited {rc}:\n{stderr[-2000:]}")
+            names = [f"namespace_app_per_pod:{DB_METRIC}", f"namespace_pod:{DB_METRIC}"]
+            names += [f"foremastbrain:namespace_app_per_pod:{DB_METRIC}_{s}" for s in ("upper", "lower", "anomaly")]
+            missing = [n for n in names if rule_expr(n) is None]
+            check(not missing, f"phase 14 (d): no recording rule for {missing}")
+            exported = {key[0] for key in scraped["card"].samples}
+            gauges = [rule_expr(n) for n in names[2:]]
+            check(set(gauges) <= exported, f"phase 14 (d): the brain rules read {gauges}, the worker exported "
+                                           f"{sorted(exported)[:4]}")
+            print(f"phase 14: (d) `rules` exited 0 with the manifest's YAML ({len(stdout)} bytes); rule_expr "
+                  f"resolves {names}")
+        finally:
+            for started in [gw, rules_proc] + [u[0] for u in uis]:
+                if started[0].poll() is None:
+                    started[0].send_signal(signal.SIGTERM)
+            rcs = [cl_finish(started, timeout=30)[0] for started in [gw] + [u[0] for u in uis]]
+            prom_srv.shutdown()
+            prom_srv.server_close()
+        check(rcs == [0] * len(rcs), f"phase 14: the gateway and ui processes exited {rcs} on SIGTERM")
+    print(f"phase 14: fleet {DB_APPS} demo apps over {DB_NAMESPACES} namespaces (Th={FULL_TH}, every history its "
+          f"own, scale and offset on the demo traces, half the rollouts spiked, {DB_MARGIN} sigma edge points); "
+          f"seconds: set-up {setup_s:.1f}, arms {sum(seconds.values()):.1f}, phase "
+          f"{time.perf_counter() - t_phase:.1f}; {smi}")
+    return dict(runs=runs, seconds=seconds, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -6989,6 +7561,7 @@ def main() -> int:
     mesh_only = "--mesh-only" in sys.argv[1:]
     device_mesh_only = "--device-mesh-only" in sys.argv[1:]
     control_loop_only = "--control-loop-only" in sys.argv[1:]
+    dashboard_only = "--dashboard-only" in sys.argv[1:]
     # the seasonal model's f32 products must not round through TF32 (its
     # normal equations run in float64, which never does)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7052,6 +7625,13 @@ def main() -> int:
         phase_control_loop(dev, smi)
         check(K.LAUNCHES["masked_stats"] > 0, "phase 13 never launched masked_stats")
         print(f"chip_smoke: --control-loop-only: phase 13 passed; its main path launched {dict(K.LAUNCHES)}")
+        return 0
+    if dashboard_only:
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        phase_dashboard(dev, smi)
+        check(K.LAUNCHES["masked_stats"] > 0, "phase 14 never launched masked_stats")
+        print(f"chip_smoke: --dashboard-only: phase 14 passed; its main path launched {dict(K.LAUNCHES)}")
         return 0
     if tenants_only:
         os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
@@ -7128,6 +7708,8 @@ def main() -> int:
         check(launched_device_mesh[kname] > 0, f"the device mesh (phase 12) never launched {kname}")
     _, launched_control_loop = path(phase_control_loop, dev, smi)
     check(launched_control_loop["masked_stats"] > 0, "the control loop's f32 arm (phase 13 b) never launched masked_stats")
+    _, launched_dashboard = path(phase_dashboard, dev, smi)
+    check(launched_dashboard["masked_stats"] > 0, "the demo runbook's f32 arm (phase 14 a) never launched masked_stats")
     paths = {
         "object path (phases 3-4)": launched_object,
         "fit-cache path (phase 5)": launched_fit_cache,
@@ -7143,6 +7725,7 @@ def main() -> int:
         "worker mesh (phase 11)": launched_mesh,
         "device mesh (phase 12)": launched_device_mesh,
         "control loop (phase 13)": launched_control_loop,
+        "dashboard and demo loop (phase 14)": launched_dashboard,
     }
     print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}

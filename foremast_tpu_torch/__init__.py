@@ -22,14 +22,19 @@ Layers:
   jobs/       the job store (in memory or Elasticsearch over HTTP), the
               request converter, the chunk pipeline and the brain worker
   service/    the REST job gateway (standard-library HTTP server)
+  ui/         the dashboard: panel config, server-side anomaly join, the
+              static SVG front end (standard-library HTTP server)
   watch/      the Kubernetes control loop: CRDs, the kube API (in memory
               or over HTTP), barrelman, the status poller and remediation
-  metrics/    the config codec, Prometheus and in-memory metric sources
+  metrics/    the config codec, Prometheus and in-memory metric sources,
+              the generated recording and alert rules
+  instrument/ the HTTP metrics starter (WSGI and aiohttp middlewares)
+  demo/       the instrumented demo app and its error generators
   ingest/     crc-framed record logs under the fit journals
   observe/    spans, JSON logs, Prometheus gauges and the /metrics server
   native.py   the host packing library (ops/csrc/windowpack.cpp, g++)
   cli.py      `python -m foremast_tpu_torch score | serve | worker | watch |
-              unwatch | watch-plane`
+              unwatch | watch-plane | ui | rules`
   interop.py  JAX-side state (numpy leaves) -> the port's tensors
 """
 

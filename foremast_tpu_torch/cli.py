@@ -18,6 +18,13 @@ defaults, environment and exit codes, for these commands:
   watch-plane  the Kubernetes controller loop: deployment watcher, status
                poller and remediation (rollback or pause), with
                `FOREMAST_WATCH_STREAM=1` for the streaming informer
+  ui           the dashboard on :8080 (foremast-browser equivalent), on the
+               standard library's HTTP server: each panel's four series
+               fetched through the gateway's query proxy
+               (`--service-endpoint`, else `FOREMAST_SERVICE_ENDPOINT`) and
+               joined server-side, or synthetic series with `--demo`
+  rules        print the recording- and alert-rules manifest (a
+               PrometheusRule) as YAML, byte for byte the JAX CLI's
 
 `worker` dials Elasticsearch (`--elastic-url`, else `ELASTIC_URL` /
 `ES_ENDPOINT`; in-memory without any) for jobs and Prometheus for series,
@@ -40,10 +47,9 @@ each series' owner, and with `FOREMAST_INGEST=1` a planned join or a
 SIGTERM moves ring and fit state to the new owners instead of leaving it
 to cold refits.
 
-The JAX CLI's `ui` and `rules` commands and its pod mode are not ported
-yet; each mode that would need what is missing raises
-`NotImplementedError` naming its ROADMAP.md Queue 1 item instead of
-running something else.
+The JAX CLI's pod mode is not ported yet; each mode that would need what
+is missing raises `NotImplementedError` naming its ROADMAP.md Queue 1
+item instead of running something else.
 """
 
 from __future__ import annotations
@@ -788,6 +794,27 @@ def cmd_worker(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_ui(args: argparse.Namespace) -> int:
+    from foremast_tpu_torch.ui.app import serve as serve_ui
+
+    serve_ui(
+        host=args.host,
+        port=args.port,
+        service_endpoint=args.service_endpoint,
+        namespace=args.namespace,
+        app_name=args.app,
+        demo=args.demo,
+    )
+    return 0
+
+
+def cmd_rules(args: argparse.Namespace) -> int:
+    from foremast_tpu_torch.metrics.rules import prometheus_rule_manifest, to_yaml
+
+    sys.stdout.write(to_yaml(prometheus_rule_manifest(namespace=args.namespace)))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="foremast_tpu_torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -865,6 +892,20 @@ def build_parser() -> argparse.ArgumentParser:
         help="controller metrics/varz exposition port (0 disables; pick a port distinct from the worker's :8000 "
         "when co-hosted)",
     )
+
+    p = sub.add_parser("ui", help="dashboard on :8080 (foremast-browser parity)")
+    p.set_defaults(fn=cmd_ui)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--service-endpoint", default=None, help="job-gateway base URL (FOREMAST_SERVICE_ENDPOINT)")
+    p.add_argument("--namespace", default=None, help="charted namespace label")
+    p.add_argument("--app", default=None, help="charted app label")
+    p.add_argument("--demo", action="store_true",
+                   help="serve synthetic series from this process (no Prometheus needed)")
+
+    p = sub.add_parser("rules", help="print recording-rules manifest YAML")
+    p.set_defaults(fn=cmd_rules)
+    p.add_argument("--namespace", default="monitoring")
     return parser
 
 

@@ -34,7 +34,8 @@ for name in names:
     importlib.import_module(name)
 assert "foremast_tpu_torch.cli" in names and "foremast_tpu_torch.__main__" in names
 for name in ("jobs.convert", "service.app", "watch.crds", "watch.kubeapi", "watch.analyst", "watch.barrelman",
-             "watch.controller", "watch.plane", "reactive.watchstream"):
+             "watch.controller", "watch.plane", "reactive.watchstream", "instrument.starter", "demo.app",
+             "demo.__main__", "metrics.rules", "ui.join", "ui.metrics", "ui.app"):
     assert "foremast_tpu_torch." + name in names, name
 bad = sorted(
     m for m in sys.modules
@@ -141,3 +142,43 @@ def test_gateway_and_watch_plane_run_without_prometheus_client():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [[200, 200, 200, 501], True, True]
+
+
+_DASHBOARD_WITHOUT_EXTRAS = """
+import json, sys
+sys.path.insert(0, {root!r})
+for name in ("prometheus_client", "aiohttp", "yaml", "requests"):
+    sys.modules[name] = None  # `import <name>` raises ImportError
+import foremast_tpu_torch.demo, foremast_tpu_torch.instrument
+from foremast_tpu_torch.metrics.rules import prometheus_rule_manifest, rule_expr, to_yaml
+from foremast_tpu_torch.ui.app import make_app
+from foremast_tpu_torch.ui.join import join_anomalies
+
+ui = make_app(demo=True)
+codes = [ui.handle("GET", p).status for p in ("/", "/config", "/healthz", "/static/app.js",
+                                             "/api/v1/panel?i=0&end=7200")]
+ui.close()
+yaml_text = to_yaml(prometheus_rule_manifest())
+try:
+    foremast_tpu_torch.instrument.HttpMetrics()
+    starter = "built"
+except ImportError as e:
+    starter = "prometheus_client" in str(e)
+print(json.dumps([codes, yaml_text.startswith("apiVersion:"),
+                  rule_expr("namespace_app:pod_count") is not None,
+                  join_anomalies([(1.0, 2.0)], [(1.0, 3.0)], 0.0, 0.5), starter, "torch" in sys.modules]))
+"""
+
+
+def test_dashboard_rules_demo_and_starter_import_without_optional_packages():
+    """`ui`, `demo`, `instrument` and `metrics.rules` import on a host
+    without prometheus_client, aiohttp, yaml or requests: the dashboard
+    answers (demo mode), the rules render their YAML, and only building
+    the starter's registry asks for prometheus_client. None of them
+    imports torch."""
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", _DASHBOARD_WITHOUT_EXTRAS.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT),
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[200] * 5, True, True, [[1.0, 2.0]], True, False]

@@ -14,11 +14,13 @@ a grid, encoded from a table of the grid's values (phase 13's fleet of
 1,024 distinct histories, under the URLs the watch plane's Barrelman
 builds).
 
-Used by the port's CLI worker test and by `chip_smoke.py` phases 9 and
-13; the port's HTTP store and source are the clients."""
+Used by the port's CLI worker test, its dashboard tests and
+`chip_smoke.py` phases 9, 13 and 14; the port's HTTP store and source,
+and the dashboard through the gateway's query proxy, are the clients."""
 
 from __future__ import annotations
 
+import bisect
 import json
 import re
 import threading
@@ -198,13 +200,33 @@ class FakeElasticsearch:
         return True
 
 
+# an exposition sample `name{labels} value [timestamp]`, and a selector
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)(?: \S+)?$')
+_SAMPLE_NAME = re.compile(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?')
+_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def _unescape(v: str) -> str:
+    return re.sub(r'\\(.)', lambda m: "\n" if m.group(1) == "n" else m.group(1), v)
+
+
 class FakePrometheus:
     """`query_range` answers from `data`: "<path>?<query>" -> (times,
     values). `faults[key]` is a list of statuses to answer (in order)
     before the real body; `split` > 1 spreads each answer over that many
     series (the source sums them per timestamp). Unknown keys answer an
     empty matrix. `prepare()` encodes every answer up front (set-up,
-    not serving time); change a series through `set_series` then."""
+    not serving time); change a series through `set_series` then.
+
+    It also keeps scraped samples, as a Prometheus server does: `scrape`
+    stores an exposition's samples at a time, `put_samples` a series.
+    A `query_range` whose exact key is not registered is then evaluated
+    over them: its query a selector `name{label="value",...}`, each
+    matching series answered at start, start + step, ... end with its
+    last sample at or before that time (at most `LOOKBACK` seconds
+    before it, Prometheus' staleness)."""
+
+    LOOKBACK = 300.0
 
     def __init__(self, data: dict | None = None, split: int = 1):
         self.data = dict(data or {})
@@ -214,6 +236,50 @@ class FakePrometheus:
         self.lock = threading.Lock()
         self._pre: dict = {}
         self._bodies: dict[str, bytes] = {}
+        self.samples: dict[tuple, tuple[list, list]] = {}  # (name, sorted label items) -> (times, values)
+
+    # -- scraped samples --------------------------------------------------
+
+    def put_samples(self, name: str, labels: dict, t, v) -> None:
+        """Append a series' samples (times ascending, after any it has)."""
+        with self.lock:
+            ts, vs = self.samples.setdefault((name, tuple(sorted(labels.items()))), ([], []))
+            ts.extend(float(x) for x in np.asarray(t).tolist())
+            vs.extend(float(x) for x in np.asarray(v).tolist())
+
+    def scrape(self, text: str, t: float) -> int:
+        """Store every sample of an exposition at time `t`; the count."""
+        n = 0
+        for line in text.splitlines():
+            m = _SAMPLE.match(line) if line and not line.startswith("#") else None
+            if m is not None:
+                labels = {k: _unescape(v) for k, v in _LABEL.findall(m.group(2) or "")}
+                self.put_samples(m.group(1), labels, [t], [float(m.group(3))])
+                n += 1
+        return n
+
+    def evaluate(self, query: str, start: float, end: float, step: float) -> list:
+        """The matrix result of a bare selector over the stored samples."""
+        m = _SAMPLE_NAME.fullmatch(query.strip())
+        if m is None or step <= 0:
+            return []
+        want = {k: _unescape(v) for k, v in _LABEL.findall(m.group(2) or "")}
+        grid = [start + k * step for k in range(int((end - start) // step) + 1)]
+        with self.lock:
+            items = [(key, list(ts), list(vs)) for key, (ts, vs) in self.samples.items() if key[0] == m.group(1)]
+        out = []
+        for (name, labels), ts, vs in items:
+            lab = dict(labels)
+            if any(lab.get(k) != v for k, v in want.items()):
+                continue
+            values = []
+            for at in grid:
+                i = bisect.bisect_right(ts, at) - 1
+                if i >= 0 and at - ts[i] <= self.LOOKBACK:
+                    values.append([int(at) if float(at).is_integer() else at, repr(vs[i])])
+            if values:
+                out.append({"metric": {"__name__": name, **lab}, "values": values})
+        return out
 
     def put_grid(self, key: str, t, codes, denom: int = 64) -> None:
         """Answer `key` with the series (t, codes / denom): integer codes
@@ -276,6 +342,13 @@ class FakePrometheus:
         if status is not None:
             return status, json.dumps({"status": "error", "error": f"injected {status}"}).encode()
         cached = self._bodies.get(key)
+        if cached is None and key not in self.data and u.path == "/api/v1/query_range" and self.samples:
+            q = dict(urllib.parse.parse_qsl(u.query))
+            try:
+                result = self.evaluate(q.get("query", ""), float(q["start"]), float(q["end"]), float(q["step"]))
+            except (KeyError, ValueError):
+                return 400, json.dumps({"status": "error", "error": "bad start/end/step"}).encode()
+            return 200, json.dumps({"status": "success", "data": {"resultType": "matrix", "result": result}}).encode()
         return 200, cached if cached is not None else self.body(key)
 
 
