@@ -100,7 +100,7 @@ Phases; any failure exits non-zero:
      PrometheusSource (claim limit 256, the CLI's default) against a fake
      Elasticsearch and a fake Prometheus (tests/torch_fake_services.py)
      on loopback sockets in this process, over phase 6's fleet shape at
-     384 docs x 4 aliases (1,536 query_range histories of 7 days): a
+     320 docs x 4 aliases (1,280 query_range histories of 7 days): a
      cold pass, a warm pass and a spiked warm pass, every doc's (status,
      code, reason, anomaly_info) equal to phase 6's in-memory worker on
      the same fleet, exactly the spiked docs flagged; (e) the push arm:
@@ -123,7 +123,7 @@ Phases; any failure exits non-zero:
      with FOREMAST_SNAPSHOT_DIR set: it judges the fleet to (a)'s writes
      and exits 0 on SIGTERM; restarted on the same directory it judges
      the reset fleet with 0 history fetches and an all-warm first tick;
-     an f32 run (FOREMAST_BF16_DELTA=0, fresh directory, 256 docs)
+     an f32 run (FOREMAST_BF16_DELTA=0, fresh directory, 128 docs)
      launches masked_stats, which it reports when it stops; with
      FOREMAST_INGEST=1 it takes the fleet's samples on its receiver,
      judges the fleet to (a)'s writes with 0 Prometheus requests, exits
@@ -139,11 +139,11 @@ Phases; any failure exits non-zero:
      launches masked_stats); (g) micro-ticks: phase 6's 4,096-doc fleet,
      its series with their docs' `app` label bulk-loaded to a receiver
      with the dirty set wired, a worker's run loop (sweeps in four slices
-     of 1,024 docs, micro-ticks every 0.05 s between them), 64 docs
+     of 1,024 docs, micro-ticks every 0.05 s between them), 40 docs
      spread over the fleet spiked through the receiver per condition,
      shuffled, from the end of a sweep: quiet, with sweeps every 5 s,
-     half evenly over 4 s and half in a burst as the next sweep starts
-     (into its slice boundaries); evenly over 8 s
+     half evenly over 2.5 s and half in a burst as the next sweep starts
+     (into its slice boundaries); evenly over 5 s
      with sweeps every 30 s (micro-ticks alone) 2 s into a remote-write
      stream from a pusher subprocess at 6,667, 10,000 and 15,000
      samples/s and back to back, back to back again with the stream's
@@ -291,8 +291,26 @@ Phases; any failure exits non-zero:
      runbook's queries and panels use. Seconds per arm, rollout -> first
      verdict and rollout -> last terminal monitor, with the card's name
      and power limit.
+ 15. the diagnosis surface: (a) fit_forecast of a 4,096-row f32 history
+     (masked_stats), score at B=4,096, Th=10,080, Tc=30 (ma_judgment),
+     score_bf16_delta (ma_judgment_bf16_delta) and a cold fit-cache judge
+     pass inside `observe.trace_scoring` (torch.profiler): the Chrome
+     trace holds each kernel as a device event under its __global__ name,
+     one for each launch its wrapper counted, and the judge's
+     record_function markers; the profiled results equal the same calls'
+     without the profiler; each kernel's device µs summed from the trace
+     beside the call's cuda_ms; (b) the port's lock witness in process
+     over a journaled ring's push, a snapshot pass and two worker ticks
+     of 256 docs over RingSource: no observed edge outside
+     analysis_lockgraph_torch.json; (c) the CLI worker with
+     FOREMAST_LOCK_WITNESS=1 and FOREMAST_INGEST=1 judging a pushed fleet:
+     /debug/state env_overrides are the registered knobs it was started
+     with, and its exit log says every observed edge lies within the
+     static graph; (d) the manifests rendered into a tempdir equal the
+     committed deploy_torch/, and the metric lint finds nothing in (b)'s
+     worker's registry.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
-7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11, 12, 13, 14) and read just after its checked calls, so they
+7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11, 12, 13, 14, 15) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phases
 6 and 9) only the f32 cold fit launches a kernel (masked_stats); the seasonal
 fits launch holt_winters_scan (Holt-Winters, and auto_univariate at m <=
@@ -309,7 +327,8 @@ short first call after a kernel change. `python3 chip_smoke.py
 tenancy's costs: the same tenants without the arena envelope, and the
 arenas' host seconds of `assign` and `scatter` in each sweep.
 `--mesh-only` runs phase 11 alone, `--device-mesh-only` phase 12 alone,
-`--control-loop-only` phase 13 alone, `--dashboard-only` phase 14 alone.
+`--control-loop-only` phase 13 alone, `--dashboard-only` phase 14 alone,
+`--ops-only` phase 15 alone.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -1468,12 +1487,12 @@ def phase_worker(dev, smi: str, columnar_s: float) -> dict:
 
 # phase 6's fleet shape at 1,024 docs took 5.4 minutes for phase 9 alone
 # (H100 80GB HBM3 at 700 W, `--deployable-only`), 4,096 JSON histories
-# parsed per pass; cut to 512 docs, then to 384 when phase 10 came: two
-# claims of the CLI's default limit (256 + 128), so every pass still
-# claims again over a half-judged fleet
-DEPLOY_DOCS = 384  # x 4 aliases = 1,536 query_range histories of 7 days
+# parsed per pass; cut to 512 docs, then to 384 when phase 10 came, then
+# to 320 when phase 15 came: two claims of the CLI's default limit
+# (256 + 64), so every pass still claims again over a half-judged fleet
+DEPLOY_DOCS = 320  # x 4 aliases = 1,280 query_range histories of 7 days
 DEPLOY_CLAIM = 256  # the CLI's default --claim-limit (FOREMAST_CLAIM_LIMIT)
-DEPLOY_F32_DOCS = 256  # (d) the f32 CLI run: one claim
+DEPLOY_F32_DOCS = 128  # (d) the f32 CLI run: one claim
 CLI_TIMEOUT = 240  # seconds for one CLI run to judge its fleet
 # (e) the push arm's ring: 2,048 series of a 7-day history and its
 # current window (10,110 points: a 16,384-point ring of 196,608 B) and
@@ -1745,20 +1764,23 @@ def es_pass(worker, es, now: float, tracer, prom=None) -> list:
     check(False, f"{len(ticks)} ticks did not judge every document once")
 
 
-def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_extra=None, started=None) -> dict:
+def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_extra=None, started=None,
+            gauge_port: int = 0, judged=None) -> dict:
     """`python -m foremast_tpu_torch worker` as the deployed container runs
     it, until every document of the fake index was judged once; then
     SIGTERM, which must exit 0. `started()`, if given, runs once the
-    process is started and before the wait (it may fill the index).
-    Returns the statuses, the startup lines and the JSON log records. Its
-    stderr is printed on any failure."""
+    process is started and before the wait (it may fill the index);
+    `judged()`, if given, once the fleet is judged and before the SIGTERM
+    (the worker serves /metrics and /debug/state on `gauge_port`, 0 for
+    none). Returns the statuses, the startup lines, the JSON log records
+    and the environment it ran in. Its stderr is printed on any failure."""
     import signal
 
     err_path = os.path.join(workdir, f"cli-{tag}.err")
     env = dict(os.environ, FOREMAST_SNAPSHOT_DIR=snap_dir, MAX_CACHE_SIZE=str(4 * len(es.docs) + 64),
                PYTHONPATH=ROOT, **(env_extra or {}))
     cmd = [sys.executable, "-m", "foremast_tpu_torch", "worker", "--device", str(device), "--elastic-url", es_url,
-           "--claim-limit", str(DEPLOY_CLAIM), "--gauge-port", "0", "--poll", "0.2"]
+           "--claim-limit", str(DEPLOY_CLAIM), "--gauge-port", str(gauge_port), "--poll", "0.2"]
     base = dict(es.writes)
     t0 = time.perf_counter()
     with open(err_path, "w") as err:
@@ -1771,7 +1793,9 @@ def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_
                     break
                 time.sleep(0.25)
             judged_s = time.perf_counter() - t0
-            judged = all_judged(es, base)
+            all_done = all_judged(es, base)
+            if all_done and judged is not None:
+                judged()
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=120)
         finally:
@@ -1779,9 +1803,9 @@ def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_
                 proc.kill()
                 proc.wait()
     text = open(err_path).read()
-    if not judged or rc != 0:
-        print(f"phase 9: ({tag}) CLI stderr:\n{text[-20000:]}", file=sys.stderr)
-    check(judged, f"({tag}) the CLI worker did not judge the fleet within {CLI_TIMEOUT} s (rc={proc.returncode})")
+    if not all_done or rc != 0:
+        print(f"({tag}) CLI stderr:\n{text[-20000:]}", file=sys.stderr)
+    check(all_done, f"({tag}) the CLI worker did not judge the fleet within {CLI_TIMEOUT} s (rc={proc.returncode})")
     check(rc == 0, f"({tag}) the CLI worker exited {rc} on SIGTERM")
     records = []
     for line in text.splitlines():
@@ -1791,7 +1815,32 @@ def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_
             except ValueError:
                 pass
     return dict(written=es_written(es.sources()), seconds=judged_s, stderr=text, records=records,
-                lines=[ln for ln in text.splitlines() if not ln.startswith("{")])
+                lines=[ln for ln in text.splitlines() if not ln.startswith("{")], env=env)
+
+
+def report_journal_keys(journal_dir: str, docs, first_tick) -> None:
+    """A restart whose first tick was not all warm: each document's fit
+    keys (`app|alias|history URL`, as the worker builds them) against
+    the fit journal the restart restored (`journal_dir`, copied before
+    it started). A doc with a key the journal lacks had to fit cold; a
+    cold doc whose keys the journal holds missed its restored fits."""
+    from foremast_tpu_torch.metrics import promql
+    from foremast_tpu_torch.models.cache import FitJournal
+
+    restored = FitJournal(os.path.join(journal_dir, "fit-fits")).restore()
+    held = {k[-1] if isinstance(k, tuple) else k for k in restored}
+    lacking = []
+    for d in docs:
+        for alias, url in promql.decode_config(d["historicalConfig"]).items():
+            key = f"{d['appName']}|{alias}|{url}"
+            if key not in held:
+                lacking.append((d["id"], key))
+    docs_lacking = sorted({doc for doc, _ in lacking})
+    print(f"phase 9: (d) the restarted ingest CLI's first tick {first_tick}: the restored journal holds "
+          f"{len(restored)} fits; {len(docs_lacking)} of {len(docs)} docs lack a fit key in it "
+          f"({len(docs) - len(docs_lacking)} hold every key)")
+    for doc, key in lacking:
+        print(f"phase 9: (d) {doc}: fit key {key} held by the restored journal: False")
 
 
 def cold_tick_before_after(dev, fit_tasks, worker_fleet_args) -> dict:
@@ -1869,12 +1918,12 @@ MICRO_DOCS = 4096
 MICRO_SLICES = 4  # FOREMAST_SWEEP_SLICE_DOCS = MICRO_DOCS // MICRO_SLICES
 # the 4,096-doc ring: 8x (e)'s 406 MB, with room for the shards' spread
 MICRO_BUDGET_BYTES = 6 << 30
-MICRO_SPIKED = 64
+MICRO_SPIKED = 40  # with MICRO_WINDOW: one spike every 0.125 s
 MICRO_SECONDS = 0.05
 MICRO_POLL = 5.0
 MICRO_STREAM_POLL = 30.0
 MICRO_STREAM_WARM = 2.0
-MICRO_WINDOW = 8.0
+MICRO_WINDOW = 5.0
 MICRO_BURST_SPACING = 0.01  # s between the quiet condition's pushes at a sweep's start
 # the stream under which each condition runs: none, STEADY_RATE, two
 # rates between it and one client's most, and back to back (rate 0); the
@@ -2434,7 +2483,7 @@ def report_microtick_arm(micro: dict, smi: str) -> None:
 def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict:
     """Phase 9: the worker as deployed. (a) A BrainWorker over
     ElasticsearchStore and PrometheusSource against a fake ES and a fake
-    Prometheus on loopback sockets (384 docs x 4 aliases, claim limit
+    Prometheus on loopback sockets (320 docs x 4 aliases, claim limit
     256): cold ticks until the fleet is judged, a warm pass and a spiked
     warm pass, each document's writes equal to phase 6's in-memory worker
     on the same fleet; (e) the push arm: every series pushed as FMW1
@@ -2814,6 +2863,13 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
         check(not asked4, f"(d) the ingest CLI sent requests to Prometheus: {asked4}")
         es_i.set_status("preprocess_completed")
         prom.requests.clear()
+        # the fit journal as the restart finds it: a cold doc of its first
+        # tick writes its new fits through to the journal
+        journal_copy = os.path.join(workdir, "journal-before-restart")
+        os.makedirs(journal_copy)
+        for name in os.listdir(snap_i):
+            if name.startswith("fit-fits"):
+                shutil.copy(os.path.join(snap_i, name), journal_copy)
         run5 = cli_run(es_url_i, snap_i, es_i, workdir, "ingest-restart", dev, env_i)
         asked5 = dict(prom.requests)
         ticks5 = [r for r in run5["records"] if r.get("msg") == "tick complete"]
@@ -2821,6 +2877,8 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
         check(not asked5, f"(d) the restarted ingest CLI sent requests to Prometheus: {asked5}")
         check(ring_restored and ring_restored[0].startswith(f"restored ring state {len(entries)} series"),
               f"(d) the ring restored {ring_restored}")
+        if not (ticks5 and ticks5[0]["fast_path"] == ticks5[0]["docs"] == min(DEPLOY_CLAIM, len(rdocs))):
+            report_journal_keys(journal_copy, rdocs, ticks5[:1])
         check(ticks5 and ticks5[0]["fast_path"] == ticks5[0]["docs"] == min(DEPLOY_CLAIM, len(rdocs)),
               f"(d) the restarted ingest CLI's first tick was not all warm: {ticks5[:1]}")
         check(run5["written"] == ref["a"]["written"], "(d) the restarted ingest CLI's writes differ from (a)'s")
@@ -7545,9 +7603,274 @@ def phase_dashboard(dev, smi: str) -> dict:
     return dict(runs=runs, seconds=seconds, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the diagnosis surface: profiler, lock witness, manifests, lint
+# ---------------------------------------------------------------------------
+
+OPS_B = 4096  # one fit chunk: the profiled fit_forecast, score and score_bf16_delta
+OPS_JUDGE_TASKS = 64  # the judge pass whose span markers the trace must hold
+OPS_DOCS = 256  # (b)'s witnessed worker
+OPS_CLI_DOCS = 32  # (c)'s witnessed CLI worker
+# each kernel's __global__ name, as CUPTI reports it (demangled)
+OPS_KERNEL_RE = {
+    "masked_stats": re.compile(r"\bmasked_stats_kernel\b"),
+    "ma_judgment": re.compile(r"\bma_judgment_kernel\b"),
+    "ma_judgment_bf16_delta": re.compile(r"\bma_judgment_bf16_delta_kernel\b"),
+}
+OPS_MARKERS = ("judge.fit", "judge.score", "judge.decode")
+
+
+def same_tensors(got, want, what: str) -> None:
+    """Every tensor field of two results equal, bit for bit (NaN where
+    NaN)."""
+    import dataclasses
+
+    import torch
+
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, torch.Tensor):
+            try:
+                torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+            except AssertionError as e:
+                check(False, f"{what}: {f.name} differs: {e}")
+
+
+def phase_ops(dev, smi: str) -> dict:
+    """Phase 15: (a) fit_forecast of a 4,096-row f32 history
+    (masked_stats), score at B=4,096, Th=10,080, Tc=30 (ma_judgment) and
+    score_bf16_delta (ma_judgment_bf16_delta), then a cold fit-cache judge
+    pass, all inside `observe.trace_scoring`: the exported Chrome trace
+    must hold each kernel as a device event under its __global__ name (as
+    many as its wrapper counted) and the judge's record_function markers,
+    and each profiled result must equal the same call's without the
+    profiler; each kernel's summed device µs from the trace is printed
+    beside the call's cuda_ms. (b) With the port's lock witness installed:
+    a ring with a RingSnapshotter attached takes every series of a
+    256-doc fleet, a snapshot pass, and two ticks of a BrainWorker over
+    RingSource on that ring (fit journals on, the snapshotter attached);
+    every observed edge must be in analysis_lockgraph_torch.json. (c) The
+    CLI worker with FOREMAST_LOCK_WITNESS=1 and FOREMAST_INGEST=1 takes a
+    32-doc fleet as a push and judges it: its /debug/state env_overrides
+    are the registered knobs it was started with, and after SIGTERM its
+    exit log says every observed edge lies within the static graph. (d)
+    The manifests rendered into a tempdir equal the committed
+    deploy_torch/, and the lint finds nothing in (b)'s worker's registry.
+    Returns the launches of (a)-(c); the timing loops run after."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from prometheus_client import CollectorRegistry
+
+    from foremast_tpu_torch.analysis import witness
+    from foremast_tpu_torch.config import BrainConfig, env_overrides
+    from foremast_tpu_torch.deploy import render
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.engine.judge import HealthJudge
+    from foremast_tpu_torch.ingest import IngestCollector, RingSnapshotter, RingSource, RingStore, SnapshotCollector
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.models.cache import ModelCache
+    from foremast_tpu_torch.observe import annotate, trace_scoring
+    from foremast_tpu_torch.observe.gauges import WorkerMetrics
+    from foremast_tpu_torch.observe.metrics_lint import lint_registry
+    from foremast_tpu_torch.observe.spans import Tracer
+    from foremast_tpu_torch.ops import kernels as K
+    from foremast_tpu_torch.parallel.batch import throughput_batch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import FakeElasticsearch, FakePrometheus, rebase, serve_fake_es, serve_fake_prometheus
+
+    from foremast_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    # the CLI of (c) packs through the native library: built here, as in
+    # phase 9 (a no-op when phase 9 ran before)
+    check(native.ensure_built(), f"phase 15: the native packing library did not load: {native.error()}")
+    parts = {"native": time.perf_counter() - t_phase}
+    with tempfile.TemporaryDirectory(prefix="foremast-phase15-", ignore_cleanup_errors=True) as workdir:
+        # (a) the three MA kernels and a judge pass under the profiler
+        t0 = time.perf_counter()
+        batch = throughput_batch(OPS_B, FULL_TH, FULL_TC, device=dev)
+        slim, anchor, delta = scoring.make_bf16_delta_batch(batch)
+        calls = {
+            "masked_stats": ("fit_forecast", lambda: scoring.fit_forecast(batch.historical.values,
+                                                                          batch.historical.mask)),
+            "ma_judgment": ("score", lambda: scoring.score(batch)),
+            "ma_judgment_bf16_delta": ("score_bf16_delta", lambda: scoring.score_bf16_delta(slim, anchor, delta)),
+        }
+        unprofiled = {kname: fn() for kname, (_, fn) in calls.items()}
+        tasks = [dataclasses.replace(t, fit_key=f"ops-{i}") for i, t in enumerate(fleet_tasks(OPS_JUDGE_TASKS)[0])]
+        judge = HealthJudge(BrainConfig(), device=dev)
+        judge.fit_cache = ModelCache(4 * len(tasks))
+        judge_plain = HealthJudge(BrainConfig(), device=dev)
+        judge_plain.fit_cache = ModelCache(4 * len(tasks))
+        verdicts_plain = judge_plain.judge(tasks)
+        torch.cuda.synchronize()
+        before = dict(K.LAUNCHES)
+        with trace_scoring(os.path.join(workdir, "trace")) as handle:
+            profiled = {}
+            for kname, (call, fn) in calls.items():
+                with annotate(f"phase15.{call}"):
+                    profiled[kname] = fn()
+                torch.cuda.synchronize()
+            launched_calls = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+            with annotate("phase15.judge"):
+                verdicts = judge.judge(tasks)
+            torch.cuda.synchronize()
+        check(handle.path is not None and os.path.exists(handle.path), "phase 15: (a) trace_scoring wrote no trace")
+        with open(handle.path) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name") for e in events}
+        judge_ts = min(float(e["ts"]) for e in events if e.get("name") == "phase15.judge")
+        kernel_events = [e for e in events if e.get("cat") == "kernel"]
+        check(kernel_events, f"phase 15: (a) the trace holds no device kernel event ({len(events)} events)")
+        for marker in OPS_MARKERS:
+            check(marker in names, f"phase 15: (a) the trace lacks the span marker {marker}")
+        device_us = {}
+        for kname, (call, _) in calls.items():
+            same_tensors(profiled[kname], unprofiled[kname], f"phase 15: (a) {call} under the profiler")
+            mine = [e for e in kernel_events if OPS_KERNEL_RE[kname].search(e.get("name", ""))
+                    and float(e["ts"]) < judge_ts]
+            check(mine, f"phase 15: (a) no device event of {kname} in the trace (kernels seen: "
+                  f"{sorted({e.get('name', '')[:60] for e in kernel_events})[:12]})")
+            check(len(mine) == launched_calls[kname] > 0,
+                  f"phase 15: (a) {len(mine)} device events of {kname} for {launched_calls[kname]} launches")
+            device_us[kname] = sum(float(e.get("dur", 0.0)) for e in mine)
+        same_verdicts(verdicts, verdicts_plain, "phase 15: (a) the judge pass under the profiler")
+        parts["a"] = time.perf_counter() - t0
+        print(f"phase 15: (a) trace {os.path.basename(handle.path)}: {len(events)} events, "
+              f"{len(kernel_events)} device kernel events, markers {', '.join(OPS_MARKERS)} present; "
+              f"fit_forecast, score and score_bf16_delta equal their results without the profiler, and the "
+              f"judge's {len(tasks)} verdicts equal its pass without it")
+
+        # (b) the lock witness in process: ring, snapshot pass, worker ticks
+        t0 = time.perf_counter()
+        t_now = int(time.time()) - 600
+        docs, data, _ = worker_fleet(OPS_DOCS, t_now)
+        entries = push_entries(data)
+        wit = witness.install()
+        try:
+            ring = RingStore(budget_bytes=PUSH_BUDGET_BYTES)
+            snapshotter = RingSnapshotter(ring, os.path.join(workdir, "ring"))
+            snapshotter.attach()
+            for key, t, v, start in entries:
+                ring.push(key, t, v, start=start)
+            written = snapshotter.snapshot()
+            reg = CollectorRegistry()
+            store = InMemoryStore()
+            for d in docs:
+                store.create(Document.from_json(d))
+            worker = BrainWorker(
+                store, RingSource(ring, fallback=array_source(data)),
+                config=BrainConfig(max_cache_size=len(docs) * len(ALIASES) + 64), device=dev,
+                claim_limit=OPS_DOCS, worker_id="smoke-ops", metrics=WorkerMetrics(registry=reg),
+                tracer=Tracer(service="phase15", registry=reg),
+            )
+            worker.enable_fit_persistence(os.path.join(workdir, "fits"))
+            worker.attach_ring_snapshotter(snapshotter)
+            reg.register(IngestCollector(ring))
+            reg.register(SnapshotCollector(snapshotter))
+            ticked = []
+            for _ in range(2):
+                ticked.append((worker.tick(now=time.time()), dict(worker._last_tick)))
+            worker.close()
+            snapshotter.close()
+        finally:
+            witness.uninstall()
+        check([n for n, _ in ticked] == [OPS_DOCS, OPS_DOCS], f"phase 15: (b) the ticks judged {ticked}")
+        graph = witness.load_graph()
+        check(graph is not None, "phase 15: (b) analysis_lockgraph_torch.json is missing")
+        missing = wit.unobserved_edges(graph)
+        check(missing == [], f"phase 15: (b) observed lock edges missing from the static graph: {missing}")
+        site_to_id = {n["site"]: n["id"] for n in graph["nodes"]}
+        observed = sorted({(site_to_id.get(a, a), site_to_id.get(b, b)) for a, b in wit.edges()})
+        check(observed, "phase 15: (b) the witness observed no edge")
+        parts["b"] = time.perf_counter() - t0
+        print(f"phase 15: (b) witness in process: {len(entries)} series pushed into a journaled ring, a snapshot "
+              f"pass ({written} series written), two worker ticks of {OPS_DOCS} docs over RingSource "
+              f"(fast path {ticked[0][1].get('fast')} then {ticked[1][1].get('fast')}); observed edges "
+              f"{'; '.join(f'{a} -> {b}' for a, b in observed)}; none missing from the static graph")
+
+        # (c) the lock witness through the CLI
+        t0 = time.perf_counter()
+        cdocs, cdata, _ = worker_fleet(OPS_CLI_DOCS, t_now, seed=43)
+        centries = push_entries(cdata)
+        prom = FakePrometheus()
+        prom_srv, prom_url = serve_fake_prometheus(prom)
+        es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+        try:
+            rdocs, keyed = rebase(cdocs, cdata, "http://prom", prom_url)
+            prom.data = dict(keyed)
+            ing_port, gauge = free_port(), free_port()
+            env_c = {"FOREMAST_LOCK_WITNESS": "1", "FOREMAST_INGEST": "1", "FOREMAST_INGEST_PORT": str(ing_port),
+                     "FOREMAST_INGEST_BUDGET_BYTES": str(PUSH_BUDGET_BYTES)}
+            state = {}
+
+            def push_then_load():
+                push_frames(f"http://127.0.0.1:{ing_port}/api/v1/write", centries, wait=CLI_TIMEOUT)
+                es.load(rdocs)
+
+            def read_state():
+                state.update(http_json(f"http://127.0.0.1:{gauge}/debug/state")[1])
+
+            t_start = time.time()
+            run = cli_run(es_url, os.path.join(workdir, "cli-snap"), es, workdir, "witness", dev, env_c,
+                          started=push_then_load, gauge_port=gauge, judged=read_state)
+        finally:
+            for srv in (es_srv, prom_srv):
+                srv.shutdown()
+                srv.server_close()
+        verdict = [r for r in run["records"] if str(r.get("msg", "")).startswith("lock witness")]
+        check(len(verdict) == 1 and "all within the static graph" in verdict[0]["msg"],
+              f"phase 15: (c) the CLI's witness verdict: {verdict}\n{run['stderr'][-4000:]}")
+        check(state.get("env_overrides") == env_overrides(run["env"]),
+              f"phase 15: (c) /debug/state env_overrides {state.get('env_overrides')} != "
+              f"{env_overrides(run['env'])}")
+        parts["c"] = time.perf_counter() - t0
+        up = [r["ts"] - t_start for r in run["records"] if r.get("msg") == "worker started"]
+        judging = [r["seconds"] for r in run["records"] if r.get("msg") == "tick complete" and r.get("docs")]
+        print(f"phase 15: (c) python3 -m foremast_tpu_torch worker with FOREMAST_LOCK_WITNESS=1 FOREMAST_INGEST=1: "
+              f"{OPS_CLI_DOCS} docs pushed and judged in {run['seconds']:.1f} s (its 'worker started' record "
+              f"{up[0] if up else float('nan'):.1f} s after the start, its first judging ticks {judging[:2]} s), "
+              f"SIGTERM exit 0; "
+              f"exit log "
+              f"\"{verdict[0]['msg']}\"; /debug/state env_overrides = the {len(state['env_overrides'])} registered "
+              f"knobs it was started with ({', '.join(sorted(state['env_overrides']))})")
+        launches = dict(K.LAUNCHES)
+
+        # (d) manifests and lint
+        t0 = time.perf_counter()
+        out = os.path.join(workdir, "deploy_torch")
+        rendered = {os.path.relpath(p, out).replace(os.sep, "/") for p in render(out)}
+        committed_root = os.path.join(ROOT, "deploy_torch")
+        committed = {os.path.relpath(os.path.join(d, f), committed_root).replace(os.sep, "/")
+                     for d, _, files in os.walk(committed_root) for f in files}
+        check(rendered == committed, f"phase 15: (d) rendered files {sorted(rendered ^ committed)} differ from deploy_torch/")
+        for rel in sorted(rendered):
+            with open(os.path.join(out, rel), "rb") as a, open(os.path.join(committed_root, rel), "rb") as b:
+                check(a.read() == b.read(), f"phase 15: (d) deploy_torch/{rel} is not what the generator renders")
+        problems = lint_registry(reg)
+        check(problems == [], f"phase 15: (d) the lint over (b)'s worker registry: {problems}")
+        n_families = len(list(reg.collect()))
+        parts["d"] = time.perf_counter() - t0
+        print(f"phase 15: (d) {len(rendered)} manifests rendered equal the committed deploy_torch/; the lint finds "
+              f"nothing in (b)'s worker registry ({n_families} families)")
+
+    # after the readings: each call's device time, beside the trace's
+    for kname, (call, fn) in calls.items():
+        ms = cuda_ms(fn)
+        print(f"phase 15: (a) {kname}: {launched_calls[kname]} launch(es) in the trace, {device_us[kname]:.1f} "
+              f"device us summed from the trace; {call} {ms:.4f} ms per call by cuda_ms on {smi}")
+    print(f"phase 15: passed in {time.perf_counter() - t_phase:.1f} s (native library {parts['native']:.1f}, "
+          f"a {parts['a']:.1f}, b {parts['b']:.1f}, c {parts['c']:.1f}, d {parts['d']:.1f}); launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -7562,6 +7885,7 @@ def main() -> int:
     device_mesh_only = "--device-mesh-only" in sys.argv[1:]
     control_loop_only = "--control-loop-only" in sys.argv[1:]
     dashboard_only = "--dashboard-only" in sys.argv[1:]
+    ops_only = "--ops-only" in sys.argv[1:]
     # the seasonal model's f32 products must not round through TF32 (its
     # normal equations run in float64, which never does)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7632,6 +7956,14 @@ def main() -> int:
         phase_dashboard(dev, smi)
         check(K.LAUNCHES["masked_stats"] > 0, "phase 14 never launched masked_stats")
         print(f"chip_smoke: --dashboard-only: phase 14 passed; its main path launched {dict(K.LAUNCHES)}")
+        return 0
+    if ops_only:
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        launched = phase_ops(dev, smi)
+        for kname in MA_KERNELS:
+            check(launched[kname] > 0, f"phase 15 never launched {kname}")
+        print(f"chip_smoke: --ops-only: phase 15 passed; its main path launched {launched}")
         return 0
     if tenants_only:
         os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
@@ -7710,6 +8042,15 @@ def main() -> int:
     check(launched_control_loop["masked_stats"] > 0, "the control loop's f32 arm (phase 13 b) never launched masked_stats")
     _, launched_dashboard = path(phase_dashboard, dev, smi)
     check(launched_dashboard["masked_stats"] > 0, "the demo runbook's f32 arm (phase 14 a) never launched masked_stats")
+    # phase 15 reads its counts itself, before its timing loops
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    launched_ops = phase_ops(dev, smi)
+    print(f"chip_smoke: phase_ops took {time.perf_counter() - t0:.1f} s "
+          f"({time.perf_counter() - started:.1f} s since the kernels were checked)")
+    for kname in MA_KERNELS:
+        check(launched_ops[kname] > 0, f"the profiled calls (phase 15 a) never launched {kname}")
     paths = {
         "object path (phases 3-4)": launched_object,
         "fit-cache path (phase 5)": launched_fit_cache,
@@ -7726,6 +8067,7 @@ def main() -> int:
         "device mesh (phase 12)": launched_device_mesh,
         "control loop (phase 13)": launched_control_loop,
         "dashboard and demo loop (phase 14)": launched_dashboard,
+        "profiler, witness, manifests and lint (phase 15)": launched_ops,
     }
     print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}
@@ -7740,6 +8082,7 @@ def main() -> int:
         full_err[kname] = lstm[kname]["full_err"]
     profile_joint_cold_tick(dev, joint["fleet"])
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s of this process")
     print("kernels: " + ", ".join(f"{k} launches={launches[k]} phase2=pass" for k in KERNEL_FILES))
     table = []
     for kname, (source, replaces) in KERNEL_FILES.items():

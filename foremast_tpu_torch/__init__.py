@@ -10,7 +10,8 @@ points run on the CUDA device unless the caller passes `device="cpu"`,
 which runs each kernel's plain PyTorch version.
 
 Layers:
-  config.py   judgment config (env parity with the reference brain)
+  config.py   judgment config (env parity with the reference brain) and
+              the registry of every env knob
   ops/        masked windows, bounds, the univariate forecasters, rank
               tests, kernel wrappers + CUDA sources
   engine/     the scoring programs, the ragged-job judge (object and
@@ -31,7 +32,11 @@ Layers:
   instrument/ the HTTP metrics starter (WSGI and aiohttp middlewares)
   demo/       the instrumented demo app and its error generators
   ingest/     crc-framed record logs under the fit journals
-  observe/    spans, JSON logs, Prometheus gauges and the /metrics server
+  observe/    spans, JSON logs, Prometheus gauges and the /metrics server,
+              the metric lint, the torch.profiler hooks
+  deploy/     the Kubernetes manifests, generated (deploy_torch/)
+  analysis/   the env contract, the static lock graph and its runtime
+              witness
   native.py   the host packing library (ops/csrc/windowpack.cpp, g++)
   cli.py      `python -m foremast_tpu_torch score | serve | worker | watch |
               unwatch | watch-plane | ui | rules`

@@ -47,9 +47,26 @@ each series' owner, and with `FOREMAST_INGEST=1` a planned join or a
 SIGTERM moves ring and fit state to the new owners instead of leaving it
 to cold refits.
 
+`FOREMAST_LOCK_WITNESS=1` makes `worker` install the lock-order witness
+(`analysis/witness.py`) before it creates its first lock; at exit it
+logs whether every lock acquisition order it saw lies within the static
+graph `analysis_lockgraph_torch.json` (regenerate that with `python -m
+foremast_tpu_torch.analysis --write-lockgraph`). `FOREMAST_PROFILE=<dir>`
+records each of the worker's sweeps under `torch.profiler` (one
+`observe.trace_scoring` region each) and writes one Chrome trace per
+sweep there; micro-ticks between sweeps are not recorded. `/debug/state` lists the registered knobs
+set in the worker's environment under `env_overrides` (the registry is
+`config.ENV_KNOBS`). Beside the CLI: `python -m foremast_tpu_torch.deploy
+deploy_torch/` renders the Kubernetes tree (one H100 per engine pod),
+`python -m foremast_tpu_torch.observe.metrics_lint` lints the exported
+metric families, and `python3 chip_smoke.py --ops-only` runs the
+profiler, the witness, the manifests and the lint on the card.
+
 The JAX CLI's pod mode is not ported yet; each mode that would need what
 is missing raises `NotImplementedError` naming its ROADMAP.md Queue 1
-item instead of running something else.
+item instead of running something else. `FOREMAST_RECOMPILE_WITNESS=1`
+is refused for good: it counts XLA recompiles of traced programs, and
+the port has no traced programs.
 """
 
 from __future__ import annotations
@@ -61,16 +78,17 @@ import sys
 
 log = logging.getLogger("foremast_tpu_torch.cli")
 
-# env switches of JAX-only modes -> (what is missing, its ROADMAP.md
+# env switches of JAX-only modes -> (why the port has none, its ROADMAP.md
 # Queue 1 item); each is refused when it asks for the mode
 _UNPORTED_ENV = {
-    "FOREMAST_LOCK_WITNESS": ("the lock-order witness", "item 8"),
-    "FOREMAST_RECOMPILE_WITNESS": ("the recompile witness", "item 8"),
+    "FOREMAST_RECOMPILE_WITNESS": (
+        "the recompile witness counts XLA recompiles of traced programs, and the port has none", "item 8"),
 }
 
 
 def _env_int(name: str, default: int) -> int:
-    raw = os.environ.get(name, "")
+    # thin wrapper: every call site passes a literal, registered knob
+    raw = os.environ.get(name, "")  # foremast: ignore[env-contract]
     try:
         return int(raw) if raw else default
     except ValueError:
@@ -85,15 +103,18 @@ _POD_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES")
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise for every requested mode the port does not have."""
     if args.sharded:
-        pod = [name for name in _POD_ENV if os.environ.get(name)]
+        # the two registered pod-mode knobs of _POD_ENV
+        pod = [name for name in _POD_ENV if os.environ.get(name)]  # foremast: ignore[env-contract]
         if pod:
             raise NotImplementedError(
                 f"--sharded with {', '.join(pod)} set asks for pod mode (a mesh over several processes), "
                 "which is not ported yet: ROADMAP.md Queue 1 item 7, pod mode"
             )
     for name, (what, item) in _UNPORTED_ENV.items():
-        if os.environ.get(name, "0") not in ("", "0"):
-            raise NotImplementedError(f"{name}={os.environ[name]}: {what} is not ported yet: ROADMAP.md Queue 1 {item}")
+        # the registered knobs of _UNPORTED_ENV
+        raw = os.environ.get(name, "0")  # foremast: ignore[env-contract]
+        if raw not in ("", "0"):
+            raise NotImplementedError(f"{name}={raw}: {what}: ROADMAP.md Queue 1 {item}")
 
 
 def _make_store(elastic_url: str | None, chaos=None, breaker=None, stop=None):
@@ -465,6 +486,16 @@ def cmd_watch_plane(args: argparse.Namespace) -> int:
 
 
 def cmd_worker(args: argparse.Namespace) -> int:
+    # FIRST, before any import below creates a package lock (native.py,
+    # observe/spans.py and ops/_build.py make module-level locks at import
+    # time): FOREMAST_LOCK_WITNESS=1 wraps threading.Lock/RLock to record
+    # the real acquisition order and checks it against the committed
+    # static graph (analysis_lockgraph_torch.json) at exit; installed any
+    # later, those locks would stay raw and their edges unseen
+    from foremast_tpu_torch.analysis.witness import install_from_env
+
+    install_from_env()
+
     import signal
     import threading
     import uuid

@@ -70,7 +70,7 @@ from foremast_tpu_torch.chaos.degrade import (
     Degradation,
     is_transient_error,
 )
-from foremast_tpu_torch.config import BrainConfig
+from foremast_tpu_torch.config import BrainConfig, env_overrides
 from foremast_tpu_torch.engine.judge import (
     _MIN_BUCKET,
     GAP_SENSITIVE_FITS,
@@ -107,6 +107,7 @@ from foremast_tpu_torch.metrics import promql
 from foremast_tpu_torch.metrics.source import MetricSource
 from foremast_tpu_torch.models.cache import ModelCache
 from foremast_tpu_torch.observe.logs import ctx_log
+from foremast_tpu_torch.observe.profile import trace_scoring
 from foremast_tpu_torch.observe.spans import inherit_span, span
 from foremast_tpu_torch.reactive.dirty import (
     doc_route_key,
@@ -2172,14 +2173,20 @@ class BrainWorker:
         (`_sweep_sliced`): bounded slices through the warm-path pipeline
         with a dirty-drain preemption point between slices. Everything
         else, and `FOREMAST_SWEEP_SLICE_DOCS=0`, keeps the monolithic body
-        (`_tick`), the byte-parity arm."""
-        if self.tracer is None:
-            return self._cycle(now)
-        # the root span mints the tick's trace ID: every stage span
-        # below (and the judge spans nested inside them) shares it, as do
-        # JSON log records emitted while the tick is open
-        with self.tracer.span("worker.tick", worker=self.worker_id):
-            return self._cycle(now)
+        (`_tick`), the byte-parity arm.
+
+        With `FOREMAST_PROFILE` set, each sweep is recorded under
+        `torch.profiler` and writes one Chrome trace into that directory
+        (`observe.trace_scoring`); micro-ticks outside a sweep are not
+        recorded."""
+        with trace_scoring():
+            if self.tracer is None:
+                return self._cycle(now)
+            # the root span mints the tick's trace ID: every stage span
+            # below (and the judge spans nested inside them) shares it, as
+            # do JSON log records emitted while the tick is open
+            with self.tracer.span("worker.tick", worker=self.worker_id):
+                return self._cycle(now)
 
     def _cycle(self, now: float | None) -> int:
         if self._sweep_sliceable():
@@ -2992,6 +2999,10 @@ class BrainWorker:
                 else None
             ),
         }
+        # registered knobs explicitly set in this process's env: with the
+        # config fingerprint, the enumerable answer to "why do two workers
+        # behave differently" (config.ENV_KNOBS, held by the env contract)
+        state["env_overrides"] = env_overrides()
         if self.tracer is not None:
             state["trace"] = self.tracer.debug_state()
         return state

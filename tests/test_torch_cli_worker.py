@@ -13,7 +13,9 @@ between sweeps. Under `FOREMAST_CHAOS_PLAN` and `FOREMAST_TENANTS` it
 injects the plan's faults, degrades through them and still judges the
 fleet, with the chaos and tenant sections on `/debug/state` and their
 families on `/metrics`. With `FOREMAST_MESH=1` it seats itself in the
-worker mesh and shows it on `/debug/state`. Modes the port does not have are refused with
+worker mesh and shows it on `/debug/state`. With `FOREMAST_LOCK_WITNESS=1` it
+checks its lock orders against the static graph and logs the verdict at
+exit. Modes the port does not have are refused with
 `NotImplementedError`. Every subprocess has its own timeout of at most
 60 s."""
 
@@ -171,19 +173,74 @@ def test_connect_deadline_exits_loudly(tmp_path):
     "flag,env,item",
     [
         (["--sharded"], {"JAX_NUM_PROCESSES": "2"}, "item 7, pod mode"),
-        ([], {"FOREMAST_LOCK_WITNESS": "1"}, "item 8"),
         ([], {"FOREMAST_RECOMPILE_WITNESS": "1"}, "item 8"),
     ],
-    ids=["sharded", "lock_witness", "recompile_witness"],
+    ids=["sharded", "recompile_witness"],
 )
 def test_unported_modes_are_refused(flag, env, item):
     """Modes the port does not have exit with NotImplementedError naming
     their ROADMAP item: --sharded where the env asks for pod mode (a mesh
-    over several processes), and the JAX package's witnesses."""
+    over several processes), and the JAX package's recompile witness,
+    which counts XLA recompiles the port does not have. The lock witness
+    is ported: `test_lock_witness_runs_and_reports_at_exit`."""
     proc = _start(["--device", "cpu", "--gauge-port", "0", *flag], env)
     _, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
     assert "NotImplementedError" in err and f"Queue 1 {item}" in err
+
+
+def test_lock_witness_runs_and_reports_at_exit(tmp_path):
+    """FOREMAST_LOCK_WITNESS=1: the worker installs the port's witness
+    before its first lock, takes the fleet's samples as one FMW1 push on
+    its journaled ring (the ring's lock nesting: shard lock -> log lock)
+    and judges it to the JAX worker's statuses, lists the registered
+    knobs it was started with under /debug/state `env_overrides`, and at
+    exit logs that every observed acquisition edge lies within
+    `analysis_lockgraph_torch.json`."""
+    import json
+    import urllib.request
+
+    from foremast_tpu_torch.config import env_overrides
+
+    prom = FakePrometheus()
+    prom_srv, prom_url = serve_fake_prometheus(prom)
+    es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+    try:
+        docs, entries, keyed, want = _pushed_fleet(prom_url)
+        prom.data = keyed
+        port, gauge = _free_port(), _free_port()
+        log_path = tmp_path / "worker.err"
+        env = dict(os.environ, PYTHONPATH=str(ROOT), FOREMAST_LOCK_WITNESS="1", FOREMAST_INGEST="1",
+                   FOREMAST_INGEST_PORT=str(port), FOREMAST_SNAPSHOT_DIR=str(tmp_path / "snap"),
+                   FOREMAST_SNAPSHOT_MAX_AGE_SECONDS=str(10 * 365 * 86_400))
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "foremast_tpu_torch", "worker", "--device", "cpu", "--elastic-url", es_url,
+                 "--gauge-port", str(gauge), "--poll", "0.2"],
+                cwd=str(ROOT), env=env, stdout=subprocess.DEVNULL, stderr=log, text=True,
+            )
+            try:
+                _push_frame(port, entries, time.monotonic() + 60)
+                es.load(docs)
+                got = _judged(es, time.monotonic() + 60, proc)
+                with urllib.request.urlopen(f"http://127.0.0.1:{gauge}/debug/state", timeout=10) as r:
+                    state = json.loads(r.read())
+            finally:
+                proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=30)
+    finally:
+        for srv in (es_srv, prom_srv):
+            srv.shutdown()
+            srv.server_close()
+    err = log_path.read_text()
+    assert rc == 0, err[-4000:]
+    assert got == want
+    assert state["env_overrides"] == env_overrides(env)
+    assert state["env_overrides"]["FOREMAST_LOCK_WITNESS"] == "1"
+    verdict = [json.loads(ln) for ln in err.splitlines() if "lock witness" in ln]
+    assert len(verdict) == 1, err[-4000:]
+    assert verdict[0]["level"] == "info" and "all within the static graph" in verdict[0]["msg"], verdict
+    assert int(verdict[0]["msg"].split(":")[1].split()[0]) >= 1  # it saw the ring's nesting
 
 
 def test_sharded_worker_judges_the_fleet(services, tmp_path):

@@ -5,9 +5,8 @@ contents; restores from snapshot plus log, log alone, rotated
 generations, and damaged files degrade per series or shard with the
 discard counts JAX gives; the snapshot cadence, the directory lock, the
 fit journals' restores and the `foremast_snapshot_*` families behave
-alike. JAX's lock-witness
-fixture over its snapshot suite is not ported (ROADMAP.md Queue 1
-item 8)."""
+alike. The port's lock witness rides the module, as JAX's rides
+`tests/test_snapshot.py`."""
 
 from __future__ import annotations
 
@@ -25,6 +24,27 @@ from foremast_tpu_torch.ingest import snapshot as tsnap
 
 NOW = 1_760_000_000.0
 PKGS = {"port": T, "jax": J}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def lock_witness():
+    """The port's runtime lock witness rides this whole module, as JAX's
+    rides `tests/test_snapshot.py`: the snapshot and journal cases
+    exercise the ring's deepest nesting (shard lock -> journal log lock,
+    pass mutex -> everything) on real threads. At teardown every OBSERVED acquisition edge
+    between the port's locks must already be in the committed static
+    graph (`analysis_lockgraph_torch.json`); a miss means the static
+    model has a hole: run `python -m foremast_tpu_torch.analysis
+    --write-lockgraph` and review the new edge."""
+    from foremast_tpu_torch.analysis import witness
+
+    wit = witness.install()
+    yield wit
+    graph = witness.load_graph()
+    witness.uninstall()
+    assert graph is not None, "analysis_lockgraph_torch.json missing from the repo root"
+    missing = wit.unobserved_edges(graph)
+    assert not missing, f"runtime lock-acquisition edges missing from the static graph: {missing}"
 
 
 def _fill(store, n=10, now=NOW, seed=0):

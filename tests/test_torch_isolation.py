@@ -35,7 +35,10 @@ for name in names:
 assert "foremast_tpu_torch.cli" in names and "foremast_tpu_torch.__main__" in names
 for name in ("jobs.convert", "service.app", "watch.crds", "watch.kubeapi", "watch.analyst", "watch.barrelman",
              "watch.controller", "watch.plane", "reactive.watchstream", "instrument.starter", "demo.app",
-             "demo.__main__", "metrics.rules", "ui.join", "ui.metrics", "ui.app"):
+             "demo.__main__", "metrics.rules", "ui.join", "ui.metrics", "ui.app", "deploy", "deploy.manifests",
+             "deploy.__main__", "analysis", "analysis.core", "analysis.interproc", "analysis.lock_order",
+             "analysis.env_contract", "analysis.witness", "analysis.__main__", "observe.metrics_lint",
+             "observe.profile"):
     assert "foremast_tpu_torch." + name in names, name
 bad = sorted(
     m for m in sys.modules

@@ -9,7 +9,8 @@ bodies applied by both packages to the same caches and rings (the joint
 caches' LSTM entries included), evictions and autoscale decisions. The
 behavioural cases of `tests/test_mesh.py` (leases, pusher retries, torn
 and duplicate transfers, the join deadline, restarts, drains) run against
-the port with the same assertions, on injected clocks."""
+the port with the same assertions, on injected clocks. The port's lock
+witness rides the module, as JAX's rides `tests/test_mesh.py`."""
 
 from __future__ import annotations
 
@@ -63,6 +64,27 @@ def _pkg(name: str):
     from foremast_tpu_torch.jobs.refine import RefineBook
 
     return P, ingest, InMemoryStore, Document, ModelCache, RefineBook
+
+
+@pytest.fixture(scope="module", autouse=True)
+def lock_witness():
+    """The port's runtime lock witness rides this whole module, as JAX's
+    rides `tests/test_mesh.py`: the handoff cases nest the
+    handoff manager's lock under receiver handler threads racing the
+    tick-side sender. At teardown every OBSERVED acquisition edge
+    between the port's locks must already be in the committed static
+    graph (`analysis_lockgraph_torch.json`); a miss means the static
+    model has a hole: run `python -m foremast_tpu_torch.analysis
+    --write-lockgraph` and review the new edge."""
+    from foremast_tpu_torch.analysis import witness
+
+    wit = witness.install()
+    yield wit
+    graph = witness.load_graph()
+    witness.uninstall()
+    assert graph is not None, "analysis_lockgraph_torch.json missing from the repo root"
+    missing = wit.unobserved_edges(graph)
+    assert not missing, f"runtime lock-acquisition edges missing from the static graph: {missing}"
 
 
 def _clock(box):
