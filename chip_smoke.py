@@ -145,8 +145,8 @@ Phases; any failure exits non-zero:
      half evenly over 2.5 s and half in a burst as the next sweep starts
      (into its slice boundaries); evenly over 5 s
      with sweeps every 30 s (micro-ticks alone) 2 s into a remote-write
-     stream from a pusher subprocess at 6,667, 10,000 and 15,000
-     samples/s and back to back, back to back again with the stream's
+     stream from a pusher subprocess at 6,667 samples/s and back to
+     back, back to back again with the stream's
      apps owned by another worker (decoded, never marked), then with
      micro-ticks off (no dirty set in the worker: sweeps back to back):
      push->verdict latency, p50 and p99 of the worker's
@@ -309,8 +309,31 @@ Phases; any failure exits non-zero:
      static graph; (d) the manifests rendered into a tempdir equal the
      committed deploy_torch/, and the metric lint finds nothing in (b)'s
      worker's registry.
+ 16. pod mode: two ranks of one worker over torch.distributed (the JAX_*
+     rendezvous; host objects over gloo; on one card both ranks share it
+     and the result gather runs over gloo, on a host of 2+ cards each
+     rank gets its own (CUDA_VISIBLE_DEVICES) and the gather runs over
+     NCCL; the line says which), the kernels and the native library built
+     before the ranks start: (a) PodWorkers over 512 docs x 4 aliases
+     (phase 6's fleet shape, Th=10,080, Tc=30): a cold and a warm tick
+     on the default route, then a fresh pod's cold tick over 256 docs
+     with only the leader's environment setting FOREMAST_BF16_DELTA=0;
+     every doc's (status, code, reason, anomaly_info) equal to a single
+     worker's on the card after each tick, last band points within 1e-5,
+     masked_stats launched on every rank in the f32 tick; each tick's
+     seconds beside the single worker's, each rank's broadcasts (calls,
+     bytes, seconds), result gathers (calls, bytes, seconds) and
+     launches; (b) two `python -m foremast_tpu_torch worker --sharded
+     --device cuda` processes on the fake Elasticsearch and Prometheus
+     judge a 64-doc fleet to the single worker's writes, the leader
+     alone serving /metrics, both exiting 0 on the leader's SIGTERM; (c)
+     on 64 docs the leader calls os._exit on its 3rd fetch under
+     FOREMAST_POD_TIMEOUT_SECONDS=10: the follower exits nonzero within
+     25 s of it, and a single takeover worker judges every parked doc
+     exactly once, to the single worker's writes.
 Launch counts are zeroed just before each main path (phases 3-4, 5, 6,
-7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11, 12, 13, 14, 15) and read just after its checked calls, so they
+7b, 7c, 7d, 8b, 8c, 8d, 9, 10, 11, 12, 13, 14, 15; phase 16's ranks
+count their own around their ticks) and read just after its checked calls, so they
 count the main paths' launches only: on the default worker path (phases
 6 and 9) only the f32 cold fit launches a kernel (masked_stats); the seasonal
 fits launch holt_winters_scan (Holt-Winters, and auto_univariate at m <=
@@ -328,7 +351,8 @@ tenancy's costs: the same tenants without the arena envelope, and the
 arenas' host seconds of `assign` and `scatter` in each sweep.
 `--mesh-only` runs phase 11 alone, `--device-mesh-only` phase 12 alone,
 `--control-loop-only` phase 13 alone, `--dashboard-only` phase 14 alone,
-`--ops-only` phase 15 alone.
+`--ops-only` phase 15 alone, `--pod-only` phase 16 alone. `--pod-rank`
+is phase 16's own: one rank of its pods.
 
 The last lines are the kernels line, the JSON kernel table, and
 {"ok": true, "device": {...}}.
@@ -1765,11 +1789,13 @@ def es_pass(worker, es, now: float, tracer, prom=None) -> list:
 
 
 def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_extra=None, started=None,
-            gauge_port: int = 0, judged=None) -> dict:
+            gauge_port: int = 0, judged=None, fleet_docs: int | None = None) -> dict:
     """`python -m foremast_tpu_torch worker` as the deployed container runs
     it, until every document of the fake index was judged once; then
     SIGTERM, which must exit 0. `started()`, if given, runs once the
-    process is started and before the wait (it may fill the index);
+    process is started and before the wait (it may fill the index: then
+    give the fleet's size as `fleet_docs`, which sizes the worker's fit
+    cache, MAX_CACHE_SIZE; by default the index's documents at the call);
     `judged()`, if given, once the fleet is judged and before the SIGTERM
     (the worker serves /metrics and /debug/state on `gauge_port`, 0 for
     none). Returns the statuses, the startup lines, the JSON log records
@@ -1777,7 +1803,8 @@ def cli_run(es_url: str, snap_dir: str, es, workdir: str, tag: str, device, env_
     import signal
 
     err_path = os.path.join(workdir, f"cli-{tag}.err")
-    env = dict(os.environ, FOREMAST_SNAPSHOT_DIR=snap_dir, MAX_CACHE_SIZE=str(4 * len(es.docs) + 64),
+    n_docs = len(es.docs) if fleet_docs is None else fleet_docs
+    env = dict(os.environ, FOREMAST_SNAPSHOT_DIR=snap_dir, MAX_CACHE_SIZE=str(4 * n_docs + 64),
                PYTHONPATH=ROOT, **(env_extra or {}))
     cmd = [sys.executable, "-m", "foremast_tpu_torch", "worker", "--device", str(device), "--elastic-url", es_url,
            "--claim-limit", str(DEPLOY_CLAIM), "--gauge-port", str(gauge_port), "--poll", "0.2"]
@@ -1925,13 +1952,15 @@ MICRO_STREAM_POLL = 30.0
 MICRO_STREAM_WARM = 2.0
 MICRO_WINDOW = 5.0
 MICRO_BURST_SPACING = 0.01  # s between the quiet condition's pushes at a sweep's start
-# the stream under which each condition runs: none, STEADY_RATE, two
-# rates between it and one client's most, and back to back (rate 0); the
-# last stream's series belong to apps another worker owns (the dirty
-# set's ownership predicate refuses them): decoded, never marked, so no
-# micro-tick claims for them
-MICRO_RATES = (("quiet", None, False), ("paced", STEADY_RATE, False), ("10,000 samples/s", 10_000.0, False),
-               ("15,000 samples/s", 15_000.0, False), ("back to back", 0.0, False),
+# the stream under which each condition runs: none, STEADY_RATE and back
+# to back (rate 0); the last stream's series belong to apps another
+# worker owns (the dirty set's ownership predicate refuses them): decoded,
+# never marked, so no micro-tick claims for them. The two rates between
+# STEADY_RATE and one client's most (10,000 and 15,000 samples/s) were
+# cut to make room for phase 16: one client's accepted rate there
+# scattered from run to run, so they measured the client more than the
+# worker
+MICRO_RATES = (("quiet", None, False), ("paced", STEADY_RATE, False), ("back to back", 0.0, False),
                ("back to back, another worker's apps", 0.0, True))
 MICRO_STREAM_APPS = 250  # the stream's 2,000 series belong to 250 apps that have no document
 
@@ -2857,7 +2886,13 @@ def phase_deployable_worker(dev, smi: str, fit_tasks, worker_fleet_args) -> dict
 
         snap_i = os.path.join(workdir, "snap-ingest")
         prom.requests.clear()
-        run4 = cli_run(es_url_i, snap_i, es_i, workdir, "ingest", dev, env_i, started=push_then_load)
+        # the index is empty until the push lands: the fit cache is sized
+        # from the fleet (sized from the empty index, 64 entries, the cache
+        # thrashed, every tick refitted, and a journal compaction kept only
+        # the resident fits: the restart's cold docs of PR 14 run 4, PR 15
+        # run 2 and PR 20 run 4)
+        run4 = cli_run(es_url_i, snap_i, es_i, workdir, "ingest", dev, env_i, started=push_then_load,
+                       fleet_docs=len(rdocs))
         asked4 = dict(prom.requests)
         check(run4["written"] == ref["a"]["written"], "(d) the ingest CLI's writes differ from (a)'s cold pass")
         check(not asked4, f"(d) the ingest CLI sent requests to Prometheus: {asked4}")
@@ -5113,7 +5148,7 @@ def tenant_cli_run(dev, docs, data, ref: dict, workdir: str) -> dict:
             time.sleep(max(0.0, t0 + CLI_CHAOS_SECONDS + 3.0 - time.perf_counter()))
 
         run = cli_run(es_url, os.path.join(workdir, "snap-tenant"), es, workdir, "tenants-chaos", dev, env,
-                      started=push_then_load)
+                      started=push_then_load, fleet_docs=len(rdocs))
     finally:
         for s in (prom_srv, es_srv):
             s.shutdown()
@@ -7816,7 +7851,7 @@ def phase_ops(dev, smi: str) -> dict:
 
             t_start = time.time()
             run = cli_run(es_url, os.path.join(workdir, "cli-snap"), es, workdir, "witness", dev, env_c,
-                          started=push_then_load, gauge_port=gauge, judged=read_state)
+                          started=push_then_load, gauge_port=gauge, judged=read_state, fleet_docs=len(rdocs))
         finally:
             for srv in (es_srv, prom_srv):
                 srv.shutdown()
@@ -7867,10 +7902,554 @@ def phase_ops(dev, smi: str) -> dict:
     return launches
 
 
+# -- phase 16: pod mode ------------------------------------------------------
+
+POD_RANKS = 2
+POD_DOCS = 256  # (a): x 4 aliases, the cold and warm ticks (cut from 512: the phase's 60 s budget)
+POD_F32_DOCS = 128  # (a): the f32 cold tick of a fresh pod (cut from 256)
+POD_CLI_DOCS = 64  # (b)
+POD_DEATH_DOCS = 64  # (c)
+POD_TIMEOUT = 10  # (c): FOREMAST_POD_TIMEOUT_SECONDS of the dying pod
+POD_FOLLOWER_GRACE = 15.0  # (c): the follower exits within POD_TIMEOUT + this after the leader died
+POD_BAND_TOL = 1e-5  # (a): last band points, pod against the single worker on the card
+POD_RANK_TIMEOUT = 180.0  # seconds for a rank process
+
+
+def band_recorder(into: dict):
+    """on_verdict hook: each (doc, alias)'s last band point, as floats."""
+
+    def on_verdict(doc, verdicts):
+        for v in verdicts:
+            up = np.asarray(v.upper, np.float32).ravel()
+            lo = np.asarray(v.lower, np.float32).ravel()
+            into[f"{doc.id}|{v.alias}"] = [float(up[-1]) if up.size else None, float(lo[-1]) if lo.size else None]
+
+    return on_verdict
+
+
+def store_written(store) -> dict:
+    return {
+        d.id: json.dumps([d.status, d.status_code, d.reason, d.anomaly_info], sort_keys=True)
+        for d in store._docs.values()
+    }
+
+
+def pod_parity_rank(workdir: str, t_now: int, device: str) -> None:
+    """16(a), one rank: PodWorkers over the leader's in-memory store and
+    source, (a) cold and (b) warm over POD_DOCS docs on the default route,
+    then (d) a fresh pod's cold tick over POD_F32_DOCS docs with only the
+    leader's environment setting FOREMAST_BF16_DELTA=0. Writes what it saw
+    (its launches, broadcasts and gathers a tick; the leader's writes and
+    bands) to `pod-parity-rank<r>.json`. The ticks wait for the parent's
+    `pod-go` file: the single worker's reference runs while the ranks
+    start, never beside their ticks."""
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.jobs import Document, InMemoryStore
+    from foremast_tpu_torch.ops import kernels as K
+    from foremast_tpu_torch.parallel import LeaderSource, LeaderStore, PodWorker, init_distributed, is_leader
+    from foremast_tpu_torch.parallel import distributed as D
+
+    check(init_distributed(), "the rank did not join a pod (JAX_* rendezvous unset)")
+    leader = is_leader()
+    rank = torch.distributed.get_rank()
+    cuda = torch.device(device).type == "cuda"
+    docs = data = None
+    if leader:
+        docs, data, _ = worker_fleet(POD_DOCS, t_now)
+    out = {"rank": rank, "ticks": {}, "written": {}, "bands": {}}
+
+    def new_pod(n: int):
+        store = source = None
+        if leader:
+            store = InMemoryStore()
+            for d in docs[:n]:
+                store.create(Document.from_json(d))
+            source = array_source(data)
+        bands: dict = {}
+        worker = PodWorker(LeaderStore(store), LeaderSource(source), config=BrainConfig(max_cache_size=4 * n + 64),
+                           device=device, claim_limit=n, worker_id="smoke-pod",
+                           on_verdict=band_recorder(bands) if leader else None)
+        if cuda:
+            worker.warmup()  # local: a plain judge of its own, no collective
+        return worker, store, bands
+
+    def tick(name: str, worker, store, bands: dict, n: int, now: float) -> None:
+        uni = worker.judge.univariate
+        launches, casts, gathers = dict(K.LAUNCHES), dict(D.BROADCASTS), dict(uni.mesh_stats)
+        bands.clear()
+        sync_card()
+        t0 = time.perf_counter()
+        got = worker.tick(now=now)
+        sync_card()
+        seconds = time.perf_counter() - t0
+        check(got == n, f"16(a) rank {rank}: tick {name} judged {got} of {n} docs")
+        out["ticks"][name] = dict(
+            seconds=seconds,
+            launched={k: K.LAUNCHES[k] - v for k, v in launches.items()},
+            broadcasts={k: D.BROADCASTS[k] - v for k, v in casts.items()},
+            gathers={k: uni.mesh_stats[k] - gathers[k] for k in ("gathers", "gather_seconds", "gather_bytes")},
+            fetch_seconds=uni.mesh_stats["fetch_seconds"] - gathers["fetch_seconds"],
+        )
+        if leader:
+            out["written"][name] = store_written(store)
+            out["bands"][name] = dict(bands)
+
+    worker, store, bands = new_pod(POD_DOCS)
+    deadline = time.monotonic() + POD_RANK_TIMEOUT
+    while not os.path.exists(os.path.join(workdir, "pod-go")):
+        check(time.monotonic() < deadline, f"16(a) rank {rank}: the parent never said go")
+        time.sleep(0.05)
+    pod = worker.judge.univariate.mesh.pod
+    out.update(backend=pod.backend, reason=pod.reason, blocks=[pod.first, pod.first + pod.n_local - 1],
+               n_data=pod.n_data, device=str(worker.judge.device))
+    tick("a", worker, store, bands, POD_DOCS, t_now + 150)
+    tick("b", worker, store, bands, POD_DOCS, t_now + 200)
+    worker.close()
+    if leader:
+        os.environ["FOREMAST_BF16_DELTA"] = "0"
+    fresh, fstore, fbands = new_pod(POD_F32_DOCS)
+    out["f32_route"] = not scoring.bf16_delta_enabled()
+    tick("d", fresh, fstore, fbands, POD_F32_DOCS, t_now + 150)
+    fresh.close()
+    with open(os.path.join(workdir, f"pod-parity-rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def pod_death_rank(workdir: str, t_now: int, device: str, es_url: str) -> None:
+    """16(c), one rank: a PodWorker over the fake Elasticsearch whose
+    leader calls os._exit(17) on its 3rd fetch (after the claim, before
+    any verdict); the follower must not get past the tick."""
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs.store import ElasticsearchStore
+    from foremast_tpu_torch.parallel import LeaderSource, LeaderStore, PodWorker, init_distributed, is_leader
+
+    check(init_distributed(), "the rank did not join a pod (JAX_* rendezvous unset)")
+    rank = torch.distributed.get_rank()
+    store = source = None
+    if is_leader():
+        _, data, _ = worker_fleet(POD_DEATH_DOCS, t_now, seed=29)
+        inner = array_source(data)
+        calls = [0]
+
+        class Dying(type(inner)):
+            def fetch(self, url):
+                calls[0] += 1
+                if calls[0] >= 3:
+                    os._exit(17)  # a crash: no cleanup, no error marker broadcast
+                return inner.fetch(url)
+
+        store, source = ElasticsearchStore(es_url), Dying()
+    worker = PodWorker(LeaderStore(store), LeaderSource(source),
+                       config=BrainConfig(max_stuck_seconds=90.0, max_cache_size=4 * POD_DEATH_DOCS + 64),
+                       device=device, claim_limit=POD_DEATH_DOCS, worker_id="smoke-pod")
+    print(f"rank {rank} ticking", flush=True)
+    worker.tick(now=t_now + 150)
+    print(f"rank {rank} SURVIVED", flush=True)  # reachable only on a fault
+
+
+def pod_rank_main(argv: list) -> int:
+    """`chip_smoke.py --pod-rank <arm> <workdir> <t_now> <device> [es_url]`:
+    one rank of a phase 16 pod (the JAX_* rendezvous in its environment)."""
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    arm, workdir, t_now, device = argv[0], argv[1], int(argv[2]), argv[3]
+    # the parent's sizes (a rehearsal may lower them)
+    with open(os.path.join(workdir, "pod-sizes.json")) as fh:
+        globals().update(json.load(fh))
+    if arm == "parity":
+        pod_parity_rank(workdir, t_now, device)
+    elif arm == "death":
+        pod_death_rank(workdir, t_now, device, argv[4])
+    else:
+        check(False, f"unknown pod arm {arm}")
+    return 0
+
+
+def pod_env(addr: str, rank: int, n_cards: int, extra: dict | None = None) -> dict:
+    """A rank's environment: the JAX_* rendezvous, and on a host of 2+
+    cards its own card (CUDA_VISIBLE_DEVICES), so the gather takes NCCL;
+    on one card both ranks share it over gloo."""
+    env = {k: v for k, v in os.environ.items() if k not in ("FOREMAST_BF16_DELTA", "FOREMAST_POD_TIMEOUT_SECONDS")}
+    env.update(JAX_COORDINATOR_ADDRESS=addr, JAX_NUM_PROCESSES=str(POD_RANKS), JAX_PROCESS_ID=str(rank),
+               PYTHONPATH=ROOT, **(extra or {}))
+    if n_cards >= POD_RANKS:
+        env["CUDA_VISIBLE_DEVICES"] = str(rank)
+    return env
+
+
+def pod_launch(cmd_of, workdir: str, tag: str, n_cards: int, extra: dict | None = None) -> tuple[list, list]:
+    """Start the POD_RANKS rank processes `cmd_of(rank)`, output to
+    `<workdir>/pod-<tag>-rank<r>.log`."""
+    addr = f"127.0.0.1:{free_port()}"
+    procs, logs = [], []
+    for rank in range(POD_RANKS):
+        path = os.path.join(workdir, f"pod-{tag}-rank{rank}.log")
+        with open(path, "w") as log:
+            procs.append(subprocess.Popen(cmd_of(rank), cwd=ROOT, env=pod_env(addr, rank, n_cards, extra),
+                                          stdout=log, stderr=subprocess.STDOUT))
+        logs.append(path)
+    return procs, logs
+
+
+def pod_finish(procs, logs, tag: str, timeout: float = POD_RANK_TIMEOUT, expect=None) -> list:
+    """Wait for every rank (killing one past `timeout`); their exit codes.
+    A rank's log is printed when it exited otherwise than `expect` (by
+    default 0 for every rank)."""
+    deadline = time.monotonic() + timeout
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rcs.append(p.wait())
+    for rank, (rc, path) in enumerate(zip(rcs, logs)):
+        if rc != (expect[rank] if expect is not None else 0):
+            print(f"(16 {tag}) rank {rank} exited {rc}:\n{open(path).read()[-6000:]}", file=sys.stderr)
+    return rcs
+
+
+def pod_single_reference(dev, docs, data, t_now: int) -> dict:
+    """16(a)'s single-process port worker on the card: the same ticks over
+    the same fleet, (d) on the f32 route."""
+    import torch
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.engine import scoring
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+
+    out = {}
+
+    def run(n: int, ticks) -> None:
+        store = InMemoryStore()
+        for d in docs[:n]:
+            store.create(Document.from_json(d))
+        bands: dict = {}
+        worker = BrainWorker(store, array_source(data), config=BrainConfig(max_cache_size=4 * n + 64), device=dev,
+                             claim_limit=n, worker_id="smoke-single", on_verdict=band_recorder(bands),
+                             device_mesh=None)
+        if torch.device(dev).type == "cuda":
+            worker.warmup()
+        for name, now in ticks:
+            bands.clear()
+            sync_card()
+            t0 = time.perf_counter()
+            check(worker.tick(now=now) == n, f"16(a) the single worker's tick {name} lost docs")
+            sync_card()
+            out[name] = dict(seconds=time.perf_counter() - t0, written=store_written(store), bands=dict(bands))
+        worker.close()
+
+    run(POD_DOCS, (("a", t_now + 150), ("b", t_now + 200)))
+    scoring.set_bf16_delta(False)
+    try:
+        run(POD_F32_DOCS, (("d", t_now + 150),))
+    finally:
+        scoring.set_bf16_delta(None)
+    return out
+
+
+def pod_parity_arm(dev, smi: str, workdir: str, n_cards: int) -> dict:
+    """16(a): the pod's ticks against the single worker's, doc for doc;
+    returns the pod's launches (both ranks, every tick)."""
+    t_now = int(time.time())
+    t0 = time.perf_counter()
+    procs, logs = pod_launch(
+        lambda rank: [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--pod-rank", "parity", workdir, str(t_now),
+                      str(dev)],
+        workdir, "parity", n_cards)
+    # the single worker runs while the ranks start, and they tick only
+    # after it is done (`pod-go`); its launches are a comparison's, not
+    # the pod's (the ranks count their own)
+    try:
+        docs, data, _ = worker_fleet(POD_DOCS, t_now)
+        with uncounted():
+            single = pod_single_reference(dev, docs, data, t_now)
+    finally:
+        open(os.path.join(workdir, "pod-go"), "w").close()
+    rcs = pod_finish(procs, logs, "a")
+    check(rcs == [0] * POD_RANKS, f"16(a) the pod's ranks exited {rcs}")
+    arm_s = time.perf_counter() - t0
+    ranks = []
+    for rank in range(POD_RANKS):
+        with open(os.path.join(workdir, f"pod-parity-rank{rank}.json")) as fh:
+            ranks.append(json.load(fh))
+    lead = ranks[0]
+    check(len({r["backend"] for r in ranks}) == 1, "16(a) the ranks chose different gather backends")
+    want_backend = "nccl" if n_cards >= POD_RANKS else "gloo"
+    check(lead["backend"] == want_backend, f"16(a) the gather ran over {lead['backend']}, want {want_backend}")
+    check(all(r["f32_route"] for r in ranks), "16(a) a rank's fresh pod did not take the leader's f32 route")
+    worst = 0.0
+    for name in ("a", "b", "d"):
+        got, want = lead["written"][name], single[name]["written"]
+        diff = [k for k in want if got.get(k) != want[k]]
+        check(set(got) == set(want) and not diff,
+              f"16(a) tick {name}: {len(diff)} docs differ from the single worker's, e.g. {diff[:3]}")
+        gb, wb = lead["bands"][name], single[name]["bands"]
+        check(set(gb) == set(wb) and gb, f"16(a) tick {name}: band keys differ ({len(gb)} against {len(wb)})")
+        for key, (u, lo) in wb.items():
+            for a, b in zip(gb[key], (u, lo)):
+                if a is None or b is None or (a != a and b != b):
+                    check((a is None) == (b is None) and (a is None or (a != a) == (b != b)),
+                          f"16(a) tick {name}: {key} bands {gb[key]} against {[u, lo]}")
+                    continue
+                worst = max(worst, abs(a - b))
+        check(worst <= POD_BAND_TOL, f"16(a) tick {name}: bands differ by {worst:.3g} > {POD_BAND_TOL}")
+    for r in ranks:
+        check(r["ticks"]["d"]["launched"]["masked_stats"] > 0,
+              f"16(a) rank {r['rank']}'s f32 cold tick never launched masked_stats")
+    launched = {k: sum(r["ticks"][t]["launched"][k] for r in ranks for t in ("a", "b", "d")) for k in KERNEL_FILES}
+    print(f"phase 16: (a) {POD_RANKS} ranks, {lead['n_data']} data-axis blocks, result gather over {lead['backend']} "
+          f"({lead['reason']}); rank devices {[r['device'] for r in ranks]}; blocks {[r['blocks'] for r in ranks]}")
+    print(f"phase 16: (a) every doc's (status, code, reason, anomaly_info) after the cold, warm and f32 cold ticks "
+          f"equals the single worker's on the card ({POD_DOCS}, {POD_DOCS} and {POD_F32_DOCS} docs x 4 aliases, "
+          f"Th={FULL_TH}, Tc={FULL_TC}); last band points within {worst:.3g} (tolerance {POD_BAND_TOL}); the "
+          f"follower took the f32 route from the leader's knob broadcast")
+    for name, label in (("a", "cold"), ("b", "warm"), ("d", "f32 cold")):
+        parts = []
+        for r in ranks:
+            t = r["ticks"][name]
+            b, g = t["broadcasts"], t["gathers"]
+            parts.append(f"rank {r['rank']} {t['seconds']:.3f} s (broadcasts {b['calls']}, {b['bytes']} B, "
+                         f"{b['seconds']:.3f} s; gathers {g['gathers']}, {g['gather_bytes']} B, "
+                         f"{g['gather_seconds']:.4f} s; fetch {t['fetch_seconds']:.4f} s; launches "
+                         f"{ {k: v for k, v in t['launched'].items() if v} })")
+        print(f"phase 16: (a) {label} tick on {smi}: single worker {single[name]['seconds']:.3f} s; pod "
+              + "; ".join(parts))
+    print(f"phase 16: (a) took {arm_s:.1f} s (rank start-up included)")
+    return launched
+
+
+def pod_cli_arm(dev, workdir: str, n_cards: int) -> None:
+    """16(b): two `python -m foremast_tpu_torch worker --sharded` ranks with
+    the JAX_* rendezvous judge a POD_CLI_DOCS-doc fleet on the fake
+    Elasticsearch and Prometheus to the single worker's writes; only the
+    leader serves the gauge port; a SIGTERM to the leader stops both."""
+    import importlib.util
+    import signal
+
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.jobs.store import ElasticsearchStore
+    from foremast_tpu_torch.metrics.source import PrometheusSource
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import FakeElasticsearch, FakePrometheus, rebase, serve_fake_es, serve_fake_prometheus
+
+    # endTime an hour past (every doc terminal on its first judgment, so
+    # the pod does not re-claim the fleet tick after tick) and settled
+    # histories
+    t_now = int(time.time()) - 7200
+    docs, data, _ = worker_fleet(POD_CLI_DOCS, t_now, seed=23)
+    es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+    prom = FakePrometheus()
+    prom_srv, prom_url = serve_fake_prometheus(prom)
+    try:
+        docs, prom.data = rebase(docs, data, "http://prom", prom_url)
+        prom.prepare()  # set-up: every answer encoded before the ranks start
+        check(ElasticsearchStore(es_url).wait_ready(max_wait=30), "16(b) the fake Elasticsearch never answered")
+        es.load(docs)
+        gauges = [free_port() for _ in range(POD_RANKS)]
+        metrics = importlib.util.find_spec("prometheus_client") is not None
+        t0 = time.perf_counter()
+        base = dict(es.writes)
+        procs, logs = pod_launch(
+            lambda rank: [sys.executable, "-m", "foremast_tpu_torch", "worker", "--sharded", "--device", str(dev),
+                          "--elastic-url", es_url, "--gauge-port", str(gauges[rank] if metrics else 0),
+                          "--poll", "0.2"],
+            workdir, "cli", n_cards)
+        served = refused = False
+        try:
+            while not all_judged(es, base):
+                check(all(p.poll() is None for p in procs) and time.perf_counter() - t0 < POD_RANK_TIMEOUT,
+                      "16(b) the pod did not judge the fleet")
+                time.sleep(0.25)
+            judged_s = time.perf_counter() - t0
+            if metrics:
+                with urllib.request.urlopen(f"http://127.0.0.1:{gauges[0]}/metrics", timeout=10) as r:
+                    served = r.status == 200 and b"foremast_tick_stage_seconds" in r.read()
+                try:
+                    urllib.request.urlopen(f"http://127.0.0.1:{gauges[1]}/metrics", timeout=5)
+                except OSError:
+                    refused = True
+        finally:
+            if procs[0].poll() is None:
+                procs[0].send_signal(signal.SIGTERM)
+            rcs = pod_finish(procs, logs, "b", timeout=60)
+        check(rcs == [0] * POD_RANKS, f"16(b) the CLI ranks exited {rcs} after the leader's SIGTERM")
+        texts = [open(p).read() for p in logs]
+        for rank, text in enumerate(texts):
+            check(f"pod mode: rank {rank} of {POD_RANKS}" in text, f"16(b) rank {rank} never logged its pod line")
+        # the single worker over the same HTTP fakes, at the real clock
+        ref_store = InMemoryStore()
+        for d in docs:
+            ref_store.create(Document.from_json(d))
+        with uncounted():
+            ref = BrainWorker(ref_store, PrometheusSource(), config=BrainConfig(max_cache_size=4 * len(docs) + 64),
+                              device=dev, claim_limit=len(docs), worker_id="smoke-single", device_mesh=None)
+            check(ref.tick() == len(docs), "16(b) the single worker lost docs")
+            ref.close()
+        got = es_written(es.sources())
+        want = store_written(ref_store)
+        diff = [k for k in want if got.get(k) != want[k]]
+        check(not diff, f"16(b) {len(diff)} docs differ from the single worker's, e.g. {diff[:3]}")
+        if metrics:
+            check(served and refused, f"16(b) /metrics: leader served {served}, follower refused {refused}")
+        line = next(ln for ln in texts[0].splitlines() if ln.startswith("pod mode: rank 0"))
+        stops = []
+        for text in texts:
+            rec = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{") and '"worker stopped"' in ln]
+            stops.append(rec[-1].get("kernel_launches") if rec else None)
+        print(f"phase 16: (b) two `worker --sharded --device {dev}` ranks judged the {POD_CLI_DOCS}-doc fleet in "
+              f"{judged_s:.1f} s from start, writes equal the single worker's; {line!r}; /metrics "
+              f"{'served by the leader alone' if metrics else 'not checked (no prometheus_client on this host)'}; "
+              f"both exited 0 on the leader's SIGTERM; launches by rank {stops}")
+    finally:
+        for srv in (es_srv, prom_srv):
+            srv.shutdown()
+            srv.server_close()
+
+
+def pod_death_arm(dev, workdir: str, n_cards: int) -> None:
+    """16(c): the leader dies on its 3rd fetch with POD_TIMEOUT; the
+    follower exits nonzero within POD_TIMEOUT + POD_FOLLOWER_GRACE of it;
+    a single takeover worker judges every parked doc exactly once, to the
+    single worker's writes."""
+    from foremast_tpu_torch.config import BrainConfig
+    from foremast_tpu_torch.jobs import BrainWorker, Document, InMemoryStore
+    from foremast_tpu_torch.jobs.store import ElasticsearchStore
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_services import FakeElasticsearch, serve_fake_es
+
+    t_now = int(time.time()) - 600
+    docs, data, _ = worker_fleet(POD_DEATH_DOCS, t_now, seed=29)
+    es_srv, es, es_url = serve_fake_es(FakeElasticsearch())
+    try:
+        check(ElasticsearchStore(es_url).wait_ready(max_wait=30), "16(c) the fake Elasticsearch never answered")
+        es.load(docs)
+        procs, logs = pod_launch(
+            lambda rank: [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--pod-rank", "death", workdir,
+                          str(t_now), str(dev), es_url],
+            workdir, "death", n_cards, {"FOREMAST_POD_TIMEOUT_SECONDS": str(POD_TIMEOUT)})
+        ended = [None] * POD_RANKS
+        deadline = time.monotonic() + POD_RANK_TIMEOUT
+        while None in ended and time.monotonic() < deadline:
+            for rank, p in enumerate(procs):
+                if ended[rank] is None and p.poll() is not None:
+                    ended[rank] = time.monotonic()
+            time.sleep(0.05)
+        rcs = pod_finish(procs, logs, "c", timeout=1, expect=[17, 1])
+        texts = [open(p).read() for p in logs]
+        check(rcs[0] == 17, f"16(c) the leader exited {rcs[0]}, not by its os._exit(17)")
+        check(rcs[1] != 0 and "SURVIVED" not in texts[1] and "rank 1 ticking" in texts[1],
+              f"16(c) the follower exited {rcs[1]}: {texts[1][-2000:]}")
+        lag = ended[1] - ended[0]
+        check(lag <= POD_TIMEOUT + POD_FOLLOWER_GRACE, f"16(c) the follower outlived the leader by {lag:.1f} s")
+        cause = [ln for ln in texts[1].splitlines() if "PodCollective" in ln]
+        parked = sum(1 for d in es.sources().values() if d.get("status") == "preprocess_inprogress")
+        check(parked > 0, "16(c) the leader died before persisting any claim")
+        # the takeover: one worker on the card, past the stuck window
+        base = dict(es.writes)
+        with uncounted():
+            takeover = BrainWorker(ElasticsearchStore(es_url), array_source(data),
+                                   config=BrainConfig(max_stuck_seconds=2.0, max_cache_size=4 * len(docs) + 64),
+                                   device=dev, claim_limit=len(docs), worker_id="takeover", device_mesh=None)
+            total = 0
+            t0 = time.perf_counter()
+            while total < len(docs) and time.perf_counter() - t0 < 60:
+                time.sleep(1.0)
+                total += takeover.tick(now=t_now + 7200)
+            check(total == len(docs), f"16(c) the takeover judged {total} of {len(docs)} docs")
+            check(takeover.tick(now=t_now + 7300) == 0, "16(c) the takeover found a doc to judge twice")
+            takeover.close()
+            ref_store = InMemoryStore()
+            for d in docs:
+                ref_store.create(Document.from_json(d))
+            ref = BrainWorker(ref_store, array_source(data),
+                              config=BrainConfig(max_cache_size=4 * len(docs) + 64), device=dev,
+                              claim_limit=len(docs), worker_id="smoke-single", device_mesh=None)
+            check(ref.tick(now=t_now + 7200) == len(docs), "16(c) the single worker lost docs")
+            ref.close()
+        srcs = es.sources()
+        check(all(s.get("processingContent") == "takeover" for s in srcs.values()),
+              "16(c) a doc was last claimed by another worker than the takeover")
+        once = [k for k in srcs if es.writes[k] - base.get(k, 0) != 2]
+        check(not once, f"16(c) docs not written exactly once by the takeover (claim + verdict): {once[:3]}")
+        got, want = es_written(srcs), store_written(ref_store)
+        diff = [k for k in want if got.get(k) != want[k]]
+        check(not diff, f"16(c) {len(diff)} docs differ from the single worker's, e.g. {diff[:3]}")
+        print(f"phase 16: (c) the leader died on its 3rd fetch with {parked} of {len(docs)} docs parked in progress; "
+              f"the follower exited {rcs[1]} {lag:.1f} s later (FOREMAST_POD_TIMEOUT_SECONDS={POD_TIMEOUT}; "
+              f"{cause[-1][:200] if cause else 'no PodCollective line'}); the takeover judged every doc exactly "
+              f"once after the {2.0:.0f} s stuck window, writes equal the single worker's")
+    finally:
+        es_srv.shutdown()
+        es_srv.server_close()
+
+
+def phase_pod(dev, smi: str) -> dict:
+    """Phase 16: pod mode, two ranks over torch.distributed (gloo for host
+    objects; the result gather over gloo when the ranks share the one
+    card, over NCCL when each rank has a card of its own): (a) parity,
+    then (b) the CLI and (c) leader death side by side. The kernels and
+    the native library are built before the ranks start (a rank only
+    loads them). Returns the pod's launches (every rank of (a))."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from foremast_tpu_torch import native
+    from foremast_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        _build.build_all()
+    check(native.ensure_built(), f"phase 16: the native packing library did not build ({native.error()})")
+    n_cards = torch.cuda.device_count() if cuda else 0
+    print(f"phase 16: pod mode, {POD_RANKS} ranks on {smi}: "
+          + ("each rank on a card of its own (CUDA_VISIBLE_DEVICES), result gather over NCCL"
+             if n_cards >= POD_RANKS else "both ranks on the one card, result gather over gloo"))
+    with tempfile.TemporaryDirectory(prefix="foremast-phase16-", ignore_cleanup_errors=True) as workdir:
+        with open(os.path.join(workdir, "pod-sizes.json"), "w") as fh:
+            json.dump(dict(POD_DOCS=POD_DOCS, POD_F32_DOCS=POD_F32_DOCS, POD_DEATH_DOCS=POD_DEATH_DOCS,
+                           FULL_TH=FULL_TH), fh)
+        launched = pod_parity_arm(dev, smi, workdir, n_cards)
+        # (b) and (c) run side by side (their pods, fakes and ports are
+        # their own); neither times anything the other could disturb but
+        # (b)'s seconds to a judged fleet
+        death: dict = {}
+
+        def run_death() -> None:
+            try:
+                pod_death_arm(dev, workdir, n_cards)
+            except BaseException as e:  # noqa: BLE001 - re-raised on the phase's thread
+                death["error"] = e
+
+        side = threading.Thread(target=run_death, name="phase16-death", daemon=True)
+        side.start()
+        pod_cli_arm(dev, workdir, n_cards)
+        side.join(timeout=POD_RANK_TIMEOUT + 120)
+        check(not side.is_alive(), "16(c) did not finish")
+        if "error" in death:
+            raise death["error"]
+    print(f"phase 16: passed in {time.perf_counter() - t0:.1f} s; the pod's launches (both ranks, (a)) {launched}")
+    return launched
+
+
 def main() -> int:
     import torch
 
     t_main = time.perf_counter()
+    if "--pod-rank" in sys.argv[1:]:
+        # one rank of a phase 16 pod, started by the phase itself
+        sys.path.insert(0, ROOT)
+        return pod_rank_main(sys.argv[sys.argv.index("--pod-rank") + 1 :])
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -7886,6 +8465,7 @@ def main() -> int:
     control_loop_only = "--control-loop-only" in sys.argv[1:]
     dashboard_only = "--dashboard-only" in sys.argv[1:]
     ops_only = "--ops-only" in sys.argv[1:]
+    pod_only = "--pod-only" in sys.argv[1:]
     # the seasonal model's f32 products must not round through TF32 (its
     # normal equations run in float64, which never does)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7964,6 +8544,11 @@ def main() -> int:
         for kname in MA_KERNELS:
             check(launched[kname] > 0, f"phase 15 never launched {kname}")
         print(f"chip_smoke: --ops-only: phase 15 passed; its main path launched {launched}")
+        return 0
+    if pod_only:
+        launched = phase_pod(dev, smi)
+        check(launched["masked_stats"] > 0, "phase 16 never launched masked_stats")
+        print(f"chip_smoke: --pod-only: phase 16 passed; its main path launched {launched}")
         return 0
     if tenants_only:
         os.environ["FOREMAST_SWEEP_SLICE_DOCS"] = "0"
@@ -8051,6 +8636,12 @@ def main() -> int:
           f"({time.perf_counter() - started:.1f} s since the kernels were checked)")
     for kname in MA_KERNELS:
         check(launched_ops[kname] > 0, f"the profiled calls (phase 15 a) never launched {kname}")
+    # phase 16's ranks count their own launches around their ticks
+    t0 = time.perf_counter()
+    launched_pod = phase_pod(dev, smi)
+    print(f"chip_smoke: phase_pod took {time.perf_counter() - t0:.1f} s "
+          f"({time.perf_counter() - started:.1f} s since the kernels were checked)")
+    check(launched_pod["masked_stats"] > 0, "the pod's f32 cold tick (phase 16 a) never launched masked_stats")
     paths = {
         "object path (phases 3-4)": launched_object,
         "fit-cache path (phase 5)": launched_fit_cache,
@@ -8068,6 +8659,7 @@ def main() -> int:
         "control loop (phase 13)": launched_control_loop,
         "dashboard and demo loop (phase 14)": launched_dashboard,
         "profiler, witness, manifests and lint (phase 15)": launched_ops,
+        "pod mode, both ranks (phase 16)": launched_pod,
     }
     print("launches: " + "; ".join(f"{label} {counts}" for label, counts in paths.items()))
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNEL_FILES}

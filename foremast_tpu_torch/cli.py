@@ -47,6 +47,19 @@ each series' owner, and with `FOREMAST_INGEST=1` a planned join or a
 SIGTERM moves ring and fit state to the new owners instead of leaving it
 to cold refits.
 
+`worker --sharded` with `JAX_COORDINATOR_ADDRESS` (`host:port`),
+`JAX_NUM_PROCESSES` and `JAX_PROCESS_ID` set runs pod mode: one logical
+worker across those processes (`parallel/distributed.py`). Rank 0, the
+leader, alone dials the store and Prometheus, claims, fetches, writes,
+serves the gauge port, checkpoints the model cache (`model_cache.pod`
+under `--model-cache-dir`, restored on every rank) and, with
+`FOREMAST_MESH=1`, holds the pod's one mesh seat; claims, series, the
+clock and the stop decision are broadcast over gloo; each rank judges
+its own blocks of the data axis on its own devices and every rank
+gathers every result (over NCCL when each rank holds cards of its own,
+else over gloo). `FOREMAST_SNAPSHOT_DIR` and `FOREMAST_MICROTICK_SECONDS`
+are ignored there, as in the JAX package.
+
 `FOREMAST_LOCK_WITNESS=1` makes `worker` install the lock-order witness
 (`analysis/witness.py`) before it creates its first lock; at exit it
 logs whether every lock acquisition order it saw lies within the static
@@ -62,11 +75,9 @@ deploy_torch/` renders the Kubernetes tree (one H100 per engine pod),
 metric families, and `python3 chip_smoke.py --ops-only` runs the
 profiler, the witness, the manifests and the lint on the card.
 
-The JAX CLI's pod mode is not ported yet; each mode that would need what
-is missing raises `NotImplementedError` naming its ROADMAP.md Queue 1
-item instead of running something else. `FOREMAST_RECOMPILE_WITNESS=1`
-is refused for good: it counts XLA recompiles of traced programs, and
-the port has no traced programs.
+`FOREMAST_RECOMPILE_WITNESS=1` is refused with `NotImplementedError`: it
+counts XLA recompiles of traced programs, and the port has no traced
+programs.
 """
 
 from __future__ import annotations
@@ -95,21 +106,8 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
-# the env that would make the JAX package's --sharded start a pod (its
-# init_distributed): several processes, which the port does not have yet
-_POD_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES")
-
-
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise for every requested mode the port does not have."""
-    if args.sharded:
-        # the two registered pod-mode knobs of _POD_ENV
-        pod = [name for name in _POD_ENV if os.environ.get(name)]  # foremast: ignore[env-contract]
-        if pod:
-            raise NotImplementedError(
-                f"--sharded with {', '.join(pod)} set asks for pod mode (a mesh over several processes), "
-                "which is not ported yet: ROADMAP.md Queue 1 item 7, pod mode"
-            )
     for name, (what, item) in _UNPORTED_ENV.items():
         # the registered knobs of _UNPORTED_ENV
         raw = os.environ.get(name, "0")  # foremast: ignore[env-contract]
@@ -244,17 +242,18 @@ def _persistent_worker_id(snap_dir: str, minted: str) -> str:
 
 
 def _sharded_mesh(device: str):
-    """--sharded: the judge over the all-local mesh — every card of this
-    process (`make_global_mesh`), or the one CPU device with --device
-    cpu. Without the flag the worker resolves FOREMAST_DEVICE_MESH and
-    FOREMAST_DEVICE_MESH_MODEL (`parallel.mesh.worker_device_mesh`)."""
+    """--sharded: the judge over the global mesh (`make_global_mesh`) —
+    every card of this process, or the one CPU device with --device cpu,
+    and in pod mode every other rank's after them. Without the flag the
+    worker resolves FOREMAST_DEVICE_MESH and FOREMAST_DEVICE_MESH_MODEL
+    (`parallel.mesh.worker_device_mesh`)."""
     import torch
 
     from foremast_tpu_torch.parallel import mesh as meshlib
 
     if torch.device(device).type == "cuda":
         return meshlib.make_global_mesh()
-    return meshlib.make_mesh(devices=[device])
+    return meshlib.make_global_mesh(devices=[device])
 
 
 def _add_score(sub: argparse._SubParsersAction) -> None:
@@ -558,12 +557,40 @@ def cmd_worker(args: argparse.Namespace) -> int:
     except ValueError:
         pass  # not the main thread (embedded use); rely on the caller
 
-    store = _make_store(args.elastic_url, chaos=_edge("store"), breaker=degrade.breakers.get("store"),
-                        stop=stop_event.is_set)
-    source = PrometheusSource(chaos=_edge("prometheus"), breaker=degrade.breakers.get("prometheus"))
+    # pod mode: join the process group before any judge exists (the pod's
+    # mesh is itself a collective); --sharded without the JAX_* rendezvous
+    # is the all-local mesh of one process
+    pod_mode = False
+    sharded_mesh = None
+    if args.sharded:
+        from foremast_tpu_torch.parallel import init_distributed
+
+        pod_mode = init_distributed()
+        sharded_mesh = _sharded_mesh(args.device)
+    leader = not pod_mode or sharded_mesh.pod.rank == 0
+    if pod_mode:
+        pod = sharded_mesh.pod
+        print(f"pod mode: rank {pod.rank} of {pod.world}{' (leader)' if leader else ''}, data-axis blocks "
+              f"{pod.first}-{pod.first + pod.n_local - 1} of {pod.n_data}; result gather over {pod.backend} "
+              f"({pod.reason})", file=sys.stderr)
+
+    # followers never dial Elasticsearch or Prometheus: only the leader
+    # needs their address and credentials
+    store = source = None
+    if leader:
+        store = _make_store(args.elastic_url, chaos=_edge("store"), breaker=degrade.breakers.get("store"),
+                            stop=stop_event.is_set)
+        source = PrometheusSource(chaos=_edge("prometheus"), breaker=degrade.breakers.get("prometheus"))
 
     snap_dir = os.environ.get("FOREMAST_SNAPSHOT_DIR") or None
-    worker_id = f"brain-{uuid.uuid4().hex[:8]}"
+    if snap_dir and pod_mode:
+        # pod mode's determinism contract (identical caches on every
+        # rank, leader-only I/O) has its own durability path: the
+        # leader's model-cache checkpoint, restored pod-wide
+        print("FOREMAST_SNAPSHOT_DIR ignored in pod mode (use --model-cache-dir: leader checkpoint + broadcast)",
+              file=sys.stderr)
+        snap_dir = None
+    worker_id = f"{'pod' if pod_mode else 'brain'}-{uuid.uuid4().hex[:8]}"
     snap_lock = None
     if snap_dir:
         # two live workers on one directory would interleave torn frames
@@ -586,7 +613,21 @@ def cmd_worker(args: argparse.Namespace) -> int:
     ingest_on = os.environ.get("FOREMAST_INGEST", "0") == "1"
     mesh_on = os.environ.get("FOREMAST_MESH", "0") == "1"
     membership = router = handoff = mesh_node = None
-    if mesh_on:
+    if mesh_on and pod_mode:
+        # mesh-of-pods: the pod is ONE member of the worker mesh. Only the
+        # leader holds the lease and evaluates the claim filter (it alone
+        # has the store); the filtered claim set broadcasts like any
+        # other, so partitioning never shapes a follower's control flow.
+        # Handoff and routed ingest stay off in pods
+        print("mesh-of-pods: this pod joins the worker mesh as ONE member (leader-held lease + claim filter)",
+              file=sys.stderr)
+        if leader:
+            from foremast_tpu_torch.mesh import MeshNode
+
+            membership, router = _mesh_member(store, worker_id, chaos_plan)
+            mesh_node = MeshNode(membership, router)
+            mesh_node.start()
+    elif mesh_on:
         membership, router = _mesh_member(store, worker_id, chaos_plan)
         # planned handoff: a joiner is fenced until the current owners
         # stream it its partition, and SIGTERM drains instead of leaving
@@ -605,6 +646,12 @@ def cmd_worker(args: argparse.Namespace) -> int:
 
     micro_seconds = microtick_seconds_from_env()
     dirty = None
+    if micro_seconds > 0 and pod_mode:
+        # pod ticks are broadcast collectives; a leader-local micro-tick
+        # would desynchronize the followers
+        print("FOREMAST_MICROTICK_SECONDS ignored in pod mode (micro-ticks are single-worker; pod ticks are "
+              "broadcast collectives)", file=sys.stderr)
+        micro_seconds = 0.0
     if micro_seconds > 0 and not ingest_on:
         print("FOREMAST_MICROTICK_SECONDS needs FOREMAST_INGEST=1 (the receiver is what marks arrivals); "
               "staying tick-paced", file=sys.stderr)
@@ -617,11 +664,14 @@ def cmd_worker(args: argparse.Namespace) -> int:
         log.info("reactive plane ON: micro-ticks every %.3f s, %d dirty keys/tick, dirty-set cap %d",
                  micro_seconds, microtick_docs_from_env(), dirty.max_keys)
     ingest_srv = snapshotter = ring = None
-    if ingest_on:
+    if ingest_on and leader:
+        # the ring and the receiver live where the fetches happen: the
+        # single worker, or the pod's leader (followers' fetches stay
+        # leader-broadcast collectives)
         source, ring, ingest_srv, snapshotter = _mount_ingest(source, args.gauge_port, snapshot_dir=snap_dir,
                                                               chaos=_edge("receiver"), degrade=degrade, dirty=dirty,
                                                               router=router, handoff=handoff)
-    if mesh_on:
+    if mesh_on and not pod_mode:
         from foremast_tpu_torch.mesh import MeshNode
 
         if ingest_srv is not None:
@@ -635,8 +685,11 @@ def cmd_worker(args: argparse.Namespace) -> int:
         mesh_node = MeshNode(membership, router, ring_store=ring, handoff=handoff)
         mesh_node.start()
 
-    on_verdict = worker_metrics = None
-    if args.gauge_port:
+    # pod mode: telemetry is the leader's alone. Every rank runs the whole
+    # tick over the same fleet, so follower gauges would count every job
+    # and verdict once a rank
+    on_verdict = worker_metrics = tracer = None
+    if args.gauge_port and leader:
         from prometheus_client import REGISTRY
 
         from foremast_tpu_torch.observe.gauges import BrainGauges, WorkerMetrics, make_verdict_hook
@@ -645,23 +698,30 @@ def cmd_worker(args: argparse.Namespace) -> int:
         tracer = Tracer(service="worker", registry=REGISTRY)
         worker_metrics = WorkerMetrics()
         on_verdict = make_verdict_hook(BrainGauges())
-    else:
+    elif leader:
         tracer = Tracer(service="worker")
-    worker = BrainWorker(
-        store,
-        source,
+    worker_kw = dict(
         config=config,
         device=args.device,
-        device_mesh=_sharded_mesh(args.device) if args.sharded else "env",
+        device_mesh=sharded_mesh if args.sharded else "env",
         worker_id=worker_id,
         claim_limit=args.claim_limit,
         on_verdict=on_verdict,
         tracer=tracer,
         degrade=degrade,
         metrics=worker_metrics,
-        dirty=dirty,
         mesh=mesh_node,
     )
+    if pod_mode:
+        # one logical worker across the process group: the leader claims,
+        # fetches and writes, everything else is broadcast, each rank
+        # judges its own blocks. Plain BrainWorkers must NOT share a pod's
+        # mesh: each would claim different documents into one judgment
+        from foremast_tpu_torch.parallel import LeaderSource, LeaderStore, PodWorker
+
+        worker = PodWorker(LeaderStore(store), LeaderSource(source), **worker_kw)
+    else:
+        worker = BrainWorker(store, source, dirty=dirty, **worker_kw)
     if snap_dir:
         # fit journals restore lazily (the first claim of each doc
         # rehydrates its fits, so admission passes with no history
@@ -678,7 +738,7 @@ def cmd_worker(args: argparse.Namespace) -> int:
                       f"{ring_restored['restored_samples']} samples from {snap_dir}", file=sys.stderr)
 
     obs_srv = None
-    if args.gauge_port:
+    if args.gauge_port and leader:
         from prometheus_client import REGISTRY
 
         from foremast_tpu_torch.chaos import ChaosCollector
@@ -706,18 +766,43 @@ def cmd_worker(args: argparse.Namespace) -> int:
             REGISTRY.register(ReactiveCollector(dirty))
 
     ckpt_path = None
+    ckpt_save = None
     after_tick = None
     cache = worker.judge.cache  # the joint models (LSTM-AE weights)
-    if args.model_cache_dir:
+    if args.model_cache_dir and pod_mode:
+        # the determinism contract needs IDENTICAL caches on every rank: a
+        # rank restoring fewer fits than its peers would route documents
+        # down other code paths. So only the leader touches disk (a
+        # host-local pickle), the restored entries are broadcast to every
+        # rank, and follower saves are no-ops
+        from foremast_tpu_torch.parallel import broadcast_obj
+
+        ckpt_path = os.path.abspath(os.path.join(args.model_cache_dir, "model_cache.pod"))
+        ckpt_save = cache.save_local if leader else (lambda path: None)
+        restored = None
+        if leader and os.path.exists(ckpt_path):
+            try:
+                cache.load_local(ckpt_path)
+                restored = cache.snapshot()
+            except Exception as e:  # noqa: BLE001 - stale/corrupt
+                print(f"model-cache restore failed ({e}); starting cold", file=sys.stderr)
+        items = broadcast_obj(restored)
+        if items:
+            if not leader:
+                cache.put_many(items.items())
+            print(f"restored {len(items)} cached models pod-wide from {ckpt_path}", file=sys.stderr)
+    elif args.model_cache_dir:
         import ast
 
         ckpt_path = os.path.abspath(os.path.join(args.model_cache_dir, "model_cache"))
+        ckpt_save = cache.save
         if os.path.exists(ckpt_path):
             try:
                 n = cache.load(ckpt_path, key_parser=ast.literal_eval)
                 print(f"restored {n} cached models from {ckpt_path}", file=sys.stderr)
             except Exception as e:  # noqa: BLE001 - stale/corrupt
                 print(f"model-cache restore failed ({e}); starting cold", file=sys.stderr)
+    if ckpt_path:
         state = {"dirty": False}
 
         def after_tick(n, _state=state):
@@ -727,7 +812,7 @@ def cmd_worker(args: argparse.Namespace) -> int:
                 _state["dirty"] = True
             elif _state["dirty"]:
                 os.makedirs(args.model_cache_dir, exist_ok=True)
-                cache.save(ckpt_path)
+                ckpt_save(ckpt_path)
                 _state["dirty"] = False
 
     if args.warmup:
@@ -808,7 +893,7 @@ def cmd_worker(args: argparse.Namespace) -> int:
         if ckpt_path and len(cache):
             try:
                 os.makedirs(args.model_cache_dir, exist_ok=True)
-                cache.save(ckpt_path)
+                ckpt_save(ckpt_path)
             except Exception as e:  # noqa: BLE001 - see loop_failed
                 if not loop_failed:
                     raise
@@ -880,8 +965,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--sharded",
         action="store_true",
-        help="score over the all-local device mesh (every card of this process); refused when "
-        "JAX_COORDINATOR_ADDRESS or JAX_NUM_PROCESSES asks for pod mode (not ported yet)",
+        help="score over the global device mesh: every card of this process, and with "
+        "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID set, pod mode (one worker "
+        "across those processes, rank 0 the leader)",
     )
     p.add_argument(
         "--model-cache-dir",

@@ -229,11 +229,10 @@ class BrainConfig:
 #
 # The JAX package's knobs the port never reads are left out:
 # FOREMAST_PALLAS (the fused Pallas judgment), FOREMAST_COMPILE_CACHE_DIR
-# (XLA's compilation cache), FOREMAST_BENCH_ROUND (its benchmark
-# reports), and FOREMAST_POD_TIMEOUT_SECONDS and JAX_PROCESS_ID (pod
-# mode, ROADMAP.md Queue 1 item 7c). FOREMAST_RECOMPILE_WITNESS,
-# JAX_COORDINATOR_ADDRESS and JAX_NUM_PROCESSES stay: the CLI reads them
-# to refuse the modes they ask for.
+# (XLA's compilation cache) and FOREMAST_BENCH_ROUND (its benchmark
+# reports). FOREMAST_RECOMPILE_WITNESS stays: the CLI reads it to refuse
+# the mode it asks for. Pod mode's rendezvous keeps the JAX package's
+# JAX_* names, which the port reads itself (`parallel.mesh.init_distributed`).
 #
 # `name` may be an indexed pattern (`metric_type{i}`) for the
 # reference's per-metric-type override family — those are only ever
@@ -1070,17 +1069,24 @@ ENV_KNOBS: tuple[EnvKnob, ...] = (
         "JAX_COORDINATOR_ADDRESS",
         None,
         "str",
-        "pod mode's rendezvous, with `JAX_NUM_PROCESSES`; pod mode is "
-        "not ported, so `worker --sharded` refuses it when set",
+        "pod mode's rendezvous (`host:port`, rank 0 listens there; a "
+        "`tcp://` init of torch.distributed over gloo), with "
+        "`JAX_NUM_PROCESSES` / `JAX_PROCESS_ID`; read by `worker --sharded`",
         "deploy",
     ),
+    EnvKnob("JAX_NUM_PROCESSES", None, "int", "pod mode's world size (the number of processes)", "deploy"),
     EnvKnob(
-        "JAX_NUM_PROCESSES",
-        None,
-        "int",
-        "pod mode's process count; `worker --sharded` refuses it when set",
+        "FOREMAST_POD_TIMEOUT_SECONDS",
+        "300",
+        "float",
+        "pod-mode collective watchdog: a broadcast that does not "
+        "complete within this budget aborts the tick "
+        "(PodCollectiveTimeout) so a follower never hangs on a dead "
+        "leader — the in-flight claims age out via "
+        "MAX_STUCK_IN_SECONDS takeover. `0` disables the watchdog",
         "deploy",
     ),
+    EnvKnob("JAX_PROCESS_ID", None, "int", "pod mode's rank of this process (0 is the leader)", "deploy"),
     EnvKnob(
         "KUBERNETES_SERVICE_HOST",
         "kubernetes.default.svc",

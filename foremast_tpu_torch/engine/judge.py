@@ -270,32 +270,47 @@ class _HostCopy:
     Results sharded over a mesh's data axis (`Blocks`) land in the same
     one host buffer: each block is packed on its device and copied
     non-blocking into its rows, one event per block on that device's
-    current stream."""
+    current stream. With `gather` (a pod over NCCL,
+    `parallel.mesh.Pod.gather_device`) the packed rows of this rank are
+    first gathered with every other rank's on the card, and the whole
+    result is the one copy."""
 
     __slots__ = ("buf", "layout", "events")
 
-    def __init__(self, tensors):
+    def __init__(self, tensors, gather=None):
         self.events = []
         if isinstance(tensors[0], Blocks):
-            self._init_blocks(tensors)
+            # one packing a run of blocks on one device
+            packed = []
+            for lo, hi in meshlib.device_runs(tensors[0].devices):
+                with meshlib.device_scope(tensors[0].parts[lo].device):
+                    got, self.layout = _pack_bytes([meshlib.join_rows(t.parts[lo:hi]) for t in tensors])
+                packed.append(got)
+            if gather is None:
+                self._copy_runs(packed)
+                return
+            dev = packed[0].device
+            packed = torch.cat([p.to(dev, non_blocking=True) for p in packed]) if len(packed) > 1 else packed[0]
+        else:
+            packed, self.layout = _pack_bytes(tensors)
+        if gather is not None:
+            with meshlib.device_scope(packed.device):
+                packed = gather(packed)
+        self._copy_one(packed)
+
+    def _copy_one(self, packed: torch.Tensor) -> None:
+        if not packed.is_cuda:
+            self.buf = packed
             return
-        packed, self.layout = _pack_bytes(tensors)
-        if packed.is_cuda:
-            self.buf = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+        self.buf = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+        with torch.cuda.device(packed.device):
             self.buf.copy_(packed, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-            self.events.append(event)
-        else:
-            self.buf = packed
+        self.events.append(event)
 
-    def _init_blocks(self, tensors) -> None:
-        # one packing and one copy a run of blocks on one device
-        packed = []
-        for lo, hi in meshlib.device_runs(tensors[0].devices):
-            with meshlib.device_scope(tensors[0].parts[lo].device):
-                got, self.layout = _pack_bytes([meshlib.join_rows(t.parts[lo:hi]) for t in tensors])
-            packed.append(got)
+    def _copy_runs(self, packed: list) -> None:
+        # one copy a run of blocks on one device, into its rows of the buffer
         if not packed[0].is_cuda:
             self.buf = torch.cat(packed)
             return
@@ -318,16 +333,25 @@ class _HostCopy:
         """Whether every copy has landed (never blocks)."""
         return all(event.query() for event in self.events)
 
-    def wait(self) -> tuple[np.ndarray, ...]:
+    def synchronize(self) -> None:
+        """Wait until every copy has landed in `buf`."""
         for event in self.events:
             event.synchronize()
-        host = self.buf.numpy()
+
+    def unpack(self, buf: torch.Tensor) -> tuple[np.ndarray, ...]:
+        """The result columns of a host buffer laid out as `buf` (this
+        copy's, or several ranks' rows of it gathered end to end)."""
+        host = buf.numpy()
         out, off = [], 0
         for dtype, tail, nbytes in self.layout:
             col = np.ascontiguousarray(host[:, off : off + nbytes]).view(dtype)
             out.append(col.reshape((host.shape[0],) + tail))
             off += nbytes
         return tuple(out)
+
+    def wait(self) -> tuple[np.ndarray, ...]:
+        self.synchronize()
+        return self.unpack(self.buf)
 
 
 def _fetch(tensors) -> tuple[np.ndarray, ...]:
@@ -486,10 +510,17 @@ class HealthJudge:
         batch block's rows."""
         return 1
 
+    def _host_copy(self, tree) -> _HostCopy:
+        """Start the one copy of result tensors to the host (never
+        blocks); a ShardedJudge over a pod with NCCL gathers every rank's
+        rows on the card first."""
+        return _HostCopy(tree)
+
     def _fetch(self, tree) -> tuple[np.ndarray, ...]:
-        """Result tensors to the host: ONE copy (`_HostCopy`), or the
-        wait of one already started; a ShardedJudge times it."""
-        copy = tree if isinstance(tree, _HostCopy) else _HostCopy(tree)
+        """Result tensors to the host: ONE copy (`_host_copy`), or the
+        wait of one already started; a ShardedJudge times it, and over a
+        pod gathers every rank's rows."""
+        copy = tree if isinstance(tree, _HostCopy) else self._host_copy(tree)
         return copy.wait()
 
     # -- device state ----------------------------------------------------
@@ -880,7 +911,7 @@ class HealthJudge:
             out = per_block(_compact_min_pair, v, a, res.p_value, res.dist_differs, merge=True)
         else:
             out = per_block(_compact_min, v, a, merge=True)
-        return ColumnarPending(self, _HostCopy(out), b0, tc, rows_b, with_bands, pairwise)
+        return ColumnarPending(self, self._host_copy(out), b0, tc, rows_b, with_bands, pairwise)
 
     def _columnar_wait(self, pending: "ColumnarPending"):
         """The gather half: wait for the one copy of the compact result,

@@ -50,7 +50,6 @@ from foremast_tpu_torch.engine.judge import (
     MetricTask,
     MetricVerdict,
     _fetch,
-    _HostCopy,
     bucket_length,
     infer_step,
 )
@@ -292,17 +291,20 @@ def _lstm_joint_judgment(ae_flags, st, x, mask, cutoff, hi_cutoff, gaps):
 
 class JointPending:
     """A dispatched joint columnar judgment: the flags on their way to
-    host memory (`_HostCopy`). `wait()` is the one blocking point."""
+    host memory (`_HostCopy`), waited through the univariate judge's
+    `_fetch` (which, over a pod, gathers every rank's rows). `wait()` is
+    the one blocking point."""
 
-    __slots__ = ("dev", "s0")
+    __slots__ = ("dev", "s0", "fetch")
 
-    def __init__(self, dev, s0: int):
+    def __init__(self, dev, s0: int, fetch):
         self.dev = dev
         self.s0 = s0
+        self.fetch = fetch
 
     def wait(self) -> np.ndarray:
         with span("judge.decode", stage="decode", rows=self.s0, device=True):
-            return self.dev.wait()[0][: self.s0]
+            return self.fetch(self.dev)[0][: self.s0]
 
 
 class MultivariateJudge:
@@ -1017,6 +1019,6 @@ class MultivariateJudge:
                     gaps if gaps is not None else Fill((sb,), 0, torch.int32),
                 )
                 flags = per_block(lstm_joint_score_from_rows, state, rows_d, *operands, merge=True)
-            pending = JointPending(_HostCopy((flags,)), s0)
+            pending = JointPending(self.univariate._host_copy((flags,)), s0, self.univariate._fetch)
         return pending
 

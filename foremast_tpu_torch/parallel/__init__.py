@@ -1,10 +1,10 @@
-"""The device mesh of one process, sharded batch scoring over it, and
-context parallelism for long windows (the JAX package's `parallel/`
-without pod mode, ROADMAP.md Queue 1 item 7c).
+"""The device mesh, sharded batch scoring over it, context parallelism
+for long windows, and pod mode: one worker across several processes
+over `torch.distributed` (the JAX package's `parallel/`).
 
 `parallel.mesh` is imported by the engine itself (the arenas and the
-judge place through it), so the names of `batch` and `seqparallel`,
-which import the engine, resolve on first use."""
+judge place through it), so the names of `batch`, `seqparallel` and
+`distributed`, which import the engine, resolve on first use."""
 
 import importlib
 
@@ -13,16 +13,27 @@ from foremast_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     Blocks,
     Mesh,
+    Pod,
+    PodCollectiveError,
     data_sharding,
+    init_distributed,
     make_global_mesh,
     make_mesh,
     pad_to_multiple,
     per_block,
+    process_count,
+    process_index,
     replicated,
     shard_leading,
 )
 
 _LAZY = {
+    "LeaderSource": "distributed",
+    "LeaderStore": "distributed",
+    "PodCollectiveTimeout": "distributed",
+    "PodWorker": "distributed",
+    "broadcast_obj": "distributed",
+    "is_leader": "distributed",
     "ShardedJudge": "batch",
     "pad_batch": "batch",
     "shard_batch": "batch",
@@ -49,11 +60,16 @@ __all__ = [
     "MODEL_AXIS",
     "Blocks",
     "Mesh",
+    "Pod",
+    "PodCollectiveError",
     "data_sharding",
+    "init_distributed",
     "make_global_mesh",
     "make_mesh",
     "pad_to_multiple",
     "per_block",
+    "process_count",
+    "process_index",
     "replicated",
     "shard_leading",
     *_LAZY,

@@ -15,6 +15,12 @@ multiple of the data axis (pad rows are fully masked -> verdict UNKNOWN,
 dropped on decode), and arenas split their row space over the same axis
 (`FOREMAST_ARENA_SHARDED=0` keeps a replica per device). Admission,
 fit-cache identity and every degradation contract are unchanged.
+
+Over a pod's mesh (`parallel.mesh.Pod`, pod mode) every rank holds the
+same batch, places and judges only its own blocks, and `_fetch` gathers
+every rank's result rows to every rank, cold fits' states included, so
+every rank's fit cache holds the same entries; the arenas are then
+replicated on every rank's devices (`_resolve_arena_shards`).
 """
 
 from __future__ import annotations
@@ -86,14 +92,20 @@ class ShardedJudge(HealthJudge):
     buffer (`_fetch`). `mesh_stats` accounts the two host<->device legs
     the mesh changes: placement (seconds, bytes, calls) and the result
     fetch (seconds, bytes; on a warm tick the fetch also waits for the
-    device work the dispatch queued)."""
+    device work the dispatch queued); over a pod also the result gathers
+    between ranks (calls, bytes gathered, and seconds on the gloo route,
+    where the gather runs after the copy; on the NCCL route it is queued
+    on the card and its time is part of the fetch's)."""
 
     def __init__(self, config: BrainConfig | None = None, mesh: meshlib.Mesh | None = None):
         self.mesh = mesh if mesh is not None else meshlib.make_mesh()
         super().__init__(config, device=self.mesh.data_devices[0])
         for d in self.mesh.data_devices:
             resolve_device(d)
+        # the whole pod's data axis (batches pad to it) and this rank's
+        # share of it (the blocks it places and judges)
         self.n_data = int(self.mesh.shape[meshlib.DATA_AXIS])
+        self.n_local = len(self.mesh.data_devices)
         self._arena_shards_n = self._resolve_arena_shards()
         self.mesh_stats = {
             "place_seconds": 0.0,
@@ -101,6 +113,9 @@ class ShardedJudge(HealthJudge):
             "place_calls": 0,
             "fetch_seconds": 0.0,
             "fetch_bytes": 0,
+            "gathers": 0,
+            "gather_seconds": 0.0,
+            "gather_bytes": 0,
         }
 
     def _batch_multiple(self) -> int:
@@ -113,7 +128,7 @@ class ShardedJudge(HealthJudge):
         blocks = [x for x in meshlib.tree_leaves(placed) if isinstance(x, meshlib.Blocks)]
         if not blocks:
             return
-        meshlib.assert_partitioned(blocks[0], self.n_data)
+        meshlib.assert_partitioned(blocks[0], self.n_local)
         st = self.mesh_stats
         st["place_seconds"] += time.perf_counter() - t0
         st["place_bytes"] += sum(b.nbytes() for b in blocks)
@@ -134,21 +149,44 @@ class ShardedJudge(HealthJudge):
         self._account_place(t0, placed)
         return placed
 
+    def _host_copy(self, tree) -> _HostCopy:
+        pod = self.mesh.pod
+        if pod is None or pod.backend != "nccl":
+            return _HostCopy(tree)
+        # the NCCL route: every rank's packed rows gathered on the card,
+        # queued on the stream (the host does not wait), then one copy
+        copy = _HostCopy(tree, gather=pod.gather_device)
+        self.mesh_stats["gathers"] += 1
+        self.mesh_stats["gather_bytes"] += copy.nbytes
+        return copy
+
     def _fetch(self, tree):
         # the "host gather" leg: one buffer for every block's result; on
         # a warm tick this wait also absorbs the device work the
-        # dispatch queued
+        # dispatch queued. Over a pod on the gloo route every rank's rows
+        # of that buffer are then gathered in rank order (block order)
         t0 = time.perf_counter()
-        copy = tree if isinstance(tree, _HostCopy) else _HostCopy(tree)
-        out = copy.wait()
+        copy = tree if isinstance(tree, _HostCopy) else self._host_copy(tree)
+        pod = self.mesh.pod
         st = self.mesh_stats
+        if pod is not None and pod.backend == "gloo":
+            copy.synchronize()
+            t1 = time.perf_counter()
+            buf = pod.gather_host(copy.buf)
+            st["gathers"] += 1
+            st["gather_seconds"] += time.perf_counter() - t1
+            st["gather_bytes"] += buf.numel()
+            out = copy.unpack(buf)
+        else:
+            out = copy.wait()
         st["fetch_seconds"] += time.perf_counter() - t0
-        st["fetch_bytes"] += copy.nbytes
+        st["fetch_bytes"] += int(sum(a.nbytes for a in out))
         return out
 
     def mesh_debug(self) -> dict:
         """The worker's `/debug/state` device_mesh section body."""
         rows = self.batch_rows_total
+        pod = self.mesh.pod
         return {
             "shape": dict(self.mesh.shape),
             "devices": self.mesh.size,
@@ -156,15 +194,30 @@ class ShardedJudge(HealthJudge):
             "pad_rows_total": self.pad_rows_total,
             "padded_row_fraction": (round(self.pad_rows_total / rows, 4) if rows else None),
             **{k: round(v, 4) if isinstance(v, float) else v for k, v in self.mesh_stats.items()},
+            "pod": (
+                None
+                if pod is None
+                else {
+                    "rank": pod.rank,
+                    "processes": pod.world,
+                    "blocks": [pod.first, pod.first + pod.n_local - 1],
+                    "gather_backend": pod.backend,
+                }
+            ),
         }
 
     def _resolve_arena_shards(self) -> int:
         """How many data-axis blocks the arena row space splits into,
         decided ONCE at construction (a later env change must not flip a
         live judge's layout): n_data by default, 1 (a replica per
-        device) when FOREMAST_ARENA_SHARDED is off."""
+        device) when FOREMAST_ARENA_SHARDED is off, or over a pod: each
+        rank addresses only its own blocks' devices, and pod row
+        assignment relies on every rank deriving identical maps
+        (`parallel.distributed`), so pods keep replicas."""
         raw = (os.environ.get("FOREMAST_ARENA_SHARDED") or "1").strip().lower()
         if raw in ("0", "off", "false", "no", "none", "disabled"):
+            return 1
+        if self.mesh.pod is not None:
             return 1
         return self.n_data
 

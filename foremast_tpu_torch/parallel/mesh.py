@@ -1,4 +1,5 @@
-"""The device mesh of one process: a (data, model) grid of `torch.device`s.
+"""The device mesh: a (data, model) grid of `torch.device`s, of one
+process or, in pod mode, of several.
 
 The JAX package's `parallel/mesh.py` builds a `jax.sharding.Mesh` and lets
 XLA partition each program over it. The port has no partitioner, so a
@@ -16,7 +17,8 @@ mesh here is placement made explicit:
 A sharded program is the single-device program called once per block
 under `torch.cuda.device(block.device)`, on that device's current stream
 (`per_block`); its outputs come back as `Blocks` again. Nothing here
-synchronizes: uploads go through `ops.windows.to_device` (pinned,
+synchronizes but a pod's gather over gloo (which waits on the host copy
+it gathers): uploads go through `ops.windows.to_device` (pinned,
 non-blocking), device-to-device moves are non-blocking copies, and the
 one copy of a result to the host is the judge's (`engine.judge._HostCopy`).
 
@@ -25,8 +27,14 @@ A caller may list a device more than once (`["cuda:0"] * 4`, or
 result gather then runs as it would over distinct cards. The default
 device list never repeats a device.
 
-Pod mode (`init_distributed`, a mesh over several processes) is not
-here: `make_global_mesh` is the local mesh, ROADMAP.md Queue 1 item 7c.
+Pod mode spans several processes (`init_distributed`, then
+`make_global_mesh`): the data axis is the concatenation of every rank's
+blocks in rank order, and `Mesh.pod` (a `Pod`) knows which rank owns
+each block. A rank places only its own blocks' rows (`shard_leading`,
+`Pod.local_rows`), so `per_block` runs only its blocks; the judge then
+gathers every rank's result rows to every rank (`Pod.gather_host` over
+gloo after the one host copy, or `Pod.gather_device` over NCCL before
+it, the backend chosen once by `make_global_mesh`).
 """
 
 from __future__ import annotations
@@ -50,29 +58,38 @@ log = logging.getLogger("foremast_tpu_torch.mesh")
 class Mesh:
     """An [n_data, n_model] grid of torch devices with axis names
     (`data`, `model`). `shape` is `{"data": n_data, "model": n_model}`,
-    as a JAX mesh's is."""
+    as a JAX mesh's is.
 
-    def __init__(self, grid):
+    With `pod` (a mesh over several processes) `shape` and `size` are the
+    whole pod's, while `devices` and `data_devices` are this process's
+    own rows of the grid: the blocks `pod.first` .. `pod.first +
+    pod.n_local - 1` of the data axis."""
+
+    def __init__(self, grid, pod: "Pod | None" = None):
         self.devices = np.empty((len(grid), len(grid[0])), dtype=object)
         for i, row in enumerate(grid):
             for j, d in enumerate(row):
                 self.devices[i, j] = torch.device(d)
+        self.pod = pod
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.devices.shape[0], MODEL_AXIS: self.devices.shape[1]}
+        n_data = self.pod.n_data if self.pod is not None else self.devices.shape[0]
+        return {DATA_AXIS: n_data, MODEL_AXIS: self.devices.shape[1]}
 
     @property
     def size(self) -> int:
-        return int(self.devices.size)
+        return self.shape[DATA_AXIS] * self.shape[MODEL_AXIS]
 
     @property
     def data_devices(self) -> list:
-        """The device of each data-axis block: the grid's first column."""
+        """The device of each of this process's data-axis blocks: the
+        grid's first column."""
         return list(self.devices[:, 0])
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {[str(d) for d in self.devices.ravel()]})"
+        pod = f", {self.pod!r}" if self.pod is not None else ""
+        return f"Mesh({self.shape}, {[str(d) for d in self.devices.ravel()]}{pod})"
 
 
 def local_devices() -> list:
@@ -95,17 +112,23 @@ def make_mesh(n_data: int | None = None, n_model: int = 1, devices: list | None 
     return Mesh([devs[i * n_model : (i + 1) * n_model] for i in range(n_data)])
 
 
-def make_global_mesh(n_model: int = 1) -> Mesh:
-    """The (data, model) mesh over this process's cards. A mesh over
-    several processes is pod mode (ROADMAP.md Queue 1 item 7c); here the
-    model axis must divide the local card count, as it must divide a
-    host's in the JAX package."""
-    local = local_devices()
+def make_global_mesh(n_model: int = 1, devices: list | None = None) -> Mesh:
+    """The (data, model) mesh over every process's devices: this
+    process's `devices` (default: every card it sees, `local_devices`),
+    and in pod mode (a process group of several ranks, `init_distributed`)
+    every other rank's after them, in rank order. The model axis must
+    divide each process's device count, as it must divide a host's in the
+    JAX package. In pod mode every rank must call this at the same point
+    (it is a collective) and hold as many devices as the others."""
+    local = list(devices) if devices is not None else local_devices()
     if n_model > 1 and (n_model > len(local) or len(local) % n_model != 0):
         raise ValueError(
             f"model axis {n_model} must evenly divide the {len(local)} devices of a single host"
         )
-    return make_mesh(n_model=n_model, devices=local)
+    if process_count() == 1:
+        return make_mesh(n_model=n_model, devices=local)
+    grid = [local[i * n_model : (i + 1) * n_model] for i in range(len(local) // n_model)]
+    return Mesh(grid, pod=Pod.build([torch.device(d) for d in local], n_model))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -421,13 +444,16 @@ def _split(a, devs: list):
 def shard_leading(tree, mesh: Mesh):
     """Every array leaf of `tree` with its leading axis over `data`: one
     contiguous row block per data-axis device (`Blocks`). Leaves already
-    sharded, None and scalars pass through."""
+    sharded, None and scalars pass through. Over a pod every rank holds
+    the whole leaf (the same on every rank) and places only its own
+    blocks' rows."""
     devs = mesh.data_devices
+    pod = mesh.pod
 
     def put(a):
         if a is None or isinstance(a, (Blocks, int, float, bool, str)):
             return a
-        return _split(a, devs)
+        return _split(a if pod is None else pod.local_rows(a), devs)
 
     return tree_map(put, tree)
 
@@ -542,8 +568,7 @@ def device_mesh_spec(env: dict | None = None) -> tuple[int | None, int] | None:
 
 
 def _multi_process() -> bool:
-    dist = torch.distributed
-    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    return process_count() > 1
 
 
 def worker_device_mesh(env: dict | None = None, device="cuda") -> Mesh | None:
@@ -572,3 +597,206 @@ def worker_device_mesh(env: dict | None = None, device="cuda") -> Mesh | None:
     if n_data * n_model <= 1:
         return None
     return make_mesh(n_data=n_data, n_model=n_model)
+
+
+# -- pod mode: one mesh over several processes -------------------------------
+
+
+def process_count() -> int:
+    """Processes of the default process group (1 without one)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def process_index() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def init_distributed(
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+) -> bool:
+    """Join the pod's process group: `torch.distributed` over gloo with a
+    `tcp://` rendezvous at the coordinator's `host:port`.
+
+    Explicit arguments win, then the JAX package's cluster knobs
+    (`JAX_COORDINATOR_ADDRESS`, `JAX_NUM_PROCESSES`, `JAX_PROCESS_ID`;
+    torch's own `MASTER_ADDR` family is never read). Returns False, with
+    nothing joined, for a single process: neither the address nor the
+    count given, or a count of 1. Idempotent: an initialized group (this
+    call's, or an embedding application's) is kept, and the answer is
+    whether it spans several processes. Rank 0 listens at the address;
+    a rendezvous that does not complete within the pod's timeout
+    (`FOREMAST_POD_TIMEOUT_SECONDS`, doubled, at least 60 s) raises, as
+    does any other connect failure: a process that carried on alone
+    would leave its peers waiting at the rendezvous."""
+    dist = torch.distributed
+    coordinator_address = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS") or None
+    env_np = os.environ.get("JAX_NUM_PROCESSES")
+    num_processes = num_processes if num_processes is not None else (int(env_np) if env_np else None)
+    env_pid = os.environ.get("JAX_PROCESS_ID")
+    process_id = process_id if process_id is not None else (int(env_pid) if env_pid else None)
+    if coordinator_address is None and num_processes is None:
+        return False
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
+    if num_processes is not None and num_processes <= 1:
+        return False
+    missing = [
+        name
+        for name, v in (
+            ("JAX_COORDINATOR_ADDRESS", coordinator_address),
+            ("JAX_NUM_PROCESSES", num_processes),
+            ("JAX_PROCESS_ID", process_id),
+        )
+        if v is None
+    ]
+    if missing:
+        raise ValueError(f"pod mode needs {', '.join(missing)} as well (the rendezvous, world size and rank)")
+    from foremast_tpu_torch.parallel.distributed import collective_timeout
+
+    dist.init_process_group(
+        backend="gloo",
+        init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes,
+        rank=process_id,
+        timeout=collective_timeout(),
+    )
+    log.info("pod mode: rank %d of %d joined at %s", process_id, num_processes, coordinator_address)
+    return True
+
+
+class PodCollectiveError(BaseException):
+    """A pod collective failed: a peer process died (its sockets closed)
+    or is wedged (`parallel.distributed.PodCollectiveTimeout`). The pod is
+    broken for this process. A BaseException, as SystemExit is, so that no
+    per-document `except Exception` of the worker turns it into a failed
+    document while the process carries on alone: the tick aborts and the
+    process exits, and the in-flight claims age out into another worker
+    (MAX_STUCK_IN_SECONDS)."""
+
+
+def _collective(what: str, fn, *args, **kwargs):
+    try:
+        return fn(*args, **kwargs)
+    except Exception as e:  # noqa: BLE001 - a peer is gone: the pod is broken
+        raise PodCollectiveError(f"pod {what} failed: {e!r}") from e
+
+
+def _device_uuid(d: torch.device) -> str | None:
+    """A card's physical identity (None for the CPU): two ranks that see
+    one card under different indices still compare equal."""
+    if d.type != "cuda":
+        return None
+    return str(torch.cuda.get_device_properties(d).uuid)
+
+
+class Pod:
+    """The process layout of a mesh over several processes.
+
+    `owners` holds the rank of each data-axis block of the whole pod;
+    ranks own equal runs of consecutive blocks in rank order, so this
+    rank's blocks are `first` .. `first + n_local - 1` and a result
+    gathered in rank order is in block order. `backend` is the result
+    gather's:
+
+      * "nccl" when every rank's devices are cards and no card belongs to
+        two ranks: the gather runs on the card, before the host copy
+        (`gather_device`);
+      * "gloo" otherwise — devices on the CPU, or ranks that share a card
+        (NCCL refuses two ranks on one device): the gather runs on host
+        memory after the judge's one host copy (`gather_host`).
+
+    The rule is applied once, at construction, and logged; a gather that
+    fails raises `PodCollectiveError`, never falls back to the other
+    backend. The gather has a
+    process group of its own, so it never interleaves with the leader's
+    broadcasts (`parallel.distributed`)."""
+
+    def __init__(self, rank: int, world: int, owners, backend: str, group, reason: str):
+        self.rank = rank
+        self.world = world
+        self.owners = tuple(owners)
+        self.first = self.owners.index(rank)
+        self.n_local = self.owners.count(rank)
+        self.backend = backend
+        self.group = group
+        self.reason = reason
+
+    @classmethod
+    def build(cls, local: list, n_model: int = 1) -> "Pod":
+        """Collective over the default group: every rank's device count
+        and cards, the owners of the data axis, and the gather's backend
+        and process group."""
+        from foremast_tpu_torch.parallel.distributed import collective_timeout, host_group
+
+        dist = torch.distributed
+        rank, world = process_index(), process_count()
+        every: list = [None] * world
+        dist.all_gather_object(every, (len(local), [_device_uuid(d) for d in local]), group=host_group())
+        counts = sorted({n for n, _ in every})
+        if len(counts) != 1:
+            raise ValueError(f"pod mode needs the same number of devices on every process, got {counts}")
+        owners = [r for r, (n, _) in enumerate(every) for _ in range(n // n_model)]
+        cards = [set(uuids) for _, uuids in every]
+        if any(None in c for c in cards):
+            backend, reason = "gloo", "the devices are on the CPU"
+        elif any(cards[a] & cards[b] for a in range(world) for b in range(a + 1, world)):
+            backend, reason = "gloo", "ranks share a card, which NCCL refuses"
+        else:
+            backend, reason = "nccl", "every rank holds cards of its own"
+        if backend == "nccl":
+            torch.cuda.set_device(local[0])
+        group = dist.new_group(backend=backend, timeout=collective_timeout())
+        pod = cls(rank, world, owners, backend, group, reason)
+        log.info(
+            "pod mesh: %d data-axis blocks over %d processes, rank %d owns blocks %d-%d; "
+            "result gather over %s (%s)",
+            len(owners), world, rank, pod.first, pod.first + pod.n_local - 1, backend, reason,
+        )
+        return pod
+
+    @property
+    def n_data(self) -> int:
+        return len(self.owners)
+
+    def owner(self, block: int) -> int:
+        """The rank that owns data-axis block `block`."""
+        return self.owners[block]
+
+    def local_rows(self, a):
+        """This rank's rows of a leading-axis array over the whole data
+        axis (a view of numpy and tensors; a smaller `Fill`)."""
+        n = a.shape[0]
+        if n % self.n_data:
+            raise ValueError(f"leading axis {n} is not a multiple of the pod's data axis {self.n_data}")
+        per = n // self.n_data
+        lo, hi = self.first * per, (self.first + self.n_local) * per
+        if isinstance(a, Fill):
+            return Fill((hi - lo, *a.shape[1:]), a.value, a.dtype)
+        return a[lo:hi]
+
+    def gather_host(self, buf: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a host buffer, in rank order, on every rank
+        (gloo all-gather: each rank's buffer has the same shape)."""
+        parts = [torch.empty_like(buf) for _ in range(self.world)]
+        _collective("result gather", torch.distributed.all_gather, parts, buf.contiguous(), group=self.group)
+        return torch.cat(parts)
+
+    def gather_device(self, buf: torch.Tensor) -> torch.Tensor:
+        """The same on a card, over NCCL: queued on the current stream,
+        the host does not wait."""
+        out = torch.empty((self.world * buf.shape[0], *buf.shape[1:]), dtype=buf.dtype, device=buf.device)
+        _collective("result gather", torch.distributed.all_gather_into_tensor, out, buf.contiguous(),
+                    group=self.group)
+        return out
+
+    def __repr__(self) -> str:
+        return f"Pod(rank {self.rank} of {self.world}, blocks {self.first}-{self.first + self.n_local - 1}, {self.backend})"

@@ -15,9 +15,11 @@ fleet, with the chaos and tenant sections on `/debug/state` and their
 families on `/metrics`. With `FOREMAST_MESH=1` it seats itself in the
 worker mesh and shows it on `/debug/state`. With `FOREMAST_LOCK_WITNESS=1` it
 checks its lock orders against the static graph and logs the verdict at
-exit. Modes the port does not have are refused with
-`NotImplementedError`. Every subprocess has its own timeout of at most
-60 s."""
+exit. `--sharded` with the JAX_* rendezvous runs pod mode: two processes,
+one logical worker, the leader alone serving the gauge port, persisting
+the model cache and holding a mesh seat. Modes the port does not have
+are refused with `NotImplementedError`. Every subprocess has its own
+timeout of at most 60 s."""
 
 from __future__ import annotations
 
@@ -172,17 +174,16 @@ def test_connect_deadline_exits_loudly(tmp_path):
 @pytest.mark.parametrize(
     "flag,env,item",
     [
-        (["--sharded"], {"JAX_NUM_PROCESSES": "2"}, "item 7, pod mode"),
         ([], {"FOREMAST_RECOMPILE_WITNESS": "1"}, "item 8"),
     ],
-    ids=["sharded", "recompile_witness"],
+    ids=["recompile_witness"],
 )
 def test_unported_modes_are_refused(flag, env, item):
     """Modes the port does not have exit with NotImplementedError naming
-    their ROADMAP item: --sharded where the env asks for pod mode (a mesh
-    over several processes), and the JAX package's recompile witness,
-    which counts XLA recompiles the port does not have. The lock witness
-    is ported: `test_lock_witness_runs_and_reports_at_exit`."""
+    their ROADMAP item: the JAX package's recompile witness, which counts
+    XLA recompiles the port does not have. The lock witness is ported
+    (`test_lock_witness_runs_and_reports_at_exit`), and so is pod mode
+    (`test_sharded_pod_worker`)."""
     proc = _start(["--device", "cpu", "--gauge-port", "0", *flag], env)
     _, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
@@ -600,3 +601,157 @@ def test_ingest_worker_with_microticks_judges_pushes_between_sweeps():
         for srv in (es_srv, prom_srv):
             srv.shutdown()
             srv.server_close()
+
+
+def _bivariate_fleet():
+    """Docs and series of a fleet of 2-alias (bivariate) services whose
+    endTime is past, and the JAX worker's statuses on it under
+    `bivariate_normal`: every doc leaves a joint model in the model cache."""
+    from benchmarks.worker_bench import ArraySource, _add_joint_service
+    from foremast_tpu.jobs.store import InMemoryStore as JaxStore
+
+    now = 1_760_000_000
+    rng = np.random.default_rng(3)
+    store, source = JaxStore(), ArraySource()
+    ht = now - 86_400 * 7 + 60 * np.arange(512, dtype=np.int64)
+    ct = ht[-1] + 60 + 60 * np.arange(30, dtype=np.int64)
+    end = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(now + 3600))
+    for s in range(SERVICES):
+        _add_joint_service(store, source, str(s), ht, ct, 2, end, rng)
+    docs = [d.to_json() for d in store._docs.values()]
+    jax_worker = JaxWorker(store, source, config=JaxConfig(algorithm="bivariate_normal"), device_mesh=None,
+                           worker_id="jax")
+    assert jax_worker.tick() == SERVICES
+    want = {d.id: {f: d.to_json().get(f) for f in FIELDS} for d in store._docs.values()}
+    assert all(w["status"] in TERMINAL_STATUSES for w in want.values())
+    return docs, dict(source.data), want
+
+
+def _start_pod(es_url, gauges, workdir, env_extra, extra_args=()):
+    """Two `worker --sharded --device cpu` processes joined through the
+    JAX_* rendezvous; each rank's stderr goes to its own file."""
+    addr = f"127.0.0.1:{_free_port()}"
+    procs, logs = [], []
+    for rank, gauge in enumerate(gauges):
+        env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_COORDINATOR_ADDRESS=addr, JAX_NUM_PROCESSES="2",
+                   JAX_PROCESS_ID=str(rank), OMP_NUM_THREADS="2", **env_extra)
+        path = Path(workdir) / f"rank{rank}.err"
+        with open(path, "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "foremast_tpu_torch", "worker", "--sharded", "--device", "cpu",
+                 "--elastic-url", es_url, "--gauge-port", str(gauge), "--poll", "0.2", *extra_args],
+                cwd=str(ROOT), env=env, stdout=subprocess.DEVNULL, stderr=log, text=True,
+            ))
+        logs.append(path)
+    return procs, logs
+
+
+def _pod_judged(es, procs, logs, deadline) -> dict | None:
+    while time.monotonic() < deadline and all(p.poll() is None for p in procs):
+        fleet = {k: d for k, d in es.sources().items() if d.get("appName") != "__foremast_mesh__"}
+        if fleet and all(d.get("status") in TERMINAL_STATUSES for d in fleet.values()):
+            return {k: {f: d.get(f) for f in FIELDS} for k, d in fleet.items()}
+        time.sleep(0.1)
+    return None
+
+
+def _stop_pod(procs, logs) -> tuple[list, list]:
+    """SIGTERM to the leader alone: its stop decision is broadcast, so
+    every rank leaves its loop after the same tick and exits 0."""
+    procs[0].send_signal(signal.SIGTERM)
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=30))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rcs.append(p.wait())
+    return rcs, [path.read_text() for path in logs]
+
+
+@pytest.mark.parametrize("case", ["model_cache", "mesh"])
+def test_sharded_pod_worker(services, tmp_path, case):
+    """`worker --sharded --device cpu` with the JAX_* rendezvous is pod
+    mode: two processes judge the fleet as one worker to the JAX worker's
+    statuses, the leader alone serves the gauge port, and a SIGTERM to
+    the leader stops both with 0.
+
+    model_cache: a bivariate fleet (`ML_ALGORITHM=bivariate_normal`, one
+    joint model a doc) with `--model-cache-dir`; the leader writes
+    `model_cache.pod`, and after a restart it restores every model and
+    broadcasts them, so both ranks report the restore and judge the reset
+    fleet to the same statuses again. mesh: `FOREMAST_MESH=1` over the
+    module's fleet; the pod holds ONE membership record, the leader's."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    es, es_url, prom, docs, want = services
+    env = {}
+    extra = ()
+    if case == "model_cache":
+        docs, data, want = _bivariate_fleet()
+        es = FakeElasticsearch()
+        es_srv, es, es_url = serve_fake_es(es)
+        prom2 = FakePrometheus()
+        prom_srv, prom_url = serve_fake_prometheus(prom2)
+        docs, prom2.data = rebase(docs, data, "http://prom", prom_url)
+        env = {"ML_ALGORITHM": "bivariate_normal"}
+        extra = ("--model-cache-dir", str(tmp_path / "models"))
+    else:
+        env = {"FOREMAST_MESH": "1", "FOREMAST_MESH_LEASE_SECONDS": "30"}
+    es.load(docs)
+    try:
+        runs = 2 if case == "model_cache" else 1
+        for run in range(runs):
+            if run:
+                es.set_status("preprocess_completed")
+            gauges = [_free_port(), _free_port()]
+            workdir = tmp_path / f"run{run}"
+            workdir.mkdir()
+            procs, logs = _start_pod(es_url, gauges, workdir, env, extra)
+            try:
+                got = _pod_judged(es, procs, logs, time.monotonic() + 60)
+                state = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{gauges[0]}/debug/state",
+                                                          timeout=10).read())
+                metrics = _scrape(gauges[0])
+                with pytest.raises(urllib.error.URLError):
+                    urllib.request.urlopen(f"http://127.0.0.1:{gauges[1]}/metrics", timeout=5)
+                seats = {k: d for k, d in es.sources().items() if d.get("appName") == "__foremast_mesh__"}
+            finally:
+                rcs, errs = _stop_pod(procs, logs)
+            assert rcs == [0, 0], [e[-3000:] for e in errs]
+            assert got == want, errs[0][-3000:]
+            for rank, err in enumerate(errs):
+                assert f"pod mode: rank {rank} of 2" in err and "result gather over gloo" in err, err[-3000:]
+            assert "pod mode: rank 0 of 2 (leader)" in errs[0] and "(leader)" not in errs[1]
+            dm = state["device_mesh"]
+            assert dm["shape"] == {"data": 2, "model": 1} and dm["arena_layout"] == "replicated"
+            assert dm["pod"] == {"rank": 0, "processes": 2, "blocks": [0, 0], "gather_backend": "gloo"}
+            assert "foremast_tick_stage_seconds_bucket" in metrics  # the leader's tracer
+            if case == "model_cache":
+                ckpt = tmp_path / "models" / "model_cache.pod"
+                assert ckpt.exists()
+                if run:
+                    for err in errs:
+                        assert f"restored {SERVICES} cached models pod-wide from {ckpt}" in err, err[-3000:]
+                else:
+                    assert not any("pod-wide" in err for err in errs)
+            else:
+                with es.lock:  # the module's other tests share this fake index
+                    for k in seats:
+                        es.docs.pop(k)
+                # the univariate fleet's ticks run over the pod's blocks (a
+                # joint doc's object-path judgment runs whole on every rank)
+                assert dm["gathers"] > 0, dm
+                assert len(seats) == 1, seats  # ONE member: the pod, seated by its leader
+                (seat,) = seats.values()
+                wid = json.loads(seat["currentConfig"])["workerId"]
+                assert wid.startswith("pod-") and state["mesh"]["worker_id"] == wid
+                assert state["mesh"]["live_members"] == 1
+                assert all("mesh-of-pods" in err for err in errs)
+    finally:
+        if case == "model_cache":
+            for srv in (es_srv, prom_srv):
+                srv.shutdown()
+                srv.server_close()

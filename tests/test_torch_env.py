@@ -32,10 +32,8 @@ from foremast_tpu_torch.analysis.core import Module
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_ONLY = {"CUDA_HOME", "CXX"}
 # JAX knobs the port never reads: the fused Pallas judgment, XLA's
-# compilation cache, the JAX benchmarks' round, and pod mode's timeout
-# and rank (ROADMAP.md Queue 1 item 7c)
-JAX_ONLY = {"FOREMAST_PALLAS", "FOREMAST_COMPILE_CACHE_DIR", "FOREMAST_BENCH_ROUND",
-            "FOREMAST_POD_TIMEOUT_SECONDS", "JAX_PROCESS_ID"}
+# compilation cache and the JAX benchmarks' round
+JAX_ONLY = {"FOREMAST_PALLAS", "FOREMAST_COMPILE_CACHE_DIR", "FOREMAST_BENCH_ROUND"}
 ENV_PATH = "foremast_tpu_torch/engine/fixture_env.py"
 GOOD = frozenset({"GOOD_KNOB"})
 

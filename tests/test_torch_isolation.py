@@ -38,7 +38,7 @@ for name in ("jobs.convert", "service.app", "watch.crds", "watch.kubeapi", "watc
              "demo.__main__", "metrics.rules", "ui.join", "ui.metrics", "ui.app", "deploy", "deploy.manifests",
              "deploy.__main__", "analysis", "analysis.core", "analysis.interproc", "analysis.lock_order",
              "analysis.env_contract", "analysis.witness", "analysis.__main__", "observe.metrics_lint",
-             "observe.profile"):
+             "observe.profile", "parallel.distributed"):
     assert "foremast_tpu_torch." + name in names, name
 bad = sorted(
     m for m in sys.modules
