@@ -1,8 +1,8 @@
-"""Cross-module program model behind the port's static lock graph.
+"""Cross-module program model behind the port's concurrency rules.
 
 The port's own copy of the resolver in `foremast_tpu/analysis/interproc.py`,
-cut to what `lock_order.py` needs and reading the port's tree
-(`foremast_tpu_torch/`):
+reading the port's tree (`foremast_tpu_torch/`) for the lock graph,
+thread-escape and blocking-under-lock:
 
   * every class, its methods, and the ``threading.Lock``/``RLock``
     attributes it owns (with the creation site, so the runtime witness
@@ -20,12 +20,14 @@ cut to what `lock_order.py` needs and reading the port's tree
     reference assigned to an attribute/dict slot or passed as an
     argument is recorded under that attribute/parameter NAME, and a
     later call of that bare name resolves to the recorded targets;
-  * a fixpoint summary over the resolved call graph: which locks a
-    function may eventually acquire.
+  * fixpoint summaries over the resolved call graph: which locks a
+    function may eventually acquire, and which blocking operations it
+    may eventually perform.
 
 Resolution is deliberately OVER-approximate (a callback name with two
 registered targets resolves to both): the static graph must be a
-superset of every runtime acquisition order. All of it is pure AST:
+superset of every runtime acquisition order, and for
+blocking-under-lock a may-block answer is the conservative one. All of it is pure AST:
 nothing here imports the checked code.
 """
 
@@ -43,6 +45,14 @@ _LOCK_FACTORIES = {
     "Lock": "Lock",
     "RLock": "RLock",
 }
+_MUTATORS = frozenset(
+    {
+        "append", "appendleft", "extend", "insert", "add", "remove",
+        "discard", "pop", "popitem", "clear", "update", "setdefault",
+        "move_to_end", "sort", "reverse",
+    }
+)
+
 
 def dotted(node: ast.AST) -> str | None:
     """`a.b.c` as a string, or None for non-name-rooted expressions."""
@@ -107,6 +117,7 @@ class FunctionInfo:
     class_key: str | None            # owning ClassInfo key, or None
     # filled by the summary fixpoint:
     acquires_all: set = dataclasses.field(default_factory=set)   # {LockId}
+    blocks_all: dict = dataclasses.field(default_factory=dict)   # desc -> site
 
     @property
     def name(self) -> str:
@@ -155,6 +166,7 @@ class Program:
         self._local_type_memo: dict[tuple[int, str], str | None] = {}
         self._nested_memo: dict[int, dict[str, FunctionInfo]] = {}
         self._fn_by_node: dict[int, FunctionInfo] | None = None
+        self._subclasses: dict[str, list[str]] | None = None
         self._index()
         self._collect_callbacks()
         self._summarize()
@@ -539,6 +551,32 @@ class Program:
             cls = nxt
         return None
 
+    def overrides(self, fn: FunctionInfo) -> list[FunctionInfo]:
+        """The methods of `fn`'s name in the subclasses of its class,
+        transitively: where a call through a base-typed receiver
+        (`self.store.count_open()` on a `JobStore`) may land at run
+        time. The call resolver answers the base's method only."""
+        if fn.class_key is None or fn.name not in self._methods_by_name:
+            return []
+        if self._subclasses is None:
+            self._subclasses = {}
+            for cls in self.classes.values():
+                for base in cls.bases:
+                    bkey = self.resolve_class_name(base, cls.module)
+                    if bkey is not None:
+                        self._subclasses.setdefault(bkey, []).append(cls.key)
+        out, stack, seen = [], list(self._subclasses.get(fn.class_key, [])), set()
+        while stack:
+            key = stack.pop()
+            if key in seen:
+                continue
+            seen.add(key)
+            m = self.classes[key].methods.get(fn.name)
+            if m is not None:
+                out.append(m)
+            stack.extend(self._subclasses.get(key, []))
+        return sorted(out, key=lambda f: f.qualname)
+
     def resolve_call(self, call: ast.Call, fn: FunctionInfo) -> list[FunctionInfo]:
         """Possible targets of a call expression (empty = unresolved).
         Unresolved calls of a NAME registered in the callback table
@@ -615,9 +653,12 @@ class Program:
     # -- summaries (fixpoint) --------------------------------------------
 
     def _summarize(self) -> None:
+        from foremast_tpu_torch.analysis.blocking_under_lock import classify_blocking
+
         calls: dict[int, list] = {}
         for fn in self.functions:
             acq: set = set()
+            blk: dict = {}
             cl: list = []
             for node in own_body_walk(fn.node):
                 if isinstance(node, (ast.With, ast.AsyncWith)):
@@ -627,9 +668,13 @@ class Program:
                             acq.add(lock)
                 elif isinstance(node, ast.Call):
                     cl.append(node)
+                    desc = classify_blocking(node)
+                    if desc is not None:
+                        blk.setdefault(desc, fn.site(node))
             # the call graph is fixed once indexed: resolve each call once
             calls[id(fn)] = [callee for call in cl for callee in self.resolve_call(call, fn)]
             fn.acquires_all = acq
+            fn.blocks_all = blk
         changed = True
         while changed:
             changed = False
@@ -638,6 +683,10 @@ class Program:
                     if not callee.acquires_all <= fn.acquires_all:
                         fn.acquires_all |= callee.acquires_all
                         changed = True
+                    for desc, site in callee.blocks_all.items():
+                        if desc not in fn.blocks_all:
+                            fn.blocks_all[desc] = site
+                            changed = True
 
 
 def self_attr(node: ast.AST) -> str | None:
@@ -755,3 +804,32 @@ def own_body_walk(fn_node: ast.AST):
             if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 continue
             stack.append(child)
+
+
+def mutated_attr(node: ast.AST) -> tuple[str | None, ast.AST | None]:
+    """(attr, receiver) for an attribute mutation node: `recv.attr = v`,
+    `recv.attr += v`, `recv.attr[k] = v`, `del recv.attr`, or a
+    mutating method call `recv.attr.append(v)` / `recv.attr.update(d)`.
+    Returns (None, None) for anything else."""
+    if isinstance(node, (ast.Assign, ast.Delete)):
+        for t in node.targets:
+            a, r = _mut_target(t)
+            if a is not None:
+                return a, r
+        return None, None
+    if isinstance(node, ast.AugAssign):
+        return _mut_target(node.target)
+    if isinstance(node, ast.Call):
+        func = node.func
+        if isinstance(func, ast.Attribute) and func.attr in _MUTATORS:
+            if isinstance(func.value, ast.Attribute):
+                return func.value.attr, func.value.value
+    return None, None
+
+
+def _mut_target(t: ast.AST) -> tuple[str | None, ast.AST | None]:
+    while isinstance(t, ast.Subscript):
+        t = t.value
+    if isinstance(t, ast.Attribute):
+        return t.attr, t.value
+    return None, None

@@ -140,13 +140,14 @@ class FaultPlan:
             for r in self.rules
         )
         # construction-time writes: dataclasses run __post_init__ before
-        # the instance is published to any other thread
-        self._epoch: float | None = None
+        # the instance is published to any other thread, so these three
+        # are the same pre-publication case as a plain __init__ body
+        self._epoch: float | None = None  # foremast: ignore[lock-discipline] — pre-publication init
         self._lock = threading.Lock()
         # (edge, kind) -> count; mutated under _lock (perturb runs on
         # receiver handler threads AND worker fetch pools concurrently)
-        self.injections: dict[tuple[str, str], int] = {}
-        self._edges: dict[str, EdgeChaos] = {}
+        self.injections: dict[tuple[str, str], int] = {}  # foremast: ignore[lock-discipline] — pre-publication init
+        self._edges: dict[str, EdgeChaos] = {}  # foremast: ignore[lock-discipline] — pre-publication init
 
     # -- lifecycle ------------------------------------------------------
 

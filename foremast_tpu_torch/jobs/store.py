@@ -557,8 +557,12 @@ class ElasticsearchStore(JobStore):
 
     def count_open(self) -> int:
         # runs on probe/varz threads: the dedicated probe session (never
-        # the tick thread's), serialized by its lock, with a short timeout
+        # the tick thread's), serialized by its lock, with a short timeout.
+        # _probe_lock exists to serialize the one probe Session between
+        # scrape and health threads: the HTTP round trip IS its critical
+        # section; worker ticks use the main session, never this lock
         with span("es.count_open"), self._probe_lock:
+            # foremast: ignore[blocking-under-lock] — the round trip is the critical section
             r = self._probe_s.post(
                 self._url("_count"), json={"query": self._OPEN_QUERY}, timeout=min(self.timeout, 2.0)
             )

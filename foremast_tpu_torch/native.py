@@ -64,8 +64,10 @@ def load() -> ctypes.CDLL | None:
     global _lib, _tried, _error
     if os.environ.get("FOREMAST_NATIVE", "") == "0":
         return None
-    if _tried:
-        return _lib
+    # every read of the loader state is under the lock: `_tried` is set
+    # before the build and `_lib` after it, so a caller that read
+    # `_tried` outside would take the numpy loops while another thread
+    # builds
     with _lock:
         if _tried:
             return _lib
@@ -73,7 +75,10 @@ def load() -> ctypes.CDLL | None:
         try:
             path = _lib_path()
             if not path.exists():
-                _build(path)
+                # one-shot startup path: the lock spans the build, so a
+                # racing load() waits for the library instead of packing
+                # without it
+                _build(path)  # foremast: ignore[blocking-under-lock] — one-shot build, see above
             lib = ctypes.CDLL(str(path))
             lib.fp_abi_version.restype = ctypes.c_int32
             if lib.fp_abi_version() != ABI_VERSION:
@@ -110,7 +115,9 @@ def ensure_built() -> bool:
 
 def error() -> str | None:
     """Why the library is unavailable, or None."""
-    return _error
+    # a status read for the startup warning: one reference, set once
+    # under _lock; taking the lock here would wait out a build
+    return _error  # foremast: ignore[lock-discipline] — racy status read, see above
 
 
 def _value_rows(series) -> list[np.ndarray]:

@@ -342,7 +342,10 @@ class Tracer:
         target = path or self.trace_path()
         with self._io_lock:
             os.makedirs(os.path.dirname(target) or ".", exist_ok=True)
-            self.ring.dump_jsonl(target)
+            # _io_lock exists to serialize exactly this dump between
+            # explicit flush() callers and the autoflush daemon: two
+            # unguarded writers would truncate each other's temp file
+            self.ring.dump_jsonl(target)  # foremast: ignore[blocking-under-lock] — see above
         with self._flush_lock:
             self._last_flush = time.monotonic()
         return target

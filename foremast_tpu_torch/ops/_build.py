@@ -116,7 +116,11 @@ def library(name: str) -> ctypes.CDLL:
         return lib
     with _lock:
         if name not in _libs:
-            build_all()
+            # one-shot first-launch build: the lock must span it, or a
+            # second launching thread would start nvcc on the same
+            # per-process temporary paths; later calls take the
+            # lock-free `_libs` read above
+            build_all()  # foremast: ignore[blocking-under-lock] — one-shot build, see above
             digest = _source_hash()
             for kname, argtypes in _ARGTYPES.items():
                 loaded = ctypes.CDLL(str(_lib_path(kname, digest)))

@@ -37,7 +37,9 @@ for name in ("jobs.convert", "service.app", "watch.crds", "watch.kubeapi", "watc
              "watch.controller", "watch.plane", "reactive.watchstream", "instrument.starter", "demo.app",
              "demo.__main__", "metrics.rules", "ui.join", "ui.metrics", "ui.app", "deploy", "deploy.manifests",
              "deploy.__main__", "analysis", "analysis.core", "analysis.interproc", "analysis.lock_order",
-             "analysis.env_contract", "analysis.witness", "analysis.__main__", "observe.metrics_lint",
+             "analysis.env_contract", "analysis.witness", "analysis.__main__", "analysis.async_blocking",
+             "analysis.lock_discipline", "analysis.thread_escape", "analysis.blocking_under_lock",
+             "observe.metrics_lint",
              "observe.profile", "parallel.distributed"):
     assert "foremast_tpu_torch." + name in names, name
 bad = sorted(
