@@ -167,6 +167,8 @@ class Program:
         self._nested_memo: dict[int, dict[str, FunctionInfo]] = {}
         self._fn_by_node: dict[int, FunctionInfo] | None = None
         self._subclasses: dict[str, list[str]] | None = None
+        self._enclosing: dict | None = None
+        self._direct_memo: dict[tuple[int, int], list[FunctionInfo]] = {}
         self._index()
         self._collect_callbacks()
         self._summarize()
@@ -577,6 +579,32 @@ class Program:
             stack.extend(self._subclasses.get(key, []))
         return sorted(out, key=lambda f: f.qualname)
 
+    def closure_target(self, name: str, fn: FunctionInfo) -> FunctionInfo | None:
+        """The def a bare `name` called in `fn` denotes when `fn` is
+        nested: the first enclosing function (innermost first) that
+        defines `name`. The port's `ThreadingHTTPServer` handlers are
+        classes inside the function that starts the server, calling its
+        closures."""
+        if self._enclosing is None:
+            by_node = {id(f.node): f for f in self.functions}
+            self._enclosing = {}
+            for outer in self.functions:
+                stack = list(ast.iter_child_nodes(outer.node))
+                while stack:
+                    node = stack.pop()
+                    inner = by_node.get(id(node))
+                    if inner is not None:
+                        self._enclosing[inner] = outer
+                        continue  # deeper defs belong to `inner`
+                    stack.extend(ast.iter_child_nodes(node))
+        outer = self._enclosing.get(fn)
+        while outer is not None:
+            nested = self._nested_defs(outer).get(name)
+            if nested is not None:
+                return nested
+            outer = self._enclosing.get(outer)
+        return None
+
     def resolve_call(self, call: ast.Call, fn: FunctionInfo) -> list[FunctionInfo]:
         """Possible targets of a call expression (empty = unresolved).
         Unresolved calls of a NAME registered in the callback table
@@ -617,6 +645,45 @@ class Program:
                 return sorted(
                     self.callbacks[func.attr], key=lambda f: f.qualname
                 )
+        return out
+
+    def resolve_call_direct(self, call: ast.Call, fn: FunctionInfo) -> list[FunctionInfo]:
+        """`resolve_call` minus the callback-table spread: only callees
+        the call site names (the same simple name, or a constructor
+        call naming the class), with the overrides of a resolved method
+        in its class's subclasses (a call on a `JobStore` may land in
+        `LeaderStore`) and, for an unresolved bare name, the closure an
+        enclosing function defines. The lock and blocking summaries
+        want the callback over-approximation; the taint and ownership
+        rules (device-flow, status-machine) must not have it: a generic
+        driver's `cb(...)` resolved to every registered callback would
+        marry the driver's call sites to every callback's parameters.
+        Memoized: the call graph is fixed once indexed."""
+        key = (id(call), id(fn))
+        out = self._direct_memo.get(key)
+        if out is not None:
+            return out
+        func = call.func
+        if isinstance(func, ast.Name):
+            name = func.id
+        elif isinstance(func, ast.Attribute):
+            name = func.attr
+        else:
+            name = None
+        out = []
+        for callee in self.resolve_call(call, fn) if name else ():
+            if callee.name == name:
+                out.append(callee)
+                out += [o for o in self.overrides(callee) if o not in out]
+            elif callee.name == "__init__" and callee.class_key is not None:
+                cls = self.classes.get(callee.class_key)
+                if cls is not None and cls.name == name:
+                    out.append(callee)
+        if not out and isinstance(func, ast.Name):
+            closure = self.closure_target(func.id, fn)
+            if closure is not None:
+                out.append(closure)
+        self._direct_memo[key] = out
         return out
 
     # -- lock identification ---------------------------------------------

@@ -112,7 +112,6 @@ def reachable_functions(program: Program, roots: set) -> set:
     nested handler class calls by bare name (the port's
     `ThreadingHTTPServer` handlers are classes inside the function that
     starts the server, calling its closures)."""
-    enclosing = _enclosing_functions(program)
     seen = set(roots)
     frontier = list(roots)
     while frontier:
@@ -122,40 +121,14 @@ def reachable_functions(program: Program, roots: set) -> set:
             if isinstance(node, ast.Call):
                 callees = program.resolve_call(node, fn)
                 if not callees and isinstance(node.func, ast.Name):
-                    callees = _closure_targets(program, enclosing, fn, node.func.id)
+                    closure = program.closure_target(node.func.id, fn)
+                    callees = [closure] if closure is not None else []
                 found += callees
         for callee in found:
             if callee not in seen:
                 seen.add(callee)
                 frontier.append(callee)
     return seen
-
-
-def _enclosing_functions(program: Program) -> dict:
-    """FunctionInfo -> the innermost function whose body defines it
-    (directly or inside a class body), for nested definitions only."""
-    by_node = {id(f.node): f for f in program.functions}
-    out = {}
-    for outer in program.functions:
-        stack = list(ast.iter_child_nodes(outer.node))
-        while stack:
-            node = stack.pop()
-            inner = by_node.get(id(node))
-            if inner is not None:
-                out[inner] = outer
-                continue  # deeper defs belong to `inner`
-            stack.extend(ast.iter_child_nodes(node))
-    return out
-
-
-def _closure_targets(program: Program, enclosing: dict, fn: FunctionInfo, name: str) -> list:
-    outer = enclosing.get(fn)
-    while outer is not None:
-        nested = program._nested_defs(outer).get(name)
-        if nested is not None:
-            return [nested]
-        outer = enclosing.get(outer)
-    return []
 
 
 # ---------------------------------------------------------------------------

@@ -338,6 +338,9 @@ class _HostCopy:
         for event in self.events:
             event.synchronize()
 
+    # The gather's host half: `buf` is the pinned host buffer the copy
+    # landed in, read after `synchronize`.
+    # foremast: device-boundary
     def unpack(self, buf: torch.Tensor) -> tuple[np.ndarray, ...]:
         """The result columns of a host buffer laid out as `buf` (this
         copy's, or several ranks' rows of it gathered end to end)."""
@@ -349,6 +352,8 @@ class _HostCopy:
             off += nbytes
         return tuple(out)
 
+    # The designated gather: waits for the one copy, then unpacks.
+    # foremast: device-boundary
     def wait(self) -> tuple[np.ndarray, ...]:
         self.synchronize()
         return self.unpack(self.buf)
@@ -1007,6 +1012,9 @@ class HealthJudge:
         with span("judge.decode", stage="decode", rows=len(tasks), device=True):
             return self._decode_bucket(tasks, res, tc)
 
+    # The object path's designated gather stage: one device-to-host copy of
+    # the whole result tuple, then verdicts built on the host.
+    # foremast: device-boundary
     def _decode_bucket(
         self, tasks: list[MetricTask], res: scoring.ScoreResult, tc: int
     ) -> list[MetricVerdict]:

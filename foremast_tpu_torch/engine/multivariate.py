@@ -170,6 +170,10 @@ def _pack_np(rows: list[np.ndarray], length: int) -> tuple[np.ndarray, np.ndarra
     return out, mask
 
 
+# Checkpoint-entry coercion: rebuilds the AE parameters and the MVN state
+# as host numpy from whatever layout a checkpoint restored; the scalar
+# reads here are the rehydration contract.
+# foremast: device-boundary
 def _coerce_entry(entry) -> tuple:
     """Normalize an LSTM cache entry to (AEParams of numpy leaves, float,
     float, mvn | None).
@@ -378,6 +382,9 @@ class MultivariateJudge:
         ct, cv = _align(job_tasks, "cur")
         return _JointJob(job_tasks, ht, hv, ct, cv)
 
+    # Pairwise decode stage: gathers the rank tests' (p, differs) for host
+    # emission.
+    # foremast: device-boundary
     def _pairwise(self, joints: list[_JointJob]) -> list[tuple[np.ndarray, np.ndarray]]:
         """Per-job (p [F], differs [F]): each alias's raw current window
         tested against its own baseline window. Metrics without a
@@ -469,6 +476,9 @@ class MultivariateJudge:
 
     # -- bivariate -------------------------------------------------------
 
+    # Slow-path bivariate stage: fit, dispatch, gather and verdict decode in
+    # one body (the cold-fit regime; the warm path is joint_columnar).
+    # foremast: device-boundary
     def _judge_bivariate(self, jobs: list[list[MetricTask]]) -> list[MetricVerdict]:
         threshold = self.config.anomaly.rule_for(None).threshold
         min_pts = self.config.min_historical_points
@@ -570,6 +580,10 @@ class MultivariateJudge:
         for i, j in enumerate(to_train):
             entries[id(j)] = (tree_map(lambda a, i=i: a[i], from_leaves(host)), float(mu_np[i]), float(sd_np[i]), None)
 
+    # Slow-path LSTM/MVN group stage: fit, dispatch, gather and verdict
+    # decode in one body (the cold-fit regime; the warm path is
+    # joint_columnar).
+    # foremast: device-boundary
     def _judge_lstm_group(self, joints, pw, f: int, tc: int, threshold: float) -> list[MetricVerdict]:
         # entries kept locally: the bounded cache may evict mid-batch
         entries: dict[int, tuple] = {}
@@ -696,6 +710,9 @@ class MultivariateJudge:
             "valid": np.asarray([m[6] for m in mvns])[:, None] & cur_mask,
         }
 
+    # Cold MVN fit stage: uploads aligned histories, runs the fit, gathers
+    # the state to host numpy for the cache entry.
+    # foremast: device-boundary
     def _fit_mvn_batch(self, need: list[_JointJob], entries: dict, f: int, tc: int, season: int) -> None:
         """Fit the residual MVN for one identifiability partition and fold
         the state into each job's cache entry (time-anchored)."""
@@ -907,6 +924,10 @@ class MultivariateJudge:
             "valid": np.bool_(mvn[6]),
         }
 
+    # The warm joint gather stage: arrays in, the from-rows programs
+    # dispatched, flags gathered to host numpy out (the joint counterpart of
+    # the worker's _decode_uni).
+    # foremast: device-boundary
     def joint_columnar(self, mode, keys, entries, metas, cur, mask, gaps=None) -> np.ndarray:
         """Batched warm judgment of admitted joint docs — arrays in, host
         flags [S, tcb] out: `joint_columnar_async` then `wait()`."""

@@ -1962,6 +1962,10 @@ class BrainWorker:
             base_mask=packed.base_m,
         )
 
+    # The uni fast path's designated decode stage: it consumes the
+    # gathered columnar result tuple, and everything it hands on (verdicts,
+    # decided docs) is host.
+    # foremast: device-boundary
     def _decode_uni(self, packed: _UniPacked, res, now: float) -> list:
         """The decode half (any single consumer thread: the sliced sweep
         runs it on the writer after `ColumnarPending.wait()`):
@@ -2581,6 +2585,7 @@ class BrainWorker:
     # failures all have protected edges already (claim brownout -> empty
     # cycle, deadline -> _release_docs, pipeline abort -> _abort_slice,
     # judge error -> _judge_chunk's StageError write).
+    # foremast: ignore[status-machine]
     def _tick(self, now: float | None = None, micro=None) -> int:
         t0 = time.perf_counter()
         self._tick_deadline = self._degrade.deadline(t0)

@@ -106,7 +106,7 @@ class ShardedJudge(HealthJudge):
         # share of it (the blocks it places and judges)
         self.n_data = int(self.mesh.shape[meshlib.DATA_AXIS])
         self.n_local = len(self.mesh.data_devices)
-        self._arena_shards_n = self._resolve_arena_shards()
+        self._arena_shards_n = self._resolve_arena_shards()  # foremast: sharded-arena
         self.mesh_stats = {
             "place_seconds": 0.0,
             "place_bytes": 0,
@@ -206,6 +206,8 @@ class ShardedJudge(HealthJudge):
             ),
         }
 
+    # Decides the layout once; reads no rows.
+    # foremast: sharded-arena
     def _resolve_arena_shards(self) -> int:
         """How many data-axis blocks the arena row space splits into,
         decided ONCE at construction (a later env change must not flip a
@@ -221,9 +223,12 @@ class ShardedJudge(HealthJudge):
             return 1
         return self.n_data
 
+    # foremast: sharded-arena
     def _arena_shards(self) -> int:
         return self._arena_shards_n
 
+    # The block layout of the batch itself: position i's row on i's device.
+    # foremast: sharded-arena
     def _arena_sharding(self):
         # the state rows split over the data axis in the batch's own
         # contiguous blocks: the block placement rule
@@ -247,6 +252,9 @@ class ShardedJudge(HealthJudge):
         if target != b:
             empty = np.zeros(0, np.float32)
             et = np.zeros(0, np.int64)
+            # one pad key a block: each pad position's key names the block
+            # the placement rule puts it on
+            # foremast: sharded-arena
             shards = self._arena_shards()
             per = target // shards
 
@@ -286,17 +294,24 @@ def throughput_batch(
     cv = (0.5 + 0.05 * rng.standard_normal((n_windows, cur_len))).astype(np.float32)
     bv = (0.5 + 0.05 * rng.standard_normal((n_windows, cur_len))).astype(np.float32)
     t0 = 1_700_000_000
+    # A bench-only constructor: it builds the synthetic batch on `dev`
+    # directly, and a mesh run re-places it through shard_batch below.
+    # foremast: ignore[sharding-contract]
     ht = t0 + 60 * torch.arange(hist_len, dtype=torch.int32, device=dev)
+    # foremast: ignore[sharding-contract]
     ct = t0 + 60 * torch.arange(cur_len, dtype=torch.int32, device=dev)
 
     def win(v: np.ndarray, t: torch.Tensor) -> MetricWindows:
         return MetricWindows(
+            # foremast: ignore[sharding-contract, device-flow]
             values=torch.from_numpy(v).to(dev),
+            # foremast: ignore[sharding-contract]
             mask=torch.ones(v.shape, dtype=torch.bool, device=dev),
             times=t.expand(v.shape).contiguous(),
         )
 
     def full(value, dtype) -> torch.Tensor:
+        # foremast: ignore[sharding-contract]
         return torch.full((n_windows,), value, dtype=dtype, device=dev)
 
     batch = scoring.ScoreBatch(

@@ -341,6 +341,11 @@ class PodWorker(BrainWorker):
     programs (or one take the stacked-score fallback while its peers use
     the arena) and desynchronize the gathers."""
 
+    # Knob-level arena interaction only (the budget read on the leader,
+    # set alike on every rank), no row access: a pod's arenas are
+    # replicas (`ShardedJudge._resolve_arena_shards` gives 1), which keeps
+    # the row-placement contract trivially.
+    # foremast: sharded-arena
     def __init__(self, store, source, config=None, device="cuda", device_mesh="pod", **kwargs):
         if isinstance(device_mesh, str) and device_mesh == "pod":
             cpu = torch.device(device).type != "cuda"

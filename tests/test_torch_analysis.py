@@ -106,7 +106,7 @@ def test_scope_repo_rules_cover_the_port_tests_and_smoke():
     assert not LockDisciplineChecker().applies_to("tests/test_torch_x.py")
     assert not LockDisciplineChecker().applies_to("chip_smoke.py")
     assert LockDisciplineChecker().applies_to(f"{PACKAGE}/jobs/worker.py")
-    assert [c.rule for c in all_checkers()] == ["async-blocking", "lock-discipline"]
+    assert [c.rule for c in all_checkers()] == ["async-blocking", "lock-discipline", "metrics-contract"]
 
 
 def test_default_scan_includes_the_port_tests_and_smoke():
@@ -229,9 +229,11 @@ def test_missing_baseline_means_empty(tmp_path):
 def test_tree_clean_against_committed_baseline():
     """`python -m foremast_tpu_torch.analysis` exits 0 on this tree: the
     per-module rules over the package, the port's tests and the smoke
-    script, the env contract, the whole-program concurrency rules, the
-    README's knob table and the metrics lint, against the committed
-    baseline, which is empty and stays so."""
+    script, the env contract, the whole-program rules (concurrency,
+    device-flow, sharding-contract, status-machine), the README's knob
+    table and family index, the metric registry's coverage and the
+    metrics lint, against the committed baseline, which is empty and
+    stays so."""
     from foremast_tpu_torch.analysis.__main__ import BASELINE_NAME, tree_findings
 
     path = os.path.join(ROOT, BASELINE_NAME)

@@ -39,6 +39,8 @@ for name in ("jobs.convert", "service.app", "watch.crds", "watch.kubeapi", "watc
              "deploy.__main__", "analysis", "analysis.core", "analysis.interproc", "analysis.lock_order",
              "analysis.env_contract", "analysis.witness", "analysis.__main__", "analysis.async_blocking",
              "analysis.lock_discipline", "analysis.thread_escape", "analysis.blocking_under_lock",
+             "analysis.metrics_contract", "analysis.sharding_contract", "analysis.status_machine",
+             "analysis.device_flow",
              "observe.metrics_lint",
              "observe.profile", "parallel.distributed"):
     assert "foremast_tpu_torch." + name in names, name
