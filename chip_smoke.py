@@ -1497,7 +1497,7 @@ def phase_worker(dev, smi: str, columnar_s: float) -> dict:
                   f"tick's {gpu[name]['seconds']:.3f} s; {sweep['slices']} slices, {sweep['slow_docs']} slow docs, "
                   f"preemptions: promoted {sweep['promoted']}, in-flight requeued {sweep['inflight_requeued']}, "
                   f"micro-ticks {sweep['preempt_microticks']}; warm pipeline overlap "
-                  f"{pipe.get('overlap_ratio', 0.0):.2f}, device idle {pipe.get('device_idle_seconds', 0.0):.3f} s")
+                  f"{pipe.get('overlap_ratio', 0.0):.2f}, judge stall {pipe.get('judge_stall_seconds', 0.0):.3f} s")
     print(f"phase 6: the sliced sweeps (2,048 and 1,024 docs a slice) wrote every doc's (status, code, reason, "
           f"anomaly_info) and the arena counters of the monolithic tick, cold, warm and spiked; their columnar "
           f"dispatches ran under set_sync_debug_mode(\"error\")")

@@ -25,6 +25,9 @@ ShardedJudge` overrides them to split every batch over a device mesh,
 where each program then runs once a block (`parallel.mesh.per_block`).
 The stages — fit, arena_assemble, score, decode — are `observe.spans`
 spans, as in the JAX judge, so a worker tick's breakdown attributes them.
+Two more are the port's own: `pack` (the object path's operand packing
+and placement) and `device_wait` (the host blocked on a result copy,
+nested in the fit or decode it belongs to).
 """
 
 from __future__ import annotations
@@ -334,9 +337,12 @@ class _HostCopy:
         return all(event.query() for event in self.events)
 
     def synchronize(self) -> None:
-        """Wait until every copy has landed in `buf`."""
-        for event in self.events:
-            event.synchronize()
+        """Wait until every copy has landed in `buf`: every host wait on
+        a result from the card passes here, inside the fit or decode
+        span it belongs to."""
+        with span("judge.device_wait", stage="device_wait", copies=len(self.events)):
+            for event in self.events:
+                event.synchronize()
 
     # The gather's host half: `buf` is the pinned host buffer the copy
     # landed in, read after `synchronize`.
@@ -925,22 +931,22 @@ class HealthJudge:
         ps = differs = None
         with span("judge.decode", stage="decode", rows=pending.rows, device=True):
             got = self._fetch(pending.dev)
-        if pending.with_bands and pending.pairwise:
-            v8, packed, ub, lb, ps, differs = got
-            ub, lb = ub[:b0], lb[:b0]
-        elif pending.with_bands:
-            v8, packed, ub, lb = got
-            ub, lb = ub[:b0], lb[:b0]
-        elif pending.pairwise:
-            v8, packed, ps, differs = got
-            ub = lb = None
-        else:
-            v8, packed = got
-            ub = lb = None
-        anoms = np.unpackbits(packed, axis=1, count=tc)
-        if ps is not None:
-            ps, differs = ps[:b0], differs[:b0]
-        return v8[:b0], anoms[:b0], ub, lb, ps, differs
+            if pending.with_bands and pending.pairwise:
+                v8, packed, ub, lb, ps, differs = got
+                ub, lb = ub[:b0], lb[:b0]
+            elif pending.with_bands:
+                v8, packed, ub, lb = got
+                ub, lb = ub[:b0], lb[:b0]
+            elif pending.pairwise:
+                v8, packed, ps, differs = got
+                ub = lb = None
+            else:
+                v8, packed = got
+                ub = lb = None
+            anoms = np.unpackbits(packed, axis=1, count=tc)
+            if ps is not None:
+                ps, differs = ps[:b0], differs[:b0]
+            return v8[:b0], anoms[:b0], ub, lb, ps, differs
 
     # -- the object path -------------------------------------------------
 
@@ -952,45 +958,46 @@ class HealthJudge:
         use_cache = self.fit_cache is not None
         # host operands, placed once below (uploaded, or split over the
         # mesh on a ShardedJudge)
-        cur = MetricWindows.from_ragged(
-            [(t.cur_times, t.cur_values) for t in tasks], tc, "cpu", device_times=False
-        )
-        if all(t.base_values is None for t in tasks):
-            # baseline-less bucket: an all-masked baseline fails every
-            # pairwise min-points gate, so zeros at the same shape, made
-            # on the device
-            base = _zero_windows(b, tc)
-        else:
-            empty = (np.zeros(0, np.int64), np.zeros(0, np.float32))
-            base = MetricWindows.from_ragged(
-                [
-                    (t.base_times, t.base_values) if t.base_values is not None else empty
-                    for t in tasks
-                ],
-                tc,
-                "cpu",
-                device_times=False,
+        with span("judge.pack", stage="pack", rows=b):
+            cur = MetricWindows.from_ragged(
+                [(t.cur_times, t.cur_values) for t in tasks], tc, "cpu", device_times=False
             )
-        if use_cache:
-            # the cached path packs and uploads histories only for
-            # cache-miss rows; a fully warm tick ships zero history bytes
-            hist = _zero_windows(b, 0)
-        else:
-            hist = MetricWindows.from_ragged(
-                [(t.hist_times, t.hist_values) for t in tasks], th, "cpu", device_times=False
+            if all(t.base_values is None for t in tasks):
+                # baseline-less bucket: an all-masked baseline fails every
+                # pairwise min-points gate, so zeros at the same shape, made
+                # on the device
+                base = _zero_windows(b, tc)
+            else:
+                empty = (np.zeros(0, np.int64), np.zeros(0, np.float32))
+                base = MetricWindows.from_ragged(
+                    [
+                        (t.base_times, t.base_values) if t.base_values is not None else empty
+                        for t in tasks
+                    ],
+                    tc,
+                    "cpu",
+                    device_times=False,
+                )
+            if use_cache:
+                # the cached path packs and uploads histories only for
+                # cache-miss rows; a fully warm tick ships zero history bytes
+                hist = _zero_windows(b, 0)
+            else:
+                hist = MetricWindows.from_ragged(
+                    [(t.hist_times, t.hist_values) for t in tasks], th, "cpu", device_times=False
+                )
+            thr, bound, mlb = cfg.anomaly.gather([t.metric_type for t in tasks])
+            batch = self._place(
+                scoring.ScoreBatch(
+                    historical=hist,
+                    current=cur,
+                    baseline=base,
+                    threshold=thr,
+                    bound=bound,
+                    min_lower_bound=mlb,
+                    min_points=Fill((b,), cfg.min_historical_points, torch.int32),
+                )
             )
-        thr, bound, mlb = cfg.anomaly.gather([t.metric_type for t in tasks])
-        batch = self._place(
-            scoring.ScoreBatch(
-                historical=hist,
-                current=cur,
-                baseline=base,
-                threshold=thr,
-                bound=bound,
-                min_lower_bound=mlb,
-                min_points=Fill((b,), cfg.min_historical_points, torch.int32),
-            )
-        )
         if use_cache:
             res = self._score_with_fit_cache(batch, tasks, th)
         else:

@@ -74,6 +74,8 @@ import queue
 import threading
 import time
 
+from foremast_tpu_torch.observe.spans import span
+
 log = logging.getLogger("foremast_tpu_torch.pipeline")
 
 DEFAULT_DEPTH = 2
@@ -137,8 +139,9 @@ class PipelineStats:
         self.fetch_seconds = 0.0  # stage-busy, summed over chunks
         self.judge_seconds = 0.0  # device dispatch + verdict decode
         self.write_seconds = 0.0  # status decide + store round trips
-        # time the judge stage spent waiting for its chunk's windows —
-        # the device sat idle for exactly this long
+        # time the judge stage (the tick thread) spent waiting for its
+        # chunk's windows: a host stall, which the device may or may not
+        # have spent idle (the `pipeline.judge_stall` spans time the same)
         self.judge_stall_seconds = 0.0
         self.write_queue_peak = 0
         self.wall_seconds = 0.0
@@ -162,7 +165,7 @@ class PipelineStats:
             "fetch_seconds": round(self.fetch_seconds, 4),
             "judge_seconds": round(self.judge_seconds, 4),
             "write_seconds": round(self.write_seconds, 4),
-            "device_idle_seconds": round(self.judge_stall_seconds, 4),
+            "judge_stall_seconds": round(self.judge_stall_seconds, 4),
             "write_queue_peak": self.write_queue_peak,
             "wall_seconds": round(self.wall_seconds, 4),
             "overlap_ratio": round(self.overlap_ratio(), 4),
@@ -336,9 +339,13 @@ class ChunkPipeline:
                     break  # writer failed; don't burn device time on
                     # a judgment whose result could never be written
                 chunk, fut = pending.popleft()
-                t0 = time.perf_counter()
-                fetch_s, payload = fut.result()
-                stats.judge_stall_seconds += time.perf_counter() - t0
+                # no stage: a wait on this thread must not cover the
+                # other threads' work in a tick's stage breakdown
+                with span("pipeline.judge_stall"):
+                    t0 = time.perf_counter()
+                    fetch_s, payload = fut.result()
+                    stall = time.perf_counter() - t0
+                stats.judge_stall_seconds += stall
                 stats.fetch_seconds += fetch_s
                 if payload is END:
                     # lazy source drained: stop SUBMITTING, but keep

@@ -1656,6 +1656,16 @@ class BrainWorker:
         slow) — the baseline-less, canary, joint and object-path doc
         groups; an admitted univariate item is (doc, end_epoch, rowsinfo,
         ops), a joint one (doc, end_epoch, jinfo)."""
+        with span("worker.admit", stage="admit", docs=len(docs)) as s:
+            fast, fastc, fastj, slow, hits = self._admit_walk(docs, now)
+            if s is not None:
+                s.attrs["hits"] = hits
+                s.attrs["size"] = len(self._admit)
+        return fast, fastc, fastj, slow
+
+    def _admit_walk(self, docs, now: float):
+        """`_admit_fast`'s walk; also returns how many docs the admission
+        cache admitted without a fit-cache read."""
         fit_cache = self._fit_cache
         gap_sensitive = self._gap_sensitive
         token = (fit_cache.version, self._gap_meta.version)
@@ -1671,6 +1681,7 @@ class BrainWorker:
         fastc = []
         fastj = []
         slow = []
+        hits = 0
         for doc in docs:
             cached = admit.get(doc.id)
             if cached is not None and (
@@ -1679,6 +1690,7 @@ class BrainWorker:
                 (fastc if cached[4] else fast).append(
                     (doc, cached[0], cached[1], cached[2])
                 )
+                hits += 1
                 continue
             aliases, end_epoch, ops = self._doc_meta(doc)
             if not aliases:
@@ -1739,7 +1751,7 @@ class BrainWorker:
                 (fastc if has_base else fast).append(
                     (doc, end_epoch, rowsinfo, ops)
                 )
-        return fast, fastc, fastj, slow
+        return fast, fastc, fastj, slow, hits
 
     def _fetch_fast(self, fast, fastc, fastj):
         """Fetch current windows for the admitted groups (thread pool
@@ -1858,6 +1870,10 @@ class BrainWorker:
         immutable admission tuples): fill the [B, tc] buffer pair (plus
         the canary bucket's baseline pair), gather per-row operands,
         keys, entries and gap steps. Returns a `_UniPacked`."""
+        with span("worker.pack", stage="pack", docs=len(ok_items), canary=canary):
+            return self._pack_uni_rows(ok_items, canary)
+
+    def _pack_uni_rows(self, ok_items, canary: bool):
         bv_flat = None
         if canary:
             # split each item's series back into (current, baseline)
@@ -1974,15 +1990,6 @@ class BrainWorker:
         persists."""
         ok_items = packed.ok_items
         v8, anoms, ub, lb, ps, difs = res
-        counts = np.fromiter(
-            (len(s) for _, s in ok_items), np.int64, count=len(ok_items)
-        )
-        starts = np.zeros(len(ok_items), np.int64)
-        np.cumsum(counts[:-1], out=starts[1:])
-        is_unh = v8 == UNHEALTHY
-        seg_unh = np.maximum.reduceat(is_unh, starts)
-        seg_min = np.minimum.reduceat(v8, starts)
-        nz_r, nz_c = np.nonzero(anoms)
 
         def pairs_for(r, s_local, k2):
             lo_i = np.searchsorted(nz_r, r)
@@ -1996,7 +2003,17 @@ class BrainWorker:
             flat[1::2] = np.asarray(cv)[cols]
             return flat.tolist()
 
+        # the segment reductions are the decision's first step
         with span("worker.decide", stage="decide", docs=len(ok_items)):
+            counts = np.fromiter(
+                (len(s) for _, s in ok_items), np.int64, count=len(ok_items)
+            )
+            starts = np.zeros(len(ok_items), np.int64)
+            np.cumsum(counts[:-1], out=starts[1:])
+            is_unh = v8 == UNHEALTHY
+            seg_unh = np.maximum.reduceat(is_unh, starts)
+            seg_min = np.minimum.reduceat(v8, starts)
+            nz_r, nz_c = np.nonzero(anoms)
             return self._decide_fast(
                 ok_items, v8, seg_unh, seg_min, starts, pairs_for,
                 ub, lb, packed.tc, now, ps, difs,
@@ -2182,9 +2199,10 @@ class BrainWorker:
 
         With `FOREMAST_PROFILE` set, each sweep is recorded under
         `torch.profiler` and writes one Chrome trace into that directory
-        (`observe.trace_scoring`); micro-ticks outside a sweep are not
-        recorded."""
-        with trace_scoring():
+        (`observe.trace_scoring`), which also holds the sweep's spans on
+        every thread when the worker has a tracer; micro-ticks outside a
+        sweep are not recorded."""
+        with trace_scoring(tracer=self.tracer):
             if self.tracer is None:
                 return self._cycle(now)
             # the root span mints the tick's trace ID: every stage span

@@ -345,9 +345,9 @@ class WorkerMetrics:
         # waiting on its inputs", the gauges snapshot the latest run.
         self.pipeline_idle = Counter(
             "foremast_worker_pipeline_idle_seconds_total",
-            "seconds the judge stage (the device) sat stalled waiting "
-            "for a chunk's inputs, by pipeline path (slow = cold chunk "
-            "pipeline, warm = sliced-sweep pipeline)",
+            "seconds the judge stage (the tick thread) sat stalled "
+            "waiting for a chunk's inputs, by pipeline path (slow = cold "
+            "chunk pipeline, warm = sliced-sweep pipeline)",
             ["path"],
             registry=reg,
         )

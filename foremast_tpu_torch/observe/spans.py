@@ -20,9 +20,17 @@ exports:
   * trace/span IDs on the JSON log records (``observe.logs``).
 
 Host spans around device work pass ``device=True``, which additionally
-wraps the region in ``torch.profiler.record_function`` so host spans and
-CUDA kernels land on one `torch.profiler` timeline. It records a marker
-and never synchronizes the card: the columnar dispatch stays sync-free.
+wraps the region in ``torch.profiler.record_function`` while a profiler
+records, so host spans and CUDA kernels land on one `torch.profiler`
+timeline. It records a marker and never synchronizes the card: the
+columnar dispatch stays sync-free. With no profiler running it costs
+nothing more than the span.
+
+The collector's pauses are spans too. The first Tracer of the process
+installs one `gc.callbacks` entry; every collection of generation 1 or
+2 that starts while a root span is open becomes a ``gc.collect`` span
+(stage ``gc``) under the span that was open on the collecting thread,
+and the young collections are counted (``debug_state()["gc"]``).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import gc
 import json
 import logging
 import os
@@ -68,6 +77,16 @@ TICK_STAGES = (
     "write_back",
 )
 
+# Stages only the port's tick opens (the JAX tracer has none of them): the
+# worker's admission walk and columnar packing (and the object path's
+# operand packing), the host's waits on a result copy from the card, and
+# the collector's pauses of generation 1 and 2. `device_wait` and `gc`
+# nest inside other stages (a wait inside fit or decode, a collection
+# inside whatever was open on the collecting thread), so their seconds
+# are counted twice in `last_stage_seconds` and the stage histogram: do
+# not add them to the other stages.
+PORT_STAGES = ("admit", "pack", "device_wait", "gc")
+
 
 # epoch offset of the monotonic clock, taken once at import
 _CLOCK_ANCHOR = time.time() - time.perf_counter()
@@ -95,6 +114,7 @@ class Span:
         "ts",
         "duration",
         "_t0",
+        "tid",
     )
 
     def __init__(self, name, trace_id, parent_id, stage=None, attrs=None):
@@ -111,6 +131,8 @@ class Span:
         # would shift later spans past/before their parent on the
         # Perfetto timeline while durations stay monotonic
         self.ts = _CLOCK_ANCHOR + self._t0
+        # the OS thread id, as the profiler's trace names thread rows
+        self.tid = threading.get_native_id()
 
     def to_event(self) -> dict:
         args = {
@@ -128,8 +150,9 @@ class Span:
             "ts": round(self.ts * 1e6, 1),
             "dur": round(self.duration * 1e6, 1),
             "pid": os.getpid(),
-            # Perfetto wants a numeric tid; mask to keep it in range
-            "tid": threading.get_ident() & 0x7FFFFFFF,
+            # the thread that opened it (a collection's: the collecting
+            # thread), as the profiler's trace numbers its rows
+            "tid": self.tid,
             "args": args,
         }
 
@@ -172,17 +195,92 @@ class SpanRing:
         return len(events)
 
 
-@contextlib.contextmanager
-def _null_span():
-    yield None
+# a reusable no-op context (yields None)
+_NULL = contextlib.nullcontext()
 
 
 def _device_annotation(name: str):
-    """`torch.profiler.record_function(name)`: a marker on the profiler
-    timeline when a profiler is active, and no device work at all."""
+    """`torch.profiler.record_function(name)` while a profiler records: a
+    marker on its timeline, and no device work at all. With no profiler
+    running, the no-op context: a marker nothing records costs 7 us."""
     import torch
 
+    if not torch.autograd._profiler_enabled():
+        return _NULL
     return torch.profiler.record_function(name)
+
+
+# -- the collector's pauses --------------------------------------------------
+
+# the tracers with an open root span: what the process's one
+# `gc.callbacks` entry (`_gc_callback`) reads, through the weak set's own
+# set of references (one C call to test or copy, no iteration guard)
+_GC_OPEN: "weakref.WeakSet" = weakref.WeakSet()
+_GC_REFS = _GC_OPEN.data
+# the running collection: (start, generation, native thread id, owners),
+# owners being the open tracers' weak references (generation 0) or
+# (tracer, parent span) pairs (generations 1-2); None when none runs
+_GC_RUNNING = None
+_GC_HOOK_LOCK = threading.Lock()
+
+
+def _gc_callback(phase: str, info: dict) -> None:
+    """The process's one `gc.callbacks` entry. A collection can start
+    anywhere, inside `SpanRing.add`'s lock or a metric family's, so this
+    takes no lock and calls no exporter: it notes a collection that
+    starts while a root is open, and on its stop counts it on each such
+    tracer and, for generations 1 and 2, appends (start, end,
+    generation, parent, thread) to the tracer's `_gc_done` deque. The
+    tracer makes them spans when it closes a root. A young collection
+    runs thousands of times a sweep, so it is only counted."""
+    global _GC_RUNNING
+    if phase == "start":
+        if not _GC_REFS:
+            return
+        gen = info["generation"]
+        if not gen:
+            _GC_RUNNING = (time.perf_counter(), 0, 0, tuple(_GC_REFS))
+            return
+        active = _ACTIVE.get()
+        owners = []
+        for ref in tuple(_GC_REFS):
+            tracer = ref()
+            if tracer is None:
+                continue
+            if active is not None and active[0] is tracer:
+                parent = active[1]
+            else:
+                try:
+                    parent = tracer._open_roots[-1]
+                except IndexError:  # its last root closed meanwhile
+                    continue
+            owners.append((tracer, parent))
+        _GC_RUNNING = (time.perf_counter(), gen, threading.get_native_id(), owners)
+        return
+    running = _GC_RUNNING
+    if running is None:
+        return
+    t1 = time.perf_counter()
+    _GC_RUNNING = None
+    t0, gen, tid, owners = running
+    if not gen:
+        for ref in owners:
+            tracer = ref()
+            if tracer is not None:
+                tracer._gc_count[0] += 1
+                tracer._gc_seconds[0] += t1 - t0
+        return
+    for tracer, parent in owners:
+        tracer._gc_count[gen] += 1
+        tracer._gc_seconds[gen] += t1 - t0
+        tracer._gc_done.append((t0, t1, gen, parent, tid))
+
+
+def _install_gc_hook() -> None:
+    """Add `_gc_callback` to `gc.callbacks` once a process."""
+    with _GC_HOOK_LOCK:
+        if _gc_callback not in gc.callbacks:
+            gc.callbacks.append(_gc_callback)
 
 
 class Tracer:
@@ -233,6 +331,19 @@ class Tracer:
         # serializes dump_jsonl between explicit flush() callers and the
         # background autoflush thread (both write the same target path)
         self._io_lock = threading.Lock()
+        # the open root spans (the collector's spans parent to the newest
+        # when the collecting thread has none of this tracer's open)
+        self._open_roots: list[Span] = []
+        self._roots_lock = threading.Lock()
+        # finished collections of generation 1-2, appended by the gc hook
+        # and made spans at a root's close; collections and seconds per
+        # generation while a root was open
+        self._gc_done: collections.deque = collections.deque()
+        self._gc_count = [0, 0, 0]
+        self._gc_seconds = [0.0, 0.0, 0.0]
+        # the finished spans of a profiled region (`capture`), else None
+        self._captured: list | None = None
+        _install_gc_hook()
 
     # -- span creation ---------------------------------------------------
 
@@ -259,18 +370,54 @@ class Tracer:
             )
         else:
             s = Span(name, _new_id(), "", stage=stage, attrs=attrs)
-        if parent is None:
+        root = parent is None
+        if root:
             # fresh root: restart the stage breakdown (atomic swap, so a
             # concurrent reader sees old-or-new, never a mix)
             self.last_stage_seconds = {}
+            with self._roots_lock:
+                self._open_roots.append(s)
+                _GC_OPEN.add(self)
         token = _ACTIVE.set((self, s))
         try:
-            with _device_annotation(name) if device else _null_span():
+            with _device_annotation(name) if device else _NULL:
                 yield s
         finally:
             s.duration = time.perf_counter() - s._t0
             _ACTIVE.reset(token)
-            self._finish(s, root=parent is None)
+            if root:
+                with self._roots_lock:
+                    self._open_roots.remove(s)
+                    if not self._open_roots:
+                        _GC_OPEN.discard(self)
+                self._finish_collections()
+            self._finish(s, root=root)
+
+    def _finish_collections(self) -> None:
+        """The collections of generation 1-2 that the gc hook noted, as
+        `gc.collect` spans with their own start and length, each under
+        the span that was open when it started."""
+        done = self._gc_done
+        while True:
+            try:
+                t0, t1, gen, parent, tid = done.popleft()
+            except IndexError:
+                return
+            g = Span("gc.collect", parent.trace_id, parent.span_id, stage="gc", attrs={"generation": gen})
+            g._t0, g.ts, g.duration, g.tid = t0, _CLOCK_ANCHOR + t0, t1 - t0, tid
+            self._finish(g, root=False)
+
+    @contextlib.contextmanager
+    def capture(self):
+        """Also keep, in the list this yields, every span that finishes
+        inside the region (what `observe.profile.trace_scoring` adds to
+        its Chrome trace)."""
+        got: list[Span] = []
+        prev, self._captured = self._captured, got
+        try:
+            yield got
+        finally:
+            self._captured = prev
 
     def _finish(self, s: Span, root: bool) -> None:
         if s.stage is not None:
@@ -282,6 +429,8 @@ class Tracer:
             )
             if self._hist is not None:
                 self._hist.labels(stage=s.stage).observe(s.duration)
+        if self._captured is not None:
+            self._captured.append(s)
         if self.ring is not None:
             self.ring.add(s.to_event())
             if root:
@@ -357,6 +506,12 @@ class Tracer:
             "buffer_spans": len(self.ring) if self.ring is not None else 0,
             "spans_total": self.ring.total if self.ring is not None else 0,
             "last_stage_seconds": dict(self.last_stage_seconds),
+            # collections by generation (0, 1, 2) that started while a
+            # root was open; 1 and 2 are also `gc.collect` spans
+            "gc": {
+                "collections": list(self._gc_count),
+                "seconds": [round(x, 6) for x in self._gc_seconds],
+            },
         }
 
 
@@ -375,10 +530,11 @@ def span(name: str, stage: str | None = None, device: bool = False, **attrs):
     """Child span on the caller's ambient tracer, or a no-op when no
     tracer opened a span in this context — library code (store, judge,
     arena) instruments unconditionally and costs one contextvar read
-    when tracing is off (plus the profiler marker for `device=True`)."""
+    when tracing is off (for `device=True`, one more check: the
+    profiler's marker while a profiler records)."""
     active = _ACTIVE.get()
     if active is None:
-        return _device_annotation(name) if device else _null_span()
+        return _device_annotation(name) if device else _NULL
     return active[0].span(name, stage=stage, device=device, **attrs)
 
 

@@ -41,7 +41,11 @@ ROOT = Path(__file__).resolve().parent.parent
 # edges of one package's graph the other lacks, each with its reason
 EDGES_ONLY_IN_JAX: dict[tuple[str, str], str] = {}
 EDGES_ONLY_IN_PORT: dict[tuple[str, str], str] = {}
-PORT_ONLY_NODES = {"ops._build._lock": "the port's kernel build (ops/_build.py), a leaf"}
+PORT_ONLY_NODES = {
+    "ops._build._lock": "the port's kernel build (ops/_build.py), a leaf",
+    "Tracer._roots_lock": "the port's tracer's open roots, read by its gc hook (observe/spans.py), a leaf",
+    "observe.spans._GC_HOOK_LOCK": "the port's one gc.callbacks entry a process (observe/spans.py), a leaf",
+}
 
 
 def src(text: str) -> str:
