@@ -383,6 +383,27 @@ class _UniPacked:
         self.base_m = base_m
 
 
+def _anomaly_runs(anoms: np.ndarray) -> dict:
+    """{row: its flagged columns} of a [rows, Tc] flag matrix, for the
+    rows with any flag (flags are sparse: a healthy fleet has none)."""
+    nz_r, nz_c = np.nonzero(anoms)
+    if not len(nz_r):
+        return {}
+    # np.nonzero walks row-major, so each row's columns are one run
+    cuts = np.flatnonzero(np.diff(nz_r)) + 1
+    firsts = np.concatenate(([0], cuts))
+    return dict(zip(nz_r[firsts].tolist(), np.split(nz_c, cuts)))
+
+
+def _anomaly_pairs(ct, cv, cols: np.ndarray) -> list:
+    """The flat [t1, v1, t2, v2, ...] Python floats of a window's flagged
+    points."""
+    flat = np.empty(2 * len(cols), np.float64)
+    flat[0::2] = np.asarray(ct)[cols]
+    flat[1::2] = np.asarray(cv)[cols]
+    return flat.tolist()
+
+
 def _hist_end_epoch(url: str) -> float | None:
     """The historical range's end as unix seconds, or None if unknown.
 
@@ -1991,20 +2012,8 @@ class BrainWorker:
         ok_items = packed.ok_items
         v8, anoms, ub, lb, ps, difs = res
 
-        def pairs_for(r, s_local, k2):
-            lo_i = np.searchsorted(nz_r, r)
-            hi_i = np.searchsorted(nz_r, r, side="right")
-            cols = nz_c[lo_i:hi_i]
-            if not len(cols):
-                return []
-            ct, cv = s_local[k2]
-            flat = np.empty(2 * len(cols), np.float64)
-            flat[0::2] = np.asarray(ct)[cols]
-            flat[1::2] = np.asarray(cv)[cols]
-            return flat.tolist()
-
         # the segment reductions are the decision's first step
-        with span("worker.decide", stage="decide", docs=len(ok_items)):
+        with span("worker.decide", stage="decide", docs=len(ok_items)) as sp:
             counts = np.fromiter(
                 (len(s) for _, s in ok_items), np.int64, count=len(ok_items)
             )
@@ -2013,21 +2022,40 @@ class BrainWorker:
             is_unh = v8 == UNHEALTHY
             seg_unh = np.maximum.reduceat(is_unh, starts)
             seg_min = np.minimum.reduceat(v8, starts)
-            nz_r, nz_c = np.nonzero(anoms)
-            return self._decide_fast(
-                ok_items, v8, seg_unh, seg_min, starts, pairs_for,
+            updated = self._decide_fast(
+                ok_items, v8, seg_unh, seg_min, starts, _anomaly_runs(anoms),
                 ub, lb, packed.tc, now, ps, difs,
             )
+            if sp is not None:
+                # the per-metric verdicts built for the hook
+                sp.attrs["verdicts"] = (
+                    int(counts.sum()) if self.on_verdict is not None else 0
+                )
+            return updated
 
     def _decide_fast(
-        self, ok_items, v8, seg_unh, seg_min, starts, pairs_for,
+        self, ok_items, v8, seg_unh, seg_min, starts, runs,
         ub, lb, tc, now, ps=None, difs=None,
     ):
-        """Fast-path status decisions + hook dispatch. `ps`/`difs` are
-        the canary bucket's per-row device pairwise outcomes (None on
-        the baseline-less bucket, whose hook verdicts carry the
-        all-gates-failed constants)."""
+        """Fast-path status decisions + hook dispatch. `runs` maps a row
+        with anomaly flags to its flagged columns (`_anomaly_runs`).
+        `ps`/`difs` are the canary bucket's per-row device pairwise
+        outcomes (None on the baseline-less bucket, whose hook verdicts
+        carry the all-gates-failed constants).
+
+        With a hook, its verdicts are built from the slice's columns,
+        converted once: Python lists of the verdicts, p-values and
+        differs, one length-1 band view per row for band_mode="last",
+        and an anomaly search only on the rows that have flags."""
         hook = self.on_verdict
+        seg_unh, seg_min, starts = seg_unh.tolist(), seg_min.tolist(), starts.tolist()
+        if hook:
+            verdicts = v8.tolist()
+            p_values = ps.tolist() if ps is not None else None
+            differs = difs.tolist() if difs is not None else None
+            full_bands = ub is not None and ub.ndim == 2
+            if not full_bands:
+                ub_rows, lb_rows = ub.reshape(-1, 1), lb.reshape(-1, 1)
         updated = []
         for j, ((doc, end_epoch, rowsinfo, _), s) in enumerate(ok_items):
             if seg_unh[j]:
@@ -2036,13 +2064,13 @@ class BrainWorker:
                 jv = UNKNOWN
             else:
                 jv = HEALTHY
-            a = int(starts[j])
+            a = starts[j]
             values_map = {}
             if jv == UNHEALTHY:
-                for k2 in range(len(s)):
-                    p = pairs_for(a + k2, s, k2)
-                    if p:
-                        values_map[rowsinfo[k2][0]] = p
+                for k2, (ct, cv) in enumerate(s):
+                    cols = runs.get(a + k2)
+                    if cols is not None:
+                        values_map[rowsinfo[k2][0]] = _anomaly_pairs(ct, cv, cols)
             self._decide_status(doc, jv, values_map, now, end_epoch)
             self._log_judged(doc)
             updated.append(doc)
@@ -2050,30 +2078,31 @@ class BrainWorker:
                 self.metrics.observe_doc(doc.status, len(s))
             if hook:
                 vs = []
-                full_bands = ub is not None and ub.ndim == 2
                 for k2, (row, (ct, cv)) in enumerate(zip(rowsinfo, s)):
                     r = a + k2
-                    n = min(len(cv), tc)
                     if full_bands:
                         # band_mode="full": whole [n] band per metric,
                         # same shape the slow path's hooks receive
+                        n = min(len(cv), tc)
                         up = ub[r, :n] if n else _EMPTY_VALUES
                         lo = lb[r, :n] if n else _EMPTY_VALUES
+                    elif len(cv):
+                        up, lo = ub_rows[r], lb_rows[r]
                     else:
-                        up = ub[r : r + 1] if n else _EMPTY_VALUES
-                        lo = lb[r : r + 1] if n else _EMPTY_VALUES
+                        up = lo = _EMPTY_VALUES
+                    cols = runs.get(r)
                     vs.append(
                         MetricVerdict(
                             job_id=doc.id,
                             alias=row[0],
-                            verdict=int(v8[r]),
-                            anomaly_pairs=pairs_for(r, s, k2),
+                            verdict=verdicts[r],
+                            anomaly_pairs=(
+                                [] if cols is None else _anomaly_pairs(ct, cv, cols)
+                            ),
                             upper=up,
                             lower=lo,
-                            p_value=float(ps[r]) if ps is not None else 1.0,
-                            dist_differs=(
-                                bool(difs[r]) if difs is not None else False
-                            ),
+                            p_value=p_values[r] if p_values is not None else 1.0,
+                            dist_differs=differs[r] if differs is not None else False,
                         )
                     )
                 try:

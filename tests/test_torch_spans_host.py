@@ -4,6 +4,8 @@ spans.py` and the spans it opens in `jobs/` and `engine/`), on the CPU:
   * a warm tick and a sliced sweep carry `worker.admit` and `worker.pack`
     spans; the sliced sweep's sit on the prefetch thread, under the
     tick's trace id;
+  * a columnar `worker.decide` span counts, in `verdicts`, the
+    per-metric verdicts it built for the verdict hook;
   * every `_HostCopy.synchronize` under a tracer opens one
     `judge.device_wait`, nested in `fit` or `decode`;
   * a collection of generation 1 or 2 inside an open root is one
@@ -62,12 +64,13 @@ class Recording(sp.Tracer):
         return [s for s in self.done if s.name == name]
 
 
-def _worker(slice_docs: int, tracer=None):
+def _worker(slice_docs: int, tracer=None, on_verdict=None):
     store, ring, _keys, _ht, _ct = push_fleet("port", SERVICES, t_now=NOW, open_window=True, seed=7, shards=2)
     w = BrainWorker(store, RingSource(ring, fallback=None),
                     config=BrainConfig(algorithm="moving_average_all", season_steps=24,
                                        max_cache_size=4 * SERVICES + 64),
-                    device="cpu", claim_limit=SERVICES + 16, worker_id="spans", tracer=tracer)
+                    device="cpu", claim_limit=SERVICES + 16, worker_id="spans", tracer=tracer,
+                    on_verdict=on_verdict)
     w.sweep_slice_docs = slice_docs
     return w
 
@@ -113,6 +116,33 @@ def test_warm_ticks_carry_admit_and_pack_spans(slice_docs):
         assert all(s.tid != root.tid for s in admits + packs)
     else:
         assert len(admits) == 1 and admits[0].tid == root.tid and admits[0].parent_id == root.span_id
+    w.close()
+
+
+@pytest.mark.parametrize("slice_docs", [0, 8])
+@pytest.mark.parametrize("hooked", [True, False], ids=["hook", "no_hook"])
+def test_decide_span_counts_the_verdicts_built_for_the_hook(slice_docs, hooked):
+    """A columnar `worker.decide` span's `verdicts` is the number of
+    per-metric verdicts the hook received inside it; 0 with no hook."""
+    received: dict = {}
+
+    def hook(doc, verdicts):
+        sid = sp.current_span().span_id
+        received[sid] = received.get(sid, 0) + len(verdicts)
+
+    tracer = Recording()
+    w = _worker(slice_docs, tracer, on_verdict=hook if hooked else None)
+    for k in range(3):  # cold (object path), then two warm columnar ticks
+        tracer.done.clear()
+        received.clear()
+        assert w.tick(now=NOW + 60.0 * k) == SERVICES
+    decides = tracer.named("worker.decide")
+    assert len(decides) == (SERVICES // slice_docs if slice_docs else 1)
+    assert sum(s.attrs["docs"] for s in decides) == SERVICES
+    for s in decides:
+        assert s.attrs["verdicts"] == received.get(s.span_id, 0)
+    assert sum(s.attrs["verdicts"] for s in decides) == (SERVICES if hooked else 0)  # one metric a doc
+    assert set(received) <= {s.span_id for s in decides}
     w.close()
 
 

@@ -15,6 +15,7 @@ Run alone: JAX_PLATFORMS=cpu python -m pytest tests/test_torch_worker.py -q
 import numpy as np
 import pytest
 
+from foremast_tpu_torch.engine.judge import MetricVerdict
 from foremast_tpu_torch.jobs import (
     STATUS_COMPLETED_UNHEALTH,
     STATUS_PREPROCESS_COMPLETED,
@@ -97,6 +98,95 @@ def test_hook_bands_match_jax_on_cold_and_warm_ticks(band_mode, band_len):
     assert pcalls, "the warm tick should engage the fast path"
     assert prec and all(len(r[4]) == band_len for r in prec)
     assert_same_hook_records(prec, jrec)
+
+
+def _row_by_row_verdicts(packed, res) -> dict:
+    """doc id -> the hook's verdicts built row by row off a decoded
+    columnar result (numpy scalar reads, a band slice and an anomaly
+    search per row): the reference for the worker's column-wise build."""
+    v8, anoms, ub, lb, ps, difs = res
+    nz_r, nz_c = np.nonzero(anoms)
+    empty = np.zeros(0, np.float32)
+    out, a = {}, 0
+    for (doc, _end, rowsinfo, _ops), s in packed.ok_items:
+        vs = []
+        for k2, (row, (ct, cv)) in enumerate(zip(rowsinfo, s)):
+            r = a + k2
+            n = min(len(cv), packed.tc)
+            if not n:
+                up = lo = empty
+            elif ub.ndim == 2:
+                up, lo = ub[r, :n], lb[r, :n]
+            else:
+                up, lo = ub[r : r + 1], lb[r : r + 1]
+            cols = nz_c[np.searchsorted(nz_r, r) : np.searchsorted(nz_r, r, side="right")]
+            pairs = []
+            if len(cols):
+                flat = np.empty(2 * len(cols), np.float64)
+                flat[0::2] = np.asarray(ct)[cols]
+                flat[1::2] = np.asarray(cv)[cols]
+                pairs = flat.tolist()
+            vs.append(MetricVerdict(
+                job_id=doc.id, alias=row[0], verdict=int(v8[r]), anomaly_pairs=pairs, upper=up, lower=lo,
+                p_value=float(ps[r]) if ps is not None else 1.0,
+                dist_differs=bool(difs[r]) if difs is not None else False,
+            ))
+        out[doc.id] = vs
+        a += len(s)
+    return out
+
+
+@pytest.mark.parametrize("band_mode", ["last", "full"])
+@pytest.mark.parametrize("baseline_frac", [0.0, 1.0], ids=["continuous", "canary"])
+def test_hook_verdicts_equal_the_row_by_row_build(band_mode, baseline_frac):
+    """On a warm columnar tick every hook verdict equals the row-by-row
+    build field by field and type by type: int verdict, float p, bool
+    differs, float anomaly pairs, ndarray bands of the same length and
+    dtype; each verdict holds its own pairs list. The fleet has a spiked
+    row and an alias whose current window came back empty (on the canary
+    bucket, an alias judged without a baseline)."""
+    services = 4
+    got, want = {}, {}
+    _, (pw, pstore, psrc) = worker_pair(
+        services, band_mode=band_mode, baseline_frac=baseline_frac,
+        hooks=(None, lambda doc, verdicts: got.__setitem__(doc.id, verdicts)),
+    )
+    if baseline_frac:
+        doc = pstore._docs["job-2"]
+        doc.baseline_config = " ||".join(doc.baseline_config.split(" ||")[1:])
+    decode = pw._decode_uni
+
+    def recording(packed, res, now):
+        want.update(_row_by_row_verdicts(packed, res))
+        return decode(packed, res, now)
+
+    pw._decode_uni = recording
+    assert pw.tick(now=NOW + 150) == services
+    spike((psrc,), "http://prom/cur", "latency:app1&")
+    url = next(u for u in psrc.data if u.startswith("http://prom/cur") and "latency:app2&" in u)
+    psrc.data[url] = (np.zeros(0, np.int64), np.zeros(0, np.float32))
+    got.clear()
+    want.clear()
+    assert pw.tick(now=NOW + 200) == services
+    assert pw._fast_kinds["baseline" if baseline_frac else "univariate"] == services
+    assert sorted(got) == sorted(want) == [f"job-{i}" for i in range(services)]
+    for doc_id, verdicts in got.items():
+        assert len(verdicts) == len(want[doc_id]) == 4
+        for g, w in zip(verdicts, want[doc_id]):
+            for field in ("job_id", "alias", "verdict", "anomaly_pairs", "p_value", "dist_differs"):
+                gv, wv = getattr(g, field), getattr(w, field)
+                assert type(gv) is type(wv) and gv == wv, (doc_id, g.alias, field, gv, wv)
+            assert all(type(x) is float for x in g.anomaly_pairs)
+            for gv, wv in ((g.upper, w.upper), (g.lower, w.lower)):
+                assert type(gv) is np.ndarray and gv.dtype == wv.dtype and gv.shape == wv.shape
+                np.testing.assert_array_equal(gv, wv)
+    assert any(v.anomaly_pairs for v in got["job-1"])
+    empty = [v for v in got["job-2"] if v.alias == "latency"]
+    assert empty and len(empty[0].upper) == len(empty[0].lower) == 0
+    if baseline_frac:
+        assert empty[0].p_value == 1.0 and empty[0].dist_differs is False
+    flat = [v for verdicts in got.values() for v in verdicts]
+    assert len({id(v.anomaly_pairs) for v in flat}) == len(flat)
 
 
 def test_admission_revalidates_per_key_not_wholesale():
